@@ -1,0 +1,123 @@
+"""Build and bind the port's hand-written CUDA kernels (csrc/*.cu).
+
+Each kernel source compiles with nvcc into its own shared library with a
+plain C interface, loaded with ctypes: no PyTorch headers, so a build takes
+seconds. All sources build in parallel (one nvcc process each) at first
+use, into `lightgbm_tpu_torch/_build/` (listed in .gitignore), named by a
+hash of the sources and flags so an edited source never loads a stale
+library. Nothing here runs at import time: this module is imported on
+hosts without nvcc or a card, where only the kernels' plain versions run.
+
+Every C entry launches on the stream it is given and returns
+cudaGetLastError(); `call` raises on anything but 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict
+
+import torch
+
+__all__ = ["KERNELS", "build_all", "call"]
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# kernel source stem -> (C entry point, argtypes); the last argument of
+# every entry is the CUDA stream
+KERNELS: Dict[str, tuple] = {
+    "fused_route_hist": ("lgbt_fused_route_hist", [_P] * 10 + [_I] * 7 + [_P]),
+    "route_rows": ("lgbt_route_rows", [_P] * 7 + [_I] * 4 + [_P]),
+    "build_histograms": ("lgbt_build_histograms", [_P] * 6 + [_I] * 5 + [_P]),
+    "node_values": ("lgbt_node_values", [_P] * 3 + [_I] * 2 + [_P]),
+}
+
+_lock = threading.Lock()
+_entries: Dict[str, ctypes._CFuncPtr] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").exists():
+            return str(Path(root) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the port's CUDA kernels build "
+                       "from lightgbm_tpu_torch/csrc at first use and need "
+                       "the CUDA toolkit (nvcc on PATH or in CUDA_HOME)")
+
+
+def _lib_path(stem: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{stem}.cu"]:
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}.so"
+
+
+def build_all() -> Dict[str, Path]:
+    """Compile every kernel source that has no up-to-date library yet, all
+    nvcc processes started together; returns stem -> library path."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    libs = {stem: _lib_path(stem) for stem in KERNELS}
+    todo = {stem: p for stem, p in libs.items() if not p.exists()}
+    if not todo:
+        return libs
+    nvcc = _nvcc()
+    procs = {}
+    for stem, path in todo.items():
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{stem}.cu")]
+        procs[stem] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    failures = []
+    for stem, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"{stem}.cu:\n{out.decode(errors='replace')}")
+            continue
+        os.replace(tmp, todo[stem])
+    if failures:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
+    return libs
+
+
+def _entry(stem: str):
+    fn = _entries.get(stem)
+    if fn is not None:
+        return fn
+    with _lock:
+        if stem not in _entries:
+            libs = build_all()
+            for name, (sym, argtypes) in KERNELS.items():
+                f = getattr(ctypes.CDLL(str(libs[name])), sym)
+                f.argtypes = argtypes
+                f.restype = ctypes.c_int
+                _entries[name] = f
+    return _entries[stem]
+
+
+def call(stem: str, device: torch.device, *args) -> None:
+    """Launch kernel `stem` on `device`'s current stream; tensors in
+    `args` pass as data pointers, Python ints as C ints."""
+    fn = _entry(stem)
+    c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else int(a)
+              for a in args]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*c_args, stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {stem} failed to launch: "
+                           f"cudaError {err}")
