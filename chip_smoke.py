@@ -6,14 +6,23 @@
 Builds the port's CUDA kernels from lightgbm_tpu_torch/csrc, holds each
 against its plain PyTorch version on the card at the shapes the training
 path gives it (1M rows x 28 features, 256 bins, up to 1024 tree nodes),
-times it, then trains through lightgbm_tpu_torch's entry points — the
-Higgs-like binary configuration (num_leaves 255, max_bin 255), the same
-with min_data_in_leaf 1000 (which runs the fix-up passes) and the default
-regression objective — counting kernel launches, and checks what comes
-out. Every phase prints one
-JSON line; any failed check raises, so the exit code is non-zero and no
-result line is printed. The last three lines are the kernel table (JSON),
-the card's name and power limit as nvidia-smi prints them, and the result
+in both histogram modes (f32, and the integer mode of quantized
+gradients), times it, then trains through lightgbm_tpu_torch's entry
+points along two paths, each with the launch counts reset before it and
+read after it:
+
+- exact histograms: the Higgs-like binary configuration (num_leaves 255,
+  max_bin 255), the same with min_data_in_leaf 1000 (which runs the
+  fix-up passes) and the default regression objective;
+- quantized gradients (use_quantized_grad): the binary configuration, the
+  regression objective, and a 200-feature binary run whose wide passes
+  take route_rows + build_histograms in integer mode.
+
+It checks what comes out, including that two identical quantized runs
+write the same model text. Every phase prints one JSON line; any failed
+check raises, so the exit code is non-zero and no result line is printed.
+The last three lines are the kernel table (JSON), the card's name and
+power limit as nvidia-smi prints them, and the result
 {"ok": true, "device": {...}}.
 """
 
@@ -30,6 +39,8 @@ BMAX = 256
 M_NODES = 1024        # route-table rows at num_leaves 255, overshoot 2
 S_FUSED = 263         # kernel slots of the bridge pass (fused kernel)
 S_HIST = 511          # kernel slots of the fix-up passes (build_histograms)
+M_REFIT = 510         # node_sums rows: the pruned 255-leaf tree's 2 x 255
+M_GROWN = 1020        # node ids of the overgrown (overshoot 2) tree
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, HBM3 peak rate
 F32_OPS_PER_S = 67e12         # H100 SXM, f32 outside the tensor cores
 TRAIN_PARAMS = {"objective": "binary", "num_leaves": 255,
@@ -40,6 +51,14 @@ REGRESSION_TREES = 3
 # leaves of >= 1000 rows: trees stop short of the 510-leaf overshoot budget
 # after the bridge pass and run the fix-up passes
 FIXUP_MIN_DATA = 1000
+QUANT_PARAMS = dict(TRAIN_PARAMS, use_quantized_grad=True)
+# wide data: the quantized fused kernel's working set no longer fits from
+# about 100 slots up, so those passes take route_rows + build_histograms
+WIDE_ROWS, WIDE_FEATURES, WIDE_TREES = 100_000, 200, 3
+EXACT_PATH = ("fused_route_hist", "route_rows", "build_histograms",
+              "node_values")
+QUANT_PATH = ("fused_route_hist_int", "route_rows", "build_histograms_int",
+              "node_values", "node_sums")
 
 
 def make_higgs_like(n, f, seed=17):
@@ -92,10 +111,10 @@ def time_ms(torch, fn, reps):
     return float(np.median(times))
 
 
-def kernel_inputs(torch, hm, dev):
+def kernel_inputs(torch, hm, rng_mod, dev):
     """One growth pass's inputs at the slice's shapes: random bins, a
     1024-node split table with numerical, NaN-bin and categorical splits,
-    rows spread over its nodes."""
+    rows spread over its nodes, and the gradients quantized to int8."""
     rng = np.random.RandomState(7)
     num_bins = np.full(N_FEATURES, BMAX, np.int32)
     num_bins[[3, 9]] = 64                    # NaN-bin features
@@ -130,9 +149,13 @@ def kernel_inputs(torch, hm, dev):
                            dim=1).contiguous()
     values = rng.randn(M_NODES).astype(np.float32)
     values[M_NODES - 1] = np.nan             # never referenced, as scratch
+    grad = t(rng.randn(N_ROWS).astype(np.float32))
+    hess = t(rng.uniform(0.1, 1.0, N_ROWS).astype(np.float32))
+    g_q, h_q, _, _ = hm.quantize_gradients(grad, hess,
+                                           rng_mod.PRNGKey(1, dev))
     return dict(
-        bins=t(bins), grad=t(rng.randn(N_ROWS).astype(np.float32)),
-        hess=t(rng.uniform(0.1, 1.0, N_ROWS).astype(np.float32)),
+        bins=t(bins), grad=grad, hess=hess,
+        g_q=g_q.to(torch.int8), h_q=h_q.to(torch.int8),
         cnt=torch.ones(N_ROWS, dtype=torch.float32, device=dev),
         row_node=t(rng.randint(0, m1, N_ROWS), torch.int32),
         row_slot=t(rng.randint(-1, S_HIST, N_ROWS), torch.int32),
@@ -150,19 +173,23 @@ def hist_err(torch, got, ref):
         1e-4 * max(scale, 1.0)
 
 
-def kernel_phase(torch, hm, dev):
-    d = kernel_inputs(torch, hm, dev)
+def kernel_phase(torch, hm, rng_mod, dev):
+    d = kernel_inputs(torch, hm, rng_mod, dev)
     bins, grad, hess, cnt = d["bins"], d["grad"], d["hess"], d["cnt"]
+    g_q, h_q = d["g_q"], d["h_q"]
     route = (d["tbl"], d["member"], d["feat_tbl"])
     n, f = bins.shape
     rows = []
 
-    def row(name, replaces, err, ms, plain_ms, nbytes, ops, library_ms):
+    def row(name, replaces, err, ms, plain_ms, nbytes, ops, library_ms,
+            source=None):
+        # ops: one add per histogram cell update (f32 or int32), held to
+        # the f32 rate outside the tensor cores; every row is bytes-bound
         bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         bound_ops = ops / F32_OPS_PER_S * 1e3
         rows.append({
             "name": name, "route": "cuda",
-            "source": f"lightgbm_tpu_torch/csrc/{name}.cu",
+            "source": f"lightgbm_tpu_torch/csrc/{source or name}.cu",
             "replaces": replaces, "launches": None,  # set by the main path
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(bound_bytes, bound_ops),
@@ -239,6 +266,54 @@ def kernel_phase(torch, hm, dev):
         time_ms(torch, lambda: flat.index_add_(0, cells, vals), 20))
     del cells, vals, flat
 
+    # K1 and K3 in integer mode (quantized int8 gradients, int32 cells):
+    # order-free sums, so the kernels equal their plain versions exactly
+    def k1q():
+        return hm.fused_route_hist(bins, g_q, h_q, cnt, d["row_node"],
+                                   *route, num_slots=S_FUSED, bmax=BMAX,
+                                   quantized=True)
+
+    def k1q_ref():
+        return hm.fused_route_hist_ref(bins, g_q, h_q, cnt, d["row_node"],
+                                       *route, num_slots=S_FUSED, bmax=BMAX,
+                                       quantized=True)
+    (h, rn), (h_ref, rn_ref) = k1q(), k1q_ref()
+    check(torch.equal(rn, rn_ref) and torch.equal(h, h_ref),
+          "fused_route_hist integer mode differs from its plain version")
+    n_slot = int(((rs_ref >= 0) & (rs_ref < S_FUSED)).sum())
+    row("fused_route_hist_int", "lightgbm_tpu/learner/histogram_mxu.py:785",
+        0.0, time_ms(torch, k1q, 20), time_ms(torch, k1q_ref, 3),
+        8 * n + n_routed + n_slot * (f + 6) + h.numel() * 4 + table_bytes,
+        n_slot * f * 3, None, source="fused_route_hist")
+
+    def k3q():
+        return hm.build_histograms(bins, g_q, h_q, cnt, rslot,
+                                   num_slots=S_HIST, bmax=BMAX,
+                                   quantized=True)
+
+    def k3q_ref():
+        return hm.build_histograms_ref(bins, g_q, h_q, cnt, rslot,
+                                       num_slots=S_HIST, bmax=BMAX,
+                                       quantized=True)
+    h, h_ref = k3q(), k3q_ref()
+    check(torch.equal(h, h_ref),
+          "build_histograms integer mode differs from its plain version")
+    # yardstick: one index_add_ of int32 (g_q, h_q, count) over the cells
+    cells = ((rslot[valid].long()[:, None] * f +
+              torch.arange(f, device=dev)[None, :]) * BMAX +
+             bins[valid].long()).reshape(-1)
+    vals = torch.stack([g_q[valid].int(), h_q[valid].int(),
+                        cnt[valid].int()], 1)[:, None] \
+        .expand(-1, f, 3).reshape(-1, 3).contiguous()
+    flat = torch.zeros((S_HIST * f * BMAX, 3), dtype=torch.int32, device=dev)
+    n_slot = int(valid.numel())
+    row("build_histograms_int", "lightgbm_tpu/learner/histogram_mxu.py:472",
+        0.0, time_ms(torch, k3q, 20), time_ms(torch, k3q_ref, 3),
+        4 * n + n_slot * (f + 6) + h.numel() * 4, n_slot * f * 3,
+        time_ms(torch, lambda: flat.index_add_(0, cells, vals), 20),
+        source="build_histograms")
+    del cells, vals, flat, h, h_ref
+
     # K6 node_values: the score update's gather over 1024 node values
     v = d["values"]
     out = hm.node_values(d["row_node"], v)
@@ -249,6 +324,44 @@ def kernel_phase(torch, hm, dev):
         time_ms(torch, lambda: hm.node_values(d["row_node"], v), 20),
         time_ms(torch, lambda: hm.node_values_ref(d["row_node"], v), 5),
         8 * n + v.numel() * 4, 0, time_ms(torch, lambda: v[idx], 20))
+
+    # K5 node_sums: the exact leaf refit at the pruned tree's 510 nodes
+    # (and, checked only, the overgrown tree's 1020), 3% of rows parked at
+    # -1 and 1% past the last node, as the kernel must ignore them
+    rng = np.random.RandomState(9)
+
+    def refit_nodes(m):
+        node = rng.randint(0, m, N_ROWS)
+        u = rng.rand(N_ROWS)
+        node[u < 0.03] = -1
+        node[(u >= 0.03) & (u < 0.04)] += m
+        return torch.as_tensor(node.astype(np.int32), device=dev)
+
+    for m in (M_GROWN, M_REFIT):
+        node = refit_nodes(m)
+
+        def k5():
+            return hm.node_sums(node, grad, hess, cnt, num_nodes=m)
+
+        def k5_ref():
+            return hm.node_sums_ref(node, grad, hess, cnt, num_nodes=m)
+        got, again, ref = k5(), k5(), k5_ref()
+        check(torch.equal(got.view(torch.int32), again.view(torch.int32)),
+              f"node_sums at {m} nodes: two launches differ")
+        check(torch.equal(got[:, 2], ref[:, 2]),
+              f"node_sums at {m} nodes: counts differ")
+        err = float((got - ref).abs().max())
+        # rtol 1e-6 of each sum, with a floor of 1 on the scale
+        rel = float(((got - ref).abs() / ref.abs().clamp(min=1.0)).max())
+        check(rel <= 1e-6, f"node_sums at {m} nodes: rel error {rel}")
+    keep = torch.nonzero((node >= 0) & (node < M_REFIT))[:, 0]
+    idx5 = node[keep].long()
+    data5 = torch.stack([grad, hess, cnt], 1)[keep].contiguous()
+    acc5 = torch.zeros((M_REFIT, 3), device=dev)
+    row("node_sums", "lightgbm_tpu/learner/histogram_mxu.py:1192", err,
+        time_ms(torch, k5, 20), time_ms(torch, k5_ref, 5),
+        16 * n + M_REFIT * 12, 3 * int(keep.numel()),
+        time_ms(torch, lambda: acc5.index_add_(0, idx5, data5), 20))
     return rows
 
 
@@ -270,23 +383,26 @@ def train_booster(torch, lgt, hm, ds, params, trees, metric):
     return booster, seconds, values, launches
 
 
+def logloss_of(torch, y):
+    ysign = 2.0 * torch.as_tensor(y, device="cuda") - 1.0
+    return lambda score: torch.nn.functional.softplus(-ysign * score).mean()
+
+
 def main_path(torch, lgt, hm, X, y):
-    """The slice's main path: training through lightgbm_tpu_torch's entry
-    points at the full 1M x 28 width, three settings of the same model —
-    the Higgs-like binary configuration, the same with a large
+    """The exact-histogram path: training through lightgbm_tpu_torch's
+    entry points at the full 1M x 28 width, three settings of the same
+    model — the Higgs-like binary configuration, the same with a large
     min_data_in_leaf (trees stop short of the leaf budget after the bridge
     pass, so the full-width fix-up passes run: route_rows +
     build_histograms), and the default regression objective
-    (const-hessian channels). Kernel launches are counted over all three."""
+    (const-hessian channels). Kernel launches are counted over all three.
+    Returns the binary booster, both datasets and the counts."""
     t0 = time.perf_counter()
     ds = lgt.Dataset(X, label=y, params=TRAIN_PARAMS)
     ds.construct()
     binning_s = time.perf_counter() - t0
     dev = torch.device("cuda")
-    ysign = 2.0 * torch.as_tensor(y, device=dev) - 1.0
-
-    def logloss(score):
-        return torch.nn.functional.softplus(-ysign * score).mean()
+    logloss = logloss_of(torch, y)
 
     hm.reset_launch_counts()
     booster, train_s, losses, launches = train_booster(
@@ -325,15 +441,77 @@ def main_path(torch, lgt, hm, X, y):
           "regression lost the const hessian")
     check(all(b < a for a, b in zip(l2, l2[1:])), f"L2 did not fall: {l2}")
     counts = hm.launch_counts()
-    for name, n in counts.items():
-        check(n > 0, f"{name} was not launched on the main path")
-    return booster, ds, counts
+    for name in EXACT_PATH:
+        check(counts[name] > 0, f"{name} was not launched on the exact path")
+    return booster, ds, reg_ds, counts
 
 
-def check_outputs(torch, lgt, booster, ds, X):
+def quantized_path(torch, lgt, hm, X, y, ds, reg_ds):
+    """The quantized-gradient path (use_quantized_grad): the binary
+    configuration at 1M x 28 (10 trees; every pass on the fused kernel in
+    integer mode), the default regression objective (constant hessian:
+    2 integer channels, 3 trees) and a 200-feature binary run (3 trees)
+    whose wide passes take route_rows + build_histograms in integer mode.
+    Every tree ends in the node_sums refit. Launches are counted over all
+    three; returns the binary booster and the counts."""
+    logloss = logloss_of(torch, y)
+    hm.reset_launch_counts()
+    booster, train_s, losses, launches = train_booster(
+        torch, lgt, hm, ds, QUANT_PARAMS, TRAIN_TREES, logloss)
+    emit("train_quantized", rows=N_ROWS, features=N_FEATURES,
+         trees=TRAIN_TREES, train_s=train_s,
+         trees_per_s=TRAIN_TREES / train_s, launches=launches,
+         logloss=losses,
+         leaves=[int(t.num_leaves) for t in booster.gbdt.trees])
+    check(all(b < a for a, b in zip(losses, losses[1:])),
+          f"quantized logloss did not fall every tree: {losses}")
+
+    reg_params = {k: v for k, v in QUANT_PARAMS.items() if k != "objective"}
+    label = torch.as_tensor(reg_ds.label, device="cuda")
+    reg, reg_s, l2, reg_launches = train_booster(
+        torch, lgt, hm, reg_ds, reg_params, REGRESSION_TREES,
+        lambda score: ((score - label) ** 2).mean())
+    emit("regression_quantized", trees=REGRESSION_TREES, train_s=reg_s,
+         trees_per_s=REGRESSION_TREES / reg_s, launches=reg_launches, l2=l2,
+         const_hessian=reg.gbdt._const_hessian())
+    check(reg.gbdt._const_hessian() == 1.0,
+          "quantized regression lost the const hessian")
+    check(all(b < a for a, b in zip(l2, l2[1:])),
+          f"quantized L2 did not fall: {l2}")
+
+    Xw, yw = make_higgs_like(WIDE_ROWS, WIDE_FEATURES, seed=23)
+    t0 = time.perf_counter()
+    wide_ds = lgt.Dataset(Xw, label=yw, params=QUANT_PARAMS)
+    wide_ds.construct()
+    wide_binning_s = time.perf_counter() - t0
+    _, wide_s, wide_losses, wide_launches = train_booster(
+        torch, lgt, hm, wide_ds, QUANT_PARAMS, WIDE_TREES,
+        logloss_of(torch, yw))
+    emit("train_quantized_wide", rows=WIDE_ROWS, features=WIDE_FEATURES,
+         trees=WIDE_TREES, binning_s=wide_binning_s, train_s=wide_s,
+         trees_per_s=WIDE_TREES / wide_s, launches=wide_launches,
+         logloss=wide_losses)
+    check(all(b < a for a, b in zip(wide_losses, wide_losses[1:])),
+          f"wide quantized logloss did not fall: {wide_losses}")
+    counts = hm.launch_counts()
+    for name in QUANT_PATH:
+        check(counts[name] > 0,
+              f"{name} was not launched on the quantized path")
+    check(wide_launches["build_histograms_int"] > 0,
+          "the wide run took no two-kernel pass")
+    n_trees = TRAIN_TREES + REGRESSION_TREES + WIDE_TREES
+    check(counts["node_sums"] == n_trees,
+          f"node_sums launched {counts['node_sums']} times for {n_trees} "
+          "quantized trees")
+    return booster, counts
+
+
+def check_outputs(torch, lgt, booster, ds, X, params=TRAIN_PARAMS,
+                  phase="train_check"):
     """Host model against the device scores, held-out AUC, model text
     round trip, and whether a second identical run writes the same bytes
-    (f32 atomics add in a different order from run to run)."""
+    (exact histograms: f32 atomics add in a different order from run to
+    run). Returns (held-out AUC, byte-equal?)."""
     t0 = time.perf_counter()
     host = booster.predict(X, raw_score=True)
     predict_s = time.perf_counter() - t0
@@ -342,16 +520,18 @@ def check_outputs(torch, lgt, booster, ds, X):
     Xva, yva = make_higgs_like(40_000, N_FEATURES, seed=99)
     held_out_auc = auc(booster.predict(Xva, raw_score=True), yva)
     model = booster.model_to_string()
-    again = lgt.Booster(TRAIN_PARAMS, ds)
+    again = lgt.Booster(params, ds)
     for _ in range(TRAIN_TREES):
         again.update()
-    emit("train_check", host_vs_device_max_abs=score_err,
+    byte_equal = again.model_to_string() == model
+    emit(phase, host_vs_device_max_abs=score_err,
          host_predict_s=predict_s, held_out_auc=held_out_auc,
-         model_txt_byte_equal_across_runs=again.model_to_string() == model)
+         model_txt_byte_equal_across_runs=byte_equal)
     check(score_err <= 1e-4, f"host predict vs device score {score_err}")
     check(held_out_auc > 0.75, f"held-out AUC {held_out_auc} <= 0.75")
     check(lgt.Booster(model_str=model).model_to_string() == model,
           "model text does not round-trip")
+    return held_out_auc, byte_equal
 
 
 def cross_device_phase(lgt):
@@ -394,6 +574,7 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch import rng
     from lightgbm_tpu_torch.learner import _cuda
     from lightgbm_tpu_torch.learner import histogram_mxu as hm
 
@@ -411,14 +592,21 @@ def main():
     emit("build", seconds=time.perf_counter() - t0,
          libraries=sorted(p.name for p in libs.values()))
 
-    rows = kernel_phase(torch, hm, dev)
+    rows = kernel_phase(torch, hm, rng, dev)
     torch.cuda.empty_cache()
 
     X, y = make_higgs_like(N_ROWS, N_FEATURES)
-    booster, ds, counts = main_path(torch, lgt, hm, X, y)
+    booster, ds, reg_ds, counts = main_path(torch, lgt, hm, X, y)
+    exact_auc, _ = check_outputs(torch, lgt, booster, ds, X)
+    q_booster, q_counts = quantized_path(torch, lgt, hm, X, y, ds, reg_ds)
     for r in rows:
-        r["launches"] = counts[r["name"]]
-    check_outputs(torch, lgt, booster, ds, X)
+        r["launches"] = (counts if r["name"] in EXACT_PATH
+                         else q_counts)[r["name"]]
+    q_auc, q_equal = check_outputs(torch, lgt, q_booster, ds, X,
+                                   QUANT_PARAMS, "train_quantized_check")
+    check(abs(q_auc - exact_auc) <= 0.005,
+          f"quantized held-out AUC {q_auc} vs exact {exact_auc}")
+    check(q_equal, "two identical quantized runs wrote different model.txt")
     cross_device_phase(lgt)
 
     print(json.dumps({"kernels": rows}))

@@ -3,7 +3,9 @@
 Port of the serial, exact-histogram path of lightgbm_tpu/boosting/gbdt.py
 (reference src/boosting/gbdt.cpp:266-572): objective gradients on the
 device, one tree per iteration from learner/grower_mxu.grow_tree_mxu,
-shrinkage, and the score update through the node_values kernel.
+shrinkage, and the score update through the node_values kernel. With
+use_quantized_grad each tree grows on gradients quantized under the JAX
+package's per-tree key, fold_in(PRNGKey(extra_seed), iteration).
 
 Every iteration reads the new tree's leaf count on the host (the JAX
 package lags that poll to spare a remote accelerator round trips); a tree
@@ -22,6 +24,7 @@ from typing import List
 
 import torch
 
+from .. import rng
 from ..config import Config
 from ..data import BinnedDataset
 from ..learner.grower import TreeArrays
@@ -56,7 +59,6 @@ def _unsupported(cfg: Config) -> List[tuple]:
         cfg.bagging_fraction < 1.0 or cfg.pos_bagging_fraction < 1.0 or
         cfg.neg_bagging_fraction < 1.0)
     return [(name, item) for name, item, hit in [
-        ("use_quantized_grad", "P2", cfg.use_quantized_grad),
         ("bagging_fraction/bagging_freq", "P6", bagging),
         ("boosting=" + str(cfg.boosting), "P6", cfg.boosting != "gbdt"),
         ("num_class", "P7", cfg.num_class > 1),
@@ -101,6 +103,11 @@ class GBDT:
     def __init__(self, config: Config, train_set: BinnedDataset,
                  objective: ObjectiveFunction, device: torch.device):
         check_supported(config)
+        if config.hist_backend == "auto" and config.use_quantized_grad:
+            # the JAX package times mxu against the scatter kernel here;
+            # both give byte-equal models in the quantized posture
+            Log.debug("hist_backend=auto resolves to mxu: the scatter "
+                      "kernel is not ported yet (ROADMAP.md port queue P4)")
         self.config = config
         self.objective = objective
         self.device = device
@@ -164,6 +171,10 @@ class GBDT:
 
     def _grow(self, grad, hess):
         cfg = self.config
+        # the JAX package's per-tree key (gbdt.py _grow_impl); only
+        # quantized growth draws from it here
+        rng_key = rng.fold_in(rng.PRNGKey(cfg.extra_seed, self.device),
+                              self.iter_) if cfg.use_quantized_grad else None
         return grow_tree_mxu(
             self.bins, grad, hess, self._cnt, self._feature_mask,
             self.num_bins_d, self.missing_is_nan_d, self.is_cat_d,
@@ -172,7 +183,8 @@ class GBDT:
             hist_subtraction=cfg.hist_subtraction,
             overshoot=cfg.growth_overshoot,
             bridge_gate=cfg.growth_bridge_gate,
-            const_hessian=self._const_hessian())
+            const_hessian=self._const_hessian(),
+            quantized_grad=cfg.use_quantized_grad, rng_key=rng_key)
 
     def train_one_iter(self) -> bool:
         """One boosting iteration (reference TrainOneIter gbdt.cpp:371-449).

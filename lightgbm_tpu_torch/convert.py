@@ -19,7 +19,7 @@ from .data import BinnedDataset, Metadata
 from .learner.grower import TreeArrays
 
 __all__ = ["tree_arrays_from_numpy", "tree_arrays_to_numpy",
-           "binned_from_numpy", "score_from_numpy"]
+           "binned_from_numpy", "score_from_numpy", "key_from_numpy"]
 
 _DTYPES = {
     "split_feature": torch.int32, "threshold_bin": torch.int32,
@@ -85,3 +85,11 @@ def score_from_numpy(score: np.ndarray, device="cpu") -> torch.Tensor:
     """A training-score vector as the port holds it: [N] f32."""
     return torch.as_tensor(np.asarray(score, np.float32).reshape(-1),
                            device=device)
+
+
+def key_from_numpy(key: np.ndarray, device="cpu") -> torch.Tensor:
+    """A jax.random key's two uint32 words (jax.random.key_data, or a raw
+    PRNGKey array) as the port's key: an int64 [2] tensor
+    (lightgbm_tpu_torch.rng)."""
+    words = np.asarray(key).astype(np.uint32).reshape(2)
+    return torch.as_tensor(words.astype(np.int64), device=device)

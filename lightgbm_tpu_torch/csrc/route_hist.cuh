@@ -86,8 +86,11 @@ __device__ __forceinline__ void route_decide(int node,
 }
 
 // Add one row's (grad, hess, count) into hist[slot, j, bin, :] for every
-// feature j. hist is [S, f, b, 3] f32. const_hess != 0 skips the hessian
+// feature j. hist is [S, f, b, 3]. const_hess != 0 skips the hessian
 // channel; the wrapper fills it as const x count afterwards.
+//
+// f32 mode: three float cells, float atomics (their order, and so the
+// sums' last bits, varies from run to run).
 __device__ __forceinline__ void hist_accumulate(float* hist, int slot,
                                                 const uint8_t* row_bins,
                                                 int f, int b, float g,
@@ -101,6 +104,26 @@ __device__ __forceinline__ void hist_accumulate(float* hist, int slot,
     atomicAdd(cell, g);
     if (!const_hess) atomicAdd(cell + 1, h);
     atomicAdd(cell + 2, c);
+  }
+}
+
+// Integer mode (quantized gradients): g and h are whole numbers in
+// [-127, 127] and add into int32 cells, exact and independent of order
+// (|sum| <= 127 x N < 2^31 for N < 16.9M rows). The count channel keeps
+// float atomics, in the same 32-bit word of the cell; with whole-number
+// count weights its sums are exact and order-free as well (below 2^24).
+__device__ __forceinline__ void hist_accumulate(int* hist, int slot,
+                                                const uint8_t* row_bins,
+                                                int f, int b, int g, int h,
+                                                float c, int const_hess) {
+  int* base = hist + static_cast<size_t>(slot) * f * b * 3;
+  for (int j = 0; j < f; ++j) {
+    const int bin = row_bins[j];
+    if (bin >= b) continue;
+    int* cell = base + (static_cast<size_t>(j) * b + bin) * 3;
+    atomicAdd(cell, g);
+    if (!const_hess) atomicAdd(cell + 1, h);
+    atomicAdd(reinterpret_cast<float*>(cell + 2), c);
   }
 }
 

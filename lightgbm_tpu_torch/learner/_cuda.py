@@ -38,10 +38,11 @@ _I = ctypes.c_int
 # kernel source stem -> (C entry point, argtypes); the last argument of
 # every entry is the CUDA stream
 KERNELS: Dict[str, tuple] = {
-    "fused_route_hist": ("lgbt_fused_route_hist", [_P] * 10 + [_I] * 7 + [_P]),
+    "fused_route_hist": ("lgbt_fused_route_hist", [_P] * 10 + [_I] * 8 + [_P]),
     "route_rows": ("lgbt_route_rows", [_P] * 7 + [_I] * 4 + [_P]),
-    "build_histograms": ("lgbt_build_histograms", [_P] * 6 + [_I] * 5 + [_P]),
+    "build_histograms": ("lgbt_build_histograms", [_P] * 6 + [_I] * 6 + [_P]),
     "node_values": ("lgbt_node_values", [_P] * 3 + [_I] * 2 + [_P]),
+    "node_sums": ("lgbt_node_sums", [_P] * 7 + [_I] * 2 + [_P]),
 }
 
 _lock = threading.Lock()

@@ -16,25 +16,34 @@ candidates and packs the next tables. Only the smaller child of a fresh
 split gets a kernel slot; the larger sibling is parent minus smaller
 (serial_tree_learner.cpp:311-326).
 
+With quantized_grad (the reference's use_quantized_grad) the tree grows
+on stochastically rounded int8 gradients (histogram_mxu.quantize_gradients,
+keyed per tree), whose integer histograms are scaled back to gradient
+units; after the prune every leaf is refit from exact per-node sums of the
+unquantized gradients (the node_sums kernel), so quantization perturbs the
+split search only.
+
 Where the JAX package had lax.cond / while_loop / fori_loop this runs
 Python loops with host syncs for the loop conditions. Not ported: psum
 (distributed), EFB, forced splits, CEGB, monotone and interaction
-constraints, per-node feature sampling, extra_trees, quantized gradients;
-boosting/gbdt.py refuses the params that need them.
+constraints, per-node feature sampling, extra_trees; boosting/gbdt.py
+refuses the params that need them.
 """
 
 from __future__ import annotations
 
 import math
 import types
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .. import rng
 from .grower import TreeArrays, _init_tree
 from .histogram_mxu import (build_histograms, fused_fits, fused_route_hist,
-                            fused_row_block, node_values, pack_route_tables,
+                            fused_row_block, node_sums, node_values,
+                            pack_route_tables, quantize_gradients,
                             route_rows)
 from .split import BestSplits, SplitHyperParams, find_best_splits, leaf_output
 
@@ -222,7 +231,9 @@ def grow_tree_mxu(bins: torch.Tensor, grad: torch.Tensor,
                   *, num_leaves: int, max_depth: int, hp: SplitHyperParams,
                   bmax: int, tail_split_cap: int = 0,
                   hist_subtraction: bool = True, overshoot: float = 0.0,
-                  bridge_gate: float = 0.0, const_hessian: float = 0.0
+                  bridge_gate: float = 0.0, const_hessian: float = 0.0,
+                  quantized_grad: bool = False,
+                  rng_key: Optional[torch.Tensor] = None
                   ) -> Tuple[TreeArrays, torch.Tensor]:
     """Grow one tree. Returns (TreeArrays, row_node [N] i32: each row's
     leaf node id). Same contract and same trees as the JAX package's
@@ -231,7 +242,9 @@ def grow_tree_mxu(bins: torch.Tensor, grad: torch.Tensor,
     bins: [N, F] uint8; grad/hess/cnt_weight: [N] f32; feature_mask: [F];
     num_bins: [F] i32; missing_is_nan, is_cat_feat: [F] bool; all on one
     device. const_hessian != 0: per-row hessians are const x cnt_weight
-    and the kernels drop the hessian channel."""
+    and the kernels drop the hessian channel. quantized_grad: grow on
+    quantized gradients drawn under rng_key (a key of lightgbm_tpu_torch.
+    rng; None = PRNGKey(0)), then refit the leaves exactly."""
     dev = bins.device
     n, f = bins.shape
     plan = growth_plan(num_leaves=num_leaves, overshoot=overshoot,
@@ -246,6 +259,7 @@ def grow_tree_mxu(bins: torch.Tensor, grad: torch.Tensor,
     w_cat = (bmax + 31) // 32
     P_all = (s_max + 1) // 2 + 2   # pair-state capacity (subtraction)
     ch = const_hessian
+    quant = quantized_grad
     ninf = torch.full((), float("-inf"), dtype=torch.float32, device=dev)
 
     def ifull(size, v):
@@ -255,8 +269,29 @@ def grow_tree_mxu(bins: torch.Tensor, grad: torch.Tensor,
         return torch.arange(size, dtype=torch.int32, device=dev)
 
     root_c = torch.sum(cnt_weight)
-    root_g = torch.sum(grad)
-    root_h = root_c * ch if ch else torch.sum(hess)
+    if quant:
+        # the JAX package's key schedule: a fixed fold, then the bits of
+        # sum(grad), so each iteration's rounding noise differs (the sum
+        # stays on the device: no host sync)
+        qkey = rng_key if rng_key is not None else rng.PRNGKey(0, dev)
+        qkey = rng.fold_in(rng.fold_in(qkey, 6271),
+                           torch.sum(grad).view(torch.int32))
+        g_q, h_q, gscale, hscale = quantize_gradients(
+            grad, None if ch else hess, qkey)
+        h_grad = g_q.to(torch.int8)
+        # const hessian: the kernels never read the hessian channel
+        h_hess = h_grad if h_q is None else h_q.to(torch.int8)
+        hist_scale = torch.stack([gscale, hscale, torch.ones_like(gscale)])
+        # histogram-consistent root sums (exact integer sums x scale), so
+        # right = parent - left stays consistent
+        root_g = torch.sum(h_grad, dtype=torch.int64).to(torch.float32) * \
+            gscale
+        root_h = root_c * ch if ch else \
+            torch.sum(h_hess, dtype=torch.int64).to(torch.float32) * hscale
+    else:
+        h_grad, h_hess = grad, hess
+        root_g = torch.sum(grad)
+        root_h = root_c * ch if ch else torch.sum(hess)
     root_val = leaf_output(root_g, root_h, hp.lambda_l1, hp.lambda_l2,
                            hp.max_delta_step)
     tree0 = _init_tree(m, root_g, root_h, root_c, root_val,
@@ -280,15 +315,20 @@ def grow_tree_mxu(bins: torch.Tensor, grad: torch.Tensor,
         if m_cap is not None and m_cap < m_pad:
             tbl = tbl[:m_cap]
             member = member[:m_cap]
-        rb = fused_row_block(nslots, f, bmax, ch)
-        if fused_fits(nslots, f, bmax, rb, ch):
-            return fused_route_hist(bins, grad, hess, cnt_weight, row_node,
-                                    tbl, member, feat_tbl, num_slots=nslots,
-                                    bmax=bmax, const_hess=ch)
-        rn, rs = route_rows(bins, row_node, tbl, member, feat_tbl)
-        return build_histograms(bins, grad, hess, cnt_weight, rs,
-                                num_slots=nslots, bmax=bmax,
-                                const_hess=ch), rn
+        rb = fused_row_block(nslots, f, bmax, ch, quant)
+        if fused_fits(nslots, f, bmax, rb, ch, quant):
+            h, rn = fused_route_hist(bins, h_grad, h_hess, cnt_weight,
+                                     row_node, tbl, member, feat_tbl,
+                                     num_slots=nslots, bmax=bmax,
+                                     const_hess=ch, quantized=quant)
+        else:
+            rn, rs = route_rows(bins, row_node, tbl, member, feat_tbl)
+            h = build_histograms(bins, h_grad, h_hess, cnt_weight, rs,
+                                 num_slots=nslots, bmax=bmax, const_hess=ch,
+                                 quantized=quant)
+        if quant:
+            h = h * hist_scale   # integer sums -> gradient units
+        return h, rn
 
     def one_pass(s, st: _GrowState, k_cap=None, sk_next=None, m_cap=None,
                  sk_self=None) -> _GrowState:
@@ -535,4 +575,20 @@ def grow_tree_mxu(bins: torch.Tensor, grad: torch.Tensor,
     if over:
         tree, row_node = _prune_to_best_first(
             tree, row_node, num_leaves=num_leaves, m_grow=m)
+    if quant:
+        # exact leaf refit from the unquantized gradients (reference closed
+        # form, feature_histogram.hpp:737); path smoothing pulls toward the
+        # parent's growth-time (quantized) output, as in the JAX package
+        nn = tree.leaf_value.shape[0]
+        sums = node_sums(row_node, grad, hess, cnt_weight, num_nodes=nn)
+        pout = tree.leaf_value[tree.parent.to(torch.int64).clamp(0, nn - 1)]
+        ex_val = leaf_output(sums[:, 0], sums[:, 1], hp.lambda_l1,
+                             hp.lambda_l2, hp.max_delta_step, hp.path_smooth,
+                             sums[:, 2], pout)
+        lf = tree.is_leaf
+        tree = tree._replace(
+            leaf_value=torch.where(lf, ex_val, tree.leaf_value),
+            sum_grad=torch.where(lf, sums[:, 0], tree.sum_grad),
+            sum_hess=torch.where(lf, sums[:, 1], tree.sum_hess),
+            count=torch.where(lf, sums[:, 2], tree.count))
     return tree, row_node

@@ -2,19 +2,27 @@
 
 Port of lightgbm_tpu/learner/histogram_mxu.py. The TPU kernels there turn
 every per-row gather and scatter into one-hot matmuls on the MXU; on the
-card those become plain indexing and atomics in four hand-written CUDA
+card those become plain indexing and atomics in five hand-written CUDA
 kernels (csrc/):
 
   fused_route_hist  <- fused_route_hist_mxu   (route + histogram, one sweep)
   route_rows        <- route_rows_mxu         (route only)
   build_histograms  <- build_histograms_mxu   (histogram keyed by row_slot)
   node_values       <- node_values_mxu        (values[row_node])
+  node_sums         <- node_sums_mxu          (exact per-node sums, refit)
+
+The histogram kernels have two modes. Exact: f32 gradients into f32 cells.
+Quantized (`quantized=True`, the JAX kernels' flag of that name): int8
+gradients from `quantize_gradients` into int32 cells, returned as f32
+integer sums that the caller scales; integer sums are exact and do not
+depend on the order of the additions.
 
 Each wrapper runs its kernel for CUDA tensors and its plain PyTorch version
 (`<name>_ref`, same module) for CPU tensors — chosen by the device of the
 tensors it is given, nothing else; a tensor on any other device raises.
 Each wrapper counts its kernel launches in a plain integer attribute,
-`<wrapper>.launches` (see `launch_counts`).
+`<wrapper>.launches` (integer mode: `<wrapper>.launches_int`; see
+`launch_counts`).
 
 Route tables (`pack_route_tables`) are int32 columns, one row per node id:
 the TPU layout's base-256 digit pairs existed only to stay exact in bf16.
@@ -26,11 +34,13 @@ from typing import Dict, Tuple
 
 import torch
 
+from .. import rng
 from . import _cuda
 
 __all__ = ["fused_route_hist", "route_rows", "build_histograms",
-           "node_values", "fused_route_hist_ref", "route_rows_ref",
-           "build_histograms_ref", "node_values_ref", "pack_route_tables",
+           "node_values", "node_sums", "fused_route_hist_ref",
+           "route_rows_ref", "build_histograms_ref", "node_values_ref",
+           "node_sums_ref", "quantize_gradients", "pack_route_tables",
            "fused_fits", "fused_row_block", "launch_counts",
            "reset_launch_counts"]
 
@@ -54,16 +64,20 @@ _FGROUP = 4
 
 
 def fused_fits(num_slots: int, num_features: int, bmax: int,
-               row_block: int = 4096, const_hess: float = 0.0) -> bool:
+               row_block: int = 4096, const_hess: float = 0.0,
+               quantized: bool = False) -> bool:
     """Mirror of the reference's dispatch predicate (JAX package,
-    histogram_mxu.fits_v2, exact double-bf16 channels, unquantized and
-    unbundled): whether the TPU's fused kernel fits its VMEM budget at
-    this shape. The port routes each growth pass down the branch the JAX
-    package takes at the same shape — fused kernel or route_rows +
-    build_histograms — so the same passes run the same kernels and a
-    parity failure can be found pass by pass."""
+    histogram_mxu.fits_v2, double-bf16 or quantized channels, unbundled):
+    whether the TPU's fused kernel fits its VMEM budget at this shape. The
+    port routes each growth pass down the branch the JAX package takes at
+    the same shape — fused kernel or route_rows + build_histograms — so
+    the same passes run the same kernels and a parity failure can be found
+    pass by pass."""
     b = _round_up(bmax, 128)
-    nchan = 3 if const_hess else 5
+    if const_hess:
+        nchan = 2 if quantized else 3     # [g, cnt] / [g_hi, g_lo, cnt]
+    else:
+        nchan = 3 if quantized else 5
     out = nchan * num_slots * num_features * b * 4
     plane = _round_up(num_features, 128)
     inputs = row_block * (12 * plane + 24 * plane + 2 * _FGROUP * b)
@@ -71,16 +85,45 @@ def fused_fits(num_slots: int, num_features: int, bmax: int,
 
 
 def fused_row_block(num_slots: int, num_features: int, bmax: int,
-                    const_hess: float) -> int:
+                    const_hess: float, quantized: bool = False) -> int:
     """The row block the reference's sweep sizes its fused kernel with
     (2048 at small frontiers; else the widest of 8192/4096/2048 whose
     working set fits) — an input of `fused_fits`."""
     if num_slots <= 64:
         return 2048
     for rb in (8192, 4096, 2048):
-        if fused_fits(num_slots, num_features, bmax, rb, const_hess):
+        if fused_fits(num_slots, num_features, bmax, rb, const_hess,
+                      quantized):
             break
     return rb
+
+
+# ---------------------------------------------------------------------------
+# gradient quantization (plain torch: the JAX function is no Pallas kernel)
+# ---------------------------------------------------------------------------
+
+def quantize_gradients(grad, hess, key):
+    """Stochastically rounded integer gradients, as the JAX package's
+    quantize_gradients: g_q = clip(floor(g / gscale + u), -127, 127) with
+    gscale = max(max|g|, 1e-30) / 127 and u ~ U[0, 1) from split(key)[0]
+    (hessians likewise from split(key)[1]). Returns (g_q, h_q, gscale,
+    hscale): g_q, h_q integer-valued f32 [N], the scales f32 scalars, all
+    on the device of `grad`. hess=None (constant hessian): h_q is None and
+    hscale 1."""
+    ku, kv = rng.split(key)
+    g = grad.to(torch.float32)
+    gscale = torch.clamp(torch.amax(torch.abs(g)), min=1e-30) / 127.0
+    ug = rng.uniform(ku, g.shape[0])
+    # clip: f32 rounding at the band edge (127 + u -> 128.0) can escape
+    # the [-127, 127] band
+    g_q = torch.clamp(torch.floor(g / gscale + ug), -127.0, 127.0)
+    if hess is None:
+        return g_q, None, gscale, torch.ones((), device=g.device)
+    h = hess.to(torch.float32)
+    hscale = torch.clamp(torch.amax(torch.abs(h)), min=1e-30) / 127.0
+    uh = rng.uniform(kv, h.shape[0])
+    h_q = torch.clamp(torch.floor(h / hscale + uh), -127.0, 127.0)
+    return g_q, h_q, gscale, hscale
 
 
 # ---------------------------------------------------------------------------
@@ -149,29 +192,43 @@ def route_rows_ref(bins, row_node, tbl, member, feat_tbl
 
 
 def build_histograms_ref(bins, grad, hess, cnt, row_slot, *, num_slots: int,
-                         bmax: int, const_hess: float = 0.0) -> torch.Tensor:
+                         bmax: int, const_hess: float = 0.0,
+                         quantized: bool = False) -> torch.Tensor:
     """[num_slots, F, bmax, 3] f32 (grad, hess, count) per-slot histograms
     by index_add_ over flattened (slot, feature, bin) cells; rows with slot
     < 0 or >= num_slots are dropped. const_hess != 0: hessian sums are
-    const x count."""
+    const x count. quantized: grad and hess hold whole numbers (int8 from
+    quantize_gradients), summed exactly in int64; the result holds the
+    unscaled integer sums."""
     n, f = bins.shape
     dev = bins.device
     rows = torch.nonzero((row_slot >= 0) & (row_slot < num_slots))[:, 0]
     slot = row_slot[rows].to(torch.int64)
     cells = ((slot[:, None] * f + torch.arange(f, device=dev)[None, :])
-             * bmax + bins[rows].to(torch.int64))               # [Nv, F]
-    h = torch.zeros_like(grad[rows]) if const_hess else hess[rows]
-    data = torch.stack([grad[rows], h, cnt[rows]], dim=1)        # [Nv, 3]
-    hist = torch.zeros((num_slots * f * bmax, 3), dtype=torch.float32,
-                       device=dev)
-    hist.index_add_(0, cells.reshape(-1),
-                    data[:, None, :].expand(-1, f, 3).reshape(-1, 3))
+             * bmax + bins[rows].to(torch.int64)).reshape(-1)   # [Nv*F]
+    g = grad[rows]
+    h = torch.zeros_like(g) if const_hess else hess[rows]
+    ncell = num_slots * f * bmax
+
+    def cell_sums(data):                                          # [Nv, C]
+        c = data.shape[1]
+        out = torch.zeros((ncell, c), dtype=data.dtype, device=dev)
+        return out.index_add_(0, cells,
+                              data[:, None, :].expand(-1, f, c)
+                              .reshape(-1, c))
+
+    if quantized:
+        gh = cell_sums(torch.stack([g, h], dim=1).to(torch.int64))
+        hist = torch.cat([gh.to(torch.float32),
+                          cell_sums(cnt[rows][:, None])], dim=1)
+    else:
+        hist = cell_sums(torch.stack([g, h, cnt[rows]], dim=1))
     return _fill_const_hess(hist.view(num_slots, f, bmax, 3), const_hess)
 
 
 def fused_route_hist_ref(bins, grad, hess, cnt, row_node, tbl, member,
                          feat_tbl, *, num_slots: int, bmax: int,
-                         const_hess: float = 0.0
+                         const_hess: float = 0.0, quantized: bool = False
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(hist [num_slots, F, bmax, 3], new row_node): route one level, then
     histogram the rows by their new slot."""
@@ -179,7 +236,7 @@ def fused_route_hist_ref(bins, grad, hess, cnt, row_node, tbl, member,
                                         feat_tbl)
     hist = build_histograms_ref(bins, grad, hess, cnt, new_slot,
                                 num_slots=num_slots, bmax=bmax,
-                                const_hess=const_hess)
+                                const_hess=const_hess, quantized=quantized)
     return hist, new_node
 
 
@@ -192,6 +249,19 @@ def node_values_ref(row_node, values) -> torch.Tensor:
     got = v[node.clamp(0, m - 1)]
     return torch.where((node >= 0) & (node < m), got,
                        torch.zeros((), dtype=got.dtype, device=got.device))
+
+
+def node_sums_ref(row_node, grad, hess, cnt, *, num_nodes: int
+                  ) -> torch.Tensor:
+    """[num_nodes, 3] f32 per-node (sum grad, sum hess, sum count), summed
+    in float64 and rounded once; rows whose node is < 0 or >= num_nodes
+    are ignored."""
+    node = row_node.to(torch.int64)
+    keep = (node >= 0) & (node < num_nodes)
+    data = torch.stack([grad, hess, cnt], dim=1)[keep].to(torch.float64)
+    out = torch.zeros((num_nodes, 3), dtype=torch.float64,
+                      device=row_node.device)
+    return out.index_add_(0, node[keep], data).to(torch.float32)
 
 
 def _fill_const_hess(hist: torch.Tensor, const_hess: float) -> torch.Tensor:
@@ -241,36 +311,58 @@ def _check_route_args(bins, row_node, tbl, member, feat_tbl) -> None:
     _check(feat_tbl, "feat_tbl", torch.int32, (f, 2))
 
 
-def _check_hist_args(bins, grad, hess, cnt, bmax) -> None:
+def _check_hist_args(bins, grad, hess, cnt, bmax, quantized) -> None:
     n, f = bins.shape
     _check(bins, "bins", torch.uint8, (n, f))
-    for t, name in ((grad, "grad"), (hess, "hess"), (cnt, "cnt")):
-        _check(t, name, torch.float32, (n,))
+    gdt = torch.int8 if quantized else torch.float32
+    for t, name, dt in ((grad, "grad", gdt), (hess, "hess", gdt),
+                        (cnt, "cnt", torch.float32)):
+        _check(t, name, dt, (n,))
     if not 0 < bmax <= 256:
         raise ValueError(f"bmax {bmax} outside (0, 256] (uint8 bins)")
 
 
+def _hist_buffer(num_slots, f, bmax, quantized, device) -> torch.Tensor:
+    """Zeroed [S, F, bmax, 3] cells the histogram kernels add into: f32,
+    or (quantized) int32 gradient cells beside f32 count bits."""
+    return torch.zeros((num_slots, f, bmax, 3), device=device,
+                       dtype=torch.int32 if quantized else torch.float32)
+
+
+def _hist_result(hist, quantized, const_hess) -> torch.Tensor:
+    """The kernels' cells as [S, F, bmax, 3] f32 (integer gradient sums
+    converted, count bits reinterpreted), hessians filled for const_hess."""
+    if quantized:
+        raw = hist
+        hist = raw.to(torch.float32)
+        hist[..., 2] = raw.view(torch.float32)[..., 2]
+    return _fill_const_hess(hist, const_hess)
+
+
 def fused_route_hist(bins, grad, hess, cnt, row_node, tbl, member, feat_tbl,
-                     *, num_slots: int, bmax: int, const_hess: float = 0.0
+                     *, num_slots: int, bmax: int, const_hess: float = 0.0,
+                     quantized: bool = False
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Route rows through the previous pass's tables and build the new
     frontier's histograms in one sweep. Returns (hist [S, F, bmax, 3],
-    new row_node [N] i32)."""
+    new row_node [N] i32). quantized: grad and hess are int8 and the
+    gradient channels hold their unscaled integer sums."""
     args = (bins, grad, hess, cnt, row_node, tbl, member, feat_tbl)
     if _on_cpu(*args):
         return fused_route_hist_ref(*args, num_slots=num_slots, bmax=bmax,
-                                    const_hess=const_hess)
+                                    const_hess=const_hess,
+                                    quantized=quantized)
     _check_route_args(bins, row_node, tbl, member, feat_tbl)
-    _check_hist_args(bins, grad, hess, cnt, bmax)
+    _check_hist_args(bins, grad, hess, cnt, bmax, quantized)
     n, f = bins.shape
-    hist = torch.zeros((num_slots, f, bmax, 3), dtype=torch.float32,
-                       device=bins.device)
+    hist = _hist_buffer(num_slots, f, bmax, quantized, bins.device)
     out = torch.empty(n, dtype=torch.int32, device=bins.device)
     _cuda.call("fused_route_hist", bins.device, bins, grad, hess, cnt,
                row_node, tbl, member, feat_tbl, hist, out, n, f, bmax,
-               num_slots, tbl.shape[0], member.shape[1], int(bool(const_hess)))
-    fused_route_hist.launches += 1
-    return _fill_const_hess(hist, const_hess), out
+               num_slots, tbl.shape[0], member.shape[1], int(bool(const_hess)),
+               int(quantized))
+    _count_launch(fused_route_hist, quantized)
+    return _hist_result(hist, quantized, const_hess), out
 
 
 def route_rows(bins, row_node, tbl, member, feat_tbl
@@ -290,22 +382,24 @@ def route_rows(bins, row_node, tbl, member, feat_tbl
 
 
 def build_histograms(bins, grad, hess, cnt, row_slot, *, num_slots: int,
-                     bmax: int, const_hess: float = 0.0) -> torch.Tensor:
+                     bmax: int, const_hess: float = 0.0,
+                     quantized: bool = False) -> torch.Tensor:
     """Per-slot histograms [S, F, bmax, 3] keyed by row_slot (rows with
-    slot < 0 or >= S dropped)."""
+    slot < 0 or >= S dropped). quantized: as in fused_route_hist."""
     if _on_cpu(bins, grad, hess, cnt, row_slot):
         return build_histograms_ref(bins, grad, hess, cnt, row_slot,
                                     num_slots=num_slots, bmax=bmax,
-                                    const_hess=const_hess)
-    _check_hist_args(bins, grad, hess, cnt, bmax)
+                                    const_hess=const_hess,
+                                    quantized=quantized)
+    _check_hist_args(bins, grad, hess, cnt, bmax, quantized)
     n, f = bins.shape
     _check(row_slot, "row_slot", torch.int32, (n,))
-    hist = torch.zeros((num_slots, f, bmax, 3), dtype=torch.float32,
-                       device=bins.device)
+    hist = _hist_buffer(num_slots, f, bmax, quantized, bins.device)
     _cuda.call("build_histograms", bins.device, bins, grad, hess, cnt,
-               row_slot, hist, n, f, bmax, num_slots, int(bool(const_hess)))
-    build_histograms.launches += 1
-    return _fill_const_hess(hist, const_hess)
+               row_slot, hist, n, f, bmax, num_slots, int(bool(const_hess)),
+               int(quantized))
+    _count_launch(build_histograms, quantized)
+    return _hist_result(hist, quantized, const_hess)
 
 
 def node_values(row_node, values) -> torch.Tensor:
@@ -324,16 +418,55 @@ def node_values(row_node, values) -> torch.Tensor:
     return out
 
 
-_WRAPPERS = (fused_route_hist, route_rows, build_histograms, node_values)
-for _w in _WRAPPERS:
-    _w.launches = 0
+def _count_launch(wrapper, quantized: bool) -> None:
+    if quantized:
+        wrapper.launches_int += 1
+    else:
+        wrapper.launches += 1
+
+
+def node_sums(row_node, grad, hess, cnt, *, num_nodes: int) -> torch.Tensor:
+    """Exact per-node (sum grad, sum hess, sum count) as [num_nodes, 3]
+    f32; rows whose node is < 0 or >= num_nodes are ignored. The kernel's
+    sums are deterministic: fixed-point int64 accumulation (csrc/
+    node_sums.cu), within ~1e-13 of max|x| per row of the float64 sum.
+    Inputs must be finite."""
+    if _on_cpu(row_node, grad, hess, cnt):
+        return node_sums_ref(row_node, grad, hess, cnt, num_nodes=num_nodes)
+    n = row_node.shape[0]
+    _check(row_node, "row_node", torch.int32, (n,))
+    for t, name in ((grad, "grad"), (hess, "hess"), (cnt, "cnt")):
+        _check(t, name, torch.float32, (n,))
+    dev = row_node.device
+    out = torch.empty((num_nodes, 3), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out.zero_()
+    amax = torch.stack([torch.amax(torch.abs(t)) for t in (grad, hess, cnt)])
+    acc = torch.zeros((num_nodes, 3), dtype=torch.int64, device=dev)
+    _cuda.call("node_sums", dev, row_node, grad, hess, cnt, amax, acc, out,
+               n, num_nodes)
+    node_sums.launches += 1
+    return out
+
+
+_WRAPPERS = (fused_route_hist, route_rows, build_histograms, node_values,
+             node_sums)
+_INT_MODE = (fused_route_hist, build_histograms)
 
 
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches per wrapper since the last reset."""
-    return {w.__name__: w.launches for w in _WRAPPERS}
+    """Kernel launches per wrapper since the last reset; the histogram
+    wrappers count their integer-mode launches apart, as `<name>_int`."""
+    counts = {w.__name__: w.launches for w in _WRAPPERS}
+    counts.update({w.__name__ + "_int": w.launches_int for w in _INT_MODE})
+    return counts
 
 
 def reset_launch_counts() -> None:
     for w in _WRAPPERS:
         w.launches = 0
+    for w in _INT_MODE:
+        w.launches_int = 0
+
+
+reset_launch_counts()

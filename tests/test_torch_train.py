@@ -137,7 +137,7 @@ def test_train_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("extra", [
-    {"use_quantized_grad": True},
+    {"use_quantized_grad": True, "hist_backend": "pallas"},
     {"bagging_fraction": 0.5, "bagging_freq": 1},
     {"boosting": "goss"},
     {"feature_fraction": 0.5},
