@@ -5,21 +5,31 @@
 
 Builds the port's CUDA kernels from lightgbm_tpu_torch/csrc, holds each
 against its plain PyTorch version on the card at the shapes the training
-path gives it (1M rows x 28 features, 256 bins, up to 1024 tree nodes),
-in both histogram modes (f32, and the integer mode of quantized
-gradients), times it, then trains through lightgbm_tpu_torch's entry
-points along two paths, each with the launch counts reset before it and
-read after it:
+path gives it (1M rows x 28 features, 256 bins, up to 1024 tree nodes;
+15 bins for the 4-bit packed modes), in every mode the paths run (f32 and
+the integer mode of quantized gradients; unpacked and packed bins; route
+counts), times it, then trains through lightgbm_tpu_torch's entry points
+along four paths, each with the launch counts reset before it and read
+after it:
 
 - exact histograms: the Higgs-like binary configuration (num_leaves 255,
   max_bin 255), the same with min_data_in_leaf 1000 (which runs the
   fix-up passes) and the default regression objective;
-- quantized gradients (use_quantized_grad): the binary configuration, the
-  regression objective, and a 200-feature binary run whose wide passes
-  take route_rows + build_histograms in integer mode.
+- quantized gradients (use_quantized_grad, hist_backend pinned to mxu):
+  the binary configuration, the regression objective, and a 200-feature
+  binary run whose wide passes take route_rows + build_histograms in
+  integer mode;
+- the histogram backends on the binary configuration: quantized under
+  hist_backend pallas (route counts + the scatter kernel), scatter (the
+  segment-sum oracle) and auto (the autotune), each byte-equal to the mxu
+  run, and exact under pallas;
+- 4-bit packed bins (max_bin 15): exact and quantized under mxu, each
+  held to the same run on unpacked bins (exact: held-out AUC within
+  0.005; quantized: byte-equal), and quantized under auto and pallas.
 
-It checks what comes out, including that two identical quantized runs
-write the same model text. Every phase prints one JSON line; any failed
+It checks what comes out, including that every leaf of every tree holds
+-G/H of its rows' gradients and that two identical quantized runs write
+the same model text. Every phase prints one JSON line; any failed
 check raises, so the exit code is non-zero and no result line is printed.
 The last three lines are the kernel table (JSON), the card's name and
 power limit as nvidia-smi prints them, and the result
@@ -27,6 +37,7 @@ power limit as nvidia-smi prints them, and the result
 """
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -36,12 +47,15 @@ import numpy as np
 N_ROWS = 1_000_000
 N_FEATURES = 28
 BMAX = 256
+BMAX_PACKED = 15      # max_bin 15: every bin id fits a nibble
 M_NODES = 1024        # route-table rows at num_leaves 255, overshoot 2
 S_FUSED = 263         # kernel slots of the bridge pass (fused kernel)
 S_HIST = 511          # kernel slots of the fix-up passes (build_histograms)
+S_TUNE = 263          # the autotune's frontier: kernel cap of 511 scan slots
 M_REFIT = 510         # node_sums rows: the pruned 255-leaf tree's 2 x 255
 M_GROWN = 1020        # node ids of the overgrown (overshoot 2) tree
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, HBM3 peak rate
+LEAF_TOL = 1e-2       # a leaf value against -G/H of its rows' float64 sums
 F32_OPS_PER_S = 67e12         # H100 SXM, f32 outside the tensor cores
 TRAIN_PARAMS = {"objective": "binary", "num_leaves": 255,
                 "learning_rate": 0.1, "max_bin": 255,
@@ -51,7 +65,10 @@ REGRESSION_TREES = 3
 # leaves of >= 1000 rows: trees stop short of the 510-leaf overshoot budget
 # after the bridge pass and run the fix-up passes
 FIXUP_MIN_DATA = 1000
-QUANT_PARAMS = dict(TRAIN_PARAMS, use_quantized_grad=True)
+# the quantized path pins mxu: hist_backend=auto may move it off K1/K3
+QUANT_PARAMS = dict(TRAIN_PARAMS, use_quantized_grad=True, hist_backend="mxu")
+BACKEND_TREES = 3     # scatter-oracle and exact-pallas runs
+PACKED_PARAMS = dict(TRAIN_PARAMS, max_bin=BMAX_PACKED)
 # wide data: the quantized fused kernel's working set no longer fits from
 # about 100 slots up, so those passes take route_rows + build_histograms
 WIDE_ROWS, WIDE_FEATURES, WIDE_TREES = 100_000, 200, 3
@@ -59,6 +76,18 @@ EXACT_PATH = ("fused_route_hist", "route_rows", "build_histograms",
               "node_values")
 QUANT_PATH = ("fused_route_hist_int", "route_rows", "build_histograms_int",
               "node_values", "node_sums")
+BACKEND_PATH = ("route_rows_counts", "build_histograms_scatter_int",
+                "build_histograms_scatter", "build_histograms_int")
+PACKED_PATH = ("fused_route_hist_packed", "fused_route_hist_int_packed",
+               "route_rows_packed", "route_rows_counts_packed",
+               "build_histograms_int_packed",
+               "build_histograms_scatter_int_packed")
+# the path whose counts a kernel row reports
+ROW_PATH = {**dict.fromkeys(EXACT_PATH, "exact"),
+            **dict.fromkeys(("fused_route_hist_int", "build_histograms_int",
+                             "node_sums"), "quantized"),
+            **dict.fromkeys(BACKEND_PATH[:3], "backends"),
+            **dict.fromkeys(PACKED_PATH, "packed")}
 
 
 def make_higgs_like(n, f, seed=17):
@@ -111,26 +140,29 @@ def time_ms(torch, fn, reps):
     return float(np.median(times))
 
 
-def kernel_inputs(torch, hm, rng_mod, dev):
-    """One growth pass's inputs at the slice's shapes: random bins, a
-    1024-node split table with numerical, NaN-bin and categorical splits,
-    rows spread over its nodes, and the gradients quantized to int8."""
+def kernel_inputs(torch, hm, rng_mod, dev, bmax=BMAX, n_rows=N_ROWS,
+                  n_features=N_FEATURES):
+    """One growth pass's inputs at the slice's shapes: random bins below
+    bmax, a 1024-node split table with numerical, NaN-bin and categorical
+    splits, rows spread over its nodes, and the gradients quantized to
+    int8."""
     rng = np.random.RandomState(7)
-    num_bins = np.full(N_FEATURES, BMAX, np.int32)
-    num_bins[[3, 9]] = 64                    # NaN-bin features
-    num_bins[[5, 11]] = 40                   # categorical features
-    missing_is_nan = np.zeros(N_FEATURES, bool)
+    num_bins = np.full(n_features, bmax, np.int32)
+    num_bins[[3, 9]] = min(64, bmax)         # NaN-bin features
+    num_bins[[5, 11]] = min(40, bmax)        # categorical features
+    missing_is_nan = np.zeros(n_features, bool)
     missing_is_nan[[3, 9, 5, 11]] = True
-    is_cat_feat = np.zeros(N_FEATURES, bool)
+    is_cat_feat = np.zeros(n_features, bool)
     is_cat_feat[[5, 11]] = True
-    bins = (rng.rand(N_ROWS, N_FEATURES) * num_bins).astype(np.uint8)
+    bins = (rng.rand(n_rows, n_features) * num_bins).astype(np.uint8)
     m1 = M_NODES - 4
     split = rng.rand(m1) < 0.6
-    feat = rng.randint(0, N_FEATURES, m1)
+    feat = rng.randint(0, n_features, m1)
     feat[:64] = 3
+    feat[64:128] = n_features - 1            # packed: a high-nibble feature
     is_cat = is_cat_feat[feat]
     thr = (rng.rand(m1) * (num_bins[feat] - 1)).astype(np.int32)
-    words = (BMAX + 31) // 32
+    words = (bmax + 31) // 32
     bitset = rng.randint(0, 2 ** 32, (m1, words), dtype=np.uint64) \
         .astype(np.int64)
     bitset[~is_cat] = 0
@@ -149,16 +181,16 @@ def kernel_inputs(torch, hm, rng_mod, dev):
                            dim=1).contiguous()
     values = rng.randn(M_NODES).astype(np.float32)
     values[M_NODES - 1] = np.nan             # never referenced, as scratch
-    grad = t(rng.randn(N_ROWS).astype(np.float32))
-    hess = t(rng.uniform(0.1, 1.0, N_ROWS).astype(np.float32))
+    grad = t(rng.randn(n_rows).astype(np.float32))
+    hess = t(rng.uniform(0.1, 1.0, n_rows).astype(np.float32))
     g_q, h_q, _, _ = hm.quantize_gradients(grad, hess,
                                            rng_mod.PRNGKey(1, dev))
     return dict(
         bins=t(bins), grad=grad, hess=hess,
         g_q=g_q.to(torch.int8), h_q=h_q.to(torch.int8),
-        cnt=torch.ones(N_ROWS, dtype=torch.float32, device=dev),
-        row_node=t(rng.randint(0, m1, N_ROWS), torch.int32),
-        row_slot=t(rng.randint(-1, S_HIST, N_ROWS), torch.int32),
+        cnt=torch.ones(n_rows, dtype=torch.float32, device=dev),
+        row_node=t(rng.randint(0, m1, n_rows), torch.int32),
+        row_slot=t(rng.randint(-1, S_HIST, n_rows), torch.int32),
         tbl=tbl, member=member, feat_tbl=feat_tbl, values=t(values),
         split=t(split))
 
@@ -173,7 +205,22 @@ def hist_err(torch, got, ref):
         1e-4 * max(scale, 1.0)
 
 
-def kernel_phase(torch, hm, rng_mod, dev):
+def index_add_ms(torch, bins, slot, cols, num_slots, bmax):
+    """The library yardstick of a histogram kernel: one index_add_ of the
+    rows' channels `cols` ([N, 3], f32 or int32) over the flattened
+    (slot, feature, bin) cells of the rows whose slot is in range."""
+    f = bins.shape[1]
+    valid = torch.nonzero((slot >= 0) & (slot < num_slots))[:, 0]
+    cells = ((slot[valid].long()[:, None] * f +
+              torch.arange(f, device=bins.device)[None, :]) * bmax +
+             bins[valid].long()).reshape(-1)
+    vals = cols[valid][:, None].expand(-1, f, 3).reshape(-1, 3).contiguous()
+    flat = torch.zeros((num_slots * f * bmax, 3), dtype=cols.dtype,
+                       device=bins.device)
+    return time_ms(torch, lambda: flat.index_add_(0, cells, vals), 20)
+
+
+def kernel_phase(torch, hm, hp, rng_mod, dev):
     d = kernel_inputs(torch, hm, rng_mod, dev)
     bins, grad, hess, cnt = d["bins"], d["grad"], d["hess"], d["cnt"]
     g_q, h_q = d["g_q"], d["h_q"]
@@ -251,20 +298,12 @@ def kernel_phase(torch, hm, rng_mod, dev):
     err, cnt_ok, tol = hist_err(torch, h, h_ref)
     check(cnt_ok, "build_histograms count channel differs")
     check(err <= tol, f"build_histograms grad/hess error {err} > {tol}")
-    # yardstick: one index_add_ over the same flattened cells
-    valid = torch.nonzero(rslot >= 0)[:, 0]
-    cells = ((rslot[valid].long()[:, None] * f +
-              torch.arange(f, device=dev)[None, :]) * BMAX +
-             bins[valid].long()).reshape(-1)
-    vals = torch.stack([grad[valid], hess[valid], cnt[valid]], 1)[:, None] \
-        .expand(-1, f, 3).reshape(-1, 3).contiguous()
-    flat = torch.zeros((S_HIST * f * BMAX, 3), device=dev)
-    n_slot = int(valid.numel())
+    n_slot = int((rslot >= 0).sum())
     row("build_histograms", "lightgbm_tpu/learner/histogram_mxu.py:472",
         err, time_ms(torch, k3, 20), time_ms(torch, k3_ref, 3),
         4 * n + n_slot * (f + 12) + h.numel() * 4, n_slot * f * 3,
-        time_ms(torch, lambda: flat.index_add_(0, cells, vals), 20))
-    del cells, vals, flat
+        index_add_ms(torch, bins, rslot, torch.stack([grad, hess, cnt], 1),
+                     S_HIST, BMAX))
 
     # K1 and K3 in integer mode (quantized int8 gradients, int32 cells):
     # order-free sums, so the kernels equal their plain versions exactly
@@ -298,21 +337,16 @@ def kernel_phase(torch, hm, rng_mod, dev):
     h, h_ref = k3q(), k3q_ref()
     check(torch.equal(h, h_ref),
           "build_histograms integer mode differs from its plain version")
-    # yardstick: one index_add_ of int32 (g_q, h_q, count) over the cells
-    cells = ((rslot[valid].long()[:, None] * f +
-              torch.arange(f, device=dev)[None, :]) * BMAX +
-             bins[valid].long()).reshape(-1)
-    vals = torch.stack([g_q[valid].int(), h_q[valid].int(),
-                        cnt[valid].int()], 1)[:, None] \
-        .expand(-1, f, 3).reshape(-1, 3).contiguous()
-    flat = torch.zeros((S_HIST * f * BMAX, 3), dtype=torch.int32, device=dev)
-    n_slot = int(valid.numel())
     row("build_histograms_int", "lightgbm_tpu/learner/histogram_mxu.py:472",
         0.0, time_ms(torch, k3q, 20), time_ms(torch, k3q_ref, 3),
         4 * n + n_slot * (f + 6) + h.numel() * 4, n_slot * f * 3,
-        time_ms(torch, lambda: flat.index_add_(0, cells, vals), 20),
+        index_add_ms(torch, bins, rslot, torch.stack(
+            [g_q.int(), h_q.int(), cnt.int()], 1), S_HIST, BMAX),
         source="build_histograms")
-    del cells, vals, flat, h, h_ref
+    del h, h_ref
+
+    backend_rows(torch, hm, hp, rng_mod, d, row, dev)
+    packed_rows(torch, hm, hp, rng_mod, dev, row)
 
     # K6 node_values: the score update's gather over 1024 node values
     v = d["values"]
@@ -365,21 +399,243 @@ def kernel_phase(torch, hm, rng_mod, dev):
     return rows
 
 
-def train_booster(torch, lgt, hm, ds, params, trees, metric):
+def backend_rows(torch, hm, hp, rng_mod, d, row, dev):
+    """K2's counts mode and K7 (the slot-grouped scatter kernel) at the
+    hist_backend=pallas path's shapes: 1M x 28 rows routed into the
+    autotune's 263 slots, the route counts handed to K7; K7 also at the
+    wide shape (100k x 200, 256 bins: its 86 KB-a-chunk shared-memory
+    histogram takes 7 feature chunks)."""
+    bins, route, cnt = d["bins"], (d["tbl"], d["member"], d["feat_tbl"]), \
+        d["cnt"]
+    n, f = bins.shape
+    node_split = d["split"][d["row_node"].long()]
+    n_routed = int(node_split.sum())
+    table_bytes = d["tbl"].numel() * 4 + d["member"].numel() * 4
+
+    def k2c():
+        return hm.route_rows(bins, d["row_node"], *route, emit_counts=True,
+                             num_slots=S_TUNE)
+
+    def k2c_ref():
+        return hm.route_rows_ref(bins, d["row_node"], *route,
+                                 emit_counts=True, num_slots=S_TUNE)
+    got, (_, slot, counts) = k2c(), k2c_ref()
+    check(all(torch.equal(a, b) for a, b in zip(got, (_, slot, counts))),
+          "route_rows counts mode differs from its plain version")
+    check(int(counts.sum()) == int(((slot >= 0) & (slot < S_TUNE)).sum()),
+          "route counts do not add up to the slotted rows")
+    row("route_rows_counts", "lightgbm_tpu/learner/histogram_mxu.py:1065",
+        0.0, time_ms(torch, k2c, 20), time_ms(torch, k2c_ref, 5),
+        12 * n + n_routed + table_bytes + 4 * S_TUNE, 0, None,
+        source="route_rows")
+
+    def scatter(dd, sl, cts, quantized):
+        """K7 against its plain version: (max abs error, ms, plain ms)."""
+        g, h = (dd["g_q"], dd["h_q"]) if quantized else \
+            (dd["grad"], dd["hess"])
+        kw = dict(num_slots=S_TUNE, bmax=BMAX, quantized=quantized,
+                  slot_counts=cts)
+
+        def k7():
+            return hp.build_histograms_scatter(dd["bins"], g, h, dd["cnt"],
+                                               sl, **kw)
+
+        def k7_ref():
+            return hp.build_histograms_scatter_ref(dd["bins"], g, h,
+                                                   dd["cnt"], sl, **kw)
+        got, want = k7(), k7_ref()
+        if quantized:
+            err = float((got - want).abs().max())
+            check(torch.equal(got, want), "build_histograms_scatter integer "
+                  "mode differs from its plain version")
+        else:
+            err, cnt_ok, tol = hist_err(torch, got, want)
+            check(cnt_ok, "build_histograms_scatter count channel differs")
+            check(err <= tol, f"build_histograms_scatter error {err} > {tol}")
+        # the per-row histogram of the same rows, in the other backend
+        check(torch.equal(got[..., 2], hm.build_histograms_ref(
+            dd["bins"], g, h, dd["cnt"], sl, num_slots=S_TUNE, bmax=BMAX,
+            quantized=quantized)[..., 2]), "K7 counts differ from K3's")
+        return err, time_ms(torch, k7, 20), time_ms(torch, k7_ref, 3)
+
+    n_slot = int(((slot >= 0) & (slot < S_TUNE)).sum())
+    emit("kernel_detail", name="partition_rows",
+         ms=time_ms(torch, lambda: hp.partition_rows(
+             slot, num_slots=S_TUNE, row_block=1024, counts=counts), 20),
+         what="the partition inside build_histograms_scatter (route "
+              "counts given), 1M rows, 263 slots")
+    for quantized, name, chan_bytes, cols in (
+            (True, "build_histograms_scatter_int", 6,
+             torch.stack([d["g_q"].int(), d["h_q"].int(), cnt.int()], 1)),
+            (False, "build_histograms_scatter", 12,
+             torch.stack([d["grad"], d["hess"], cnt], 1))):
+        err, ms, plain_ms = scatter(d, slot, counts, quantized)
+        row(name, "lightgbm_tpu/learner/histogram_pallas.py:211", err, ms,
+            plain_ms, 4 * n + n_slot * (f + chan_bytes) +
+            S_TUNE * f * BMAX * 12, n_slot * f * 3,
+            index_add_ms(torch, bins, slot, cols, S_TUNE, BMAX),
+            source="build_histograms_scatter")
+
+    # the wide shape: 200 features, 7 shared-memory feature chunks
+    dw = kernel_inputs(torch, hm, rng_mod, dev, n_rows=WIDE_ROWS,
+                       n_features=WIDE_FEATURES)
+    _, wslot, wcounts = hm.route_rows(
+        dw["bins"], dw["row_node"], dw["tbl"], dw["member"], dw["feat_tbl"],
+        emit_counts=True, num_slots=S_TUNE)
+    for quantized in (True, False):
+        err, ms, plain_ms = scatter(dw, wslot, wcounts, quantized)
+        emit("kernel_check", name="build_histograms_scatter" +
+             ("_int" if quantized else ""), rows=WIDE_ROWS,
+             features=WIDE_FEATURES, slots=S_TUNE, max_abs_err=err, ms=ms,
+             plain_ms=plain_ms)
+    del dw
+
+
+def packed_rows(torch, hm, hp, rng_mod, dev, row):
+    """The 4-bit packed modes of K1, K2 (plain and counts), K4 (behind
+    build_histograms_auto) and K7 at the max_bin 15 path's shapes: 1M rows
+    x 28 features packed into 14 bytes a row, 15 bins."""
+    d = kernel_inputs(torch, hm, rng_mod, dev, bmax=BMAX_PACKED)
+    n, f = d["bins"].shape
+    pk = torch.as_tensor(hm.pack_bins_4bit(d["bins"].cpu().numpy()),
+                         device=dev)
+    check(tuple(pk.shape) == (n, (f + 1) // 2), "packed width")
+    fh = pk.shape[1]
+    route = (d["tbl"], d["member"], d["feat_tbl"])
+    rnode, cnt = d["row_node"], d["cnt"]
+    node_split = d["split"][rnode.long()]
+    n_routed = int(node_split.sum())
+    table_bytes = d["tbl"].numel() * 4 + d["member"].numel() * 4
+    src = "lightgbm_tpu/learner/histogram_mxu.py"
+
+    for counts_mode in (False, True):
+        kw = dict(num_features=f, emit_counts=counts_mode, num_slots=S_TUNE)
+
+        def k2p():
+            return hm.route_rows(pk, rnode, *route, **kw)
+
+        def k2p_ref():
+            return hm.route_rows_ref(pk, rnode, *route, **kw)
+        got, want = k2p(), k2p_ref()
+        check(all(torch.equal(a, b) for a, b in zip(got, want)) and
+              all(torch.equal(a, b) for a, b in zip(want, hm.route_rows_ref(
+                  d["bins"], rnode, *route, emit_counts=counts_mode,
+                  num_slots=S_TUNE))),
+              f"route_rows packed (counts={counts_mode}) differs")
+        row("route_rows" + "_counts" * counts_mode + "_packed",
+            src + ":1065", 0.0, time_ms(torch, k2p, 20),
+            time_ms(torch, k2p_ref, 3),
+            12 * n + n_routed + table_bytes + 4 * S_TUNE * counts_mode, 0,
+            None, source="route_rows")
+    _, slot, counts = want
+
+    for quantized in (False, True):
+        g, h = (d["g_q"], d["h_q"]) if quantized else (d["grad"], d["hess"])
+        kw = dict(num_slots=S_FUSED, bmax=BMAX_PACKED, quantized=quantized,
+                  num_features=f)
+
+        def k1p():
+            return hm.fused_route_hist(pk, g, h, cnt, rnode, *route, **kw)
+
+        def k1p_ref():
+            return hm.fused_route_hist_ref(pk, g, h, cnt, rnode, *route,
+                                           **kw)
+        (hist, rn), (h_ref, rn_ref) = k1p(), k1p_ref()
+        check(torch.equal(rn, rn_ref), "fused_route_hist packed routing")
+        if quantized:
+            err = 0.0
+            check(torch.equal(hist, h_ref),
+                  "fused_route_hist packed integer mode differs")
+        else:
+            err, cnt_ok, tol = hist_err(torch, hist, h_ref)
+            check(cnt_ok and err <= tol,
+                  f"fused_route_hist packed error {err} > {tol}")
+        n_slot = int(((slot >= 0) & (slot < S_FUSED)).sum())
+        chan = 6 if quantized else 12
+        row("fused_route_hist" + "_int" * quantized + "_packed",
+            src + ":785", err, time_ms(torch, k1p, 20),
+            time_ms(torch, k1p_ref, 3),
+            8 * n + n_routed + n_slot * (fh + chan) + hist.numel() * 4 +
+            table_bytes, n_slot * f * 3, None, source="fused_route_hist")
+
+    # K4 (the v2 kernel's function on packed bins) and K7, integer mode,
+    # at the autotune's 263 slots: what hist_backend=auto times
+    n_slot = int(((slot >= 0) & (slot < S_TUNE)).sum())
+    cols = torch.stack([d["g_q"].int(), d["h_q"].int(), cnt.int()], 1)
+    lib = index_add_ms(torch, d["bins"], slot, cols, S_TUNE, BMAX_PACKED)
+    check(hm.fits_v2(S_TUNE, f, BMAX_PACKED, True),
+          "the packed K4 shape does not take the v2 kernel")
+    kw = dict(num_slots=S_TUNE, bmax=BMAX_PACKED, quantized=True,
+              num_features=f)
+    want = hm.build_histograms_ref(d["bins"], d["g_q"], d["h_q"], cnt, slot,
+                                   num_slots=S_TUNE, bmax=BMAX_PACKED,
+                                   quantized=True)
+    for name, fn, fn_ref, replaces in (
+            ("build_histograms_int_packed", hm.build_histograms_auto,
+             hm.build_histograms_ref, src + ":608"),
+            ("build_histograms_scatter_int_packed",
+             lambda *a, **k: hp.build_histograms_scatter(
+                 *a, slot_counts=counts, **k),
+             lambda *a, **k: hp.build_histograms_scatter_ref(
+                 *a, slot_counts=counts, **k),
+             "lightgbm_tpu/learner/histogram_pallas.py:211")):
+        def k():
+            return fn(pk, d["g_q"], d["h_q"], cnt, slot, **kw)
+
+        def k_ref():
+            return fn_ref(pk, d["g_q"], d["h_q"], cnt, slot, **kw)
+        got = k()
+        check(torch.equal(got, k_ref()) and torch.equal(got, want),
+              f"{name} differs from its plain version or from unpacked bins")
+        row(name, replaces, 0.0, time_ms(torch, k, 20),
+            time_ms(torch, k_ref, 3),
+            4 * n + n_slot * (fh + 6) + got.numel() * 4, n_slot * f * 3,
+            lib, source=name.replace("_int_packed", ""))
+
+
+def train_booster(name, torch, lgt, hm, ds, params, trees, metric):
     """Train `trees` iterations on a constructed Dataset; returns the
     booster, the training seconds, the metric after every tree and the
-    kernel launches this run added."""
+    kernel launches this run added. Then holds every leaf of every tree to
+    -G/H of the rows it holds (float64 sums of that tree's gradients; the
+    configurations here have no regularisation of leaf values), within
+    LEAF_TOL, and prints the largest difference as the phase `leaf_check`
+    of run `name`."""
     booster = lgt.Booster(params, ds)
+    gbdt = booster.gbdt
+    grown = []
+    grow = gbdt._grow
+
+    def kept_grow(grad, hess):
+        tree, row_node = grow(grad, hess)
+        grown.append((tree.leaf_value, row_node, grad, hess))
+        return tree, row_node
+    gbdt._grow = kept_grow
     before = hm.launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     values = []
     for _ in range(trees):
         booster.update()
-        values.append(float(metric(booster.gbdt.train_score)))
+        values.append(float(metric(gbdt.train_score)))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {k: v - before[k] for k, v in hm.launch_counts().items()}
+    del gbdt._grow
+    errs, biggest = [], 0.0
+    for leaf_value, row_node, grad, hess in grown:
+        node = row_node.long()
+        rows = torch.stack([grad, hess, torch.ones_like(grad)], 1).double()
+        sums = torch.zeros((leaf_value.shape[0], 3), dtype=torch.float64,
+                           device=node.device).index_add_(0, node, rows)
+        leaf = sums[:, 2] > 0
+        want = -sums[leaf, 0] / sums[leaf, 1]
+        errs.append(float((leaf_value.double()[leaf] - want).abs().max()))
+        biggest = max(biggest, float(leaf_value[leaf].abs().max()))
+    emit("leaf_check", run=name, max_leaf_err=max(errs),
+         max_leaf_err_per_tree=errs, max_abs_leaf_value=biggest)
+    check(max(errs) <= LEAF_TOL, f"{name}: a leaf value is {max(errs)} off "
+          "-G/H of its rows")
     return booster, seconds, values, launches
 
 
@@ -406,7 +662,7 @@ def main_path(torch, lgt, hm, X, y):
 
     hm.reset_launch_counts()
     booster, train_s, losses, launches = train_booster(
-        torch, lgt, hm, ds, TRAIN_PARAMS, TRAIN_TREES, logloss)
+        "train", torch, lgt, hm, ds, TRAIN_PARAMS, TRAIN_TREES, logloss)
     emit("train", rows=N_ROWS, features=N_FEATURES, trees=TRAIN_TREES,
          binning_s=binning_s, train_s=train_s,
          trees_per_s=TRAIN_TREES / train_s, launches=launches,
@@ -417,7 +673,7 @@ def main_path(torch, lgt, hm, X, y):
 
     fix_params = dict(TRAIN_PARAMS, min_data_in_leaf=FIXUP_MIN_DATA)
     _, fix_s, fix_losses, fix_launches = train_booster(
-        torch, lgt, hm, ds, fix_params, TRAIN_TREES, logloss)
+        "train_fixups", torch, lgt, hm, ds, fix_params, TRAIN_TREES, logloss)
     emit("train_fixups", min_data_in_leaf=FIXUP_MIN_DATA,
          trees=TRAIN_TREES, train_s=fix_s,
          trees_per_s=TRAIN_TREES / fix_s, launches=fix_launches,
@@ -432,7 +688,7 @@ def main_path(torch, lgt, hm, X, y):
     reg_ds = lgt.Dataset(X, label=y_reg, params=reg_params)
     label = torch.as_tensor(y_reg, device=dev)
     reg, reg_s, l2, reg_launches = train_booster(
-        torch, lgt, hm, reg_ds, reg_params, REGRESSION_TREES,
+        "regression", torch, lgt, hm, reg_ds, reg_params, REGRESSION_TREES,
         lambda score: ((score - label) ** 2).mean())
     emit("regression", trees=REGRESSION_TREES, train_s=reg_s,
          trees_per_s=REGRESSION_TREES / reg_s, launches=reg_launches, l2=l2,
@@ -457,7 +713,8 @@ def quantized_path(torch, lgt, hm, X, y, ds, reg_ds):
     logloss = logloss_of(torch, y)
     hm.reset_launch_counts()
     booster, train_s, losses, launches = train_booster(
-        torch, lgt, hm, ds, QUANT_PARAMS, TRAIN_TREES, logloss)
+        "train_quantized", torch, lgt, hm, ds, QUANT_PARAMS, TRAIN_TREES,
+        logloss)
     emit("train_quantized", rows=N_ROWS, features=N_FEATURES,
          trees=TRAIN_TREES, train_s=train_s,
          trees_per_s=TRAIN_TREES / train_s, launches=launches,
@@ -469,7 +726,8 @@ def quantized_path(torch, lgt, hm, X, y, ds, reg_ds):
     reg_params = {k: v for k, v in QUANT_PARAMS.items() if k != "objective"}
     label = torch.as_tensor(reg_ds.label, device="cuda")
     reg, reg_s, l2, reg_launches = train_booster(
-        torch, lgt, hm, reg_ds, reg_params, REGRESSION_TREES,
+        "regression_quantized", torch, lgt, hm, reg_ds, reg_params,
+        REGRESSION_TREES,
         lambda score: ((score - label) ** 2).mean())
     emit("regression_quantized", trees=REGRESSION_TREES, train_s=reg_s,
          trees_per_s=REGRESSION_TREES / reg_s, launches=reg_launches, l2=l2,
@@ -485,7 +743,8 @@ def quantized_path(torch, lgt, hm, X, y, ds, reg_ds):
     wide_ds.construct()
     wide_binning_s = time.perf_counter() - t0
     _, wide_s, wide_losses, wide_launches = train_booster(
-        torch, lgt, hm, wide_ds, QUANT_PARAMS, WIDE_TREES,
+        "train_quantized_wide", torch, lgt, hm, wide_ds, QUANT_PARAMS,
+        WIDE_TREES,
         logloss_of(torch, yw))
     emit("train_quantized_wide", rows=WIDE_ROWS, features=WIDE_FEATURES,
          trees=WIDE_TREES, binning_s=wide_binning_s, train_s=wide_s,
@@ -506,12 +765,174 @@ def quantized_path(torch, lgt, hm, X, y, ds, reg_ds):
     return booster, counts
 
 
+def model_trees(text):
+    """Model text up to its trees' end, the hist_backend and bin_pack_4bit
+    echoes dropped: the lines that differ between runs of the same trees
+    under other backends or storage (the feature importances after the
+    trees count every tree of the run)."""
+    return "\n".join(line for line in text.split("end of trees")[0]
+                     .splitlines()
+                     if not line.startswith(("[hist_backend:",
+                                             "[bin_pack_4bit:")))
+
+
+def held_out_auc(booster, num_iteration=None):
+    Xva, yva = make_higgs_like(40_000, N_FEATURES, seed=99)
+    return auc(booster.predict(Xva, raw_score=True,
+                               num_iteration=num_iteration), yva)
+
+
+def backends_path(torch, lgt, hm, X, y, ds, mxu_q, mxu_exact):
+    """The histogram backends on the binary configuration at 1M x 28:
+    quantized under hist_backend pallas (10 trees: every pass routes with
+    counts and builds with the scatter kernel), scatter (3 trees: the
+    segment-sum oracle) and auto (10 trees: the autotune at 263 slots
+    picks mxu or pallas), each byte-equal in its trees to the quantized
+    mxu run `mxu_q`; exact under pallas (3 trees), whose held-out AUC must
+    be within 0.005 of the exact mxu run `mxu_exact` at 3 trees. Returns
+    the launch counts."""
+    logloss = logloss_of(torch, y)
+    want = model_trees(mxu_q.model_to_string())
+    want3 = model_trees(mxu_q.model_to_string(num_iteration=BACKEND_TREES))
+    hm.reset_launch_counts()
+    for backend, trees, want_text in (("pallas", TRAIN_TREES, want),
+                                      ("scatter", BACKEND_TREES, want3),
+                                      ("auto", TRAIN_TREES, want)):
+        params = dict(QUANT_PARAMS, hist_backend=backend)
+        booster, train_s, losses, launches = train_booster(
+            "train_quantized_" + backend, torch, lgt, hm, ds, params, trees,
+            logloss)
+        tune = booster.gbdt._hist_autotune
+        equal = model_trees(booster.model_to_string()) == want_text
+        emit("train_quantized_" + backend, trees=trees, train_s=train_s,
+             trees_per_s=trees / train_s, launches=launches, logloss=losses,
+             resolved=tune["choice"], autotune_ms=tune["timings_ms"],
+             model_txt_byte_equal_to_mxu=equal)
+        check(equal, f"hist_backend={backend} model.txt differs from mxu")
+        check(all(b < a for a, b in zip(losses, losses[1:])),
+              f"{backend} quantized logloss did not fall: {losses}")
+        if backend == "auto":
+            # a backend that fails inside the autotune times as +inf
+            check(tune["autotuned"] and set(tune["timings_ms"]) ==
+                  {"mxu", "pallas"} and all(map(
+                      math.isfinite, tune["timings_ms"].values())),
+                  f"auto did not time both backends: {tune}")
+            continue
+        check(tune["choice"] == backend and launches["route_rows_counts"] >
+              0 and launches["fused_route_hist_int"] == 0,
+              f"{backend}: passes did not route with counts: {launches}")
+        check((launches["build_histograms_scatter_int"] > 0) ==
+              (backend == "pallas"), f"{backend}: K7 launches {launches}")
+
+    params = dict(TRAIN_PARAMS, hist_backend="pallas")
+    booster, train_s, losses, launches = train_booster(
+        "train_exact_pallas", torch, lgt, hm, ds, params, BACKEND_TREES,
+        logloss)
+    got_auc = held_out_auc(booster)
+    want_auc = held_out_auc(mxu_exact, BACKEND_TREES)
+    emit("train_exact_pallas", trees=BACKEND_TREES, train_s=train_s,
+         trees_per_s=BACKEND_TREES / train_s, launches=launches,
+         logloss=losses, held_out_auc=got_auc, mxu_held_out_auc=want_auc)
+    check(launches["build_histograms_scatter"] > 0,
+          "exact pallas run launched no f32 scatter kernel")
+    check(all(b < a for a, b in zip(losses, losses[1:])),
+          f"exact pallas logloss did not fall: {losses}")
+    check(abs(got_auc - want_auc) <= 0.005,
+          f"exact pallas AUC {got_auc} vs mxu {want_auc}")
+    counts = hm.launch_counts()
+    for name in BACKEND_PATH:
+        check(counts[name] > 0, f"{name} was not launched on the backends "
+              "path")
+    return counts
+
+
+def packed_path(torch, lgt, hm, X, y):
+    """4-bit packed bins: the binary configuration at max_bin 15 (1M x 28,
+    packed into 14 bytes a row), exact and quantized under mxu (10 trees
+    each), each held to the same run on unpacked bins (bin_pack_4bit
+    false): the exact run's held-out AUC within 0.005, the quantized run
+    byte-equal; then quantized under auto and pallas (3 trees each),
+    byte-equal in their trees. Returns the launch counts of the packed
+    runs."""
+    t0 = time.perf_counter()
+    ds = lgt.Dataset(X, label=y, params=PACKED_PARAMS)
+    ds.construct()
+    binning_s = time.perf_counter() - t0
+    logloss = logloss_of(torch, y)
+    quant = dict(PACKED_PARAMS, use_quantized_grad=True, hist_backend="mxu")
+    hm.reset_launch_counts()
+    runs = {}
+    for name, params, trees in (
+            ("train_packed", PACKED_PARAMS, TRAIN_TREES),
+            ("train_packed_quantized", quant, TRAIN_TREES),
+            ("train_packed_quantized_auto", dict(quant, hist_backend="auto"),
+             BACKEND_TREES),
+            ("train_packed_quantized_pallas",
+             dict(quant, hist_backend="pallas"), BACKEND_TREES)):
+        booster, train_s, losses, launches = train_booster(
+            name, torch, lgt, hm, ds, params, trees, logloss)
+        g = booster.gbdt
+        runs[name] = booster
+        emit(name, trees=trees, binning_s=binning_s, train_s=train_s,
+             trees_per_s=trees / train_s, launches=launches, logloss=losses,
+             bin_bytes_per_row=g.bins.shape[1],
+             resolved=g._hist_autotune["choice"],
+             autotune_ms=g._hist_autotune["timings_ms"])
+        check(g._packed4 and tuple(g.bins.shape) == (N_ROWS, 14),
+              f"{name}: bins not packed: {tuple(g.bins.shape)}")
+        check(all(map(math.isfinite,
+                      g._hist_autotune["timings_ms"].values())),
+              f"{name}: autotune timings {g._hist_autotune}")
+        check(all(b < a for a, b in zip(losses, losses[1:])),
+              f"{name} logloss did not fall every tree: {losses}")
+    counts = hm.launch_counts()
+
+    unpacked, _, _, _ = train_booster(
+        "train_packed_quantized_unpacked", torch, lgt, hm, ds,
+        dict(quant, bin_pack_4bit=False), TRAIN_TREES, logloss)
+    check(not unpacked.gbdt._packed4, "bin_pack_4bit=false packed the bins")
+    # exact growth adds with atomics in an order that varies, so packed and
+    # unpacked storage are held to each other by quality, not bytes
+    exact_unpacked, _, unpacked_losses, _ = train_booster(
+        "train_packed_unpacked", torch, lgt, hm, ds,
+        dict(PACKED_PARAMS, bin_pack_4bit=False), TRAIN_TREES, logloss)
+    check(not exact_unpacked.gbdt._packed4,
+          "bin_pack_4bit=false packed the exact run's bins")
+    check(all(b < a for a, b in zip(unpacked_losses, unpacked_losses[1:])),
+          f"exact unpacked logloss did not fall every tree: "
+          f"{unpacked_losses}")
+    exact_auc = {"packed": held_out_auc(runs["train_packed"]),
+                 "unpacked": held_out_auc(exact_unpacked)}
+    q = runs["train_packed_quantized"]
+    want3 = model_trees(q.model_to_string(num_iteration=BACKEND_TREES))
+    equal = {
+        "unpacked": model_trees(unpacked.model_to_string()) ==
+        model_trees(q.model_to_string()),
+        "auto": model_trees(runs["train_packed_quantized_auto"]
+                            .model_to_string()) == want3,
+        "pallas": model_trees(runs["train_packed_quantized_pallas"]
+                              .model_to_string()) == want3}
+    emit("packed_check", model_txt_byte_equal_to_packed_mxu=equal,
+         exact_held_out_auc=exact_auc,
+         exact_unpacked_logloss=unpacked_losses,
+         quantized_held_out_auc=held_out_auc(q))
+    for what, ok in equal.items():
+        check(ok, f"packed quantized model.txt differs from {what}")
+    check(abs(exact_auc["packed"] - exact_auc["unpacked"]) <= 0.005,
+          f"exact packed vs unpacked held-out AUC {exact_auc}")
+    for name in PACKED_PATH:
+        check(counts[name] > 0, f"{name} was not launched on the packed "
+              "path")
+    return counts
+
+
 def check_outputs(torch, lgt, booster, ds, X, params=TRAIN_PARAMS,
                   phase="train_check"):
     """Host model against the device scores, held-out AUC, model text
     round trip, and whether a second identical run writes the same bytes
-    (exact histograms: f32 atomics add in a different order from run to
-    run). Returns (held-out AUC, byte-equal?)."""
+    (exact histograms: float64 atomics add in a different order from run
+    to run, which rounding to f32 once usually hides). Returns (held-out
+    AUC, byte-equal?)."""
     t0 = time.perf_counter()
     host = booster.predict(X, raw_score=True)
     predict_s = time.perf_counter() - t0
@@ -539,7 +960,7 @@ def cross_device_phase(lgt):
     the card (the main path's data has neither), held against the same
     training on the CPU (the kernels' plain versions): the card's model
     must agree with its own device scores; whether its trees equal the
-    CPU's is printed (f32 atomics may flip a near-tied split)."""
+    CPU's is printed (the order of atomics may flip a near-tied split)."""
     rng = np.random.RandomState(5)
     n = 100_000
     X = rng.randn(n, 10).astype(np.float32)
@@ -577,6 +998,7 @@ def main():
     from lightgbm_tpu_torch import rng
     from lightgbm_tpu_torch.learner import _cuda
     from lightgbm_tpu_torch.learner import histogram_mxu as hm
+    from lightgbm_tpu_torch.learner import histogram_pallas as hp
 
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -592,21 +1014,28 @@ def main():
     emit("build", seconds=time.perf_counter() - t0,
          libraries=sorted(p.name for p in libs.values()))
 
-    rows = kernel_phase(torch, hm, rng, dev)
+    rows = kernel_phase(torch, hm, hp, rng, dev)
     torch.cuda.empty_cache()
 
     X, y = make_higgs_like(N_ROWS, N_FEATURES)
-    booster, ds, reg_ds, counts = main_path(torch, lgt, hm, X, y)
+    counts = {}
+    booster, ds, reg_ds, counts["exact"] = main_path(torch, lgt, hm, X, y)
     exact_auc, _ = check_outputs(torch, lgt, booster, ds, X)
-    q_booster, q_counts = quantized_path(torch, lgt, hm, X, y, ds, reg_ds)
-    for r in rows:
-        r["launches"] = (counts if r["name"] in EXACT_PATH
-                         else q_counts)[r["name"]]
+    q_booster, counts["quantized"] = quantized_path(torch, lgt, hm, X, y, ds,
+                                                    reg_ds)
     q_auc, q_equal = check_outputs(torch, lgt, q_booster, ds, X,
                                    QUANT_PARAMS, "train_quantized_check")
     check(abs(q_auc - exact_auc) <= 0.005,
           f"quantized held-out AUC {q_auc} vs exact {exact_auc}")
     check(q_equal, "two identical quantized runs wrote different model.txt")
+    counts["backends"] = backends_path(torch, lgt, hm, X, y, ds, q_booster,
+                                       booster)
+    del ds, reg_ds
+    counts["packed"] = packed_path(torch, lgt, hm, X, y)
+    for r in rows:
+        r["launches"] = counts[ROW_PATH[r["name"]]][r["name"]]
+    check(sorted(r["name"] for r in rows) == sorted(ROW_PATH),
+          "the kernel table and the paths' kernels differ")
     cross_device_phase(lgt)
 
     print(json.dumps({"kernels": rows}))

@@ -7,6 +7,12 @@ shrinkage, and the score update through the node_values kernel. With
 use_quantized_grad each tree grows on gradients quantized under the JAX
 package's per-tree key, fold_in(PRNGKey(extra_seed), iteration).
 
+The histogram backend (hist_backend) is resolved once, before the first
+tree, as in the JAX package: "auto" times the mxu kernels against the
+slot-grouped scatter kernel on the card in the quantized posture and pins
+the faster. Bin matrices whose every feature fits a nibble are stored
+4-bit packed where the JAX package packs them (bin_pack_4bit).
+
 Every iteration reads the new tree's leaf count on the host (the JAX
 package lags that poll to spare a remote accelerator round trips); a tree
 that made no split is kept as a constant tree and update() returns True,
@@ -22,14 +28,17 @@ from __future__ import annotations
 
 from typing import List
 
+import math
+
 import torch
 
 from .. import rng
 from ..config import Config
 from ..data import BinnedDataset
 from ..learner.grower import TreeArrays
-from ..learner.grower_mxu import grow_tree_mxu
-from ..learner.histogram_mxu import node_values
+from ..learner.grower_mxu import (_kernel_cap, autotune_hist_backend,
+                                  grow_tree_mxu)
+from ..learner.histogram_mxu import fits_v2, node_values, pack_bins_4bit
 from ..learner.split import SplitHyperParams
 from ..objectives import ObjectiveFunction
 from ..utils.log import Log
@@ -63,8 +72,6 @@ def _unsupported(cfg: Config) -> List[tuple]:
         ("boosting=" + str(cfg.boosting), "P6", cfg.boosting != "gbdt"),
         ("num_class", "P7", cfg.num_class > 1),
         ("level_pipeline", "P9", cfg.level_pipeline),
-        ("hist_backend=" + str(cfg.hist_backend), "P4",
-         cfg.hist_backend in ("pallas", "scatter")),
         ("feature_fraction", "P13", cfg.feature_fraction < 1.0),
         ("feature_fraction_bynode", "P13", cfg.feature_fraction_bynode < 1.0),
         ("extra_trees", "P13", cfg.extra_trees),
@@ -88,7 +95,9 @@ def _unsupported(cfg: Config) -> List[tuple]:
 
 def check_supported(cfg: Config) -> None:
     """Raise NotImplementedError for parameter values the port cannot
-    train yet; it never runs something else in their place."""
+    train yet; it never runs something else in their place. Every
+    hist_backend is ported; the JAX package's rule that EFB pins mxu has
+    no counterpart here because EFB itself is not ported (P8)."""
     bad = _unsupported(cfg)
     if bad:
         raise NotImplementedError(
@@ -103,11 +112,6 @@ class GBDT:
     def __init__(self, config: Config, train_set: BinnedDataset,
                  objective: ObjectiveFunction, device: torch.device):
         check_supported(config)
-        if config.hist_backend == "auto" and config.use_quantized_grad:
-            # the JAX package times mxu against the scatter kernel here;
-            # both give byte-equal models in the quantized posture
-            Log.debug("hist_backend=auto resolves to mxu: the scatter "
-                      "kernel is not ported yet (ROADMAP.md port queue P4)")
         self.config = config
         self.objective = objective
         self.device = device
@@ -127,7 +131,30 @@ class GBDT:
             raise NotImplementedError(
                 "max_bin > 256 needs the portable grower, not ported to "
                 "lightgbm_tpu_torch yet (ROADMAP.md port queue P13)")
-        self.bins = torch.as_tensor(ds.bins, device=dev).contiguous()
+        # 4-bit packed bin storage (reference dense_bin.hpp:42) where the
+        # JAX package packs: every feature fits a nibble and every growth
+        # pass fits the fused/v2 kernels (the v1 fallback would unpack the
+        # whole matrix per call); no EFB and no linear trees in the port.
+        # Packed on the host, so the matrix goes to the device once.
+        bins = ds.bins
+        self._packed4 = False
+        if cfg.bin_pack_4bit and self.bmax <= 16:
+            over = cfg.growth_overshoot if cfg.growth_overshoot >= 1.0 \
+                else 0.0
+            L_g = int(math.ceil(cfg.num_leaves * over)) if over \
+                else cfg.num_leaves
+            if fits_v2(L_g + 1, ds.num_features, self.bmax,
+                       cfg.use_quantized_grad):
+                packed = pack_bins_4bit(ds.bins)
+                if packed is not None:
+                    bins = packed
+                    self._packed4 = True
+                    Log.debug("bin matrix packed 4-bit: [%d, %d] bytes",
+                              ds.num_data, packed.shape[1])
+        self.bins = torch.as_tensor(bins, device=dev).contiguous()
+        # resolved before the first tree (_resolved_hist_backend)
+        self._hist_backend = None
+        self._hist_autotune = None
         self.num_bins_d = torch.as_tensor(ds.num_bins, device=dev)
         self.missing_is_nan_d = torch.as_tensor(ds.missing_types == 2,
                                                 device=dev)
@@ -169,6 +196,45 @@ class GBDT:
             return float(self.objective.constant_hessian_value)
         return 0.0
 
+    def _resolved_hist_backend(self) -> str:
+        """config.hist_backend as a concrete backend for grow_tree_mxu,
+        resolved once and pinned for the run (the JAX package's rules).
+        "auto" autotunes mxu against the scatter kernel only in the
+        quantized posture, with hist_autotune on and on the card: there
+        integer sums make the backends bit-identical, so the choice is a
+        speed knob only. Exact mode (last-bit summation order), a
+        hist_autotune=false run and the CPU (nothing real to time) pin
+        mxu. The outcome is kept in self._hist_autotune."""
+        if self._hist_backend is not None:
+            return self._hist_backend
+        cfg = self.config
+        hb = cfg.hist_backend
+        timings: dict = {}
+        autotuned = False
+        if hb == "auto":
+            if (self.device.type == "cpu" or not cfg.hist_autotune or
+                    not cfg.use_quantized_grad):
+                hb = "mxu"
+            else:
+                over = cfg.growth_overshoot \
+                    if cfg.growth_overshoot >= 1.0 else 1.0
+                s_max = int(math.ceil(cfg.num_leaves * over)) + 1
+                s_rep = max(2, _kernel_cap(s_max)
+                            if cfg.hist_subtraction else s_max)
+                hb, timings = autotune_hist_backend(
+                    self.bins, num_slots=s_rep, bmax=self.bmax,
+                    num_features=(int(self.num_bins_d.shape[0])
+                                  if self._packed4 else 0),
+                    quantized=True, const_hess=self._const_hessian())
+                autotuned = True
+                Log.info("hist_backend=auto picked %s (%s)", hb,
+                         ", ".join("%s=%.2fms" % kv
+                                   for kv in sorted(timings.items())))
+        self._hist_backend = hb
+        self._hist_autotune = {"choice": hb, "autotuned": autotuned,
+                               "timings_ms": dict(timings)}
+        return hb
+
     def _grow(self, grad, hess):
         cfg = self.config
         # the JAX package's per-tree key (gbdt.py _grow_impl); only
@@ -184,7 +250,10 @@ class GBDT:
             overshoot=cfg.growth_overshoot,
             bridge_gate=cfg.growth_bridge_gate,
             const_hessian=self._const_hessian(),
-            quantized_grad=cfg.use_quantized_grad, rng_key=rng_key)
+            quantized_grad=cfg.use_quantized_grad, rng_key=rng_key,
+            packed4=self._packed4,
+            hist_backend=self._resolved_hist_backend(),
+            partition_impl=cfg.partition_impl)
 
     def train_one_iter(self) -> bool:
         """One boosting iteration (reference TrainOneIter gbdt.cpp:371-449).

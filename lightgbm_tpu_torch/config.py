@@ -480,12 +480,11 @@ _PARAMS: List[ParamSpec] = [
     _p("partition_impl", str, "auto", (),
        lambda v: v in ("auto", "argsort", "scan"),
        "row-partitioning algorithm behind the slot-grouped scatter "
-       "kernels (histogram_pallas.py partition_rows): 'scan' = stable "
-       "rank via blocked prefix sums over the per-slot counts the "
-       "router already emits (O(N), one sweep), 'argsort' = the "
-       "original O(N log N) sort, retained as the bit-parity oracle. "
-       "'auto' = scan. Both produce the identical slot-contiguous "
-       "block layout, so the choice is byte-neutral on model.txt"),
+       "kernel (histogram_pallas.py partition_rows). Accepted for the "
+       "JAX package's configs: every value runs the one stable sort, "
+       "which gives the slot-contiguous block layout both of that "
+       "package's algorithms give, so the choice is byte-neutral on "
+       "model.txt"),
     _p("level_pipeline", bool, False, (),
        desc="stage-dispatched tree growth (learner/grower_pipeline.py): "
             "each doubling-schedule pass, the bridge and speculative "

@@ -1,5 +1,6 @@
 // Shared device code of the routing and histogram kernels
-// (fused_route_hist.cu, route_rows.cu, build_histograms.cu).
+// (fused_route_hist.cu, route_rows.cu, build_histograms.cu,
+// build_histograms_scatter.cu).
 //
 // Node table layout (pack_route_tables in learner/histogram_mxu.py): one
 // row of kTblCols int32 per node id. The TPU kernels carried these values
@@ -30,6 +31,25 @@ constexpr int kFlagCat = 4;
 constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 1024;
 
+// Bin of feature j in one row of the bin matrix. Unpacked: one byte per
+// feature. Packed (pack_bins_4bit in learner/histogram_mxu.py, the
+// reference's 4-bit DenseBin): fh = ceil(F/2) bytes a row in the
+// split-nibble layout — feature j < fh is the low nibble of byte j,
+// feature fh + j the high nibble of byte j.
+template <bool kPacked>
+__device__ __forceinline__ int read_bin(const uint8_t* row_bins, int j,
+                                        int fh) {
+  if (kPacked) {
+    return j < fh ? (row_bins[j] & 15) : (row_bins[j - fh] >> 4);
+  }
+  return row_bins[j];
+}
+
+// Bytes per row of the bin matrix: fh when packed, else f.
+__host__ __device__ __forceinline__ int row_stride(int f, int fh) {
+  return fh > 0 ? fh : f;
+}
+
 // Copy the node table [m, kTblCols] and the feature table [f, 2]
 // (num_bins, missing_is_nan) into shared memory; every thread of the block
 // then routes rows from there.
@@ -50,9 +70,10 @@ __device__ __forceinline__ void load_tables(int* s_tbl, int* s_feat,
 // NaN bin -> default direction, categorical left-set bitset (member:
 // [m, w] words in global memory, read only for categorical nodes). Rows of
 // nodes that did not split keep their node and their own slot.
+template <bool kPacked>
 __device__ __forceinline__ void route_decide(int node,
                                              const uint8_t* row_bins,
-                                             const int* s_tbl,
+                                             int fh, const int* s_tbl,
                                              const int* s_feat,
                                              const int* member, int m, int w,
                                              int* new_node, int* new_slot) {
@@ -69,7 +90,7 @@ __device__ __forceinline__ void route_decide(int node,
     return;
   }
   const int feat = row[kTblFeat];
-  const int binv = row_bins[feat];
+  const int binv = read_bin<kPacked>(row_bins, feat, fh);
   bool left;
   if (flags & kFlagCat) {
     const unsigned word =
@@ -89,21 +110,26 @@ __device__ __forceinline__ void route_decide(int node,
 // feature j. hist is [S, f, b, 3]. const_hess != 0 skips the hessian
 // channel; the wrapper fills it as const x count afterwards.
 //
-// f32 mode: three float cells, float atomics (their order, and so the
-// sums' last bits, varies from run to run).
-__device__ __forceinline__ void hist_accumulate(float* hist, int slot,
+// f32 mode: f32 values into three float64 cells, float64 atomics, rounded
+// to f32 once by the wrapper (the reference's double hist_t). A cell takes
+// one add per row of its bin, ~70k at 1M rows and 15 bins; f32 cells
+// would round every add to the running sum's ulp, and sibling subtraction
+// turns that error into leaf values off by orders of magnitude. The atomics'
+// order still varies from run to run, now in float64's last bits.
+template <bool kPacked>
+__device__ __forceinline__ void hist_accumulate(double* hist, int slot,
                                                 const uint8_t* row_bins,
-                                                int f, int b, float g,
-                                                float h, float c,
+                                                int f, int fh, int b,
+                                                double g, double h, float c,
                                                 int const_hess) {
-  float* base = hist + static_cast<size_t>(slot) * f * b * 3;
+  double* base = hist + static_cast<size_t>(slot) * f * b * 3;
   for (int j = 0; j < f; ++j) {
-    const int bin = row_bins[j];
+    const int bin = read_bin<kPacked>(row_bins, j, fh);
     if (bin >= b) continue;
-    float* cell = base + (static_cast<size_t>(j) * b + bin) * 3;
+    double* cell = base + (static_cast<size_t>(j) * b + bin) * 3;
     atomicAdd(cell, g);
     if (!const_hess) atomicAdd(cell + 1, h);
-    atomicAdd(cell + 2, c);
+    atomicAdd(cell + 2, static_cast<double>(c));
   }
 }
 
@@ -112,18 +138,34 @@ __device__ __forceinline__ void hist_accumulate(float* hist, int slot,
 // (|sum| <= 127 x N < 2^31 for N < 16.9M rows). The count channel keeps
 // float atomics, in the same 32-bit word of the cell; with whole-number
 // count weights its sums are exact and order-free as well (below 2^24).
+template <bool kPacked>
 __device__ __forceinline__ void hist_accumulate(int* hist, int slot,
                                                 const uint8_t* row_bins,
-                                                int f, int b, int g, int h,
-                                                float c, int const_hess) {
+                                                int f, int fh, int b, int g,
+                                                int h, float c,
+                                                int const_hess) {
   int* base = hist + static_cast<size_t>(slot) * f * b * 3;
   for (int j = 0; j < f; ++j) {
-    const int bin = row_bins[j];
+    const int bin = read_bin<kPacked>(row_bins, j, fh);
     if (bin >= b) continue;
     int* cell = base + (static_cast<size_t>(j) * b + bin) * 3;
     atomicAdd(cell, g);
     if (!const_hess) atomicAdd(cell + 1, h);
     atomicAdd(reinterpret_cast<float*>(cell + 2), c);
+  }
+}
+
+// Add v into channel c of a histogram cell: float64 cells (f32 mode) take
+// float64 atomics; integer cells take int atomics for the gradient channels
+// (c < 2) and float atomics on the f32 bits of the count channel (c == 2).
+__device__ __forceinline__ void cell_add(double* cell, float v, int) {
+  atomicAdd(cell, static_cast<double>(v));
+}
+__device__ __forceinline__ void cell_add(int* cell, int v, int c) {
+  if (c == 2) {
+    atomicAdd(reinterpret_cast<float*>(cell), __int_as_float(v));
+  } else {
+    atomicAdd(cell, v);
   }
 }
 

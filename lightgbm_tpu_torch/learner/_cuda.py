@@ -38,9 +38,11 @@ _I = ctypes.c_int
 # kernel source stem -> (C entry point, argtypes); the last argument of
 # every entry is the CUDA stream
 KERNELS: Dict[str, tuple] = {
-    "fused_route_hist": ("lgbt_fused_route_hist", [_P] * 10 + [_I] * 8 + [_P]),
-    "route_rows": ("lgbt_route_rows", [_P] * 7 + [_I] * 4 + [_P]),
-    "build_histograms": ("lgbt_build_histograms", [_P] * 6 + [_I] * 6 + [_P]),
+    "fused_route_hist": ("lgbt_fused_route_hist", [_P] * 10 + [_I] * 9 + [_P]),
+    "route_rows": ("lgbt_route_rows", [_P] * 8 + [_I] * 6 + [_P]),
+    "build_histograms": ("lgbt_build_histograms", [_P] * 6 + [_I] * 7 + [_P]),
+    "build_histograms_scatter": ("lgbt_build_histograms_scatter",
+                                 [_P] * 7 + [_I] * 9 + [_P]),
     "node_values": ("lgbt_node_values", [_P] * 3 + [_I] * 2 + [_P]),
     "node_sums": ("lgbt_node_sums", [_P] * 7 + [_I] * 2 + [_P]),
 }
@@ -112,10 +114,11 @@ def _entry(stem: str):
 
 def call(stem: str, device: torch.device, *args) -> None:
     """Launch kernel `stem` on `device`'s current stream; tensors in
-    `args` pass as data pointers, Python ints as C ints."""
+    `args` pass as data pointers, None as a null pointer, Python ints as C
+    ints."""
     fn = _entry(stem)
-    c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else int(a)
-              for a in args]
+    c_args = [a.data_ptr() if isinstance(a, torch.Tensor)
+              else None if a is None else int(a) for a in args]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*c_args, stream)

@@ -9,12 +9,19 @@ replaying the reference's strict best-first order over the recorded gains
 (serial_tree_learner.cpp:159-210).
 
 Each pass routes every row through the previous pass's split tables and
-builds the new frontier's histograms — one fused kernel sweep, or
-route_rows + build_histograms where the reference takes its two-kernel
-branch (histogram_mxu.fused_fits) — then scans splits, commits the top
-candidates and packs the next tables. Only the smaller child of a fresh
-split gets a kernel slot; the larger sibling is parent minus smaller
-(serial_tree_learner.cpp:311-326).
+builds the new frontier's histograms, then scans splits, commits the top
+candidates and packs the next tables. The histogram backend (the JAX
+package's hist_backend, resolved before growth) picks how: "mxu" sweeps
+with the fused kernel, or route_rows + build_histograms_auto where the
+reference takes its two-kernel branch (histogram_mxu.fits_v2); "pallas"
+routes with per-slot counts and builds with the slot-grouped scatter
+kernel (histogram_pallas); "scatter" routes the same way and builds with
+the segment-sum oracle (histogram.py). In the quantized posture all three
+give bit-identical histograms. Only the smaller child of a fresh split gets
+a kernel slot; the larger sibling is parent minus smaller
+(serial_tree_learner.cpp:311-326). With packed4 the bin matrix is 4-bit
+packed (histogram_mxu.pack_bins_4bit) and every kernel reads the nibbles;
+the trees are the same.
 
 With quantized_grad (the reference's use_quantized_grad) the tree grows
 on stochastically rounded int8 gradients (histogram_mxu.quantize_gradients,
@@ -33,6 +40,7 @@ refuses the params that need them.
 from __future__ import annotations
 
 import math
+import time
 import types
 from typing import NamedTuple, Optional, Tuple
 
@@ -40,14 +48,19 @@ import numpy as np
 import torch
 
 from .. import rng
+from ..utils.log import Log
+from . import histogram
 from .grower import TreeArrays, _init_tree
-from .histogram_mxu import (build_histograms, fused_fits, fused_route_hist,
+from .histogram_mxu import (build_histograms_auto, fits_v2, fused_route_hist,
                             fused_row_block, node_sums, node_values,
                             pack_route_tables, quantize_gradients,
-                            route_rows)
+                            route_rows, unpack_bins_4bit)
+from .histogram_pallas import build_histograms_scatter
 from .split import BestSplits, SplitHyperParams, find_best_splits, leaf_output
 
-__all__ = ["grow_tree_mxu", "growth_plan"]
+__all__ = ["autotune_hist_backend", "grow_tree_mxu", "growth_plan"]
+
+HIST_BACKENDS = ("mxu", "pallas", "scatter")
 
 # the reference's default full-width fix-up frontier (its LGBM_TPU_SFIX)
 _S_FIX = 512
@@ -63,6 +76,60 @@ def _kernel_cap(s: int) -> int:
     child), plus slack for stale pairs (leaves split later than the pass
     that scanned them need both children built, 2 slots)."""
     return min(s, s // 2 + 8)
+
+
+def autotune_hist_backend(bins, *, num_slots: int, bmax: int,
+                          num_features: int = 0, quantized: bool = True,
+                          const_hess: float = 0.0):
+    """One-shot on-device histogram-backend measurement (hist_backend=
+    auto), as the JAX package's: build one frontier histogram at the
+    dominant frontier width with the mxu kernel (build_histograms_auto)
+    and the slot-grouped scatter kernel, on the real bin matrix with
+    synthetic gradients and slots (linspace(-127, 127), rounded when
+    quantized; slot = row % num_slots), and time the second call of each —
+    the first builds the kernels and warms them. Returns (choice,
+    timings_ms). A backend that raises times as +inf; if both do, the
+    choice is mxu."""
+    n = bins.shape[0]
+    dev = bins.device
+    g = torch.linspace(-127.0, 127.0, n, dtype=torch.float32, device=dev)
+    ones = torch.ones(n, dtype=torch.float32, device=dev)
+    if quantized:
+        g, h = torch.round(g).to(torch.int8), ones.to(torch.int8)
+    else:
+        g, h = g * 1e-2, ones
+    slot = (torch.arange(n, dtype=torch.int32, device=dev) % num_slots) \
+        .to(torch.int32)
+    kw = dict(num_slots=num_slots, bmax=bmax, num_features=num_features,
+              quantized=quantized, const_hess=const_hess)
+
+    def _mxu():
+        return build_histograms_auto(bins, g, h, ones, slot, **kw)
+
+    def _pallas():
+        return build_histograms_scatter(bins, g, h, ones, slot, **kw)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    timings = {}
+    for name, fn in (("mxu", _mxu), ("pallas", _pallas)):
+        try:
+            fn()                                  # build + warm
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            timings[name] = (time.perf_counter() - t0) * 1e3
+        except Exception as exc:
+            Log.warning("hist_backend autotune: %s backend failed (%s)",
+                        name, exc)
+            timings[name] = float("inf")
+    choice = min(timings, key=timings.get)
+    if timings[choice] == float("inf"):
+        choice = "mxu"
+    return choice, timings
 
 
 def growth_plan(*, num_leaves: int, overshoot: float = 0.0,
@@ -233,7 +300,9 @@ def grow_tree_mxu(bins: torch.Tensor, grad: torch.Tensor,
                   hist_subtraction: bool = True, overshoot: float = 0.0,
                   bridge_gate: float = 0.0, const_hessian: float = 0.0,
                   quantized_grad: bool = False,
-                  rng_key: Optional[torch.Tensor] = None
+                  rng_key: Optional[torch.Tensor] = None,
+                  packed4: bool = False, hist_backend: str = "mxu",
+                  partition_impl: str = "auto"
                   ) -> Tuple[TreeArrays, torch.Tensor]:
     """Grow one tree. Returns (TreeArrays, row_node [N] i32: each row's
     leaf node id). Same contract and same trees as the JAX package's
@@ -244,9 +313,20 @@ def grow_tree_mxu(bins: torch.Tensor, grad: torch.Tensor,
     device. const_hessian != 0: per-row hessians are const x cnt_weight
     and the kernels drop the hessian channel. quantized_grad: grow on
     quantized gradients drawn under rng_key (a key of lightgbm_tpu_torch.
-    rng; None = PRNGKey(0)), then refit the leaves exactly."""
+    rng; None = PRNGKey(0)), then refit the leaves exactly. packed4: bins
+    are [N, ceil(F/2)] 4-bit packed (histogram_mxu.pack_bins_4bit), F taken
+    from num_bins. hist_backend: "mxu", "pallas" or "scatter" (module
+    docstring) — a resolved backend, never "auto", which the booster
+    resolves first (autotune_hist_backend); partition_impl: the pallas
+    backend's partition_rows impl."""
+    if hist_backend not in HIST_BACKENDS:
+        raise ValueError(f"grow_tree_mxu needs a resolved hist_backend, one "
+                         f"of {HIST_BACKENDS}; got {hist_backend!r} (the "
+                         "booster resolves 'auto' before growth)")
     dev = bins.device
-    n, f = bins.shape
+    n = bins.shape[0]
+    f = int(num_bins.shape[0]) if packed4 else bins.shape[1]
+    nf_packed = f if packed4 else 0
     plan = growth_plan(num_leaves=num_leaves, overshoot=overshoot,
                        tail_split_cap=tail_split_cap,
                        hist_subtraction=hist_subtraction,
@@ -310,22 +390,46 @@ def grow_tree_mxu(bins: torch.Tensor, grad: torch.Tensor,
 
     def sweep(row_node, tbl, member, nslots, m_cap=None):
         """Route rows through the previous pass's tables and build the
-        frontier histograms: fused sweep where the reference takes its
-        fused kernel, else route_rows + build_histograms."""
+        frontier histograms. mxu: fused sweep where the reference takes
+        its fused kernel, else route_rows + build_histograms_auto. pallas
+        and scatter: route_rows with per-slot counts, then the scatter
+        kernel over the slot partition, or the segment-sum oracle."""
         if m_cap is not None and m_cap < m_pad:
             tbl = tbl[:m_cap]
             member = member[:m_cap]
-        rb = fused_row_block(nslots, f, bmax, ch, quant)
-        if fused_fits(nslots, f, bmax, rb, ch, quant):
+        if hist_backend != "mxu":
+            rn, rs, cts = route_rows(bins, row_node, tbl, member, feat_tbl,
+                                     num_features=nf_packed,
+                                     emit_counts=True, num_slots=nslots)
+            if hist_backend == "pallas":
+                h = build_histograms_scatter(
+                    bins, h_grad, h_hess, cnt_weight, rs, num_slots=nslots,
+                    bmax=bmax, num_features=nf_packed, quantized=quant,
+                    const_hess=ch, slot_counts=cts,
+                    partition_impl=partition_impl)
+            else:
+                ub = unpack_bins_4bit(bins, f) if packed4 else bins
+                h = histogram.build_histograms(ub, h_grad, h_hess, rs,
+                                               cnt_weight, num_slots=nslots,
+                                               bmax=bmax)
+                if ch:
+                    # const x count, as the kernel backends' channel drop
+                    h[..., 1] = h[..., 2] * ch
+        elif fits_v2(nslots, f, bmax, quant,
+                     row_block=fused_row_block(nslots, f, bmax, ch, quant),
+                     const_hess=ch):
             h, rn = fused_route_hist(bins, h_grad, h_hess, cnt_weight,
                                      row_node, tbl, member, feat_tbl,
                                      num_slots=nslots, bmax=bmax,
-                                     const_hess=ch, quantized=quant)
+                                     const_hess=ch, quantized=quant,
+                                     num_features=nf_packed)
         else:
-            rn, rs = route_rows(bins, row_node, tbl, member, feat_tbl)
-            h = build_histograms(bins, h_grad, h_hess, cnt_weight, rs,
-                                 num_slots=nslots, bmax=bmax, const_hess=ch,
-                                 quantized=quant)
+            rn, rs = route_rows(bins, row_node, tbl, member, feat_tbl,
+                                num_features=nf_packed)
+            h = build_histograms_auto(bins, h_grad, h_hess, cnt_weight, rs,
+                                      num_slots=nslots, bmax=bmax,
+                                      const_hess=ch, quantized=quant,
+                                      num_features=nf_packed)
         if quant:
             h = h * hist_scale   # integer sums -> gradient units
         return h, rn
@@ -570,7 +674,7 @@ def grow_tree_mxu(bins: torch.Tensor, grad: torch.Tensor,
     # ---- epilogue: flush the routing of the last pass's splits (sweeps
     # route at the START of a pass), then prune to best-first
     row_node, _ = route_rows(bins, state.row_node, state.tbl, state.member,
-                             feat_tbl)
+                             feat_tbl, num_features=nf_packed)
     tree = state.tree
     if over:
         tree, row_node = _prune_to_best_first(

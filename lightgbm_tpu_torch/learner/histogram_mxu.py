@@ -2,27 +2,34 @@
 
 Port of lightgbm_tpu/learner/histogram_mxu.py. The TPU kernels there turn
 every per-row gather and scatter into one-hot matmuls on the MXU; on the
-card those become plain indexing and atomics in five hand-written CUDA
-kernels (csrc/):
+card those become plain indexing and atomics in hand-written CUDA kernels
+(csrc/):
 
   fused_route_hist  <- fused_route_hist_mxu   (route + histogram, one sweep)
-  route_rows        <- route_rows_mxu         (route only)
-  build_histograms  <- build_histograms_mxu   (histogram keyed by row_slot)
+  route_rows        <- route_rows_mxu         (route only; with
+                                               emit_counts, rows per slot)
+  build_histograms  <- build_histograms_mxu and build_histograms_mxu_v2
+                       (histogram keyed by row_slot; build_histograms_auto
+                       is the JAX package's build_histograms_mxu_auto)
   node_values       <- node_values_mxu        (values[row_node])
   node_sums         <- node_sums_mxu          (exact per-node sums, refit)
 
-The histogram kernels have two modes. Exact: f32 gradients into f32 cells.
-Quantized (`quantized=True`, the JAX kernels' flag of that name): int8
-gradients from `quantize_gradients` into int32 cells, returned as f32
-integer sums that the caller scales; integer sums are exact and do not
-depend on the order of the additions.
+The slot-grouped scatter histogram (histogram_pallas.py) is the sixth.
+
+The histogram kernels have two modes. Exact: f32 gradients into float64
+cells, rounded to f32 once (the reference's double hist_t: in f32 cells,
+~70k adds into one cell at 15 bins and sibling subtraction would put leaf
+values off by orders of magnitude). Quantized (`quantized=True`, the JAX
+kernels' flag of that name): int8 gradients from `quantize_gradients` into
+int32 cells, returned as f32 integer sums that the caller scales; integer
+sums are exact and do not depend on the order of the additions. The
+routing and histogram kernels read the bin matrix unpacked ([N, F] uint8)
+or 4-bit packed (`pack_bins_4bit`, [N, ceil(F/2)] uint8, `num_features=F`).
 
 Each wrapper runs its kernel for CUDA tensors and its plain PyTorch version
 (`<name>_ref`, same module) for CPU tensors — chosen by the device of the
 tensors it is given, nothing else; a tensor on any other device raises.
-Each wrapper counts its kernel launches in a plain integer attribute,
-`<wrapper>.launches` (integer mode: `<wrapper>.launches_int`; see
-`launch_counts`).
+Each wrapper counts its kernel launches per mode (`launch_counts`).
 
 Route tables (`pack_route_tables`) are int32 columns, one row per node id:
 the TPU layout's base-256 digit pairs existed only to stay exact in bf16.
@@ -32,16 +39,19 @@ from __future__ import annotations
 
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 from .. import rng
+from ..utils.log import Log
 from . import _cuda
 
 __all__ = ["fused_route_hist", "route_rows", "build_histograms",
-           "node_values", "node_sums", "fused_route_hist_ref",
-           "route_rows_ref", "build_histograms_ref", "node_values_ref",
-           "node_sums_ref", "quantize_gradients", "pack_route_tables",
-           "fused_fits", "fused_row_block", "launch_counts",
+           "build_histograms_auto", "node_values", "node_sums",
+           "fused_route_hist_ref", "route_rows_ref", "build_histograms_ref",
+           "node_values_ref", "node_sums_ref", "quantize_gradients",
+           "pack_route_tables", "pack_bins_4bit", "unpack_bins_4bit",
+           "fits_v2", "fused_row_block", "launch_counts",
            "reset_launch_counts"]
 
 # node table columns (csrc/route_hist.cuh keeps the same constants)
@@ -56,23 +66,63 @@ def _round_up(x: int, k: int) -> int:
 
 
 # ---------------------------------------------------------------------------
+# 4-bit packed bin storage (reference 4-bit DenseBin, src/io/dense_bin.hpp:42)
+# ---------------------------------------------------------------------------
+
+def pack_bins_4bit(bins: np.ndarray):
+    """Pack a [N, F] numpy bin matrix whose values all fit 4 bits (max_bin
+    <= 15 incl. the NaN bin) into [N, ceil(F/2)] uint8 on the host, the
+    JAX package's split-nibble layout: feature j < Fh rides column j's low
+    nibble, feature Fh + j its high nibble (Fh = ceil(F/2)). Exact:
+    training on packed storage grows the same trees. A bin id above 15
+    would be truncated, so packing is refused: None, with a logged
+    warning, and the caller keeps uint8 storage."""
+    vmax = int(bins.max()) if bins.size else 0
+    if vmax > 15:
+        Log.warning(
+            "pack_bins_4bit: bin id %d exceeds the 4-bit limit of 15 "
+            "(max_bin incl. the NaN bin must be <= 15); keeping uint8 "
+            "bin storage", vmax)
+        return None
+    n, f = bins.shape
+    fh = (f + 1) // 2
+    lo = bins[:, :fh].astype(np.uint8)
+    hi = np.zeros((n, fh), np.uint8)
+    hi[:, :f - fh] = bins[:, fh:].astype(np.uint8)
+    return lo | (hi << 4)
+
+
+def unpack_bins_4bit(packed: torch.Tensor,
+                     num_features: int) -> torch.Tensor:
+    """Inverse of pack_bins_4bit -> [N, num_features] uint8."""
+    return torch.cat([packed & 15, packed >> 4],
+                     dim=1)[:, :num_features].contiguous()
+
+
+def _unpacked(bins, num_features: int):
+    return unpack_bins_4bit(bins, num_features) if num_features else bins
+
+
+# ---------------------------------------------------------------------------
 # dispatch: which branch of the growth sweep a pass takes
 # ---------------------------------------------------------------------------
 
 _V2_BUDGET_BYTES = 80 * 1024 * 1024
+_V2_ROW_BLOCK = 4096
 _FGROUP = 4
 
 
-def fused_fits(num_slots: int, num_features: int, bmax: int,
-               row_block: int = 4096, const_hess: float = 0.0,
-               quantized: bool = False) -> bool:
-    """Mirror of the reference's dispatch predicate (JAX package,
-    histogram_mxu.fits_v2, double-bf16 or quantized channels, unbundled):
-    whether the TPU's fused kernel fits its VMEM budget at this shape. The
-    port routes each growth pass down the branch the JAX package takes at
-    the same shape — fused kernel or route_rows + build_histograms — so
-    the same passes run the same kernels and a parity failure can be found
-    pass by pass."""
+def fits_v2(num_slots: int, num_features: int, bmax: int,
+            quantized: bool = False, route_width: int = 0,
+            row_block: int = _V2_ROW_BLOCK, const_hess: float = 0.0) -> bool:
+    """The JAX package's fits_v2 (double-bf16 or quantized channels):
+    whether the TPU's fused and v2 kernels fit their VMEM budget at this
+    shape. The port routes each growth pass down the branch the JAX
+    package takes at the same shape — fused kernel or route_rows +
+    build_histograms, v2 or v1 histogram, packed storage or not — so the
+    same passes run the same kernels and a parity failure can be found
+    pass by pass. route_width: the routing table's feature width where it
+    differs from the bins' (EFB in the JAX package)."""
     b = _round_up(bmax, 128)
     if const_hess:
         nchan = 2 if quantized else 3     # [g, cnt] / [g_hi, g_lo, cnt]
@@ -80,7 +130,10 @@ def fused_fits(num_slots: int, num_features: int, bmax: int,
         nchan = 3 if quantized else 5
     out = nchan * num_slots * num_features * b * 4
     plane = _round_up(num_features, 128)
-    inputs = row_block * (12 * plane + 24 * plane + 2 * _FGROUP * b)
+    flane_r = _round_up(max(route_width, num_features), 128)
+    route_cost = 36 if route_width and route_width != num_features else 24
+    inputs = row_block * (12 * plane + route_cost * flane_r +
+                          2 * _FGROUP * b)
     return out + inputs <= _V2_BUDGET_BYTES
 
 
@@ -88,12 +141,12 @@ def fused_row_block(num_slots: int, num_features: int, bmax: int,
                     const_hess: float, quantized: bool = False) -> int:
     """The row block the reference's sweep sizes its fused kernel with
     (2048 at small frontiers; else the widest of 8192/4096/2048 whose
-    working set fits) — an input of `fused_fits`."""
+    working set fits) — an input of `fits_v2`."""
     if num_slots <= 64:
         return 2048
     for rb in (8192, 4096, 2048):
-        if fused_fits(num_slots, num_features, bmax, rb, const_hess,
-                      quantized):
+        if fits_v2(num_slots, num_features, bmax, quantized, row_block=rb,
+                   const_hess=const_hess):
             break
     return rb
 
@@ -163,9 +216,13 @@ def pack_route_tables(split_mask, feat, thr, default_left, is_cat, child_l,
 # plain versions (CPU path, and the yardstick the kernels are held to)
 # ---------------------------------------------------------------------------
 
-def route_rows_ref(bins, row_node, tbl, member, feat_tbl
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(new row_node, new row_slot) after one level of routing."""
+def route_rows_ref(bins, row_node, tbl, member, feat_tbl, *,
+                   num_features: int = 0, emit_counts: bool = False,
+                   num_slots: int = 0):
+    """(new row_node, new row_slot) after one level of routing; with
+    emit_counts also the [num_slots] i32 count of rows whose new slot is
+    in [0, num_slots). num_features > 0: bins are 4-bit packed."""
+    bins = _unpacked(bins, num_features)
     m = tbl.shape[0]
     f = bins.shape[1]
     node = row_node.to(torch.int64)
@@ -186,20 +243,28 @@ def route_rows_ref(bins, row_node, tbl, member, feat_tbl
     child = torch.where(left, row[:, TBL_LEFT], row[:, TBL_RIGHT])
     slot_child = torch.where(left, row[:, TBL_SLOTL], row[:, TBL_SLOTR])
     own_slot = torch.where(in_range, row[:, TBL_SLOT], -1)
-    new_node = torch.where(split, child, row_node.to(torch.int32))
-    new_slot = torch.where(split, slot_child, own_slot)
-    return new_node.to(torch.int32), new_slot.to(torch.int32)
+    new_node = torch.where(split, child, row_node.to(torch.int32)) \
+        .to(torch.int32)
+    new_slot = torch.where(split, slot_child, own_slot).to(torch.int32)
+    if not emit_counts:
+        return new_node, new_slot
+    live = new_slot[(new_slot >= 0) & (new_slot < num_slots)]
+    counts = torch.bincount(live.to(torch.int64), minlength=num_slots)
+    return new_node, new_slot, counts.to(torch.int32)
 
 
 def build_histograms_ref(bins, grad, hess, cnt, row_slot, *, num_slots: int,
                          bmax: int, const_hess: float = 0.0,
-                         quantized: bool = False) -> torch.Tensor:
+                         quantized: bool = False,
+                         num_features: int = 0) -> torch.Tensor:
     """[num_slots, F, bmax, 3] f32 (grad, hess, count) per-slot histograms
-    by index_add_ over flattened (slot, feature, bin) cells; rows with slot
+    by index_add_ over flattened (slot, feature, bin) cells, summed in
+    float64 and rounded once as the kernels' f32 mode does; rows with slot
     < 0 or >= num_slots are dropped. const_hess != 0: hessian sums are
     const x count. quantized: grad and hess hold whole numbers (int8 from
     quantize_gradients), summed exactly in int64; the result holds the
-    unscaled integer sums."""
+    unscaled integer sums. num_features > 0: bins are 4-bit packed."""
+    bins = _unpacked(bins, num_features)
     n, f = bins.shape
     dev = bins.device
     rows = torch.nonzero((row_slot >= 0) & (row_slot < num_slots))[:, 0]
@@ -222,16 +287,19 @@ def build_histograms_ref(bins, grad, hess, cnt, row_slot, *, num_slots: int,
         hist = torch.cat([gh.to(torch.float32),
                           cell_sums(cnt[rows][:, None])], dim=1)
     else:
-        hist = cell_sums(torch.stack([g, h, cnt[rows]], dim=1))
+        hist = cell_sums(torch.stack([g, h, cnt[rows]], dim=1)
+                         .to(torch.float64)).to(torch.float32)
     return _fill_const_hess(hist.view(num_slots, f, bmax, 3), const_hess)
 
 
 def fused_route_hist_ref(bins, grad, hess, cnt, row_node, tbl, member,
                          feat_tbl, *, num_slots: int, bmax: int,
-                         const_hess: float = 0.0, quantized: bool = False
+                         const_hess: float = 0.0, quantized: bool = False,
+                         num_features: int = 0
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(hist [num_slots, F, bmax, 3], new row_node): route one level, then
     histogram the rows by their new slot."""
+    bins = _unpacked(bins, num_features)
     new_node, new_slot = route_rows_ref(bins, row_node, tbl, member,
                                         feat_tbl)
     hist = build_histograms_ref(bins, grad, hess, cnt, new_slot,
@@ -302,104 +370,164 @@ def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_route_args(bins, row_node, tbl, member, feat_tbl) -> None:
-    n, f = bins.shape
-    _check(bins, "bins", torch.uint8, (n, f))
-    _check(row_node, "row_node", torch.int32, (n,))
+def _bin_dims(bins: torch.Tensor, num_features: int) -> Tuple[int, int]:
+    """(logical feature count F, packed bytes a row fh or 0 if unpacked) of
+    a bin matrix; checks its dtype, layout and packed width."""
+    n, fcols = bins.shape
+    _check(bins, "bins", torch.uint8, (n, fcols))
+    if not num_features:
+        return fcols, 0
+    if fcols != (num_features + 1) // 2:
+        raise ValueError(f"packed bins: {fcols} columns for {num_features} "
+                         "features, expected ceil(F/2)")
+    return num_features, fcols
+
+
+def _check_route_args(bins, row_node, tbl, member, feat_tbl,
+                      num_features) -> Tuple[int, int]:
+    f, fh = _bin_dims(bins, num_features)
+    _check(row_node, "row_node", torch.int32, (bins.shape[0],))
     _check(tbl, "tbl", torch.int32, (tbl.shape[0], TBL_COLS))
     _check(member, "member", torch.int32, (tbl.shape[0], member.shape[1]))
     _check(feat_tbl, "feat_tbl", torch.int32, (f, 2))
+    return f, fh
 
 
-def _check_hist_args(bins, grad, hess, cnt, bmax, quantized) -> None:
-    n, f = bins.shape
-    _check(bins, "bins", torch.uint8, (n, f))
+def _check_hist_args(bins, grad, hess, cnt, bmax, quantized,
+                    num_features) -> Tuple[int, int]:
+    """Checks the histogram kernels' inputs; returns _bin_dims."""
+    f, fh = _bin_dims(bins, num_features)
+    n = bins.shape[0]
     gdt = torch.int8 if quantized else torch.float32
     for t, name, dt in ((grad, "grad", gdt), (hess, "hess", gdt),
                         (cnt, "cnt", torch.float32)):
         _check(t, name, dt, (n,))
     if not 0 < bmax <= 256:
         raise ValueError(f"bmax {bmax} outside (0, 256] (uint8 bins)")
+    return f, fh
 
 
 def _hist_buffer(num_slots, f, bmax, quantized, device) -> torch.Tensor:
-    """Zeroed [S, F, bmax, 3] cells the histogram kernels add into: f32,
-    or (quantized) int32 gradient cells beside f32 count bits."""
+    """Zeroed [S, F, bmax, 3] cells the histogram kernels add into: float64
+    (f32 mode; the reference's double hist_t, rounded to f32 once by
+    _hist_result), or (quantized) int32 gradient cells beside f32 count
+    bits."""
     return torch.zeros((num_slots, f, bmax, 3), device=device,
-                       dtype=torch.int32 if quantized else torch.float32)
+                       dtype=torch.int32 if quantized else torch.float64)
 
 
 def _hist_result(hist, quantized, const_hess) -> torch.Tensor:
-    """The kernels' cells as [S, F, bmax, 3] f32 (integer gradient sums
-    converted, count bits reinterpreted), hessians filled for const_hess."""
+    """The kernels' cells as [S, F, bmax, 3] f32 (float64 sums rounded,
+    integer gradient sums converted, count bits reinterpreted), hessians
+    filled for const_hess."""
+    raw = hist
+    hist = raw.to(torch.float32)
     if quantized:
-        raw = hist
-        hist = raw.to(torch.float32)
         hist[..., 2] = raw.view(torch.float32)[..., 2]
     return _fill_const_hess(hist, const_hess)
 
 
 def fused_route_hist(bins, grad, hess, cnt, row_node, tbl, member, feat_tbl,
                      *, num_slots: int, bmax: int, const_hess: float = 0.0,
-                     quantized: bool = False
+                     quantized: bool = False, num_features: int = 0
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Route rows through the previous pass's tables and build the new
     frontier's histograms in one sweep. Returns (hist [S, F, bmax, 3],
     new row_node [N] i32). quantized: grad and hess are int8 and the
-    gradient channels hold their unscaled integer sums."""
+    gradient channels hold their unscaled integer sums. num_features > 0:
+    bins are 4-bit packed (pack_bins_4bit) with that many features."""
     args = (bins, grad, hess, cnt, row_node, tbl, member, feat_tbl)
     if _on_cpu(*args):
         return fused_route_hist_ref(*args, num_slots=num_slots, bmax=bmax,
                                     const_hess=const_hess,
-                                    quantized=quantized)
-    _check_route_args(bins, row_node, tbl, member, feat_tbl)
-    _check_hist_args(bins, grad, hess, cnt, bmax, quantized)
-    n, f = bins.shape
+                                    quantized=quantized,
+                                    num_features=num_features)
+    f, fh = _check_route_args(bins, row_node, tbl, member, feat_tbl,
+                              num_features)
+    _check_hist_args(bins, grad, hess, cnt, bmax, quantized, num_features)
+    n = bins.shape[0]
     hist = _hist_buffer(num_slots, f, bmax, quantized, bins.device)
     out = torch.empty(n, dtype=torch.int32, device=bins.device)
     _cuda.call("fused_route_hist", bins.device, bins, grad, hess, cnt,
-               row_node, tbl, member, feat_tbl, hist, out, n, f, bmax,
+               row_node, tbl, member, feat_tbl, hist, out, n, f, fh, bmax,
                num_slots, tbl.shape[0], member.shape[1], int(bool(const_hess)),
                int(quantized))
-    _count_launch(fused_route_hist, quantized)
+    count_launch("fused_route_hist", quantized=quantized, packed=fh > 0)
     return _hist_result(hist, quantized, const_hess), out
 
 
-def route_rows(bins, row_node, tbl, member, feat_tbl
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Advance rows one level: (new row_node, new row_slot), both [N] i32."""
+def route_rows(bins, row_node, tbl, member, feat_tbl, *,
+               num_features: int = 0, emit_counts: bool = False,
+               num_slots: int = 0):
+    """Advance rows one level: (new row_node, new row_slot), both [N] i32.
+    emit_counts (needs num_slots > 0): also the [num_slots] i32 count of
+    rows whose new slot is in [0, num_slots), parked rows excluded — the
+    metadata of the scatter histogram's partition, from the same sweep.
+    num_features > 0: bins are 4-bit packed."""
+    if emit_counts and num_slots <= 0:
+        raise ValueError("emit_counts needs num_slots > 0")
+    kw = dict(num_features=num_features, emit_counts=emit_counts,
+              num_slots=num_slots)
     if _on_cpu(bins, row_node, tbl, member, feat_tbl):
-        return route_rows_ref(bins, row_node, tbl, member, feat_tbl)
-    _check_route_args(bins, row_node, tbl, member, feat_tbl)
-    n, f = bins.shape
-    node_out = torch.empty(n, dtype=torch.int32, device=bins.device)
-    slot_out = torch.empty(n, dtype=torch.int32, device=bins.device)
-    _cuda.call("route_rows", bins.device, bins, row_node, tbl, member,
-               feat_tbl, node_out, slot_out, n, f, tbl.shape[0],
-               member.shape[1])
-    route_rows.launches += 1
+        return route_rows_ref(bins, row_node, tbl, member, feat_tbl, **kw)
+    f, fh = _check_route_args(bins, row_node, tbl, member, feat_tbl,
+                              num_features)
+    n = bins.shape[0]
+    dev = bins.device
+    node_out = torch.empty(n, dtype=torch.int32, device=dev)
+    slot_out = torch.empty(n, dtype=torch.int32, device=dev)
+    counts = torch.zeros(num_slots, dtype=torch.int32, device=dev) \
+        if emit_counts else None
+    _cuda.call("route_rows", dev, bins, row_node, tbl, member, feat_tbl,
+               node_out, slot_out, counts, n, f, fh, tbl.shape[0],
+               member.shape[1], num_slots if emit_counts else 0)
+    count_launch("route_rows", counts=emit_counts, packed=fh > 0)
+    if emit_counts:
+        return node_out, slot_out, counts
     return node_out, slot_out
 
 
 def build_histograms(bins, grad, hess, cnt, row_slot, *, num_slots: int,
                      bmax: int, const_hess: float = 0.0,
-                     quantized: bool = False) -> torch.Tensor:
+                     quantized: bool = False,
+                     num_features: int = 0) -> torch.Tensor:
     """Per-slot histograms [S, F, bmax, 3] keyed by row_slot (rows with
-    slot < 0 or >= S dropped). quantized: as in fused_route_hist."""
+    slot < 0 or >= S dropped). quantized, num_features: as in
+    fused_route_hist."""
     if _on_cpu(bins, grad, hess, cnt, row_slot):
         return build_histograms_ref(bins, grad, hess, cnt, row_slot,
                                     num_slots=num_slots, bmax=bmax,
                                     const_hess=const_hess,
-                                    quantized=quantized)
-    _check_hist_args(bins, grad, hess, cnt, bmax, quantized)
-    n, f = bins.shape
+                                    quantized=quantized,
+                                    num_features=num_features)
+    f, fh = _check_hist_args(bins, grad, hess, cnt, bmax, quantized,
+                            num_features)
+    n = bins.shape[0]
     _check(row_slot, "row_slot", torch.int32, (n,))
     hist = _hist_buffer(num_slots, f, bmax, quantized, bins.device)
     _cuda.call("build_histograms", bins.device, bins, grad, hess, cnt,
-               row_slot, hist, n, f, bmax, num_slots, int(bool(const_hess)),
-               int(quantized))
-    _count_launch(build_histograms, quantized)
+               row_slot, hist, n, f, fh, bmax, num_slots,
+               int(bool(const_hess)), int(quantized))
+    count_launch("build_histograms", quantized=quantized, packed=fh > 0)
     return _hist_result(hist, quantized, const_hess)
+
+
+def build_histograms_auto(bins, grad, hess, cnt, row_slot, *,
+                          num_slots: int, bmax: int, const_hess: float = 0.0,
+                          quantized: bool = False,
+                          num_features: int = 0) -> torch.Tensor:
+    """The JAX package's build_histograms_mxu_auto: the v2 kernel's
+    function (one row pass, reads packed bins) where fits_v2 holds at its
+    default row block, else the v1 kernel's, on bins unpacked first (the
+    JAX v1 kernel cannot read nibbles; packed storage targets small-bmax
+    shapes, which always fit v2). Both are build_histograms here."""
+    f = num_features or bins.shape[1]
+    if not fits_v2(num_slots, f, bmax, quantized, const_hess=const_hess):
+        bins, num_features = _unpacked(bins, num_features), 0
+    return build_histograms(bins, grad, hess, cnt, row_slot,
+                            num_slots=num_slots, bmax=bmax,
+                            const_hess=const_hess, quantized=quantized,
+                            num_features=num_features)
 
 
 def node_values(row_node, values) -> torch.Tensor:
@@ -414,15 +542,8 @@ def node_values(row_node, values) -> torch.Tensor:
     out = torch.empty(n, dtype=torch.float32, device=row_node.device)
     _cuda.call("node_values", row_node.device, row_node, values, out, n,
                values.shape[0])
-    node_values.launches += 1
+    count_launch("node_values")
     return out
-
-
-def _count_launch(wrapper, quantized: bool) -> None:
-    if quantized:
-        wrapper.launches_int += 1
-    else:
-        wrapper.launches += 1
 
 
 def node_sums(row_node, grad, hess, cnt, *, num_nodes: int) -> torch.Tensor:
@@ -445,28 +566,47 @@ def node_sums(row_node, grad, hess, cnt, *, num_nodes: int) -> torch.Tensor:
     acc = torch.zeros((num_nodes, 3), dtype=torch.int64, device=dev)
     _cuda.call("node_sums", dev, row_node, grad, hess, cnt, amax, acc, out,
                n, num_nodes)
-    node_sums.launches += 1
+    count_launch("node_sums")
     return out
 
 
-_WRAPPERS = (fused_route_hist, route_rows, build_histograms, node_values,
-             node_sums)
-_INT_MODE = (fused_route_hist, build_histograms)
+# ---------------------------------------------------------------------------
+# launch counts
+# ---------------------------------------------------------------------------
+
+# each kernel's modes, as suffixes of its launch-count keys: "_int"
+# quantized (int8 gradients, int32 cells), "_counts" route_rows'
+# emit_counts, "_packed" 4-bit packed bins; a launch counts under its
+# wrapper's name plus the suffixes of the modes it ran in, in this order
+_MODES = {"fused_route_hist": ("_int", "_packed"),
+          "route_rows": ("_counts", "_packed"),
+          "build_histograms": ("_int", "_packed"),
+          "build_histograms_scatter": ("_int", "_packed"),
+          "node_values": (), "node_sums": ()}
+_LAUNCHES: Dict[str, int] = {}
+
+
+def count_launch(name: str, *, quantized: bool = False, packed: bool = False,
+                 counts: bool = False) -> None:
+    """Count one kernel launch of wrapper `name` in the given modes."""
+    key = name + "_int" * quantized + "_counts" * counts + "_packed" * packed
+    _LAUNCHES[key] += 1
 
 
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches per wrapper since the last reset; the histogram
-    wrappers count their integer-mode launches apart, as `<name>_int`."""
-    counts = {w.__name__: w.launches for w in _WRAPPERS}
-    counts.update({w.__name__ + "_int": w.launches_int for w in _INT_MODE})
-    return counts
+    """Kernel launches since the last reset, one key per kernel and mode:
+    the wrapper's name for its plain mode, suffixed "_int" (quantized),
+    "_counts" (emit_counts) and "_packed" (4-bit bins) for the others."""
+    return dict(_LAUNCHES)
 
 
 def reset_launch_counts() -> None:
-    for w in _WRAPPERS:
-        w.launches = 0
-    for w in _INT_MODE:
-        w.launches_int = 0
+    _LAUNCHES.clear()
+    for name, suffixes in _MODES.items():
+        keys = [name]
+        for suf in suffixes:
+            keys += [k + suf for k in keys]
+        _LAUNCHES.update(dict.fromkeys(keys, 0))
 
 
 reset_launch_counts()

@@ -190,10 +190,32 @@ def test_fused_branch_mirrors_reference_dispatch():
     for s in (2, 24, 72, 136, 263, 511):
         for ch in (0.0, 1.0):
             rb = torch_k.fused_row_block(s, 28, 256, ch)
-            assert torch_k.fused_fits(s, 28, 256, rb, ch) == \
+            assert torch_k.fits_v2(s, 28, 256, row_block=rb,
+                                   const_hess=ch) == \
                 fits_v2(s, 28, 256, True, False, row_block=rb,
                         const_hess=ch)
-    assert not torch_k.fused_fits(511, 28, 256,
-                                  torch_k.fused_row_block(511, 28, 256, 0.0))
-    assert torch_k.fused_fits(263, 28, 256,
-                              torch_k.fused_row_block(263, 28, 256, 0.0))
+    assert not torch_k.fits_v2(
+        511, 28, 256, row_block=torch_k.fused_row_block(511, 28, 256, 0.0))
+    assert torch_k.fits_v2(
+        263, 28, 256, row_block=torch_k.fused_row_block(263, 28, 256, 0.0))
+
+
+@pytest.mark.parametrize("wrapper", ["build_histograms",
+                                     "build_histograms_scatter"])
+def test_exact_histogram_sums_round_once(wrapper):
+    # every row in one cell: f32 cells would round each add to the running
+    # sum's ulp; the sums run in float64 and are rounded to f32 once
+    from lightgbm_tpu_torch.learner import histogram_pallas as torch_p
+    rng = np.random.RandomState(3)
+    n = 300_000
+    grad = rng.randn(n).astype(np.float32)
+    hess = rng.uniform(0.1, 1.0, n).astype(np.float32)
+    build = getattr(torch_p if wrapper.endswith("scatter") else torch_k,
+                    wrapper)
+    h = build(_t(np.zeros((n, 1), np.uint8)), _t(grad), _t(hess),
+              torch.ones(n), torch.zeros(n, dtype=torch.int32),
+              num_slots=1, bmax=2)
+    want = np.float32([grad.sum(dtype=np.float64),
+                       hess.sum(dtype=np.float64), n])
+    np.testing.assert_array_equal(h[0, 0, 0].numpy(), want)
+    assert not h[0, 0, 1].any()

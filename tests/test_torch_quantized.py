@@ -171,17 +171,18 @@ def test_fused_fits_mirrors_fits_v2():
                 for ch in (0.0, 1.0):
                     for quant in (False, True):
                         rb = torch_k.fused_row_block(s, f, bmax, ch, quant)
-                        assert torch_k.fused_fits(s, f, bmax, rb, ch,
-                                                  quant) == \
+                        assert torch_k.fits_v2(s, f, bmax, quant,
+                                               row_block=rb,
+                                               const_hess=ch) == \
                             fits_v2(s, f, bmax, True, quant, row_block=rb,
                                     const_hess=ch), (s, f, bmax, ch, quant)
     # the slice's shapes: quantized fix-ups at 1M x 28 take the fused
     # kernel; at 200 features wide frontiers take route_rows +
     # build_histograms
-    assert torch_k.fused_fits(511, 28, 256, torch_k.fused_row_block(
-        511, 28, 256, 0.0, True), 0.0, True)
-    assert not torch_k.fused_fits(136, 200, 256, torch_k.fused_row_block(
-        136, 200, 256, 0.0, True), 0.0, True)
+    assert torch_k.fits_v2(511, 28, 256, True, row_block=torch_k
+                           .fused_row_block(511, 28, 256, 0.0, True))
+    assert not torch_k.fits_v2(136, 200, 256, True, row_block=torch_k
+                               .fused_row_block(136, 200, 256, 0.0, True))
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,7 @@ Both packages train the same data with the same params: the JAX Booster on
 its MXU growth path in Pallas interpret mode, the port on device_type=cpu
 (its kernels' plain versions). Bin mappers and every tree's structure must
 be identical; leaf values, gains and predictions agree to f32 summation
-order (the JAX histograms sum double-bf16 channels, the port's f32).
+order (the JAX histograms sum double-bf16 channels, the port's float64).
 """
 
 import os
@@ -110,6 +110,35 @@ def test_train_matches_jax_package(objective, make, tmp_path):
     assert loaded.model_to_string() == b_torch.model_to_string()
 
 
+def test_exact_leaves_hold_their_rows_sums():
+    # at max_bin 15 a histogram cell sums thousands of rows and sibling
+    # subtraction takes differences of such sums; every leaf value must
+    # still be -G/H of the rows it holds (no regularisation here)
+    X, y = make_binary(n=100_000, f=10)
+    params = {"objective": "binary", "num_leaves": 63, "max_bin": 15,
+              "min_data_in_leaf": 20, "verbosity": -1, "device_type": "cpu"}
+    bst = lgt.Booster(params, lgt.Dataset(X, label=y, params=params))
+    gbdt = bst.gbdt
+    grown = []
+    grow = gbdt._grow
+
+    def kept_grow(grad, hess):
+        tree, row_node = grow(grad, hess)
+        grown.append((tree.leaf_value.numpy(), row_node.numpy(),
+                      grad.numpy(), hess.numpy()))
+        return tree, row_node
+    gbdt._grow = kept_grow
+    for _ in range(4):
+        bst.update()
+    for leaf_value, row_node, grad, hess in grown:
+        m = leaf_value.shape[0]
+        g = np.bincount(row_node, grad.astype(np.float64), m)
+        h = np.bincount(row_node, hess.astype(np.float64), m)
+        leaf = np.bincount(row_node, minlength=m) > 0
+        np.testing.assert_allclose(leaf_value[leaf], -g[leaf] / h[leaf],
+                                   rtol=1e-4, atol=1e-5)
+
+
 def test_import_leaves_jax_out():
     code = ("import sys, lightgbm_tpu_torch, lightgbm_tpu_torch.convert\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
@@ -137,7 +166,7 @@ def test_train_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("extra", [
-    {"use_quantized_grad": True, "hist_backend": "pallas"},
+    {"use_quantized_grad": True, "boosting": "dart"},
     {"bagging_fraction": 0.5, "bagging_freq": 1},
     {"boosting": "goss"},
     {"feature_fraction": 0.5},
