@@ -3,14 +3,15 @@
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
-Builds the port's CUDA kernels from lightgbm_tpu_torch/csrc, holds each
-against its plain PyTorch version on the card at the shapes the training
-path gives it (1M rows x 28 features, 256 bins, up to 1024 tree nodes;
-15 bins for the 4-bit packed modes), in every mode the paths run (f32 and
-the integer mode of quantized gradients; unpacked and packed bins; route
-counts), times it, then trains through lightgbm_tpu_torch's entry points
-along four paths, each with the launch counts reset before it and read
-after it:
+Builds the port's seven CUDA kernel sources from lightgbm_tpu_torch/csrc,
+holds each kernel against its plain PyTorch version on the card at the
+shapes the training path gives it (1M rows x 28 features, 256 bins, up to
+1024 tree nodes; 15 bins for the 4-bit packed modes; 511 and 263 scan
+slots for the split scan), in every mode the paths run (f32 and the
+integer mode of quantized gradients; unpacked and packed bins; route
+counts; the split scan plain and monotone), times it, then trains through
+lightgbm_tpu_torch's entry points along six paths, each with the launch
+counts reset before it and read after it:
 
 - exact histograms: the Higgs-like binary configuration (num_leaves 255,
   max_bin 255), the same with min_data_in_leaf 1000 (which runs the
@@ -23,19 +24,31 @@ after it:
   hist_backend pallas (route counts + the scatter kernel), scatter (the
   segment-sum oracle) and auto (the autotune), each byte-equal to the mxu
   run, and exact under pallas;
+- the split-search options: monotone (+1 on feature 0, -1 on feature 1)
+  and interaction constraints with feature_fraction and
+  feature_fraction_bynode 0.8, exact and quantized (10 trees each; held
+  to monotone predictions, paths within one interaction group, each
+  tree's feature mask), and extra_trees (3 trees);
+- the fused split scan (K8), which only a caller of the learner entry
+  point grow_tree_mxu(use_scan_kernel=True) reaches: each tree of a
+  booster run is grown again that way with the booster's own settings,
+  gradients, mask and key, and must equal the booster's tree (the
+  constrained configuration, 10 trees, and the plain one, 3 trees);
 - 4-bit packed bins (max_bin 15): exact and quantized under mxu, each
   held to the same run on unpacked bins (exact: held-out AUC within
   0.005; quantized: byte-equal), and quantized under auto and pallas.
 
 It checks what comes out, including that every leaf of every tree holds
--G/H of its rows' gradients and that two identical quantized runs write
-the same model text. Every phase prints one JSON line; any failed
+-G/H of its rows' gradients (unconstrained runs) and that two identical
+quantized runs write the same model text; K8 launches on the scan path
+only. Every phase prints one JSON line; any failed
 check raises, so the exit code is non-zero and no result line is printed.
 The last three lines are the kernel table (JSON), the card's name and
 power limit as nvidia-smi prints them, and the result
 {"ok": true, "device": {...}}.
 """
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -82,12 +95,28 @@ PACKED_PATH = ("fused_route_hist_packed", "fused_route_hist_int_packed",
                "route_rows_packed", "route_rows_counts_packed",
                "build_histograms_int_packed",
                "build_histograms_scatter_int_packed")
+# the split-search options: basic monotone constraints (+1 on feature 0,
+# -1 on feature 1), interaction groups, per-tree and per-node sampling
+CONSTRAINT_PARAMS = dict(
+    TRAIN_PARAMS, monotone_constraints=[1, -1] + [0] * (N_FEATURES - 2),
+    interaction_constraints=[list(range(0, 10)), list(range(10, 20)),
+                             list(range(20, N_FEATURES))],
+    feature_fraction=0.8, feature_fraction_bynode=0.8)
+CONSTRAINT_TREES = 10
+EXTRA_TREES = 3
+CONSTRAINT_PATH = ("fused_route_hist", "route_rows", "node_values",
+                   "fused_route_hist_int", "node_sums")
+# K8 runs only where a caller asks grow_tree_mxu for it (use_scan_kernel)
+SCAN_PATH = ("find_best_splits", "find_best_splits_mono")
+SCAN_PLAIN_TREES = 3
+MONO_ROWS = 2000      # held-out rows swept over a feature's bin bounds
 # the path whose counts a kernel row reports
 ROW_PATH = {**dict.fromkeys(EXACT_PATH, "exact"),
             **dict.fromkeys(("fused_route_hist_int", "build_histograms_int",
                              "node_sums"), "quantized"),
             **dict.fromkeys(BACKEND_PATH[:3], "backends"),
-            **dict.fromkeys(PACKED_PATH, "packed")}
+            **dict.fromkeys(PACKED_PATH, "packed"),
+            **dict.fromkeys(SCAN_PATH, "scan")}
 
 
 def make_higgs_like(n, f, seed=17):
@@ -347,6 +376,7 @@ def kernel_phase(torch, hm, hp, rng_mod, dev):
 
     backend_rows(torch, hm, hp, rng_mod, d, row, dev)
     packed_rows(torch, hm, hp, rng_mod, dev, row)
+    split_rows(torch, hm, rng_mod, dev, row)
 
     # K6 node_values: the score update's gather over 1024 node values
     v = d["values"]
@@ -593,14 +623,109 @@ def packed_rows(torch, hm, hp, rng_mod, dev, row):
             lib, source=name.replace("_int_packed", ""))
 
 
-def train_booster(name, torch, lgt, hm, ds, params, trees, metric):
+def split_rows(torch, hm, rng_mod, dev, row):
+    """K8 (find_best_splits) at the scan path's shapes: histograms of the
+    1M x 28 kernel inputs (two NaN-bin and two categorical features) in
+    511 slots (the fix-up passes' scan width) and 263, random per-slot
+    feature masks; plain mode and monotone mode (+1 on feature 0, -1 on
+    feature 1, per-slot output bounds, depth penalty); every 37th slot is
+    empty. Each launch is held to the plain version on every slot: the
+    selection (has_split, feature, threshold, NaN direction) equal, the
+    picked sums within 1e-6 relative."""
+    from lightgbm_tpu_torch.learner import split_kernel as sk
+    from lightgbm_tpu_torch.learner.split import (SplitHyperParams,
+                                                  find_best_splits)
+    d = kernel_inputs(torch, hm, rng_mod, dev)
+    f = d["bins"].shape[1]
+    num_bins, missing_is_nan = d["feat_tbl"][:, 0], d["feat_tbl"][:, 1] > 0
+    is_cat = torch.zeros(f, dtype=torch.bool, device=dev)
+    is_cat[[5, 11]] = True
+    rng = np.random.RandomState(11)
+    plain = SplitHyperParams(min_data_in_leaf=20)
+    mono_hp = dataclasses.replace(plain, has_monotone=True,
+                                  monotone_penalty=1.5)
+    monotone = torch.zeros(f, dtype=torch.int32, device=dev)
+    monotone[0], monotone[1] = 1, -1
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+    for s in (S_HIST, S_FUSED):
+        hist = hm.build_histograms(d["bins"], d["grad"], d["hess"], d["cnt"],
+                                   d["row_slot"], num_slots=s, bmax=BMAX)
+        hist[::37] = 0.0        # empty slots: no split, the junk selection
+        sums = hist[:, 0].sum(1)                                   # [S, 3]
+        args = (hist, sums[:, 0], sums[:, 1], sums[:, 2],
+                t(rng.randn(s).astype(np.float32) * 0.1), num_bins,
+                missing_is_nan, is_cat,
+                t((rng.rand(s, f) < 0.8).astype(np.float32)))
+        bound = t(rng.uniform(0.05, 0.5, s).astype(np.float32))
+        mono_kw = dict(monotone=monotone, cons_min=-bound, cons_max=bound,
+                       depth=t(rng.randint(0, 12, s).astype(np.int32)))
+        for name, hp, kw in (("find_best_splits", plain, {}),
+                             ("find_best_splits_mono", mono_hp, mono_kw)):
+            tables = sk.pack_inputs(*args[1:], hp, **kw)
+
+            def k8():
+                return sk._launch(hist, *tables, hp)
+
+            def k8_ref():
+                return sk.find_best_splits_kernel_ref(hist, *tables, hp)
+            got, want = k8(), k8_ref()
+            torch.cuda.synchronize()
+            sel = slice(sk.O_HAS, sk.O_NAL + 1)
+            check(torch.equal(got[:, sel], want[:, sel]),
+                  f"{name} at {s} slots: the selection differs from its "
+                  "plain version on slots " + str(torch.nonzero(
+                      (got[:, sel] != want[:, sel]).any(1))[:8, 0].tolist()))
+            sums_sel = slice(sk.O_LR, sk.O_LL + 3)
+            diff = (got[:, sums_sel] - want[:, sums_sel]).abs()
+            err = float(diff.max())
+            rel = float((diff / want[:, sums_sel].abs().clamp(
+                min=1e-30)).max())
+            check(rel <= 1e-6, f"{name} at {s} slots: picked sums rel "
+                  f"error {rel}")
+            n_split = int(got[:, sk.O_HAS].sum())
+            ms, plain_ms = time_ms(torch, k8, 20), time_ms(torch, k8_ref, 5)
+            # every input read once: the histograms and the small tables
+            nbytes = hist.numel() * 4 + sum(x.numel() * 4 for x in tables
+                                            if x is not None) + \
+                s * sk.N_OUT * 4
+            # ~50 f32 ops a candidate (two NaN options of split.py's
+            # gain forms), ~70 with the monotone clip and penalty
+            ops = s * f * BMAX * (70 if kw else 50)
+            whole = dict(
+                wrapper_ms=time_ms(torch, lambda: sk.find_best_splits_kernel(
+                    *args, hp, **kw), 20),
+                find_best_splits_ms=time_ms(torch, lambda: find_best_splits(
+                    *args, hp, **kw), 20))
+            if s == S_HIST:
+                row(name, "lightgbm_tpu/learner/split_kernel.py:249", err,
+                    ms, plain_ms, nbytes, ops, None,
+                    source="find_best_splits")
+                emit("kernel_detail", name=name, slots=s, slots_split=n_split,
+                     what="the whole wrapper (kernel + [S] recompute) and "
+                          "split.find_best_splits on the same inputs",
+                     **whole)
+            else:
+                emit("kernel_check", name=name, slots=s, slots_split=n_split,
+                     max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                     bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, **whole)
+    del d
+
+
+def train_booster(name, torch, lgt, hm, ds, params, trees, metric,
+                  leaf_check=True, on_grow=None):
     """Train `trees` iterations on a constructed Dataset; returns the
     booster, the training seconds, the metric after every tree and the
     kernel launches this run added. Then holds every leaf of every tree to
     -G/H of the rows it holds (float64 sums of that tree's gradients; the
     configurations here have no regularisation of leaf values), within
     LEAF_TOL, and prints the largest difference as the phase `leaf_check`
-    of run `name`."""
+    of run `name`. Monotone constraints clip leaves to their bounds, so a
+    constrained run passes leaf_check=False and is checked for
+    monotonicity instead (check_constraints). on_grow(gbdt, grad, hess,
+    tree, row_node) sees every tree the booster grows, before the booster
+    uses it."""
     booster = lgt.Booster(params, ds)
     gbdt = booster.gbdt
     grown = []
@@ -608,6 +733,8 @@ def train_booster(name, torch, lgt, hm, ds, params, trees, metric):
 
     def kept_grow(grad, hess):
         tree, row_node = grow(grad, hess)
+        if on_grow is not None:
+            on_grow(gbdt, grad, hess, tree, row_node)
         grown.append((tree.leaf_value, row_node, grad, hess))
         return tree, row_node
     gbdt._grow = kept_grow
@@ -622,6 +749,8 @@ def train_booster(name, torch, lgt, hm, ds, params, trees, metric):
     seconds = time.perf_counter() - t0
     launches = {k: v - before[k] for k, v in hm.launch_counts().items()}
     del gbdt._grow
+    if not leaf_check:
+        return booster, seconds, values, launches
     errs, biggest = [], 0.0
     for leaf_value, row_node, grad, hess in grown:
         node = row_node.long()
@@ -926,6 +1055,173 @@ def packed_path(torch, lgt, hm, X, y):
     return counts
 
 
+def tree_blocks(text):
+    """The trees of a model text (its Tree= blocks)."""
+    return text.split("end of trees")[0].split("Tree=", 1)[1]
+
+
+def check_constraints(booster, ds, name):
+    """CONSTRAINT_PARAMS on a trained booster: every split feature of tree
+    i lies in the booster's feature_fraction mask of iteration i; every
+    root-to-leaf path uses the features of one interaction group; held-out
+    predictions are non-decreasing in feature 0 and non-increasing in
+    feature 1 when each sweeps its bin upper bounds with the other features
+    held (MONO_ROWS rows). Returns (held-out AUC, largest step against the
+    constraint, which must be <= 0)."""
+    gbdt = booster.gbdt
+    groups = [set(g) for g in CONSTRAINT_PARAMS["interaction_constraints"]]
+    for i, tree in enumerate(gbdt.trees):
+        nn = int(tree.num_nodes)
+        feat = tree.split_feature[:nn].cpu().numpy()
+        parent = tree.parent[:nn].cpu().numpy()
+        mask = gbdt._feature_mask_at(i).cpu().numpy()
+        check(all(mask[j] > 0 for j in feat[feat >= 0]),
+              f"{name}: tree {i} splits on a feature outside its "
+              "feature_fraction mask")
+        for leaf in np.nonzero(tree.is_leaf[:nn].cpu().numpy())[0]:
+            path, a = set(), parent[leaf]
+            while a >= 0:
+                path.add(int(feat[a]))
+                a = parent[a]
+            check(any(path <= g for g in groups),
+                  f"{name}: tree {i} path {sorted(path)} crosses the "
+                  "interaction groups")
+    Xva, yva = make_higgs_like(40_000, N_FEATURES, seed=99)
+    held = auc(booster.predict(Xva, raw_score=True), yva)
+    worst = -np.inf
+    for j, sign in ((0, 1.0), (1, -1.0)):
+        ub = np.asarray(ds.binned.mappers[j].bin_upper_bound, np.float64)
+        grid = ub[np.isfinite(ub)].astype(np.float32)
+        sweep = np.repeat(Xva[:MONO_ROWS], len(grid), axis=0)
+        sweep[:, j] = np.tile(grid, MONO_ROWS)
+        pred = booster.predict(sweep, raw_score=True).reshape(MONO_ROWS, -1)
+        worst = max(worst, float(np.max(-sign * np.diff(pred, axis=1))))
+    return held, worst
+
+
+def constraints_path(torch, lgt, hm, y, ds, exact):
+    """The split-search options through the booster at 1M x 28, exact
+    histograms' launch counts and all: CONSTRAINT_PARAMS exact and quantized
+    (hist_backend mxu; two identical runs must write byte-equal model
+    text), 10 trees each, held to check_constraints and a held-out AUC
+    above 0.75; then extra_trees (3 trees, leaf_check), AUC above 0.7 and
+    trees that differ from the exact run `exact`'s first three. Returns
+    the launch counts."""
+    logloss = logloss_of(torch, y)
+    hm.reset_launch_counts()
+    quant = dict(CONSTRAINT_PARAMS, use_quantized_grad=True,
+                 hist_backend="mxu")
+    for name, params in (("train_constraints", CONSTRAINT_PARAMS),
+                         ("train_constraints_quantized", quant)):
+        booster, train_s, losses, launches = train_booster(
+            name, torch, lgt, hm, ds, params, CONSTRAINT_TREES, logloss,
+            leaf_check=False)
+        held, worst = check_constraints(booster, ds, name)
+        extra = {}
+        if params is quant:
+            again = lgt.Booster(quant, ds)
+            for _ in range(CONSTRAINT_TREES):
+                again.update()
+            extra["model_txt_byte_equal_across_runs"] = \
+                again.model_to_string() == booster.model_to_string()
+        emit(name, trees=CONSTRAINT_TREES, train_s=train_s,
+             trees_per_s=CONSTRAINT_TREES / train_s, launches=launches,
+             logloss=losses, held_out_auc=held,
+             largest_step_against_monotone=worst,
+             leaves=[int(t.num_leaves) for t in booster.gbdt.trees], **extra)
+        check(worst <= 0.0, f"{name}: predictions step {worst} against a "
+              "monotone constraint")
+        check(held > 0.75, f"{name}: held-out AUC {held} <= 0.75")
+        check(losses[-1] < losses[0], f"{name}: logloss did not fall")
+        check(extra.get("model_txt_byte_equal_across_runs", True),
+              f"{name}: two identical runs wrote different model.txt")
+    booster, train_s, losses, launches = train_booster(
+        "train_extra_trees", torch, lgt, hm, ds,
+        dict(TRAIN_PARAMS, extra_trees=True), EXTRA_TREES, logloss)
+    held = held_out_auc(booster)
+    differ = tree_blocks(booster.model_to_string()) != tree_blocks(
+        exact.model_to_string(num_iteration=EXTRA_TREES))
+    emit("train_extra_trees", trees=EXTRA_TREES, train_s=train_s,
+         trees_per_s=EXTRA_TREES / train_s, launches=launches,
+         logloss=losses, held_out_auc=held, trees_differ_from_exact=differ)
+    check(held > 0.7, f"extra_trees held-out AUC {held} <= 0.7")
+    check(differ, "extra_trees grew the exact run's trees")
+    counts = hm.launch_counts()
+    for name in CONSTRAINT_PATH:
+        check(counts[name] > 0, f"{name} was not launched on the "
+              "constraints path")
+    return counts
+
+
+def scan_path(torch, lgt, hm, grow_tree_mxu, y, ds):
+    """K8 through the learner entry point: at every iteration of a booster
+    run, grow_tree_mxu(..., **gbdt._mxu_grow_kwargs(), use_scan_kernel=
+    True) grows the tree again on the booster's own gradients, feature mask
+    and key, and once more with use_scan_kernel=False (the two timed in
+    turns); the kernel's tree must have the booster's split features,
+    thresholds, NaN directions and row routing, and leaves within 1e-5.
+    The booster keeps its own tree, so a difference cannot carry into
+    later trees. CONSTRAINT_PARAMS, 10 trees (K8's monotone mode), then
+    TRAIN_PARAMS, 3 trees (its plain mode). Returns the launch counts."""
+    logloss = logloss_of(torch, y)
+    hm.reset_launch_counts()
+    ms = {True: [], False: []}
+    leaf_errs = []
+
+    def regrow(gbdt, grad, hess, tree, row_node):
+        kw = dict(rng_key=gbdt._tree_key(), **gbdt._mxu_grow_kwargs())
+        args = (gbdt.bins, grad, hess, gbdt._cnt,
+                gbdt._feature_mask_at(gbdt.iter_), gbdt.num_bins_d,
+                gbdt.missing_is_nan_d, gbdt.is_cat_d)
+        got = {}
+        for kernel in ((True, False) if gbdt.iter_ % 2 else (False, True)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got[kernel] = grow_tree_mxu(*args, use_scan_kernel=kernel, **kw)
+            torch.cuda.synchronize()
+            ms[kernel].append((time.perf_counter() - t0) * 1e3)
+        again, rn = got[True]
+        nn = int(tree.num_nodes)
+        diff = [fld for fld in ("split_feature", "threshold_bin",
+                                "default_left", "left", "right")
+                if not torch.equal(getattr(again, fld)[:nn],
+                                   getattr(tree, fld)[:nn])]
+        if int(again.num_nodes) != nn or diff or not torch.equal(
+                rn, row_node):
+            bad = torch.nonzero(again.split_feature[:nn] !=
+                                tree.split_feature[:nn])[:1, 0].tolist()
+            node = bad[0] if bad else 0
+            emit("scan_mismatch", iteration=gbdt.iter_, fields=diff,
+                 node=node, gain_booster=float(tree.gain[node]),
+                 gain_scan_kernel=float(again.gain[node]))
+            check(False, f"the scan kernel's tree {gbdt.iter_} differs from "
+                  f"the booster's: {diff or 'row_node'}")
+        leaf_errs.append(float((again.leaf_value[:nn] -
+                                tree.leaf_value[:nn]).abs().max()))
+
+    runs = {}
+    for name, params, trees in (
+            ("train_scan_kernel", CONSTRAINT_PARAMS, CONSTRAINT_TREES),
+            ("train_scan_kernel_plain", TRAIN_PARAMS, SCAN_PLAIN_TREES)):
+        n0 = len(leaf_errs)
+        booster, train_s, losses, launches = train_booster(
+            name, torch, lgt, hm, ds, params, trees, logloss,
+            leaf_check=params is TRAIN_PARAMS, on_grow=regrow)
+        runs[name] = launches
+        emit(name, trees=trees, launches=launches,
+             grow_ms_scan_kernel=ms[True][n0:], grow_ms_find_best_splits=ms[
+                 False][n0:], max_leaf_diff=max(leaf_errs[n0:]))
+        check(max(leaf_errs[n0:]) <= 1e-5, f"{name}: leaves differ by "
+              f"{max(leaf_errs[n0:])}")
+    check(runs["train_scan_kernel"]["find_best_splits_mono"] > 0 and
+          runs["train_scan_kernel_plain"]["find_best_splits"] > 0,
+          f"the scan path launched no K8: {runs}")
+    counts = hm.launch_counts()
+    for name in SCAN_PATH:
+        check(counts[name] > 0, f"{name} was not launched on the scan path")
+    return counts
+
+
 def check_outputs(torch, lgt, booster, ds, X, params=TRAIN_PARAMS,
                   phase="train_check"):
     """Host model against the device scores, held-out AUC, model text
@@ -999,6 +1295,7 @@ def main():
     from lightgbm_tpu_torch.learner import _cuda
     from lightgbm_tpu_torch.learner import histogram_mxu as hm
     from lightgbm_tpu_torch.learner import histogram_pallas as hp
+    from lightgbm_tpu_torch.learner.grower_mxu import grow_tree_mxu
 
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -1030,8 +1327,13 @@ def main():
     check(q_equal, "two identical quantized runs wrote different model.txt")
     counts["backends"] = backends_path(torch, lgt, hm, X, y, ds, q_booster,
                                        booster)
+    counts["constraints"] = constraints_path(torch, lgt, hm, y, ds, booster)
+    counts["scan"] = scan_path(torch, lgt, hm, grow_tree_mxu, y, ds)
     del ds, reg_ds
     counts["packed"] = packed_path(torch, lgt, hm, X, y)
+    for path, c in counts.items():
+        check(path == "scan" or all(c[k] == 0 for k in SCAN_PATH),
+              f"the {path} path launched K8: the booster never asks for it")
     for r in rows:
         r["launches"] = counts[ROW_PATH[r["name"]]][r["name"]]
     check(sorted(r["name"] for r in rows) == sorted(ROW_PATH),

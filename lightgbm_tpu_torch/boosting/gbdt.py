@@ -5,7 +5,14 @@ Port of the serial, exact-histogram path of lightgbm_tpu/boosting/gbdt.py
 device, one tree per iteration from learner/grower_mxu.grow_tree_mxu,
 shrinkage, and the score update through the node_values kernel. With
 use_quantized_grad each tree grows on gradients quantized under the JAX
-package's per-tree key, fold_in(PRNGKey(extra_seed), iteration).
+package's per-tree key, fold_in(PRNGKey(extra_seed), iteration), the key
+extra_trees and feature_fraction_bynode draw from too; feature_fraction
+masks each tree's features by a permutation under
+fold_in(PRNGKey(feature_fraction_seed), iteration). Monotone constraints
+(basic method) and interaction constraints are mapped to used-feature
+order. _mxu_grow_kwargs is the single source of the grower's settings; the
+booster never sets use_scan_kernel, as in the JAX package (the fused
+split-scan kernel is reached through grow_tree_mxu itself).
 
 The histogram backend (hist_backend) is resolved once, before the first
 tree, as in the JAX package: "auto" times the mxu kernels against the
@@ -30,6 +37,7 @@ from typing import List
 
 import math
 
+import numpy as np
 import torch
 
 from .. import rng
@@ -72,13 +80,11 @@ def _unsupported(cfg: Config) -> List[tuple]:
         ("boosting=" + str(cfg.boosting), "P6", cfg.boosting != "gbdt"),
         ("num_class", "P7", cfg.num_class > 1),
         ("level_pipeline", "P9", cfg.level_pipeline),
-        ("feature_fraction", "P13", cfg.feature_fraction < 1.0),
-        ("feature_fraction_bynode", "P13", cfg.feature_fraction_bynode < 1.0),
-        ("extra_trees", "P13", cfg.extra_trees),
-        ("monotone_constraints", "P13",
-         bool(cfg.monotone_constraints) and
-         any(v != 0 for v in cfg.monotone_constraints)),
-        ("interaction_constraints", "P13", bool(cfg.interaction_constraints)),
+        # the JAX package grows these on its portable grower
+        ("monotone_constraints_method=" +
+         str(cfg.monotone_constraints_method), "P13",
+         cfg.monotone_constraints is not None and
+         cfg.monotone_constraints_method != "basic"),
         ("forcedsplits_filename", "P13", bool(cfg.forcedsplits_filename)),
         ("cegb_*", "P13",
          cfg.cegb_penalty_split > 0 or
@@ -169,8 +175,29 @@ class GBDT:
         # no bagging: every row counts once in the count channel
         self._cnt = torch.ones(self.num_data, dtype=torch.float32,
                                device=dev)
-        self._feature_mask = torch.ones(ds.num_features, dtype=torch.float32,
-                                        device=dev)
+        # monotone constraints (original-feature order -> used-feature order)
+        self._monotone = None
+        has_monotone = False
+        if cfg.monotone_constraints:
+            mc = np.zeros(ds.num_total_features, np.int32)
+            arr = np.asarray(cfg.monotone_constraints, np.int32)
+            mc[:len(arr)] = arr
+            used = np.asarray(ds.used_features, np.int64)
+            if np.any(mc[used] != 0):
+                self._monotone = torch.as_tensor(mc[used], device=dev)
+                has_monotone = True
+        # interaction constraints (groups of original feature indices)
+        self._interaction_groups = None
+        if cfg.interaction_constraints:
+            orig2used = {int(o): j for j, o in enumerate(ds.used_features)}
+            groups = []
+            for grp in cfg.interaction_constraints:
+                if not isinstance(grp, (list, tuple)):
+                    grp = [grp]
+                groups.append(tuple(sorted(
+                    orig2used[int(fi)] for fi in grp
+                    if int(fi) in orig2used)))
+            self._interaction_groups = tuple(g for g in groups if g)
         self.hp = SplitHyperParams(
             lambda_l1=cfg.lambda_l1, lambda_l2=cfg.lambda_l2,
             min_gain_to_split=cfg.min_gain_to_split,
@@ -182,6 +209,9 @@ class GBDT:
             max_cat_threshold=cfg.max_cat_threshold,
             max_cat_to_onehot=cfg.max_cat_to_onehot,
             min_data_per_group=cfg.min_data_per_group,
+            has_monotone=has_monotone,
+            monotone_penalty=cfg.monotone_penalty,
+            extra_trees=cfg.extra_trees,
             has_categorical=bool(ds.is_categorical.any()))
         self._boosted_from_average = False
         self.objective.init(ds.metadata, ds.num_data, dev)
@@ -235,25 +265,58 @@ class GBDT:
                                "timings_ms": dict(timings)}
         return hb
 
-    def _grow(self, grad, hess):
+    def _mxu_grow_kwargs(self) -> dict:
+        """grow_tree_mxu's settings for this booster, the single source
+        (the JAX package's _mxu_grow_kwargs); the per-tree inputs (feature
+        mask, key) come from _feature_mask_at and _tree_key."""
         cfg = self.config
-        # the JAX package's per-tree key (gbdt.py _grow_impl); only
-        # quantized growth draws from it here
-        rng_key = rng.fold_in(rng.PRNGKey(cfg.extra_seed, self.device),
-                              self.iter_) if cfg.use_quantized_grad else None
-        return grow_tree_mxu(
-            self.bins, grad, hess, self._cnt, self._feature_mask,
-            self.num_bins_d, self.missing_is_nan_d, self.is_cat_d,
+        return dict(
             num_leaves=cfg.num_leaves, max_depth=cfg.max_depth, hp=self.hp,
-            bmax=self.bmax, tail_split_cap=cfg.tail_split_cap,
+            bmax=self.bmax, monotone=self._monotone,
+            interaction_groups=self._interaction_groups,
+            feature_fraction_bynode=cfg.feature_fraction_bynode,
+            tail_split_cap=cfg.tail_split_cap,
             hist_subtraction=cfg.hist_subtraction,
             overshoot=cfg.growth_overshoot,
             bridge_gate=cfg.growth_bridge_gate,
             const_hessian=self._const_hessian(),
-            quantized_grad=cfg.use_quantized_grad, rng_key=rng_key,
-            packed4=self._packed4,
+            quantized_grad=cfg.use_quantized_grad, packed4=self._packed4,
             hist_backend=self._resolved_hist_backend(),
             partition_impl=cfg.partition_impl)
+
+    def _feature_mask_at(self, it: int) -> torch.Tensor:
+        """Iteration `it`'s feature_fraction mask [F] f32: the first
+        max(1, round(F * feature_fraction)) features of a permutation under
+        fold_in(PRNGKey(feature_fraction_seed), it), as the JAX package
+        draws it."""
+        cfg = self.config
+        f = int(self.num_bins_d.shape[0])
+        if cfg.feature_fraction >= 1.0:
+            return torch.ones(f, dtype=torch.float32, device=self.device)
+        key = rng.fold_in(rng.PRNGKey(cfg.feature_fraction_seed, self.device),
+                          it)
+        kf = max(1, int(round(f * cfg.feature_fraction)))
+        mask = torch.zeros(f, dtype=torch.float32, device=self.device)
+        mask[rng.permutation(key, f)[:kf].to(torch.int64)] = 1.0
+        return mask
+
+    def _tree_key(self):
+        """The JAX package's per-tree key, fold_in(PRNGKey(extra_seed),
+        iteration), where growth draws from it (extra_trees, bynode
+        sampling, quantized gradients); else None."""
+        cfg = self.config
+        if not (self.hp.extra_trees or cfg.feature_fraction_bynode < 1.0 or
+                cfg.use_quantized_grad):
+            return None
+        return rng.fold_in(rng.PRNGKey(cfg.extra_seed, self.device),
+                           self.iter_)
+
+    def _grow(self, grad, hess):
+        return grow_tree_mxu(
+            self.bins, grad, hess, self._cnt,
+            self._feature_mask_at(self.iter_), self.num_bins_d,
+            self.missing_is_nan_d, self.is_cat_d, rng_key=self._tree_key(),
+            **self._mxu_grow_kwargs())
 
     def train_one_iter(self) -> bool:
         """One boosting iteration (reference TrainOneIter gbdt.cpp:371-449).

@@ -33,8 +33,14 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
+# per-source flags, after NVCC_FLAGS: the split scan rounds every f32 op
+# on its own, as torch's elementwise kernels do, so it picks the splits
+# its plain version picks on the card
+EXTRA_FLAGS: Dict[str, tuple] = {"find_best_splits": ("-fmad=false",)}
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # kernel source stem -> (C entry point, argtypes); the last argument of
 # every entry is the CUDA stream
 KERNELS: Dict[str, tuple] = {
@@ -45,6 +51,8 @@ KERNELS: Dict[str, tuple] = {
                                  [_P] * 7 + [_I] * 9 + [_P]),
     "node_values": ("lgbt_node_values", [_P] * 3 + [_I] * 2 + [_P]),
     "node_sums": ("lgbt_node_sums", [_P] * 7 + [_I] * 2 + [_P]),
+    "find_best_splits": ("lgbt_find_best_splits",
+                         [_P] * 6 + [_I] * 4 + [_F] * 7 + [_P]),
 }
 
 _lock = threading.Lock()
@@ -63,8 +71,12 @@ def _nvcc() -> str:
                        "the CUDA toolkit (nvcc on PATH or in CUDA_HOME)")
 
 
+def _flags(stem: str) -> tuple:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(stem, ())
+
+
 def _lib_path(stem: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_flags(stem)).encode())
     for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{stem}.cu"]:
         h.update(src.read_bytes())
     return BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}.so"
@@ -82,7 +94,7 @@ def build_all() -> Dict[str, Path]:
     procs = {}
     for stem, path in todo.items():
         tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{stem}.cu")]
+        cmd = [nvcc, *_flags(stem), "-o", str(tmp), str(CSRC / f"{stem}.cu")]
         procs[stem] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
     failures = []
@@ -115,10 +127,11 @@ def _entry(stem: str):
 def call(stem: str, device: torch.device, *args) -> None:
     """Launch kernel `stem` on `device`'s current stream; tensors in
     `args` pass as data pointers, None as a null pointer, Python ints as C
-    ints."""
+    ints and Python floats as C floats."""
     fn = _entry(stem)
     c_args = [a.data_ptr() if isinstance(a, torch.Tensor)
-              else None if a is None else int(a) for a in args]
+              else None if a is None else a if isinstance(a, float)
+              else int(a) for a in args]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*c_args, stream)

@@ -30,11 +30,25 @@ units; after the prune every leaf is refit from exact per-node sums of the
 unquantized gradients (the node_sums kernel), so quantization perturbs the
 split search only.
 
+The split-search options of the JAX grower ride every pass: basic
+monotone constraints (per-node output bounds carried through the passes
+and moved to the split midpoint, clipped child outputs, and after
+quantized growth the refit leaves clipped too), interaction constraints
+(each node's path features; a slot may use the features of every group
+that holds its whole path), feature_fraction_bynode (a per-slot mask of
+the k smallest uniforms under fold_in(rng_key, pass index)) and
+extra_trees (one random threshold per slot and feature under
+fold_in(fold_in(rng_key, 7919), pass index)). Passes are numbered as in
+the JAX package: doubling pass p is p, the bridge len(schedule), fix-up
+pass `it` it + 1000; skipped passes still consume their number.
+use_scan_kernel=True scans splits with the fused kernel
+(split_kernel.find_best_splits_kernel) wherever it covers the pass: no
+categorical features, no extra_trees.
+
 Where the JAX package had lax.cond / while_loop / fori_loop this runs
 Python loops with host syncs for the loop conditions. Not ported: psum
-(distributed), EFB, forced splits, CEGB, monotone and interaction
-constraints, per-node feature sampling, extra_trees; boosting/gbdt.py
-refuses the params that need them.
+(distributed), EFB, forced splits, CEGB; boosting/gbdt.py refuses the
+params that need them.
 """
 
 from __future__ import annotations
@@ -57,6 +71,7 @@ from .histogram_mxu import (build_histograms_auto, fits_v2, fused_route_hist,
                             route_rows, unpack_bins_4bit)
 from .histogram_pallas import build_histograms_scatter
 from .split import BestSplits, SplitHyperParams, find_best_splits, leaf_output
+from .split_kernel import find_best_splits_kernel, kernel_supports
 
 __all__ = ["autotune_hist_backend", "grow_tree_mxu", "growth_plan"]
 
@@ -185,6 +200,9 @@ class _GrowState(NamedTuple):
     pair_parent: torch.Tensor  # [P] i32 parent's scan slot (-1 = stale)
     pair_sleft: torch.Tensor   # [P] bool smaller child is the left one
     pair_kstart: torch.Tensor  # [P] i32 first kernel slot of the pair
+    cons_min: torch.Tensor     # [m1] f32 monotone output bounds per node
+    cons_max: torch.Tensor
+    path_mask: torch.Tensor    # [m1, F] bool features on the node's path
 
 
 def _set_dropping(base: torch.Tensor, idx: torch.Tensor,
@@ -198,13 +216,15 @@ def _set_dropping(base: torch.Tensor, idx: torch.Tensor,
 
 
 def _prune_to_best_first(tree: TreeArrays, row_node: torch.Tensor, *,
-                         num_leaves: int, m_grow: int
-                         ) -> Tuple[TreeArrays, torch.Tensor]:
+                         num_leaves: int, m_grow: int, aux: Tuple = ()
+                         ) -> Tuple:
     """Replay the reference's strict best-first growth order over an
     OVERGROWN tree's recorded split gains, keep the winning num_leaves-1
     splits, compact, and move rows to their nearest kept-leaf ancestor.
     The replay is a short sequential loop over <= 2*L nodes: it runs on
-    the host (numpy f32, first-index argmax as the JAX package's)."""
+    the host (numpy f32, first-index argmax as the JAX package's). `aux`:
+    (per-node array, fill) pairs compacted the same way and returned as a
+    third element."""
     dev = row_node.device
     m1g = m_grow + 1
     mf = 2 * num_leaves - 1
@@ -288,6 +308,8 @@ def _prune_to_best_first(tree: TreeArrays, row_node: torch.Tensor, *,
     # per-row lookup of the compacted kept-leaf id (ids are f32-exact)
     composed = torch.as_tensor(new_id[nxt].astype(np.float32), device=dev)
     row_new = node_values(row_node, composed).to(torch.int32)
+    if aux:
+        return pruned, row_new, tuple(compact(a, fill) for a, fill in aux)
     return pruned, row_new
 
 
@@ -296,13 +318,17 @@ def grow_tree_mxu(bins: torch.Tensor, grad: torch.Tensor,
                   feature_mask: torch.Tensor, num_bins: torch.Tensor,
                   missing_is_nan: torch.Tensor, is_cat_feat: torch.Tensor,
                   *, num_leaves: int, max_depth: int, hp: SplitHyperParams,
-                  bmax: int, tail_split_cap: int = 0,
+                  bmax: int, monotone: Optional[torch.Tensor] = None,
+                  interaction_groups: Optional[tuple] = None,
+                  feature_fraction_bynode: float = 1.0,
+                  tail_split_cap: int = 0,
                   hist_subtraction: bool = True, overshoot: float = 0.0,
                   bridge_gate: float = 0.0, const_hessian: float = 0.0,
                   quantized_grad: bool = False,
                   rng_key: Optional[torch.Tensor] = None,
                   packed4: bool = False, hist_backend: str = "mxu",
-                  partition_impl: str = "auto"
+                  partition_impl: str = "auto",
+                  use_scan_kernel: bool = False
                   ) -> Tuple[TreeArrays, torch.Tensor]:
     """Grow one tree. Returns (TreeArrays, row_node [N] i32: each row's
     leaf node id). Same contract and same trees as the JAX package's
@@ -310,10 +336,15 @@ def grow_tree_mxu(bins: torch.Tensor, grad: torch.Tensor,
 
     bins: [N, F] uint8; grad/hess/cnt_weight: [N] f32; feature_mask: [F];
     num_bins: [F] i32; missing_is_nan, is_cat_feat: [F] bool; all on one
-    device. const_hessian != 0: per-row hessians are const x cnt_weight
-    and the kernels drop the hessian channel. quantized_grad: grow on
-    quantized gradients drawn under rng_key (a key of lightgbm_tpu_torch.
-    rng; None = PRNGKey(0)), then refit the leaves exactly. packed4: bins
+    device. monotone: [F] int constraint per feature (with
+    hp.has_monotone); interaction_groups: tuple of tuples of feature
+    indices; feature_fraction_bynode < 1 and hp.extra_trees draw under
+    rng_key (a key of lightgbm_tpu_torch.rng; None turns both off, as in
+    the JAX package). const_hessian != 0: per-row hessians are const x
+    cnt_weight and the kernels drop the hessian channel. quantized_grad:
+    grow on quantized gradients drawn under rng_key (None = PRNGKey(0)),
+    then refit the leaves exactly. use_scan_kernel: scan splits with the
+    fused kernel where it covers the pass (module docstring). packed4: bins
     are [N, ceil(F/2)] 4-bit packed (histogram_mxu.pack_bins_4bit), F taken
     from num_bins. hist_backend: "mxu", "pallas" or "scatter" (module
     docstring) — a resolved backend, never "auto", which the booster
@@ -388,6 +419,41 @@ def grow_tree_mxu(bins: torch.Tensor, grad: torch.Tensor,
                             missing_is_nan.to(torch.int32)], dim=1) \
         .contiguous()
 
+    use_interaction = bool(interaction_groups)
+    if use_interaction:
+        gm = np.zeros((len(interaction_groups), f), np.bool_)
+        for gi, grp in enumerate(interaction_groups):
+            for fi in grp:
+                if 0 <= fi < f:
+                    gm[gi, fi] = True
+        group_masks = torch.as_tensor(gm, device=dev)
+    use_bynode = feature_fraction_bynode < 1.0 and rng_key is not None
+    k_bynode = max(1, int(round(feature_fraction_bynode * f)))
+    use_kernel = use_scan_kernel and kernel_supports(hp)
+
+    def slot_masks(s, sn, path_mask, pass_idx):
+        """[s, F] feature mask of each scan slot (the tree's mask, bynode
+        sampling, interaction groups) and the extra_trees draws."""
+        slot_fmask = feature_mask[None, :].expand(s, f)
+        if use_bynode:
+            u = rng.uniform(rng.fold_in(rng_key, pass_idx), (s, f))
+            u = torch.where(feature_mask[None, :] > 0, u,
+                            torch.full((), float("inf"), device=dev))
+            kth = torch.sort(u, dim=1).values[:, k_bynode - 1][:, None]
+            slot_fmask = slot_fmask * (u <= kth)
+        if use_interaction:
+            pm = path_mask[sn]
+            subset = torch.all((~pm[:, None, :]) | group_masks[None, :, :],
+                               dim=2)
+            allowed = (subset.to(torch.float32) @
+                       group_masks.to(torch.float32)) > 0
+            slot_fmask = slot_fmask * (allowed | pm)
+        rand_bins = None
+        if hp.extra_trees and rng_key is not None:
+            kr = rng.fold_in(rng.fold_in(rng_key, 7919), pass_idx)
+            rand_bins = rng.randint(kr, (s, f), 0, bmax)
+        return slot_fmask, rand_bins
+
     def sweep(row_node, tbl, member, nslots, m_cap=None):
         """Route rows through the previous pass's tables and build the
         frontier histograms. mxu: fused sweep where the reference takes
@@ -434,12 +500,14 @@ def grow_tree_mxu(bins: torch.Tensor, grad: torch.Tensor,
             h = h * hist_scale   # integer sums -> gradient units
         return h, rn
 
-    def one_pass(s, st: _GrowState, k_cap=None, sk_next=None, m_cap=None,
-                 sk_self=None) -> _GrowState:
-        """One growth pass at scan capacity `s`; sk_next is the kernel-slot
-        capacity of the NEXT pass (selection is throttled so committed
-        splits' children fit it)."""
+    def one_pass(s, st: _GrowState, pass_idx, k_cap=None, sk_next=None,
+                 m_cap=None, sk_self=None) -> _GrowState:
+        """One growth pass at scan capacity `s`, number `pass_idx` (its
+        random draws); sk_next is the kernel-slot capacity of the NEXT pass
+        (selection is throttled so committed splits' children fit it)."""
         tree, best = st.tree, st.best
+        cons_min, cons_max, path_mask = st.cons_min, st.cons_max, \
+            st.path_mask
         sn = st.slot_nodes[:s].to(torch.int64)
         if sk_next is None:
             sk_next = _kernel_cap(min(2 * s, s_max)) if hist_subtraction \
@@ -481,11 +549,17 @@ def grow_tree_mxu(bins: torch.Tensor, grad: torch.Tensor,
             hist, row_node = sweep(st.row_node, st.tbl, st.member, s,
                                    m_cap=m_cap)
 
-        slot_fmask = feature_mask[None, :].expand(s, f)
-        bs = find_best_splits(
-            hist, tree.sum_grad[sn], tree.sum_hess[sn], tree.count[sn],
-            tree.leaf_value[sn], num_bins, missing_is_nan, is_cat_feat,
-            slot_fmask, hp)
+        slot_fmask, rand_bins = slot_masks(s, sn, path_mask, pass_idx)
+        args = (hist, tree.sum_grad[sn], tree.sum_hess[sn], tree.count[sn],
+                tree.leaf_value[sn], num_bins, missing_is_nan, is_cat_feat,
+                slot_fmask, hp)
+        mono_kw = dict(monotone=monotone, cons_min=cons_min[sn],
+                       cons_max=cons_max[sn], depth=tree.depth[sn]) \
+            if hp.has_monotone else {}
+        if use_kernel and rand_bins is None:
+            bs = find_best_splits_kernel(*args, **mono_kw)
+        else:
+            bs = find_best_splits(*args, **mono_kw, rand_bins=rand_bins)
         best = BestSplits(*[_set_dropping(getattr(best, fld), sn,
                                           getattr(bs, fld))
                             for fld in BestSplits._fields])
@@ -578,6 +652,22 @@ def grow_tree_mxu(bins: torch.Tensor, grad: torch.Tensor,
             right=scat(new_tree.right, neg1, neg1))
         ninf_m1 = ninf.expand(m1)
         best = best._replace(gain=scat(best.gain, ninf_m1, ninf_m1))
+        if hp.has_monotone:
+            # children's output bounds meet at the split's midpoint on the
+            # side the constraint orders (the reference's basic method)
+            mcf = monotone[fclip]
+            mid = (best.left_output + best.right_output) * 0.5
+            lmin = torch.where(mcf < 0, torch.maximum(cons_min, mid), cons_min)
+            lmax = torch.where(mcf > 0, torch.minimum(cons_max, mid), cons_max)
+            rmin = torch.where(mcf > 0, torch.maximum(cons_min, mid), cons_min)
+            rmax = torch.where(mcf < 0, torch.minimum(cons_max, mid), cons_max)
+            cons_min = scat(cons_min, lmin, rmin)
+            cons_max = scat(cons_max, lmax, rmax)
+        if use_interaction:
+            fsel = (torch.arange(f, device=dev)[None, :] == fclip[:, None]) \
+                & split_mask[:, None]
+            child_pm = path_mask | fsel
+            path_mask = scat(path_mask, child_pm, child_pm)
 
         # ---- scan slots for the children (find_best_splits ordering)
         slot_l = torch.where(split_mask, 2 * order, -1)
@@ -628,7 +718,7 @@ def grow_tree_mxu(bins: torch.Tensor, grad: torch.Tensor,
         done = k == 0 or int(new_tree.num_leaves) >= L_g
         return _GrowState(new_tree, row_node, tbl, member, slot_nodes, best,
                           done, parent_hist, pair_parent, pair_sleft,
-                          pair_kstart)
+                          pair_kstart, cons_min, cons_max, path_mask)
 
     # initial tables: nothing split, the root (node 0) sits in kernel slot
     # 0, so the first sweep is an identity route + a root histogram. Pair 0
@@ -652,22 +742,25 @@ def grow_tree_mxu(bins: torch.Tensor, grad: torch.Tensor,
                      f * bmax * 3 if hist_subtraction else 1),
                     dtype=torch.float32, device=dev),
         ifull(P_all, -1), torch.ones(P_all, dtype=torch.bool, device=dev),
-        kstart0)
+        kstart0, ninf.expand(m1).clone(), (-ninf).expand(m1).clone(),
+        torch.zeros((m1, f) if use_interaction else (1, 1),
+                    dtype=torch.bool, device=dev))
 
-    # ---- unrolled doubling schedule
-    for s_p in plan.schedule:
+    # ---- unrolled doubling schedule; pass numbers as the JAX package's
+    # (a skipped pass still consumes its number)
+    for p, s_p in enumerate(plan.schedule):
         if not state.done:
-            state = one_pass(s_p, state, m_cap=plan.m_cap_of(s_p))
+            state = one_pass(s_p, state, p, m_cap=plan.m_cap_of(s_p))
     if plan.gate_leaves is not None and \
             int(state.tree.num_leaves) >= plan.gate_leaves:
         state = state._replace(done=True)
     # ---- bridge pass at full capacity, then fix-ups for the leftovers
     if plan.schedule and not state.done:
-        state = one_pass(s_max, state, k_cap=plan.k_fix,
+        state = one_pass(s_max, state, len(plan.schedule), k_cap=plan.k_fix,
                          sk_next=plan.sk_fix)
     it = len(plan.schedule) + 1
     while not state.done and it < L_g:
-        state = one_pass(plan.s_fix, state, k_cap=plan.k_fix,
+        state = one_pass(plan.s_fix, state, it + 1000, k_cap=plan.k_fix,
                          sk_next=plan.sk_fix, sk_self=plan.sk_fix)
         it += 1
 
@@ -676,7 +769,12 @@ def grow_tree_mxu(bins: torch.Tensor, grad: torch.Tensor,
     row_node, _ = route_rows(bins, state.row_node, state.tbl, state.member,
                              feat_tbl, num_features=nf_packed)
     tree = state.tree
-    if over:
+    cmin, cmax = state.cons_min, state.cons_max
+    if over and quant and hp.has_monotone:
+        tree, row_node, (cmin, cmax) = _prune_to_best_first(
+            tree, row_node, num_leaves=num_leaves, m_grow=m,
+            aux=((cmin, float("-inf")), (cmax, float("inf"))))
+    elif over:
         tree, row_node = _prune_to_best_first(
             tree, row_node, num_leaves=num_leaves, m_grow=m)
     if quant:
@@ -689,6 +787,8 @@ def grow_tree_mxu(bins: torch.Tensor, grad: torch.Tensor,
         ex_val = leaf_output(sums[:, 0], sums[:, 1], hp.lambda_l1,
                              hp.lambda_l2, hp.max_delta_step, hp.path_smooth,
                              sums[:, 2], pout)
+        if hp.has_monotone:
+            ex_val = torch.clamp(ex_val, cmin, cmax)
         lf = tree.is_leaf
         tree = tree._replace(
             leaf_value=torch.where(lf, ex_val, tree.leaf_value),

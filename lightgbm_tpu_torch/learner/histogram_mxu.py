@@ -582,7 +582,9 @@ _MODES = {"fused_route_hist": ("_int", "_packed"),
           "route_rows": ("_counts", "_packed"),
           "build_histograms": ("_int", "_packed"),
           "build_histograms_scatter": ("_int", "_packed"),
-          "node_values": (), "node_sums": ()}
+          "node_values": (), "node_sums": (),
+          # split_kernel.find_best_splits_kernel: plain and monotone modes
+          "find_best_splits": (), "find_best_splits_mono": ()}
 _LAUNCHES: Dict[str, int] = {}
 
 

@@ -16,19 +16,25 @@ All math follows feature_histogram.hpp:737-860 and runs in f32 tensors:
                                               smoothed toward parent)
   gain(output) = -(2 * ThresholdL1(g, l1) * output + (h + l2) * output^2)
 
-Monotone constraints, extra_trees, per-node feature sampling and CEGB
-penalties are not ported; boosting/gbdt.py refuses those params.
+Basic monotone constraints clip both children's outputs to the node's
+[cons_min, cons_max], kill order-violating splits and scale constrained
+gains by the depth penalty; extra_trees evaluates one random threshold
+per (slot, feature). The numerical prefix sums along bins are summed in
+float64 and rounded to f32 once, so their value does not depend on the
+order of the additions: the fused scan kernel (split_kernel.py) sums the
+same way and picks the same splits. CEGB penalties are not ported;
+boosting/gbdt.py refuses those params.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 __all__ = ["SplitHyperParams", "BestSplits", "find_best_splits",
-           "leaf_output", "leaf_gain"]
+           "leaf_output", "leaf_gain", "numerical_gains", "numerical_inputs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +52,9 @@ class SplitHyperParams:
     max_cat_threshold: int = 32
     max_cat_to_onehot: int = 4
     min_data_per_group: int = 100
+    has_monotone: bool = False     # enables the constrained-output gain path
+    monotone_penalty: float = 0.0
+    extra_trees: bool = False      # one random threshold per (slot, feature)
     has_categorical: bool = False  # enables the categorical scan paths
 
 
@@ -105,9 +114,92 @@ def _split_gain(lg, lh, lc, rg, rh, rc, l1, l2, hp: SplitHyperParams,
                       rc, parent_output))
 
 
+def _monotone_penalty_factor(depth: torch.Tensor, p: float) -> torch.Tensor:
+    """ComputeMonotoneSplitGainPenalty (monotone_constraints.hpp:355-364)."""
+    eps = 1e-10
+    d = depth.to(torch.float32)
+    small = 1.0 - p / torch.exp2(d) + eps
+    large = 1.0 - torch.exp2(p - 1.0 - d) + eps
+    out = small if p <= 1.0 else large
+    return torch.where(p >= d + 1.0, torch.full_like(d, eps), out)
+
+
 def _neg_inf(ref: torch.Tensor) -> torch.Tensor:
     return torch.full((), float("-inf"), dtype=torch.float32,
                       device=ref.device)
+
+
+def numerical_inputs(hist: torch.Tensor, num_bins: torch.Tensor,
+                     missing_is_nan: torch.Tensor):
+    """(prefix [S, F, B, 3], nan_sums [S, F, 1, 3], t_limit [F] i32) of
+    [S, F, B, 3] histograms: the inclusive prefix sums along bins, summed
+    in float64 and rounded to f32 once (so the order of the additions, a
+    running sum here and a parallel scan on the card, does not reach the
+    result); each feature's NaN-bin sums (its last bin, zeros without
+    one); and the last valid threshold bin, num_bins - 2, one less with a
+    NaN bin."""
+    s, f = hist.shape[:2]
+    prefix = torch.cumsum(hist.to(torch.float64), dim=2).to(torch.float32)
+    nan_idx = torch.clamp(num_bins.to(torch.int64) - 1, min=0)
+    nan_sums = torch.gather(
+        hist, 2, nan_idx[None, :, None, None].expand(s, f, 1, 3))
+    nan_sums = torch.where(missing_is_nan[None, :, None, None], nan_sums,
+                           torch.zeros((), device=hist.device))
+    t_limit = num_bins.to(torch.int32) - 2 - missing_is_nan.to(torch.int32)
+    return prefix, nan_sums, t_limit
+
+
+def numerical_gains(prefix, nan_sums, parent_grad, parent_hess,
+                    parent_count, parent_output, missing_is_nan, valid_t,
+                    hp: SplitHyperParams, monotone=None, cons_min=None,
+                    cons_max=None, penalty=None):
+    """Gains [S, F, B] of every numerical threshold with the NaN bin kept
+    right and with it sent left (-inf where invalid or where the feature
+    has no NaN bin), before the min_gain_to_split gate. prefix: [S, F, B,
+    3]; nan_sums: [S, F, 1, 3]; valid_t: [S, F, B] bool. With
+    hp.has_monotone: the GetSplitGains USE_MC branch
+    (feature_histogram.hpp:806-824) — child outputs clipped to the node's
+    [cons_min, cons_max] ([S]), order-violating splits killed, and the
+    gains of constrained features ([F] monotone) times `penalty` ([S],
+    _monotone_penalty_factor) when hp.monotone_penalty > 0."""
+    l1, l2 = hp.lambda_l1, hp.lambda_l2
+    ninf = _neg_inf(prefix)
+    tot = torch.stack([parent_grad, parent_hess, parent_count], -1)
+    tot = tot[:, None, None, :]                                    # [S,1,1,3]
+    po = parent_output[:, None, None]
+
+    def eval_option(left):                                         # [S,F,B,3]
+        right = tot - left
+        lg, lh, lc = left[..., 0], left[..., 1], left[..., 2]
+        rg, rh, rc = right[..., 0], right[..., 1], right[..., 2]
+        ok = ((lc >= hp.min_data_in_leaf) & (rc >= hp.min_data_in_leaf) &
+              (lh >= hp.min_sum_hessian_in_leaf) &
+              (rh >= hp.min_sum_hessian_in_leaf))
+        if hp.has_monotone:
+            lout = leaf_output(lg, lh, l1, l2, hp.max_delta_step,
+                               hp.path_smooth, lc, po)
+            rout = leaf_output(rg, rh, l1, l2, hp.max_delta_step,
+                               hp.path_smooth, rc, po)
+            cmin = cons_min[:, None, None]
+            cmax = cons_max[:, None, None]
+            lout = torch.clamp(lout, cmin, cmax)
+            rout = torch.clamp(rout, cmin, cmax)
+            mc = monotone[None, :, None]
+            violate = ((mc > 0) & (lout > rout)) | ((mc < 0) & (lout < rout))
+            g = _gain_given_output(lg, lh, l1, l2, lout) + \
+                _gain_given_output(rg, rh, l1, l2, rout)
+            if hp.monotone_penalty > 0:
+                g = torch.where(mc != 0, g * penalty[:, None, None], g)
+            g = torch.where(violate, ninf, g)
+        else:
+            g = _split_gain(lg, lh, lc, rg, rh, rc, l1, l2, hp, po)
+        return torch.where(ok & valid_t, g, ninf)
+
+    gain_na_right = eval_option(prefix)                       # NaN stays right
+    gain_na_left = torch.where(
+        missing_is_nan[None, :, None],
+        eval_option(prefix + nan_sums), ninf)                 # NaN joins left
+    return gain_na_right, gain_na_left
 
 
 def find_best_splits(hist: torch.Tensor, parent_grad: torch.Tensor,
@@ -115,7 +207,12 @@ def find_best_splits(hist: torch.Tensor, parent_grad: torch.Tensor,
                      parent_output: torch.Tensor, num_bins: torch.Tensor,
                      missing_is_nan: torch.Tensor, is_cat: torch.Tensor,
                      feature_mask: torch.Tensor,
-                     hp: SplitHyperParams) -> BestSplits:
+                     hp: SplitHyperParams,
+                     monotone: Optional[torch.Tensor] = None,
+                     cons_min: Optional[torch.Tensor] = None,
+                     cons_max: Optional[torch.Tensor] = None,
+                     depth: Optional[torch.Tensor] = None,
+                     rand_bins: Optional[torch.Tensor] = None) -> BestSplits:
     """Find the best split per slot.
 
     Args:
@@ -125,6 +222,11 @@ def find_best_splits(hist: torch.Tensor, parent_grad: torch.Tensor,
       missing_is_nan: [F] bool, feature has a trailing NaN bin.
       is_cat: [F] bool.
       feature_mask: [F] or [S, F] — 0 disables a feature.
+      monotone: [F] int constraint per feature, with cons_min/cons_max [S]
+        output bounds and depth [S] node depths (hp.has_monotone only).
+      rand_bins: [S, F] int random draws; with hp.extra_trees, threshold
+        rand_bins % (t_limit + 1) is the only one evaluated per (slot,
+        feature).
     """
     s, f, b, _ = hist.shape
     dev = hist.device
@@ -144,34 +246,23 @@ def find_best_splits(hist: torch.Tensor, parent_grad: torch.Tensor,
     min_gain_shift = gain_shift + hp.min_gain_to_split
 
     # ---------- numerical features ----------
-    prefix = torch.cumsum(hist, dim=2)                             # [S,F,B,3]
-    nan_idx = torch.clamp(num_bins.to(torch.int64) - 1, min=0)
-    nan_sums = torch.gather(
-        hist, 2, nan_idx[None, :, None, None].expand(s, f, 1, 3))  # [S,F,1,3]
-    nan_sums = torch.where(missing_is_nan[None, :, None, None], nan_sums,
-                           torch.zeros((), device=dev))
-
-    # threshold t valid iff t <= num_bins-2 (-1 more when NaN bin present)
-    t_limit = num_bins.to(torch.int32) - 2 - missing_is_nan.to(torch.int32)
+    prefix, nan_sums, t_limit = numerical_inputs(hist, num_bins,
+                                                 missing_is_nan)
     valid_t = bins_r[None, None, :] <= t_limit[None, :, None]      # [1,F,B]
     valid_t = valid_t & (~is_cat[None, :, None]) & \
         (fmask[:, :, None] > 0)                                    # [S,F,B]
-
-    def eval_option(left):                                         # [S,F,B,3]
-        right = tot - left
-        lg, lh, lc = left[..., 0], left[..., 1], left[..., 2]
-        rg, rh, rc = right[..., 0], right[..., 1], right[..., 2]
-        ok = ((lc >= hp.min_data_in_leaf) & (rc >= hp.min_data_in_leaf) &
-              (lh >= hp.min_sum_hessian_in_leaf) &
-              (rh >= hp.min_sum_hessian_in_leaf))
-        g = _split_gain(lg, lh, lc, rg, rh, rc, l1, l2, hp,
-                        parent_output[:, None, None])
-        return torch.where(ok & valid_t, g, ninf)
-
-    gain_na_right = eval_option(prefix)                       # NaN stays right
-    gain_na_left = torch.where(
-        missing_is_nan[None, :, None],
-        eval_option(prefix + nan_sums), ninf)                 # NaN joins left
+    if hp.extra_trees and rand_bins is not None:
+        # extra-trees: evaluate ONE random threshold per (slot, feature)
+        # (reference USE_RAND specialization, feature_histogram.hpp:85)
+        rt = rand_bins % torch.clamp(t_limit + 1, min=1)[None, :]
+        valid_t = valid_t & (bins_r[None, None, :] == rt[:, :, None])
+    penalty = None
+    if hp.has_monotone and hp.monotone_penalty > 0:
+        penalty = _monotone_penalty_factor(depth, hp.monotone_penalty)
+    gain_na_right, gain_na_left = numerical_gains(
+        prefix, nan_sums, parent_grad, parent_hess, parent_count,
+        parent_output, missing_is_nan, valid_t, hp, monotone, cons_min,
+        cons_max, penalty)
 
     # ---------- categorical ----------
     # one-hot branch for low-cardinality features (original l2), sorted-by-
@@ -305,6 +396,9 @@ def find_best_splits(hist: torch.Tensor, parent_grad: torch.Tensor,
                        hp.path_smooth, lcs, parent_output)
     rout = leaf_output(rgs, rhs, l1, eff_l2, hp.max_delta_step,
                        hp.path_smooth, rcs, parent_output)
+    if hp.has_monotone:
+        lout = torch.clamp(lout, cons_min, cons_max)
+        rout = torch.clamp(rout, cons_min, cons_max)
 
     return BestSplits(
         gain=torch.where(has_split, best_gain - gain_shift, ninf),

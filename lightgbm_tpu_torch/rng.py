@@ -2,9 +2,11 @@
 
 The subset of jax.random (threefry2x32 implementation, with
 jax_threefry_partitionable on, the default since jax 0.5) that the growth
-path needs: PRNGKey, fold_in, split and uniform. Quantized training draws
-its stochastic-rounding noise from these, so the port and the JAX package
-quantize the same gradients to the same integers under the same key.
+path needs: PRNGKey, fold_in, split, bits, uniform, randint and
+permutation. Quantized training draws its stochastic-rounding noise from
+these, feature_fraction its per-tree feature permutation, bynode sampling
+its per-slot uniforms and extra_trees its random thresholds, so the port
+and the JAX package draw the same numbers under the same key.
 
 A key is an int64 tensor of shape [2] holding two uint32 words, on the
 device of the caller; every function here stays on that device and never
@@ -15,11 +17,15 @@ shift.
 
 from __future__ import annotations
 
-from typing import Tuple, Union
+import math
+from typing import Sequence, Tuple, Union
 
 import torch
 
-__all__ = ["threefry2x32", "PRNGKey", "fold_in", "split", "uniform"]
+__all__ = ["threefry2x32", "PRNGKey", "fold_in", "split", "bits", "uniform",
+           "randint", "permutation"]
+
+Shape = Union[int, Sequence[int]]
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -75,11 +81,48 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack([x0, x1], dim=1)
 
 
-def uniform(key: torch.Tensor, n: int) -> torch.Tensor:
-    """jax.random.uniform(key, (n,)) in float32 on [0, 1): 32 random bits
-    per element (x0 ^ x1 of threefry2x32(key, (0, i))), the top 23 as the
-    mantissa of a float in [1, 2), minus one."""
-    i = torch.arange(n, dtype=torch.int64, device=key.device)
+def bits(key: torch.Tensor, shape: Shape) -> torch.Tensor:
+    """jax.random.bits(key, shape) (uint32): x0 ^ x1 of threefry2x32(key,
+    (0, i)) over the row-major flat counter i, held in int64."""
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    i = torch.arange(math.prod(shape), dtype=torch.int64, device=key.device)
     x0, x1 = threefry2x32(key, torch.zeros_like(i), i)
-    bits = ((x0 ^ x1) >> 9) | 0x3F800000
-    return bits.to(torch.int32).view(torch.float32) - 1.0
+    return (x0 ^ x1).reshape(shape)
+
+
+def uniform(key: torch.Tensor, shape: Shape) -> torch.Tensor:
+    """jax.random.uniform(key, shape) in float32 on [0, 1): the top 23 of
+    each element's 32 random bits as the mantissa of a float in [1, 2),
+    minus one."""
+    b = (bits(key, shape) >> 9) | 0x3F800000
+    return b.to(torch.int32).view(torch.float32) - 1.0
+
+
+def randint(key: torch.Tensor, shape: Shape, minval: int,
+            maxval: int) -> torch.Tensor:
+    """jax.random.randint(key, shape, minval, maxval) for int32: two
+    32-bit draws under split(key), combined modulo the span as jax's
+    _randint does, (hi % span) * (2^32 % span) + lo % span, in uint32
+    arithmetic."""
+    if not -2 ** 31 <= minval <= maxval - 1 < 2 ** 31 - 1:
+        raise ValueError(f"randint: [{minval}, {maxval}) is empty or "
+                         "outside int32")
+    k1, k2 = split(key)
+    hi, lo = bits(k1, shape), bits(k2, shape)
+    span = maxval - minval
+    mult = ((2 ** 16 % span) ** 2 & _MASK) % span
+    off = ((hi % span) * mult + lo % span) & _MASK
+    return (minval + off % span).to(torch.int32)
+
+
+def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
+    """jax.random.permutation(key, n) (int32): jax's _shuffle, num_rounds
+    rounds of split, 32 random bits per element and a stable sort of the
+    elements by those bits."""
+    x = torch.arange(n, dtype=torch.int32, device=key.device)
+    rounds = math.ceil(3 * math.log(max(1, n)) / math.log(_MASK))
+    for _ in range(rounds):
+        key, sub = split(key)
+        order = torch.sort(bits(sub, n), stable=True).indices
+        x = x[order]
+    return x

@@ -169,11 +169,13 @@ def test_train_without_cuda_raises(monkeypatch):
     {"use_quantized_grad": True, "boosting": "dart"},
     {"bagging_fraction": 0.5, "bagging_freq": 1},
     {"boosting": "goss"},
-    {"feature_fraction": 0.5},
-    {"feature_fraction_bynode": 0.5},
-    {"extra_trees": True},
-    {"monotone_constraints": [1, 0, 0, 0]},
-    {"interaction_constraints": [[0, 1]]},
+    {"monotone_constraints": [1, 0, 0, 0],
+     "monotone_constraints_method": "intermediate"},
+    {"monotone_constraints": [1, 0, 0, 0],
+     "monotone_constraints_method": "advanced"},
+    {"cegb_penalty_feature_coupled": [1.0, 0.0, 0.0, 0.0]},
+    {"use_pallas": False},
+    {"guard_nonfinite": "raise"},
     {"forcedsplits_filename": "forced.json"},
     {"cegb_penalty_split": 1.0},
     {"linear_tree": True},
