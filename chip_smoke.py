@@ -3,13 +3,17 @@
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
-Builds the port's seven CUDA kernel sources from lightgbm_tpu_torch/csrc,
+Builds the port's eight CUDA kernel sources from lightgbm_tpu_torch/csrc,
 holds each kernel against its plain PyTorch version on the card at the
 shapes the training path gives it (1M rows x 28 features, 256 bins, up to
 1024 tree nodes; 15 bins for the 4-bit packed modes; 511 and 263 scan
-slots for the split scan), in every mode the paths run (f32 and the
+slots for the split scan; the root pass's single slot for the partition
+and the scatter histogram), in every mode the paths run (f32 and the
 integer mode of quantized gradients; unpacked and packed bins; route
-counts; the split scan plain and monotone), times it, then trains through
+counts; the split scan plain and monotone), times it — `ms`, one call as
+the training path makes it, host launch path included, and `device_ms`,
+the device alone over back-to-back calls; the same two for the PyTorch
+yardstick where one call computes the function — then trains through
 lightgbm_tpu_torch's entry points along six paths, each with the launch
 counts reset before it and read after it:
 
@@ -21,9 +25,9 @@ counts reset before it and read after it:
   binary run whose wide passes take route_rows + build_histograms in
   integer mode;
 - the histogram backends on the binary configuration: quantized under
-  hist_backend pallas (route counts + the scatter kernel), scatter (the
-  segment-sum oracle) and auto (the autotune), each byte-equal to the mxu
-  run, and exact under pallas;
+  hist_backend pallas (route counts, the partition kernel and the scatter
+  kernel), scatter (the segment-sum oracle) and auto (the autotune), each
+  byte-equal to the mxu run, and exact under pallas;
 - the split-search options: monotone (+1 on feature 0, -1 on feature 1)
   and interaction constraints with feature_fraction and
   feature_fraction_bynode 0.8, exact and quantized (10 trees each; held
@@ -41,8 +45,9 @@ counts reset before it and read after it:
 It checks what comes out, including that every leaf of every tree holds
 -G/H of its rows' gradients (unconstrained runs) and that two identical
 quantized runs write the same model text; K8 launches on the scan path
-only. Every phase prints one JSON line; any failed
-check raises, so the exit code is non-zero and no result line is printed.
+only, and every K7 call on a path launches exactly one partition kernel.
+Every phase prints one JSON line; any failed check raises, so the exit
+code is non-zero and no result line is printed.
 The last three lines are the kernel table (JSON), the card's name and
 power limit as nvidia-smi prints them, and the result
 {"ok": true, "device": {...}}.
@@ -89,8 +94,12 @@ EXACT_PATH = ("fused_route_hist", "route_rows", "build_histograms",
               "node_values")
 QUANT_PATH = ("fused_route_hist_int", "route_rows", "build_histograms_int",
               "node_values", "node_sums")
-BACKEND_PATH = ("route_rows_counts", "build_histograms_scatter_int",
-                "build_histograms_scatter", "build_histograms_int")
+BACKEND_PATH = ("route_rows_counts", "partition_rows",
+                "build_histograms_scatter_int", "build_histograms_scatter",
+                "build_histograms_int")
+K7_KEYS = ("build_histograms_scatter", "build_histograms_scatter_int",
+           "build_histograms_scatter_packed",
+           "build_histograms_scatter_int_packed")
 PACKED_PATH = ("fused_route_hist_packed", "fused_route_hist_int_packed",
                "route_rows_packed", "route_rows_counts_packed",
                "build_histograms_int_packed",
@@ -114,7 +123,7 @@ MONO_ROWS = 2000      # held-out rows swept over a feature's bin bounds
 ROW_PATH = {**dict.fromkeys(EXACT_PATH, "exact"),
             **dict.fromkeys(("fused_route_hist_int", "build_histograms_int",
                              "node_sums"), "quantized"),
-            **dict.fromkeys(BACKEND_PATH[:3], "backends"),
+            **dict.fromkeys(BACKEND_PATH[:4], "backends"),
             **dict.fromkeys(PACKED_PATH, "packed"),
             **dict.fromkeys(SCAN_PATH, "scan")}
 
@@ -154,7 +163,8 @@ def auc(score, label):
 
 def time_ms(torch, fn, reps):
     """Median milliseconds of fn() over reps runs, CUDA events around each
-    run, after one warm-up run."""
+    run, after one warm-up run: what one call costs its caller, the host's
+    launch path included (the device waits while the host prepares)."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -166,6 +176,52 @@ def time_ms(torch, fn, reps):
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+_SLEEP_CYCLES_PER_MS = []
+
+
+def device_ms(torch, fn, reps=20, trials=3, strict=True):
+    """Device milliseconds of one fn(), host launch path excluded: reps
+    calls are queued behind a torch.cuda._sleep that outlasts the host's
+    enqueue of all of them (checked: the sleep is still running when the
+    last call is queued), so they run back to back; CUDA events around the
+    reps calls, divided by reps; median of `trials`. A fn that waits for
+    the device (a host sync) cannot be queued: a check failure, or None
+    (not measured) when not strict."""
+    if not _SLEEP_CYCLES_PER_MS:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1000)
+        a.record()
+        torch.cuda._sleep(10_000_000)
+        b.record()
+        b.synchronize()
+        _SLEEP_CYCLES_PER_MS.append(1e7 / a.elapsed_time(b))
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(trials):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(_SLEEP_CYCLES_PER_MS[0] * (3 * host_ms + 2)))
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        queued = not a.query()
+        b.synchronize()
+        if not strict and not queued:
+            return None
+        check(queued, "device_ms: the host had not queued every call when "
+              "the sleep ended")
+        times.append(a.elapsed_time(b) / reps)
     return float(np.median(times))
 
 
@@ -234,7 +290,7 @@ def hist_err(torch, got, ref):
         1e-4 * max(scale, 1.0)
 
 
-def index_add_ms(torch, bins, slot, cols, num_slots, bmax):
+def index_add_fn(torch, bins, slot, cols, num_slots, bmax):
     """The library yardstick of a histogram kernel: one index_add_ of the
     rows' channels `cols` ([N, 3], f32 or int32) over the flattened
     (slot, feature, bin) cells of the rows whose slot is in range."""
@@ -246,7 +302,7 @@ def index_add_ms(torch, bins, slot, cols, num_slots, bmax):
     vals = cols[valid][:, None].expand(-1, f, 3).reshape(-1, 3).contiguous()
     flat = torch.zeros((num_slots * f * bmax, 3), dtype=cols.dtype,
                        device=bins.device)
-    return time_ms(torch, lambda: flat.index_add_(0, cells, vals), 20)
+    return lambda: flat.index_add_(0, cells, vals)
 
 
 def kernel_phase(torch, hm, hp, rng_mod, dev):
@@ -257,8 +313,10 @@ def kernel_phase(torch, hm, hp, rng_mod, dev):
     n, f = bins.shape
     rows = []
 
-    def row(name, replaces, err, ms, plain_ms, nbytes, ops, library_ms,
-            source=None):
+    def row(name, replaces, err, fn, plain_fn, plain_reps, nbytes, ops,
+            library_fn, source=None):
+        # ms: one call as the main path makes it (host launch path
+        # included); device_ms: the device alone (back-to-back calls).
         # ops: one add per histogram cell update (f32 or int32), held to
         # the f32 rate outside the tensor cores; every row is bytes-bound
         bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -267,11 +325,16 @@ def kernel_phase(torch, hm, hp, rng_mod, dev):
             "name": name, "route": "cuda",
             "source": f"lightgbm_tpu_torch/csrc/{source or name}.cu",
             "replaces": replaces, "launches": None,  # set by the main path
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": err, "ms": time_ms(torch, fn, 20),
+            "device_ms": device_ms(torch, fn),
+            "plain_ms": time_ms(torch, plain_fn, plain_reps),
             "bound_ms": max(bound_bytes, bound_ops),
             "bound_by": "bytes" if bound_bytes >= bound_ops
             else "operations",
-            "library_ms": library_ms})
+            "library_ms": None if library_fn is None
+            else time_ms(torch, library_fn, 20),
+            "library_device_ms": None if library_fn is None
+            else device_ms(torch, library_fn)})
         emit("kernel", **rows[-1])
 
     # rows whose node splits read one bin to route; rows landing in a slot
@@ -286,10 +349,8 @@ def kernel_phase(torch, hm, hp, rng_mod, dev):
     check(torch.equal(rn, rn_ref) and torch.equal(rs, rs_ref),
           "route_rows routing differs from its plain version")
     row("route_rows", "lightgbm_tpu/learner/histogram_mxu.py:1065", 0.0,
-        time_ms(torch, lambda: hm.route_rows(bins, d["row_node"], *route),
-                20),
-        time_ms(torch, lambda: hm.route_rows_ref(bins, d["row_node"],
-                                                 *route), 5),
+        lambda: hm.route_rows(bins, d["row_node"], *route),
+        lambda: hm.route_rows_ref(bins, d["row_node"], *route), 5,
         12 * n + n_routed + table_bytes, 0, None)
 
     # K1 fused_route_hist at the bridge pass's 263 slots
@@ -309,7 +370,7 @@ def kernel_phase(torch, hm, hp, rng_mod, dev):
     check(err <= tol, f"fused_route_hist grad/hess error {err} > {tol}")
     n_slot = int(((rs_ref >= 0) & (rs_ref < S_FUSED)).sum())
     row("fused_route_hist", "lightgbm_tpu/learner/histogram_mxu.py:785",
-        err, time_ms(torch, k1, 20), time_ms(torch, k1_ref, 3),
+        err, k1, k1_ref, 3,
         8 * n + n_routed + n_slot * (f + 12) + h.numel() * 4 + table_bytes,
         n_slot * f * 3, None)
 
@@ -329,9 +390,9 @@ def kernel_phase(torch, hm, hp, rng_mod, dev):
     check(err <= tol, f"build_histograms grad/hess error {err} > {tol}")
     n_slot = int((rslot >= 0).sum())
     row("build_histograms", "lightgbm_tpu/learner/histogram_mxu.py:472",
-        err, time_ms(torch, k3, 20), time_ms(torch, k3_ref, 3),
+        err, k3, k3_ref, 3,
         4 * n + n_slot * (f + 12) + h.numel() * 4, n_slot * f * 3,
-        index_add_ms(torch, bins, rslot, torch.stack([grad, hess, cnt], 1),
+        index_add_fn(torch, bins, rslot, torch.stack([grad, hess, cnt], 1),
                      S_HIST, BMAX))
 
     # K1 and K3 in integer mode (quantized int8 gradients, int32 cells):
@@ -350,7 +411,7 @@ def kernel_phase(torch, hm, hp, rng_mod, dev):
           "fused_route_hist integer mode differs from its plain version")
     n_slot = int(((rs_ref >= 0) & (rs_ref < S_FUSED)).sum())
     row("fused_route_hist_int", "lightgbm_tpu/learner/histogram_mxu.py:785",
-        0.0, time_ms(torch, k1q, 20), time_ms(torch, k1q_ref, 3),
+        0.0, k1q, k1q_ref, 3,
         8 * n + n_routed + n_slot * (f + 6) + h.numel() * 4 + table_bytes,
         n_slot * f * 3, None, source="fused_route_hist")
 
@@ -367,9 +428,9 @@ def kernel_phase(torch, hm, hp, rng_mod, dev):
     check(torch.equal(h, h_ref),
           "build_histograms integer mode differs from its plain version")
     row("build_histograms_int", "lightgbm_tpu/learner/histogram_mxu.py:472",
-        0.0, time_ms(torch, k3q, 20), time_ms(torch, k3q_ref, 3),
+        0.0, k3q, k3q_ref, 3,
         4 * n + n_slot * (f + 6) + h.numel() * 4, n_slot * f * 3,
-        index_add_ms(torch, bins, rslot, torch.stack(
+        index_add_fn(torch, bins, rslot, torch.stack(
             [g_q.int(), h_q.int(), cnt.int()], 1), S_HIST, BMAX),
         source="build_histograms")
     del h, h_ref
@@ -380,14 +441,16 @@ def kernel_phase(torch, hm, hp, rng_mod, dev):
 
     # K6 node_values: the score update's gather over 1024 node values
     v = d["values"]
+    node_values_checks(torch, hm, dev)
     out = hm.node_values(d["row_node"], v)
     out_ref = hm.node_values_ref(d["row_node"], v)
-    check(torch.equal(out, out_ref), "node_values differs")
+    check(torch.equal(out.view(torch.int32), out_ref.view(torch.int32)),
+          "node_values differs")
     idx = d["row_node"].long()
     row("node_values", "lightgbm_tpu/learner/histogram_mxu.py:1248", 0.0,
-        time_ms(torch, lambda: hm.node_values(d["row_node"], v), 20),
-        time_ms(torch, lambda: hm.node_values_ref(d["row_node"], v), 5),
-        8 * n + v.numel() * 4, 0, time_ms(torch, lambda: v[idx], 20))
+        lambda: hm.node_values(d["row_node"], v),
+        lambda: hm.node_values_ref(d["row_node"], v), 5,
+        8 * n + v.numel() * 4, 0, lambda: v[idx])
 
     # K5 node_sums: the exact leaf refit at the pruned tree's 510 nodes
     # (and, checked only, the overgrown tree's 1020), 3% of rows parked at
@@ -423,18 +486,20 @@ def kernel_phase(torch, hm, hp, rng_mod, dev):
     data5 = torch.stack([grad, hess, cnt], 1)[keep].contiguous()
     acc5 = torch.zeros((M_REFIT, 3), device=dev)
     row("node_sums", "lightgbm_tpu/learner/histogram_mxu.py:1192", err,
-        time_ms(torch, k5, 20), time_ms(torch, k5_ref, 5),
-        16 * n + M_REFIT * 12, 3 * int(keep.numel()),
-        time_ms(torch, lambda: acc5.index_add_(0, idx5, data5), 20))
+        k5, k5_ref, 5, 16 * n + M_REFIT * 12, 3 * int(keep.numel()),
+        lambda: acc5.index_add_(0, idx5, data5))
     return rows
 
 
 def backend_rows(torch, hm, hp, rng_mod, d, row, dev):
-    """K2's counts mode and K7 (the slot-grouped scatter kernel) at the
-    hist_backend=pallas path's shapes: 1M x 28 rows routed into the
-    autotune's 263 slots, the route counts handed to K7; K7 also at the
-    wide shape (100k x 200, 256 bins: its 86 KB-a-chunk shared-memory
-    histogram takes 7 feature chunks)."""
+    """K2's counts mode, the partition kernel and K7 (the slot-grouped
+    scatter kernel) at the hist_backend=pallas path's shapes: 1M x 28 rows
+    routed into the autotune's 263 slots, the route counts handed to the
+    partition. The partition is also held to its torch version at the root
+    pass (1 slot), at 511 slots with 3% of rows parked, and counting for
+    itself; K7 also at the root pass (one slot of ~1000 blocks: its runs
+    write partials that the reduce adds) and at the wide shape (100k x 200,
+    256 bins: several feature groups)."""
     bins, route, cnt = d["bins"], (d["tbl"], d["member"], d["feat_tbl"]), \
         d["cnt"]
     n, f = bins.shape
@@ -455,15 +520,38 @@ def backend_rows(torch, hm, hp, rng_mod, d, row, dev):
     check(int(counts.sum()) == int(((slot >= 0) & (slot < S_TUNE)).sum()),
           "route counts do not add up to the slotted rows")
     row("route_rows_counts", "lightgbm_tpu/learner/histogram_mxu.py:1065",
-        0.0, time_ms(torch, k2c, 20), time_ms(torch, k2c_ref, 5),
+        0.0, k2c, k2c_ref, 5,
         12 * n + n_routed + table_bytes + 4 * S_TUNE, 0, None,
         source="route_rows")
 
-    def scatter(dd, sl, cts, quantized):
-        """K7 against its plain version: (max abs error, ms, plain ms)."""
+    partition_checks(torch, hp, slot, counts, dev)
+    kw = dict(num_slots=S_TUNE, row_block=1024, counts=counts)
+    tb = -(-n // 1024) + S_TUNE + 1
+
+    def part():
+        return hp.partition_rows(slot, **kw)
+
+    def part_ref():
+        return hp.partition_rows_ref(slot, **kw)
+    # row_slot and counts read; block_slot, src and bounds written
+    row("partition_rows", "lightgbm_tpu/learner/histogram_pallas.py:106",
+        0.0, part, part_ref, 5,
+        4 * n + 4 * S_TUNE + 4 * tb * 1025 + 4 * (S_TUNE + 2), 0, None)
+    emit("kernel_detail", name="partition_rows",
+         torch_partition_rows_ms=time_ms(torch, part_ref, 20),
+         # None: the torch partition waits for the device
+         torch_partition_rows_device_ms=device_ms(torch, part_ref,
+                                                  strict=False),
+         what="the torch partition that the kernel replaces "
+              "(partition_rows_ref: stable radix sort, searchsorted, "
+              "gathers), route counts given, 1M rows, 263 slots")
+
+    def scatter(dd, sl, cts, quantized, num_slots=S_TUNE):
+        """K7 against its plain version: (max abs error, kernel call, plain
+        call)."""
         g, h = (dd["g_q"], dd["h_q"]) if quantized else \
             (dd["grad"], dd["hess"])
-        kw = dict(num_slots=S_TUNE, bmax=BMAX, quantized=quantized,
+        kw = dict(num_slots=num_slots, bmax=BMAX, quantized=quantized,
                   slot_counts=cts)
 
         def k7():
@@ -484,41 +572,111 @@ def backend_rows(torch, hm, hp, rng_mod, d, row, dev):
             check(err <= tol, f"build_histograms_scatter error {err} > {tol}")
         # the per-row histogram of the same rows, in the other backend
         check(torch.equal(got[..., 2], hm.build_histograms_ref(
-            dd["bins"], g, h, dd["cnt"], sl, num_slots=S_TUNE, bmax=BMAX,
+            dd["bins"], g, h, dd["cnt"], sl, num_slots=num_slots, bmax=BMAX,
             quantized=quantized)[..., 2]), "K7 counts differ from K3's")
-        return err, time_ms(torch, k7, 20), time_ms(torch, k7_ref, 3)
+        return err, k7, k7_ref
 
     n_slot = int(((slot >= 0) & (slot < S_TUNE)).sum())
-    emit("kernel_detail", name="partition_rows",
-         ms=time_ms(torch, lambda: hp.partition_rows(
-             slot, num_slots=S_TUNE, row_block=1024, counts=counts), 20),
-         what="the partition inside build_histograms_scatter (route "
-              "counts given), 1M rows, 263 slots")
     for quantized, name, chan_bytes, cols in (
             (True, "build_histograms_scatter_int", 6,
              torch.stack([d["g_q"].int(), d["h_q"].int(), cnt.int()], 1)),
             (False, "build_histograms_scatter", 12,
              torch.stack([d["grad"], d["hess"], cnt], 1))):
-        err, ms, plain_ms = scatter(d, slot, counts, quantized)
-        row(name, "lightgbm_tpu/learner/histogram_pallas.py:211", err, ms,
-            plain_ms, 4 * n + n_slot * (f + chan_bytes) +
+        err, k7, k7_ref = scatter(d, slot, counts, quantized)
+        row(name, "lightgbm_tpu/learner/histogram_pallas.py:211", err, k7,
+            k7_ref, 3, 4 * n + n_slot * (f + chan_bytes) +
             S_TUNE * f * BMAX * 12, n_slot * f * 3,
-            index_add_ms(torch, bins, slot, cols, S_TUNE, BMAX),
+            index_add_fn(torch, bins, slot, cols, S_TUNE, BMAX),
             source="build_histograms_scatter")
 
-    # the wide shape: 200 features, 7 shared-memory feature chunks
+    # the root pass: every row in one slot (3% parked), ~1000 blocks
+    root = torch.where(torch.rand(n, device=dev) < 0.03, -1, 0) \
+        .to(torch.int32)
+    root_counts = (root == 0).sum().reshape(1).to(torch.int32)
+    for quantized in (True, False):
+        err, k7, k7_ref = scatter(d, root, root_counts, quantized,
+                                  num_slots=1)
+        emit("kernel_check", name="build_histograms_scatter" +
+             ("_int" if quantized else ""), rows=n, features=f, slots=1,
+             max_abs_err=err, ms=time_ms(torch, k7, 20),
+             device_ms=device_ms(torch, k7), plain_ms=time_ms(torch, k7_ref,
+                                                              3))
+
+    # the wide shape: 200 features, several feature groups
     dw = kernel_inputs(torch, hm, rng_mod, dev, n_rows=WIDE_ROWS,
                        n_features=WIDE_FEATURES)
     _, wslot, wcounts = hm.route_rows(
         dw["bins"], dw["row_node"], dw["tbl"], dw["member"], dw["feat_tbl"],
         emit_counts=True, num_slots=S_TUNE)
     for quantized in (True, False):
-        err, ms, plain_ms = scatter(dw, wslot, wcounts, quantized)
+        err, k7, k7_ref = scatter(dw, wslot, wcounts, quantized)
         emit("kernel_check", name="build_histograms_scatter" +
              ("_int" if quantized else ""), rows=WIDE_ROWS,
-             features=WIDE_FEATURES, slots=S_TUNE, max_abs_err=err, ms=ms,
-             plain_ms=plain_ms)
+             features=WIDE_FEATURES, slots=S_TUNE, max_abs_err=err,
+             ms=time_ms(torch, k7, 20), device_ms=device_ms(torch, k7),
+             plain_ms=time_ms(torch, k7_ref, 3))
     del dw
+
+
+def partition_checks(torch, hp, slot, counts, dev):
+    """The partition kernel against partition_rows_ref, element for
+    element (block_slot and src; the kernel's slot bounds against
+    slot_bounds of the torch layout): at 263 slots with route counts, at
+    the root pass (1 slot, 3% parked), at 511 slots with 3% parked, and
+    counting for itself (counts=None) at 263 slots."""
+    rng = np.random.RandomState(13)
+    u = rng.rand(N_ROWS)
+    s511 = rng.randint(0, S_HIST, N_ROWS)
+    s511[u < 0.03] = -1
+    root = np.where(u < 0.03, -1, 0)
+
+    def live_counts(sl, s):
+        sl = sl[(sl >= 0) & (sl < s)].long()
+        return torch.bincount(sl, minlength=s).to(torch.int32)
+
+    cases = []
+    for what, sl, s, c in (
+            ("263 slots, route counts", slot, S_TUNE, counts),
+            ("1 slot (root pass), 3% parked", root, 1, None),
+            ("511 slots, 3% parked", s511, S_HIST, None),
+            ("263 slots, counts=None", slot, S_TUNE, None)):
+        sl = torch.as_tensor(sl, dtype=torch.int32, device=dev)
+        if c is None and "counts=None" not in what:
+            c = live_counts(sl, s)
+        block_slot, src, bounds = hp._partition(sl, s, 1024, c, "auto")
+        want_bs, want_src = hp.partition_rows_ref(sl, num_slots=s,
+                                                  row_block=1024, counts=c)
+        equal = torch.equal(block_slot, want_bs) and torch.equal(src,
+                                                                 want_src)
+        check(equal, f"partition kernel differs from partition_rows_ref: "
+              f"{what}")
+        check(torch.equal(bounds[:s + 1].long(),
+                          hp.slot_bounds(want_bs, s)),
+              f"partition kernel slot bounds differ: {what}")
+        cases.append(what)
+    emit("partition_check", cases=cases, equal=True)
+
+
+def node_values_checks(torch, hm, dev):
+    """K6 bit for bit against node_values_ref with ids out of range (-1
+    and >= M) and +inf, -inf and NaN table entries, at M = 1024 (the table
+    staged in shared memory) and M = 1500 (read through the cache), and at
+    an id vector that starts 4 bytes into its storage (scalar accesses)."""
+    rng = np.random.RandomState(21)
+    for m in (1024, 1500):
+        values = rng.randn(m).astype(np.float32)
+        values[[3, 17, m - 1]] = [np.inf, -np.inf, np.nan]
+        node = rng.randint(-1, m + 2, N_ROWS + 3).astype(np.int32)
+        node[:3] = [3, 17, m - 1]
+        v = torch.as_tensor(values, device=dev)
+        t = torch.as_tensor(node, device=dev)
+        for ids in (t[:N_ROWS], t[1:N_ROWS + 1]):
+            got, want = hm.node_values(ids, v), hm.node_values_ref(ids, v)
+            check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                  f"node_values differs at M = {m}")
+        emit("kernel_check", name="node_values", table=m,
+             out_of_range=int(((t < 0) | (t >= m)).sum()),
+             non_finite_entries=3, bit_equal=True)
 
 
 def packed_rows(torch, hm, hp, rng_mod, dev, row):
@@ -553,8 +711,7 @@ def packed_rows(torch, hm, hp, rng_mod, dev, row):
                   num_slots=S_TUNE))),
               f"route_rows packed (counts={counts_mode}) differs")
         row("route_rows" + "_counts" * counts_mode + "_packed",
-            src + ":1065", 0.0, time_ms(torch, k2p, 20),
-            time_ms(torch, k2p_ref, 3),
+            src + ":1065", 0.0, k2p, k2p_ref, 3,
             12 * n + n_routed + table_bytes + 4 * S_TUNE * counts_mode, 0,
             None, source="route_rows")
     _, slot, counts = want
@@ -583,8 +740,7 @@ def packed_rows(torch, hm, hp, rng_mod, dev, row):
         n_slot = int(((slot >= 0) & (slot < S_FUSED)).sum())
         chan = 6 if quantized else 12
         row("fused_route_hist" + "_int" * quantized + "_packed",
-            src + ":785", err, time_ms(torch, k1p, 20),
-            time_ms(torch, k1p_ref, 3),
+            src + ":785", err, k1p, k1p_ref, 3,
             8 * n + n_routed + n_slot * (fh + chan) + hist.numel() * 4 +
             table_bytes, n_slot * f * 3, None, source="fused_route_hist")
 
@@ -592,7 +748,7 @@ def packed_rows(torch, hm, hp, rng_mod, dev, row):
     # at the autotune's 263 slots: what hist_backend=auto times
     n_slot = int(((slot >= 0) & (slot < S_TUNE)).sum())
     cols = torch.stack([d["g_q"].int(), d["h_q"].int(), cnt.int()], 1)
-    lib = index_add_ms(torch, d["bins"], slot, cols, S_TUNE, BMAX_PACKED)
+    lib = index_add_fn(torch, d["bins"], slot, cols, S_TUNE, BMAX_PACKED)
     check(hm.fits_v2(S_TUNE, f, BMAX_PACKED, True),
           "the packed K4 shape does not take the v2 kernel")
     kw = dict(num_slots=S_TUNE, bmax=BMAX_PACKED, quantized=True,
@@ -617,10 +773,26 @@ def packed_rows(torch, hm, hp, rng_mod, dev, row):
         got = k()
         check(torch.equal(got, k_ref()) and torch.equal(got, want),
               f"{name} differs from its plain version or from unpacked bins")
-        row(name, replaces, 0.0, time_ms(torch, k, 20),
-            time_ms(torch, k_ref, 3),
+        row(name, replaces, 0.0, k, k_ref, 3,
             4 * n + n_slot * (fh + 6) + got.numel() * 4, n_slot * f * 3,
             lib, source=name.replace("_int_packed", ""))
+
+    # K7 packed at the root pass: one slot, runs through the reduce
+    root = torch.where(torch.rand(n, device=dev) < 0.03, -1, 0) \
+        .to(torch.int32)
+    kw = dict(num_slots=1, bmax=BMAX_PACKED, quantized=True, num_features=f,
+              slot_counts=(root == 0).sum().reshape(1).to(torch.int32))
+
+    def k7p():
+        return hp.build_histograms_scatter(pk, d["g_q"], d["h_q"], cnt, root,
+                                           **kw)
+    got = k7p()
+    check(torch.equal(got, hp.build_histograms_scatter_ref(
+        pk, d["g_q"], d["h_q"], cnt, root, **kw)),
+        "build_histograms_scatter packed differs at the root pass")
+    emit("kernel_check", name="build_histograms_scatter_int_packed", rows=n,
+         features=f, slots=1, max_abs_err=0.0, ms=time_ms(torch, k7p, 20),
+         device_ms=device_ms(torch, k7p))
 
 
 def split_rows(torch, hm, rng_mod, dev, row):
@@ -685,7 +857,6 @@ def split_rows(torch, hm, rng_mod, dev, row):
             check(rel <= 1e-6, f"{name} at {s} slots: picked sums rel "
                   f"error {rel}")
             n_split = int(got[:, sk.O_HAS].sum())
-            ms, plain_ms = time_ms(torch, k8, 20), time_ms(torch, k8_ref, 5)
             # every input read once: the histograms and the small tables
             nbytes = hist.numel() * 4 + sum(x.numel() * 4 for x in tables
                                             if x is not None) + \
@@ -700,7 +871,7 @@ def split_rows(torch, hm, rng_mod, dev, row):
                     *args, hp, **kw), 20))
             if s == S_HIST:
                 row(name, "lightgbm_tpu/learner/split_kernel.py:249", err,
-                    ms, plain_ms, nbytes, ops, None,
+                    k8, k8_ref, 5, nbytes, ops, None,
                     source="find_best_splits")
                 emit("kernel_detail", name=name, slots=s, slots_split=n_split,
                      what="the whole wrapper (kernel + [S] recompute) and "
@@ -708,7 +879,9 @@ def split_rows(torch, hm, rng_mod, dev, row):
                      **whole)
             else:
                 emit("kernel_check", name=name, slots=s, slots_split=n_split,
-                     max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                     max_abs_err=err, ms=time_ms(torch, k8, 20),
+                     device_ms=device_ms(torch, k8),
+                     plain_ms=time_ms(torch, k8_ref, 5),
                      bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, **whole)
     del d
 
@@ -972,7 +1145,16 @@ def backends_path(torch, lgt, hm, X, y, ds, mxu_q, mxu_exact):
     for name in BACKEND_PATH:
         check(counts[name] > 0, f"{name} was not launched on the backends "
               "path")
+    check_partition_launches(counts, "backends")
     return counts
+
+
+def check_partition_launches(counts, path):
+    """Every K7 call partitions its rows through the partition kernel:
+    one partition launch per K7 launch, none through torch."""
+    k7 = sum(counts[k] for k in K7_KEYS)
+    check(counts["partition_rows"] == k7 > 0, f"the {path} path launched "
+          f"{counts['partition_rows']} partitions for {k7} K7 calls")
 
 
 def packed_path(torch, lgt, hm, X, y):
@@ -1052,6 +1234,7 @@ def packed_path(torch, lgt, hm, X, y):
     for name in PACKED_PATH:
         check(counts[name] > 0, f"{name} was not launched on the packed "
               "path")
+    check_partition_launches(counts, "packed")
     return counts
 
 

@@ -481,10 +481,11 @@ _PARAMS: List[ParamSpec] = [
        lambda v: v in ("auto", "argsort", "scan"),
        "row-partitioning algorithm behind the slot-grouped scatter "
        "kernel (histogram_pallas.py partition_rows). Accepted for the "
-       "JAX package's configs: every value runs the one stable sort, "
-       "which gives the slot-contiguous block layout both of that "
-       "package's algorithms give, so the choice is byte-neutral on "
-       "model.txt"),
+       "JAX package's configs: every value runs the one stable "
+       "partition (a counting-sort kernel on the card, a stable sort "
+       "on the CPU), which gives the slot-contiguous block layout both "
+       "of that package's algorithms give, so the choice is "
+       "byte-neutral on model.txt"),
     _p("level_pipeline", bool, False, (),
        desc="stage-dispatched tree growth (learner/grower_pipeline.py): "
             "each doubling-schedule pass, the bridge and speculative "

@@ -155,20 +155,6 @@ __device__ __forceinline__ void hist_accumulate(int* hist, int slot,
   }
 }
 
-// Add v into channel c of a histogram cell: float64 cells (f32 mode) take
-// float64 atomics; integer cells take int atomics for the gradient channels
-// (c < 2) and float atomics on the f32 bits of the count channel (c == 2).
-__device__ __forceinline__ void cell_add(double* cell, float v, int) {
-  atomicAdd(cell, static_cast<double>(v));
-}
-__device__ __forceinline__ void cell_add(int* cell, int v, int c) {
-  if (c == 2) {
-    atomicAdd(reinterpret_cast<float*>(cell), __int_as_float(v));
-  } else {
-    atomicAdd(cell, v);
-  }
-}
-
 inline int grid_for(int n) {
   const int blocks = (n + kThreads - 1) / kThreads;
   return blocks < kMaxBlocks ? blocks : kMaxBlocks;

@@ -9,7 +9,9 @@ library. Nothing here runs at import time: this module is imported on
 hosts without nvcc or a card, where only the kernels' plain versions run.
 
 Every C entry launches on the stream it is given and returns
-cudaGetLastError(); `call` raises on anything but 0.
+cudaGetLastError(); `call` raises on anything but 0. `call` is the launch
+path of every wrapper, so it does no more per call than convert the
+arguments and look up the current stream: the wrappers do the checks.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from typing import Dict
 
 import torch
 
-__all__ = ["KERNELS", "build_all", "call"]
+__all__ = ["KERNELS", "build_all", "c_args", "call"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -47,8 +49,9 @@ KERNELS: Dict[str, tuple] = {
     "fused_route_hist": ("lgbt_fused_route_hist", [_P] * 10 + [_I] * 9 + [_P]),
     "route_rows": ("lgbt_route_rows", [_P] * 8 + [_I] * 6 + [_P]),
     "build_histograms": ("lgbt_build_histograms", [_P] * 6 + [_I] * 7 + [_P]),
+    "partition_rows": ("lgbt_partition_rows", [_P] * 6 + [_I] * 4 + [_P]),
     "build_histograms_scatter": ("lgbt_build_histograms_scatter",
-                                 [_P] * 7 + [_I] * 9 + [_P]),
+                                 [_P] * 9 + [_I] * 8 + [_F, _I, _P]),
     "node_values": ("lgbt_node_values", [_P] * 3 + [_I] * 2 + [_P]),
     "node_sums": ("lgbt_node_sums", [_P] * 7 + [_I] * 2 + [_P]),
     "find_best_splits": ("lgbt_find_best_splits",
@@ -124,17 +127,29 @@ def _entry(stem: str):
     return _entries[stem]
 
 
+def c_args(args) -> list:
+    """The C arguments of a launch, in one pass: tensors as their data
+    pointers, None as a null pointer, Python floats as C floats, anything
+    else (ints, bools, numpy integers) as a C int."""
+    return [a.data_ptr() if isinstance(a, torch.Tensor)
+            else a if a is None or isinstance(a, float) else int(a)
+            for a in args]
+
+
 def call(stem: str, device: torch.device, *args) -> None:
-    """Launch kernel `stem` on `device`'s current stream; tensors in
-    `args` pass as data pointers, None as a null pointer, Python ints as C
-    ints and Python floats as C floats."""
-    fn = _entry(stem)
-    c_args = [a.data_ptr() if isinstance(a, torch.Tensor)
-              else None if a is None else a if isinstance(a, float)
-              else int(a) for a in args]
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*c_args, stream)
+    """Launch kernel `stem` on `device`'s current stream with `args`
+    converted by c_args. The launch goes to the current device; a device
+    that is not current is made current for this launch only. The stream
+    is the raw handle torch.cuda.current_stream(device).cuda_stream holds,
+    read without building a Stream object (4.2 against 0.2 us a call on
+    the card's host, PERF.md)."""
+    fn = _entries.get(stem) or _entry(stem)
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index != current:
+        with torch.cuda.device(device):
+            return call(stem, device, *args)
+    err = fn(*c_args(args), torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"CUDA kernel {stem} failed to launch: "
                            f"cudaError {err}")

@@ -14,7 +14,8 @@ card those become plain indexing and atomics in hand-written CUDA kernels
   node_values       <- node_values_mxu        (values[row_node])
   node_sums         <- node_sums_mxu          (exact per-node sums, refit)
 
-The slot-grouped scatter histogram (histogram_pallas.py) is the sixth.
+The slot-grouped scatter histogram and its partition (histogram_pallas.py)
+are the sixth and seventh.
 
 The histogram kernels have two modes. Exact: f32 gradients into float64
 cells, rounded to f32 once (the reference's double hist_t: in f32 cells,
@@ -582,6 +583,8 @@ _MODES = {"fused_route_hist": ("_int", "_packed"),
           "route_rows": ("_counts", "_packed"),
           "build_histograms": ("_int", "_packed"),
           "build_histograms_scatter": ("_int", "_packed"),
+          # histogram_pallas: the partition inside build_histograms_scatter
+          "partition_rows": (),
           "node_values": (), "node_sums": (),
           # split_kernel.find_best_splits_kernel: plain and monotone modes
           "find_best_splits": (), "find_best_splits_mono": ()}
