@@ -1,6 +1,5 @@
 // Shared device code of the routing and histogram kernels
-// (fused_route_hist.cu, route_rows.cu, build_histograms.cu,
-// build_histograms_scatter.cu).
+// (fused_route_hist.cu, route_rows.cu, build_histograms_scatter.cu).
 //
 // Node table layout (pack_route_tables in learner/histogram_mxu.py): one
 // row of kTblCols int32 per node id. The TPU kernels carried these values
@@ -9,6 +8,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace lgbt {
@@ -106,30 +106,53 @@ __device__ __forceinline__ void route_decide(int node,
   *new_slot = left ? row[kTblSlotL] : row[kTblSlotR];
 }
 
-// Add one row's (grad, hess, count) into hist[slot, j, bin, :] for every
-// feature j. hist is [S, f, b, 3]. const_hess != 0 skips the hessian
-// channel; the wrapper fills it as const x count afterwards.
-//
-// f32 mode: f32 values into three float64 cells, float64 atomics, rounded
-// to f32 once by the wrapper (the reference's double hist_t). A cell takes
-// one add per row of its bin, ~70k at 1M rows and 15 bins; f32 cells
-// would round every add to the running sum's ulp, and sibling subtraction
-// turns that error into leaf values off by orders of magnitude. The atomics'
-// order still varies from run to run, now in float64's last bits.
+// Exact (f32) mode sums fixed-point integers (histogram_mxu.exact_scale):
+// channel c of a row adds q = rint(v x 2^k[c]) as an int64, and a cell's
+// sum s comes out as f32(float64(s) x 2^-k[c]). The wrapper picks k[c] from
+// the channel's max |v| over all n rows so that |q| <= 2^38 and |sum| <=
+// 2^62; a channel with a non-finite value has k = kNonFinite and comes out
+// NaN in every cell. Integer sums are exact, so every kernel and every
+// order of the additions gives the same bits.
+constexpr int kNonFinite = -32768;
+
+// 2^k, the factor a channel's values are scaled by (0 for a non-finite
+// channel, whose cells are NaN whatever they hold)
+__device__ __forceinline__ double fixed_mul(int k) {
+  return k == kNonFinite ? 0.0 : ldexp(1.0, k);
+}
+
+// 2^-k, the factor a cell's sum is scaled back by (NaN: non-finite channel)
+__device__ __forceinline__ double fixed_inv(int k) {
+  return k == kNonFinite ? __longlong_as_double(0x7ff8000000000000ll)
+                         : ldexp(1.0, -k);
+}
+
+// rint(v x 2^k): the product is exact in float64, rounded once, half to even
+__device__ __forceinline__ long long fixed_point(float v, double mul) {
+  return __double2ll_rn(static_cast<double>(v) * mul);
+}
+
+__device__ __forceinline__ float fixed_result(long long sum, double inv) {
+  return static_cast<float>(static_cast<double>(sum) * inv);
+}
+
+// Add one row's fixed-point (grad, hess, count) q into hist[slot, j, bin, :]
+// for every feature j: int64 cells in global memory (two's complement, so
+// the unsigned add of a negative q subtracts it; native 64-bit atomics).
+// hist is [S, f, b, 3]. const_hess != 0 skips the hessian channel; the
+// wrapper fills it as const x count afterwards.
 template <bool kPacked>
-__device__ __forceinline__ void hist_accumulate(double* hist, int slot,
-                                                const uint8_t* row_bins,
-                                                int f, int fh, int b,
-                                                double g, double h, float c,
-                                                int const_hess) {
-  double* base = hist + static_cast<size_t>(slot) * f * b * 3;
+__device__ __forceinline__ void hist_accumulate(
+    unsigned long long* hist, int slot, const uint8_t* row_bins, int f,
+    int fh, int b, const long long (&q)[3], int const_hess) {
+  unsigned long long* base = hist + static_cast<size_t>(slot) * f * b * 3;
   for (int j = 0; j < f; ++j) {
     const int bin = read_bin<kPacked>(row_bins, j, fh);
     if (bin >= b) continue;
-    double* cell = base + (static_cast<size_t>(j) * b + bin) * 3;
-    atomicAdd(cell, g);
-    if (!const_hess) atomicAdd(cell + 1, h);
-    atomicAdd(cell + 2, static_cast<double>(c));
+    unsigned long long* cell = base + (static_cast<size_t>(j) * b + bin) * 3;
+    atomicAdd(cell, static_cast<unsigned long long>(q[0]));
+    if (!const_hess) atomicAdd(cell + 1, static_cast<unsigned long long>(q[1]));
+    atomicAdd(cell + 2, static_cast<unsigned long long>(q[2]));
   }
 }
 

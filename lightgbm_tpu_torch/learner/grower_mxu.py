@@ -17,7 +17,10 @@ reference takes its two-kernel branch (histogram_mxu.fits_v2); "pallas"
 routes with per-slot counts and builds with the slot-grouped scatter
 kernel (histogram_pallas); "scatter" routes the same way and builds with
 the segment-sum oracle (histogram.py). In the quantized posture all three
-give bit-identical histograms. Only the smaller child of a fresh split gets
+give bit-identical histograms; with exact gradients the kernels of mxu and
+pallas do (integer sums of fixed-point values under one scale per tree,
+histogram_mxu.exact_scale), and the float64 oracle agrees within its
+rounding. Only the smaller child of a fresh split gets
 a kernel slot; the larger sibling is parent minus smaller
 (serial_tree_learner.cpp:311-326). With packed4 the bin matrix is 4-bit
 packed (histogram_mxu.pack_bins_4bit) and every kernel reads the nibbles;
@@ -65,10 +68,10 @@ from .. import rng
 from ..utils.log import Log
 from . import histogram
 from .grower import TreeArrays, _init_tree
-from .histogram_mxu import (build_histograms_auto, fits_v2, fused_route_hist,
-                            fused_row_block, node_sums, node_values,
-                            pack_route_tables, quantize_gradients,
-                            route_rows, unpack_bins_4bit)
+from .histogram_mxu import (build_histograms_auto, exact_scale, fits_v2,
+                            fused_route_hist, fused_row_block, node_sums,
+                            node_values, pack_route_tables,
+                            quantize_gradients, route_rows, unpack_bins_4bit)
 from .histogram_pallas import build_histograms_scatter
 from .split import BestSplits, SplitHyperParams, find_best_splits, leaf_output
 from .split_kernel import find_best_splits_kernel, kernel_supports
@@ -104,7 +107,9 @@ def autotune_hist_backend(bins, *, num_slots: int, bmax: int,
     quantized; slot = row % num_slots), and time the second call of each —
     the first builds the kernels and warms them. Returns (choice,
     timings_ms). A backend that raises times as +inf; if both do, the
-    choice is mxu."""
+    choice is mxu. On the card build_histograms is itself the partition
+    and the scatter kernel, so the two timings differ by noise; either
+    choice grows the same trees (both sum the same integers)."""
     n = bins.shape[0]
     dev = bins.device
     g = torch.linspace(-127.0, 127.0, n, dtype=torch.float32, device=dev)
@@ -399,8 +404,12 @@ def grow_tree_mxu(bins: torch.Tensor, grad: torch.Tensor,
             gscale
         root_h = root_c * ch if ch else \
             torch.sum(h_hess, dtype=torch.int64).to(torch.float32) * hscale
+        hist_fixed = None
     else:
         h_grad, h_hess = grad, hess
+        # the fixed point of every exact histogram of the tree, on the
+        # device (no host sync)
+        hist_fixed = exact_scale(grad, hess, cnt_weight)
         root_g = torch.sum(grad)
         root_h = root_c * ch if ch else torch.sum(hess)
     root_val = leaf_output(root_g, root_h, hp.lambda_l1, hp.lambda_l2,
@@ -472,7 +481,7 @@ def grow_tree_mxu(bins: torch.Tensor, grad: torch.Tensor,
                     bins, h_grad, h_hess, cnt_weight, rs, num_slots=nslots,
                     bmax=bmax, num_features=nf_packed, quantized=quant,
                     const_hess=ch, slot_counts=cts,
-                    partition_impl=partition_impl)
+                    partition_impl=partition_impl, scale=hist_fixed)
             else:
                 ub = unpack_bins_4bit(bins, f) if packed4 else bins
                 h = histogram.build_histograms(ub, h_grad, h_hess, rs,
@@ -488,14 +497,16 @@ def grow_tree_mxu(bins: torch.Tensor, grad: torch.Tensor,
                                      row_node, tbl, member, feat_tbl,
                                      num_slots=nslots, bmax=bmax,
                                      const_hess=ch, quantized=quant,
-                                     num_features=nf_packed)
+                                     num_features=nf_packed,
+                                     scale=hist_fixed)
         else:
             rn, rs = route_rows(bins, row_node, tbl, member, feat_tbl,
                                 num_features=nf_packed)
             h = build_histograms_auto(bins, h_grad, h_hess, cnt_weight, rs,
                                       num_slots=nslots, bmax=bmax,
                                       const_hess=ch, quantized=quant,
-                                      num_features=nf_packed)
+                                      num_features=nf_packed,
+                                      scale=hist_fixed)
         if quant:
             h = h * hist_scale   # integer sums -> gradient units
         return h, rn

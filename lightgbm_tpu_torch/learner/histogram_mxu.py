@@ -10,20 +10,26 @@ card those become plain indexing and atomics in hand-written CUDA kernels
                                                emit_counts, rows per slot)
   build_histograms  <- build_histograms_mxu and build_histograms_mxu_v2
                        (histogram keyed by row_slot; build_histograms_auto
-                       is the JAX package's build_histograms_mxu_auto)
+                       is the JAX package's build_histograms_mxu_auto; on
+                       the card the rows are partitioned by slot and summed
+                       by the scatter kernel of histogram_pallas)
   node_values       <- node_values_mxu        (values[row_node])
   node_sums         <- node_sums_mxu          (exact per-node sums, refit)
 
 The slot-grouped scatter histogram and its partition (histogram_pallas.py)
 are the sixth and seventh.
 
-The histogram kernels have two modes. Exact: f32 gradients into float64
-cells, rounded to f32 once (the reference's double hist_t: in f32 cells,
-~70k adds into one cell at 15 bins and sibling subtraction would put leaf
-values off by orders of magnitude). Quantized (`quantized=True`, the JAX
-kernels' flag of that name): int8 gradients from `quantize_gradients` into
-int32 cells, returned as f32 integer sums that the caller scales; integer
-sums are exact and do not depend on the order of the additions. The
+The histogram kernels have two modes, both integer sums, exact and
+independent of the order of the additions: every kernel, its plain
+version and every run give the same bits. Exact: each f32 value becomes a
+fixed-point int64, rint(v x 2^k) with one power-of-two scale per channel
+(`exact_scale`: from the channel's max |v| and the row count, so no sum
+can overflow), summed exactly and scaled back to f32 once — finer than the
+reference's double hist_t needs (in f32 cells, ~70k adds into one cell at
+15 bins and sibling subtraction would put leaf values off by orders of
+magnitude). Quantized (`quantized=True`, the JAX kernels' flag of that
+name): int8 gradients from `quantize_gradients` into int32 cells, returned
+as f32 integer sums that the caller scales. The
 routing and histogram kernels read the bin matrix unpacked ([N, F] uint8)
 or 4-bit packed (`pack_bins_4bit`, [N, ceil(F/2)] uint8, `num_features=F`).
 
@@ -49,6 +55,7 @@ from . import _cuda
 
 __all__ = ["fused_route_hist", "route_rows", "build_histograms",
            "build_histograms_auto", "node_values", "node_sums",
+           "exact_scale", "EXACT_BITS", "NONFINITE_K",
            "fused_route_hist_ref", "route_rows_ref", "build_histograms_ref",
            "node_values_ref", "node_sums_ref", "quantize_gradients",
            "pack_route_tables", "pack_bins_4bit", "unpack_bins_4bit",
@@ -214,6 +221,64 @@ def pack_route_tables(split_mask, feat, thr, default_left, is_cat, child_l,
 
 
 # ---------------------------------------------------------------------------
+# exact mode's fixed point (csrc/route_hist.cuh keeps the same rule)
+# ---------------------------------------------------------------------------
+
+#: bits of a row's fixed-point value: |rint(v x 2^k)| <= 2^EXACT_BITS. The
+#: scatter kernel splits it into a 20-bit low word and the rest, each
+#: summed over up to 4096 rows in a 32-bit shared-memory word
+EXACT_BITS = 38
+#: exact_scale's exponent of a channel that holds a non-finite value
+NONFINITE_K = -32768
+
+
+def exact_scale(grad, hess, cnt) -> torch.Tensor:
+    """[3] i32: the exponent k of the fixed point of each exact-mode
+    channel (grad, hess, count), on the tensors' device with no host sync.
+    With max |v| < 2^e over all n rows (frexp), k = B - e where B =
+    min(EXACT_BITS, 62 - ceil(log2 n)): every row's |rint(v x 2^k)| <= 2^B
+    and every cell's sum <= n x 2^B <= 2^62 fits an int64; the rounding
+    costs at most 2^-(B+1) of 2^e a row (about 2^-38 of the channel's max
+    at B = 38). A channel whose max is not finite gets NONFINITE_K: its
+    cells come out NaN. The grower computes it once per tree; a histogram
+    wrapper called without one computes it from its own inputs."""
+    n = grad.shape[0]
+    if n == 0:
+        return torch.zeros(3, dtype=torch.int32, device=grad.device)
+    amax = torch.stack([torch.amax(torch.abs(t)).to(torch.float32)
+                        for t in (grad, hess, cnt)])
+    bits = min(EXACT_BITS, 62 - (n - 1).bit_length())
+    k = bits - torch.frexp(amax).exponent
+    return torch.where(torch.isfinite(amax), k, NONFINITE_K) \
+        .to(torch.int32)
+
+
+def _pow2(k: torch.Tensor) -> torch.Tensor:
+    """2.0 ** k as float64, exactly (the exponent field written directly),
+    for integer k in float64's normal range."""
+    return ((k.to(torch.int64) + 1023) << 52).view(torch.float64)
+
+
+def _fixed_point(data: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """[M, 3] f32 rows (grad, hess, count) -> their int64 fixed-point
+    values rint(v x 2^k) (exact product in float64, one rounding, half to
+    even, as the kernels' __double2ll_rn); 0 in a non-finite channel."""
+    finite = k != NONFINITE_K
+    q = torch.round(data.to(torch.float64) *
+                    torch.where(finite, _pow2(k), 0.0))
+    return torch.where(finite, q, 0.0).to(torch.int64)
+
+
+def _exact_result(sums: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """int64 cell sums [..., 3] -> f32(float64(sum) x 2^-k); NaN in a
+    non-finite channel."""
+    inv = torch.where(k != NONFINITE_K, _pow2(-k),
+                      torch.full((), float("nan"), dtype=torch.float64,
+                                 device=k.device))
+    return (sums.to(torch.float64) * inv).to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
 # plain versions (CPU path, and the yardstick the kernels are held to)
 # ---------------------------------------------------------------------------
 
@@ -256,15 +321,19 @@ def route_rows_ref(bins, row_node, tbl, member, feat_tbl, *,
 
 def build_histograms_ref(bins, grad, hess, cnt, row_slot, *, num_slots: int,
                          bmax: int, const_hess: float = 0.0,
-                         quantized: bool = False,
-                         num_features: int = 0) -> torch.Tensor:
+                         quantized: bool = False, num_features: int = 0,
+                         scale: torch.Tensor = None) -> torch.Tensor:
     """[num_slots, F, bmax, 3] f32 (grad, hess, count) per-slot histograms
-    by index_add_ over flattened (slot, feature, bin) cells, summed in
-    float64 and rounded once as the kernels' f32 mode does; rows with slot
-    < 0 or >= num_slots are dropped. const_hess != 0: hessian sums are
-    const x count. quantized: grad and hess hold whole numbers (int8 from
-    quantize_gradients), summed exactly in int64; the result holds the
-    unscaled integer sums. num_features > 0: bins are 4-bit packed."""
+    by index_add_ over flattened (slot, feature, bin) cells; rows with slot
+    < 0 or >= num_slots are dropped. Exact mode: the rows' fixed-point
+    values under `scale` (exact_scale of grad, hess, cnt when None) summed
+    in int64 and scaled back once, as every kernel does; a channel with a
+    non-finite value (anywhere in its n rows, parked rows included) is NaN
+    in every cell, so a NaN never becomes a finite sum. const_hess != 0:
+    hessian sums are const x count. quantized: grad and hess hold whole
+    numbers (int8 from quantize_gradients), summed exactly in int64; the
+    result holds the unscaled integer sums. num_features > 0: bins are
+    4-bit packed."""
     bins = _unpacked(bins, num_features)
     n, f = bins.shape
     dev = bins.device
@@ -288,24 +357,26 @@ def build_histograms_ref(bins, grad, hess, cnt, row_slot, *, num_slots: int,
         hist = torch.cat([gh.to(torch.float32),
                           cell_sums(cnt[rows][:, None])], dim=1)
     else:
-        hist = cell_sums(torch.stack([g, h, cnt[rows]], dim=1)
-                         .to(torch.float64)).to(torch.float32)
+        k = exact_scale(grad, hess, cnt) if scale is None else scale
+        hist = _exact_result(cell_sums(_fixed_point(
+            torch.stack([g, h, cnt[rows]], dim=1), k)), k)
     return _fill_const_hess(hist.view(num_slots, f, bmax, 3), const_hess)
 
 
 def fused_route_hist_ref(bins, grad, hess, cnt, row_node, tbl, member,
                          feat_tbl, *, num_slots: int, bmax: int,
                          const_hess: float = 0.0, quantized: bool = False,
-                         num_features: int = 0
+                         num_features: int = 0, scale: torch.Tensor = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(hist [num_slots, F, bmax, 3], new row_node): route one level, then
-    histogram the rows by their new slot."""
+    histogram the rows by their new slot (build_histograms_ref)."""
     bins = _unpacked(bins, num_features)
     new_node, new_slot = route_rows_ref(bins, row_node, tbl, member,
                                         feat_tbl)
     hist = build_histograms_ref(bins, grad, hess, cnt, new_slot,
                                 num_slots=num_slots, bmax=bmax,
-                                const_hess=const_hess, quantized=quantized)
+                                const_hess=const_hess, quantized=quantized,
+                                scale=scale)
     return hist, new_node
 
 
@@ -408,53 +479,66 @@ def _check_hist_args(bins, grad, hess, cnt, bmax, quantized,
     return f, fh
 
 
-def _hist_buffer(num_slots, f, bmax, quantized, device) -> torch.Tensor:
-    """Zeroed [S, F, bmax, 3] cells the histogram kernels add into: float64
-    (f32 mode; the reference's double hist_t, rounded to f32 once by
-    _hist_result), or (quantized) int32 gradient cells beside f32 count
-    bits."""
-    return torch.zeros((num_slots, f, bmax, 3), device=device,
-                       dtype=torch.int32 if quantized else torch.float64)
-
-
-def _hist_result(hist, quantized, const_hess) -> torch.Tensor:
-    """The kernels' cells as [S, F, bmax, 3] f32 (float64 sums rounded,
-    integer gradient sums converted, count bits reinterpreted), hessians
-    filled for const_hess."""
-    raw = hist
+def _quantized_result(raw, const_hess) -> torch.Tensor:
+    """The fused kernel's integer-mode cells (int32 gradient sums beside
+    f32 count bits) as [S, F, bmax, 3] f32, hessians filled for
+    const_hess."""
     hist = raw.to(torch.float32)
-    if quantized:
-        hist[..., 2] = raw.view(torch.float32)[..., 2]
+    hist[..., 2] = raw.view(torch.float32)[..., 2]
     return _fill_const_hess(hist, const_hess)
+
+
+def _scale_of(scale, grad, hess, cnt, quantized):
+    """The exact mode's fixed-point scale: the caller's (checked), else
+    exact_scale of the inputs; None in quantized mode."""
+    if quantized:
+        return None
+    if scale is None:
+        return exact_scale(grad, hess, cnt)
+    _check(scale, "scale", torch.int32, (3,))
+    return scale
 
 
 def fused_route_hist(bins, grad, hess, cnt, row_node, tbl, member, feat_tbl,
                      *, num_slots: int, bmax: int, const_hess: float = 0.0,
-                     quantized: bool = False, num_features: int = 0
+                     quantized: bool = False, num_features: int = 0,
+                     scale: torch.Tensor = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Route rows through the previous pass's tables and build the new
     frontier's histograms in one sweep. Returns (hist [S, F, bmax, 3],
     new row_node [N] i32). quantized: grad and hess are int8 and the
-    gradient channels hold their unscaled integer sums. num_features > 0:
-    bins are 4-bit packed (pack_bins_4bit) with that many features."""
+    gradient channels hold their unscaled integer sums; else scale ([3]
+    i32, exact_scale of grad, hess, cnt when None) is the fixed point of
+    the sums. num_features > 0: bins are 4-bit packed (pack_bins_4bit)
+    with that many features."""
     args = (bins, grad, hess, cnt, row_node, tbl, member, feat_tbl)
     if _on_cpu(*args):
         return fused_route_hist_ref(*args, num_slots=num_slots, bmax=bmax,
                                     const_hess=const_hess,
                                     quantized=quantized,
-                                    num_features=num_features)
+                                    num_features=num_features, scale=scale)
     f, fh = _check_route_args(bins, row_node, tbl, member, feat_tbl,
                               num_features)
     _check_hist_args(bins, grad, hess, cnt, bmax, quantized, num_features)
+    scale = _scale_of(scale, grad, hess, cnt, quantized)
     n = bins.shape[0]
-    hist = _hist_buffer(num_slots, f, bmax, quantized, bins.device)
-    out = torch.empty(n, dtype=torch.int32, device=bins.device)
-    _cuda.call("fused_route_hist", bins.device, bins, grad, hess, cnt,
-               row_node, tbl, member, feat_tbl, hist, out, n, f, fh, bmax,
-               num_slots, tbl.shape[0], member.shape[1], int(bool(const_hess)),
+    dev = bins.device
+    # the cells the kernel adds into: int32 (quantized) or int64
+    # fixed-point sums, which it scales back into `res` (exact)
+    shape = (num_slots, f, bmax, 3)
+    cells = torch.zeros(shape, device=dev,
+                        dtype=torch.int32 if quantized else torch.int64)
+    res = None if quantized else torch.empty(shape, dtype=torch.float32,
+                                             device=dev)
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    _cuda.call("fused_route_hist", dev, bins, grad, hess, cnt, row_node, tbl,
+               member, feat_tbl, scale, cells, res, out, n, f, fh, bmax,
+               num_slots, tbl.shape[0], member.shape[1], float(const_hess),
                int(quantized))
     count_launch("fused_route_hist", quantized=quantized, packed=fh > 0)
-    return _hist_result(hist, quantized, const_hess), out
+    if quantized:
+        res = _quantized_result(cells, const_hess)
+    return res, out
 
 
 def route_rows(bins, row_node, tbl, member, feat_tbl, *,
@@ -490,33 +574,31 @@ def route_rows(bins, row_node, tbl, member, feat_tbl, *,
 
 def build_histograms(bins, grad, hess, cnt, row_slot, *, num_slots: int,
                      bmax: int, const_hess: float = 0.0,
-                     quantized: bool = False,
-                     num_features: int = 0) -> torch.Tensor:
+                     quantized: bool = False, num_features: int = 0,
+                     scale: torch.Tensor = None) -> torch.Tensor:
     """Per-slot histograms [S, F, bmax, 3] keyed by row_slot (rows with
-    slot < 0 or >= S dropped). quantized, num_features: as in
-    fused_route_hist."""
+    slot < 0 or >= S dropped). quantized, num_features, scale: as in
+    fused_route_hist. On the card the rows are partitioned by slot (the
+    partition kernel, counting for itself) and summed by the scatter
+    kernel, whose launches count here; the result is the plain version's
+    bit for bit."""
     if _on_cpu(bins, grad, hess, cnt, row_slot):
         return build_histograms_ref(bins, grad, hess, cnt, row_slot,
                                     num_slots=num_slots, bmax=bmax,
                                     const_hess=const_hess,
                                     quantized=quantized,
-                                    num_features=num_features)
-    f, fh = _check_hist_args(bins, grad, hess, cnt, bmax, quantized,
-                            num_features)
-    n = bins.shape[0]
-    _check(row_slot, "row_slot", torch.int32, (n,))
-    hist = _hist_buffer(num_slots, f, bmax, quantized, bins.device)
-    _cuda.call("build_histograms", bins.device, bins, grad, hess, cnt,
-               row_slot, hist, n, f, fh, bmax, num_slots,
-               int(bool(const_hess)), int(quantized))
-    count_launch("build_histograms", quantized=quantized, packed=fh > 0)
-    return _hist_result(hist, quantized, const_hess)
+                                    num_features=num_features, scale=scale)
+    from .histogram_pallas import scatter_histograms   # imports this module
+    return scatter_histograms(
+        "build_histograms", bins, grad, hess, cnt, row_slot,
+        num_slots=num_slots, bmax=bmax, num_features=num_features,
+        const_hess=const_hess, quantized=quantized, scale=scale)
 
 
 def build_histograms_auto(bins, grad, hess, cnt, row_slot, *,
                           num_slots: int, bmax: int, const_hess: float = 0.0,
-                          quantized: bool = False,
-                          num_features: int = 0) -> torch.Tensor:
+                          quantized: bool = False, num_features: int = 0,
+                          scale: torch.Tensor = None) -> torch.Tensor:
     """The JAX package's build_histograms_mxu_auto: the v2 kernel's
     function (one row pass, reads packed bins) where fits_v2 holds at its
     default row block, else the v1 kernel's, on bins unpacked first (the
@@ -528,7 +610,7 @@ def build_histograms_auto(bins, grad, hess, cnt, row_slot, *,
     return build_histograms(bins, grad, hess, cnt, row_slot,
                             num_slots=num_slots, bmax=bmax,
                             const_hess=const_hess, quantized=quantized,
-                            num_features=num_features)
+                            num_features=num_features, scale=scale)
 
 
 def node_values(row_node, values) -> torch.Tensor:

@@ -12,12 +12,17 @@ writes the slot's cells once, the runs of a larger slot write partials
 that a second kernel adds in run order. The TPU kernel contracts each
 block with its bin one-hots on the MXU instead. The per-slot row counts
 can come straight from `route_rows(emit_counts=True)`, so routing,
-counting and partition metadata are one sweep.
+counting and partition metadata are one sweep. The same partition and
+kernel serve histogram_mxu.build_histograms (the JAX package's
+build_histograms_mxu and _v2) on the card: `scatter_histograms` launches
+both for either wrapper.
 
-Quantized mode (int8 gradients, int32 cells) gives integer sums, equal bit
-for bit to the other histogram backends', so trees and model text do not
-depend on the backend; exact mode sums each block in f32 and the blocks
-in float64, rounded to f32 once.
+Both modes give integer sums, equal bit for bit to the other histogram
+kernels' (histogram_mxu: the fused kernel and build_histograms), so
+trees and model text do not depend on the backend: quantized mode adds
+int8 gradients into int32 cells, exact mode adds each f32 value as a
+fixed-point int64 (histogram_mxu.exact_scale) and scales the sums back
+once.
 
 `partition_rows` and `build_histograms_scatter` run their kernels for CUDA
 tensors and their plain versions (`partition_rows_ref`, and
@@ -30,17 +35,22 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
-from .histogram_mxu import (_check, _check_hist_args, _on_cpu, _unpacked,
-                            _fill_const_hess, count_launch)
+from .histogram_mxu import (_check, _check_hist_args, _exact_result,
+                            _fill_const_hess, _fixed_point, _on_cpu,
+                            _scale_of, _unpacked, count_launch,
+                            exact_scale)
 
 __all__ = ["build_histograms_scatter", "build_histograms_scatter_ref",
-           "partition_rows", "partition_rows_ref", "scatter_runs",
-           "slot_bounds", "RUN_BLOCKS"]
+           "partition_rows", "partition_rows_ref", "scatter_histograms",
+           "scatter_runs", "slot_bounds", "RUN_BLOCKS"]
 
 # partition blocks a histogram run takes at most: the root pass (one slot,
 # ~1000 blocks at 1M rows) spreads over every SM, and large slots do not
 # hold up the end of a pass (2, 4, 8 and 16 measured on the card, PERF.md)
 RUN_BLOCKS = 4
+# exact mode: rows a run may hold (row_block x RUN_BLOCKS), so that its
+# 32-bit shared-memory words cannot overflow (csrc kWordRows)
+_WORD_ROWS = 4096
 # the partition kernel keeps 8 warps' per-slot counters in shared memory
 _PARTITION_MAX_SLOTS = 232448 // (8 * 4) - 1
 _PARTITION_CHUNK_ROWS = 8192
@@ -191,13 +201,16 @@ def build_histograms_scatter_ref(bins, grad, hess, cnt, row_slot, *,
                                  const_hess: float = 0.0,
                                  quantized: bool = False,
                                  slot_counts: torch.Tensor = None,
-                                 partition_impl: str = "auto"
+                                 partition_impl: str = "auto",
+                                 scale: torch.Tensor = None
                                  ) -> torch.Tensor:
     """Plain version of build_histograms_scatter: the same partition and
     runs; each run's rows summed into its (feature, bin) cells by
-    index_add_ (float64, or int64 gradients and f32 counts when
-    quantized), the runs added into their slots in run order, rounded to
-    f32 once."""
+    index_add_ (int64 fixed-point values under `scale`, exact_scale of
+    grad, hess, cnt when None; or int64 gradients and f32 counts when
+    quantized), the runs added into their slots in run order, scaled back
+    once. Integer sums: the result is build_histograms_ref's bit for bit,
+    NaN channels included."""
     block_slot, src = partition_rows_ref(row_slot, num_slots=num_slots,
                                          row_block=row_block,
                                          counts=slot_counts,
@@ -240,8 +253,9 @@ def build_histograms_scatter_ref(bins, grad, hess, cnt, row_slot, *,
         hist = torch.cat([sums(torch.stack([g, h], 1).to(torch.int64))
                           .to(torch.float32), sums(cnt[rows][:, None])], 1)
     else:
-        hist = sums(torch.stack([g, h, cnt[rows]], 1).to(torch.float64)) \
-            .to(torch.float32)
+        k = exact_scale(grad, hess, cnt) if scale is None else scale
+        hist = _exact_result(
+            sums(_fixed_point(torch.stack([g, h, cnt[rows]], 1), k)), k)
     return _fill_const_hess(hist.view(num_slots, f, bmax, 3), const_hess)
 
 
@@ -251,38 +265,66 @@ def build_histograms_scatter(bins, grad, hess, cnt, row_slot, *,
                              const_hess: float = 0.0,
                              quantized: bool = False,
                              slot_counts: torch.Tensor = None,
-                             partition_impl: str = "auto") -> torch.Tensor:
+                             partition_impl: str = "auto",
+                             scale: torch.Tensor = None) -> torch.Tensor:
     """Per-slot histograms [num_slots, F, bmax, 3] f32 (grad, hess, count)
     through the partition kernel and the slot-grouped scatter kernel; rows
     with slot < 0 or >= num_slots are dropped. num_features > 0: bins are
     4-bit packed with that many features. quantized: grad and hess are
-    int8 and the gradient channels hold their unscaled integer sums.
-    slot_counts: per-slot row counts from route_rows(emit_counts=True), so
-    the partition skips its own count. partition_impl: partition_rows'
-    impl."""
+    int8 and the gradient channels hold their unscaled integer sums; else
+    scale ([3] i32, exact_scale of grad, hess, cnt when None) is the fixed
+    point of the sums. slot_counts: per-slot row counts from
+    route_rows(emit_counts=True), so the partition skips its own count.
+    partition_impl: partition_rows' impl."""
     kw = dict(num_slots=num_slots, bmax=bmax, row_block=row_block,
               num_features=num_features, const_hess=const_hess,
               quantized=quantized, slot_counts=slot_counts,
-              partition_impl=partition_impl)
+              partition_impl=partition_impl, scale=scale)
     if _on_cpu(bins, grad, hess, cnt, row_slot):
         return build_histograms_scatter_ref(bins, grad, hess, cnt, row_slot,
                                             **kw)
+    return scatter_histograms("build_histograms_scatter", bins, grad, hess,
+                              cnt, row_slot, **kw)
+
+
+def scatter_histograms(name, bins, grad, hess, cnt, row_slot, *,
+                       num_slots: int, bmax: int, row_block: int = 1024,
+                       num_features: int = 0, const_hess: float = 0.0,
+                       quantized: bool = False,
+                       slot_counts: torch.Tensor = None,
+                       partition_impl: str = "auto",
+                       scale: torch.Tensor = None) -> torch.Tensor:
+    """The card's per-slot histograms for CUDA tensors, behind
+    build_histograms_scatter and histogram_mxu.build_histograms (`name`:
+    the wrapper whose launch count the scatter kernel adds to; the
+    partition counts as partition_rows): the partition kernel, then the
+    scatter kernel, one launch of each per at most _PARTITION_MAX_SLOTS
+    slots (wider frontiers go in slot ranges, the others' rows parked).
+    Arguments as build_histograms_scatter's."""
     f, fh = _check_hist_args(bins, grad, hess, cnt, bmax, quantized,
                             num_features)
     n = bins.shape[0]
     dev = bins.device
     _check(row_slot, "row_slot", torch.int32, (n,))
-    block_slot, src, bounds = _partition(row_slot, num_slots, row_block,
-                                         slot_counts, partition_impl)
-    tb = block_slot.shape[0]
+    scale = _scale_of(scale, grad, hess, cnt, quantized)
+    if not quantized and row_block * RUN_BLOCKS > _WORD_ROWS:
+        raise ValueError(f"row_block {row_block}: exact mode holds at most "
+                         f"{_WORD_ROWS // RUN_BLOCKS} rows a block")
     out = torch.empty((num_slots, f, bmax, 3), dtype=torch.float32,
                       device=dev)
-    part = torch.empty((2 * -(-tb // RUN_BLOCKS), f * bmax * 3), device=dev,
-                       dtype=torch.int32 if quantized else torch.float64)
-    _cuda.call("build_histograms_scatter", dev, bins, grad, hess, cnt,
-               block_slot, src, bounds, out, part, n, f, fh, bmax,
-               num_slots, row_block, tb, RUN_BLOCKS, float(const_hess),
-               int(quantized))
-    count_launch("build_histograms_scatter", quantized=quantized,
-                 packed=fh > 0)
+    for s0 in range(0, num_slots, _PARTITION_MAX_SLOTS):
+        s = min(_PARTITION_MAX_SLOTS, num_slots - s0)
+        sl = row_slot if s0 == 0 else row_slot - s0
+        counts = None if slot_counts is None else slot_counts[s0:s0 + s]
+        block_slot, src, bounds = _partition(sl, s, row_block, counts,
+                                             partition_impl)
+        tb = block_slot.shape[0]
+        part = torch.empty((2 * -(-tb // RUN_BLOCKS), f * bmax * 3),
+                           device=dev, dtype=torch.int32 if quantized
+                           else torch.int64)
+        _cuda.call("build_histograms_scatter", dev, bins, grad, hess, cnt,
+                   block_slot, src, bounds, scale, out[s0:s0 + s], part, n,
+                   f, fh, bmax, s, row_block, tb, RUN_BLOCKS,
+                   float(const_hess), int(quantized))
+        count_launch(name, quantized=quantized, packed=fh > 0)
     return out
