@@ -3,13 +3,16 @@
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
-Builds the port's seven CUDA kernel sources from lightgbm_tpu_torch/csrc,
+Builds the port's six CUDA kernel sources from lightgbm_tpu_torch/csrc,
 holds each kernel against its plain PyTorch version on the card — every
-histogram kernel bit for bit (integer sums in every mode) and across two
-calls — at the shapes the training path gives it (1M rows x 28 features, 256 bins, up to
-1024 tree nodes; 15 bins for the 4-bit packed modes; 511 and 263 scan
-slots for the split scan; the root pass's single slot for the partition
-and the scatter histogram), in every mode the paths run (f32 and the
+histogram kernel and the node sums bit for bit (integer sums in every
+mode) and across two calls — at the shapes the training path gives it
+(1M rows x 28 features, 256 bins, up to 1024 tree nodes; 15 bins for the
+4-bit packed modes; 511 and 263 scan slots for the split scan; the root
+pass's single slot for the partition, the scatter histogram and the fused
+sweep, which on the card is route_rows with counts, the partition and the
+scatter kernel, timed at every width of the exact path), in every mode
+the paths run (f32 and the
 integer mode of quantized gradients; unpacked and packed bins; route
 counts; the split scan plain and monotone), times it — `ms`, one call as
 the training path makes it, host launch path included, and `device_ms`,
@@ -49,8 +52,11 @@ It checks what comes out, including that every leaf of every tree holds
 -G/H of its rows' gradients (unconstrained runs), that two identical
 runs write the same model text (exact and quantized), and that exact
 trees under hist_backend pallas and on packed bins equal the mxu and
-unpacked ones; K8 launches on the scan path only, and every K3/K4 and K7
-call on a path launches exactly one partition kernel.
+unpacked ones; K8 launches on the scan path only, and every K1, K3/K4
+and K7 call on a path launches exactly one partition kernel. Last, a
+categorical and NaN run on the card and the CPU: whether their trees are
+equal, and tree 0 regrown on the card from the CPU run's gradients, which
+shows whether the two part upstream of the grower or in its glue.
 Every phase prints one JSON line; any failed check raises, so the exit
 code is non-zero and no result line is printed.
 The last three lines are the kernel table (JSON), the card's name and
@@ -75,6 +81,9 @@ M_NODES = 1024        # route-table rows at num_leaves 255, overshoot 2
 S_FUSED = 263         # kernel slots of the bridge pass (fused kernel)
 S_HIST = 511          # kernel slots of the fix-up passes (build_histograms)
 S_TUNE = 263          # the autotune's frontier: kernel cap of 511 scan slots
+# the exact path's K1 widths: the doubling passes' frontiers and the bridge
+# pass's kernel cap (growth_plan at num_leaves 255, overshoot 2)
+K1_WIDTHS = (1, 2, 4, 8, 16, 24, 40, 72, 136, 263)
 M_REFIT = 510         # node_sums rows: the pruned 255-leaf tree's 2 x 255
 M_GROWN = 1020        # node ids of the overgrown (overshoot 2) tree
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, HBM3 peak rate
@@ -105,6 +114,9 @@ BACKEND_PATH = ("route_rows_counts", "partition_rows",
 K7_KEYS = ("build_histograms_scatter", "build_histograms_scatter_int",
            "build_histograms_scatter_packed",
            "build_histograms_scatter_int_packed")
+# K1 on the card: route_rows with counts, the partition, the scatter kernel
+K1_KEYS = ("fused_route_hist", "fused_route_hist_int",
+           "fused_route_hist_packed", "fused_route_hist_int_packed")
 # K3/K4 on the card: the partition kernel, then the scatter kernel
 K3_KEYS = ("build_histograms", "build_histograms_int",
            "build_histograms_packed", "build_histograms_int_packed")
@@ -390,10 +402,12 @@ def kernel_phase(torch, hm, hp, rng_mod, dev):
     check(torch.equal(rn, rn_ref), "fused_route_hist routing differs")
     err = check_hist(torch, "fused_route_hist", k1, h_ref)
     n_slot = int(((rs_ref >= 0) & (rs_ref < S_FUSED)).sum())
+    # on the card K1 is K2 with counts, the partition and K7
     row("fused_route_hist", "lightgbm_tpu/learner/histogram_mxu.py:785",
         err, k1, k1_ref, 3,
         8 * n + n_routed + n_slot * (f + 12) + h.numel() * 4 + table_bytes,
-        n_slot * f * 3, None)
+        n_slot * f * 3, None, source="build_histograms_scatter")
+    k1_widths(torch, hm, hp, d, scale)
 
     # K3 build_histograms at the fix-up passes' 511 slots
     rslot = d["row_slot"]
@@ -433,7 +447,7 @@ def kernel_phase(torch, hm, hp, rng_mod, dev):
     row("fused_route_hist_int", "lightgbm_tpu/learner/histogram_mxu.py:785",
         0.0, k1q, k1q_ref, 3,
         8 * n + n_routed + n_slot * (f + 6) + h.numel() * 4 + table_bytes,
-        n_slot * f * 3, None, source="fused_route_hist")
+        n_slot * f * 3, None, source="build_histograms_scatter")
 
     def k3q():
         return hm.build_histograms(bins, g_q, h_q, cnt, rslot,
@@ -491,15 +505,8 @@ def kernel_phase(torch, hm, hp, rng_mod, dev):
 
         def k5_ref():
             return hm.node_sums_ref(node, grad, hess, cnt, num_nodes=m)
-        got, again, ref = k5(), k5(), k5_ref()
-        check(torch.equal(got.view(torch.int32), again.view(torch.int32)),
-              f"node_sums at {m} nodes: two launches differ")
-        check(torch.equal(got[:, 2], ref[:, 2]),
-              f"node_sums at {m} nodes: counts differ")
-        err = float((got - ref).abs().max())
-        # rtol 1e-6 of each sum, with a floor of 1 on the scale
-        rel = float(((got - ref).abs() / ref.abs().clamp(min=1.0)).max())
-        check(rel <= 1e-6, f"node_sums at {m} nodes: rel error {rel}")
+        # fixed-point integer sums: bit for bit, and across two calls
+        err = check_hist(torch, f"node_sums at {m} nodes", k5, k5_ref())
     keep = torch.nonzero((node >= 0) & (node < M_REFIT))[:, 0]
     idx5 = node[keep].long()
     data5 = torch.stack([grad, hess, cnt], 1)[keep].contiguous()
@@ -507,7 +514,61 @@ def kernel_phase(torch, hm, hp, rng_mod, dev):
     row("node_sums", "lightgbm_tpu/learner/histogram_mxu.py:1192", err,
         k5, k5_ref, 5, 16 * n + M_REFIT * 12, 3 * int(keep.numel()),
         lambda: acc5.index_add_(0, idx5, data5))
+    node_sums_checks(torch, hm, dev)
     return rows
+
+
+def k1_widths(torch, hm, hp, d, scale):
+    """K1 f32 and integer at every kernel width of the exact path's
+    doubling and bridge passes (K1_WIDTHS slots) on the kernel inputs, the
+    route tables' slots folded into the width (slot mod S; parked rows stay
+    parked), so that every slotted row lands in one of the S slots (at S =
+    1 every run of the partition writes a partial that the reduce adds).
+    Per width: the call's ms and device ms in both modes, and the device
+    ms of its first two steps (K2 with counts, the partition). Holds both
+    modes bit for bit to the plain version at S = 1."""
+    bins, cnt = d["bins"], d["cnt"]
+    tbl = d["tbl"]
+    out = []
+    for s in K1_WIDTHS:
+        t = tbl.clone()
+        slots = t[:, hm.TBL_SLOT:]
+        t[:, hm.TBL_SLOT:] = torch.where(slots >= 0, slots % s, slots)
+        route = (t, d["member"], d["feat_tbl"])
+        entry = {"slots": s}
+        for mode, g, h, kw in (("f32", d["grad"], d["hess"],
+                                dict(scale=scale)),
+                               ("int", d["g_q"], d["h_q"],
+                                dict(quantized=True))):
+            def k1():
+                return hm.fused_route_hist(bins, g, h, cnt, d["row_node"],
+                                           *route, num_slots=s, bmax=BMAX,
+                                           **kw)
+            if s == 1:
+                want, want_node = hm.fused_route_hist_ref(
+                    bins, g, h, cnt, d["row_node"], *route, num_slots=1,
+                    bmax=BMAX, **kw)
+                check(torch.equal(k1()[1], want_node),
+                      "fused_route_hist routing differs at 1 slot")
+                check_hist(torch, f"fused_route_hist {mode} at 1 slot", k1,
+                           want)
+                del want, want_node
+            entry[mode] = {"ms": time_ms(torch, k1, 20),
+                           "device_ms": device_ms(torch, k1)}
+
+        def k2c():
+            return hm.route_rows(bins, d["row_node"], *route,
+                                 emit_counts=True, num_slots=s)
+        _, slot, counts = k2c()
+        entry["route_counts_device_ms"] = device_ms(torch, k2c)
+        entry["partition_device_ms"] = device_ms(
+            torch, lambda: hp._partition(slot, s, 1024, counts, "auto"))
+        entry["rows_slotted"] = int(counts.sum())
+        out.append(entry)
+    emit("kernel_detail", name="fused_route_hist_widths", widths=out,
+         what="K1 (route_rows with counts, the partition, K7) at the exact "
+              "path's kernel widths, 1M x 28, 256 bins; the rows' slots "
+              "folded into each width")
 
 
 def backend_rows(torch, hm, hp, rng_mod, d, row, dev):
@@ -722,6 +783,42 @@ def node_values_checks(torch, hm, dev):
              non_finite_entries=3, bit_equal=True)
 
 
+def node_sums_checks(torch, hm, dev):
+    """K5 bit for bit against node_sums_ref (NaN where the plain version
+    has NaN) beyond the refit's shape: 5000 nodes (past the kernel's
+    shared-memory copy: global atomics), one row, 1000 rows, values over
+    sixty decades, a NaN gradient and an infinite hessian on an ignored
+    row (NaN channels), and every row in one node."""
+    rng = np.random.RandomState(23)
+    cases = []
+    for what, n, m in (("5000 nodes", N_ROWS, 5000), ("one row", 1, 7),
+                       ("1000 rows", 1000, 510),
+                       ("sixty decades", N_ROWS, 510),
+                       ("nan grad, inf hess", N_ROWS, 510),
+                       ("one node", N_ROWS, 1)):
+        node = rng.randint(-1, m + 1, n).astype(np.int32)
+        g = rng.randn(n).astype(np.float32)
+        h = rng.uniform(0.01, 0.3, n).astype(np.float32)
+        c = np.ones(n, np.float32)
+        if what == "sixty decades":
+            g *= np.float32(10.0) ** rng.randint(-30, 30, n) \
+                .astype(np.float32)
+        elif what.startswith("nan"):
+            g[n // 2] = np.nan
+            node[7], h[7] = -1, np.inf
+        elif what == "one node":
+            node[:] = 0
+        args = [torch.as_tensor(a, device=dev) for a in (node, g, h, c)]
+        got = hm.node_sums(*args, num_nodes=m)
+        want = hm.node_sums_ref(*args, num_nodes=m)
+        nan = torch.isnan(want)
+        check(torch.equal(torch.isnan(got), nan) and torch.equal(
+            got[~nan].view(torch.int32), want[~nan].view(torch.int32)),
+            f"node_sums differs from its plain version: {what}")
+        cases.append(what)
+    emit("kernel_check", name="node_sums", cases=cases, bit_equal=True)
+
+
 def packed_rows(torch, hm, hp, rng_mod, dev, row):
     """The 4-bit packed modes of K1, K2 (plain and counts), K4 (behind
     build_histograms_auto) and K7 at the max_bin 15 path's shapes: 1M rows
@@ -781,7 +878,8 @@ def packed_rows(torch, hm, hp, rng_mod, dev, row):
         row("fused_route_hist" + "_int" * quantized + "_packed",
             src + ":785", err, k1p, k1p_ref, 3,
             8 * n + n_routed + n_slot * (fh + chan) + hist.numel() * 4 +
-            table_bytes, n_slot * f * 3, None, source="fused_route_hist")
+            table_bytes, n_slot * f * 3, None,
+            source="build_histograms_scatter")
 
     # K4 (the v2 kernel's function on packed bins) and K7, integer mode,
     # at the autotune's 263 slots: what hist_backend=auto times
@@ -1196,13 +1294,18 @@ def backends_path(torch, lgt, hm, X, y, ds, mxu_q, mxu_exact):
 
 
 def check_partition_launches(counts, path):
-    """Every K3/K4 and K7 call partitions its rows through the partition
-    kernel: one partition launch per histogram launch, none through torch,
-    and some on the path."""
-    hist = sum(counts[k] for k in K3_KEYS + K7_KEYS)
+    """Every K1, K3/K4 and K7 call partitions its rows through the
+    partition kernel: one partition launch per histogram launch, none
+    through torch, and some on the path; every K1 call also routes with
+    counts (K2's counts mode) first."""
+    hist = sum(counts[k] for k in K1_KEYS + K3_KEYS + K7_KEYS)
     check(counts["partition_rows"] == hist > 0, f"the {path} path launched "
-          f"{counts['partition_rows']} partitions for {hist} K3/K4 and K7 "
-          "calls")
+          f"{counts['partition_rows']} partitions for {hist} K1, K3/K4 and "
+          "K7 calls")
+    k1 = sum(counts[k] for k in K1_KEYS)
+    k2c = counts["route_rows_counts"] + counts["route_rows_counts_packed"]
+    check(k2c >= k1, f"the {path} path launched {k1} K1 calls but only "
+          f"{k2c} routings with counts")
 
 
 def packed_path(torch, lgt, hm, X, y):
@@ -1383,6 +1486,7 @@ def constraints_path(torch, lgt, hm, y, ds, exact):
     for name in CONSTRAINT_PATH:
         check(counts[name] > 0, f"{name} was not launched on the "
               "constraints path")
+    check_partition_launches(counts, "constraints")
     return counts
 
 
@@ -1485,7 +1589,7 @@ def check_outputs(torch, lgt, booster, ds, X, params=TRAIN_PARAMS,
     return held_out_auc
 
 
-def cross_device_phase(lgt):
+def cross_device_phase(torch, lgt, grow_tree_mxu):
     """Categorical and NaN features through the whole training path on
     the card (the main path's data has neither), held against the same
     training on the CPU (the kernels' plain versions): the card's model
@@ -1493,7 +1597,16 @@ def cross_device_phase(lgt):
     CPU's is printed, tree by tree, with the kinds of tree line that
     differ (the histograms of equal inputs are the same bits on both; the
     objective's gradients and the f32 reductions run on each device's own
-    torch kernels)."""
+    torch kernels). Then tree 0 is grown again on the card through
+    grow_tree_mxu from the CPU run's own gradients, hessians, feature mask
+    and key, moved to the card: if that tree equals the CPU's tree 0, the
+    two runs part upstream of the grower (the phase prints whether the
+    first gradients agree bit for bit, and where not, by how much); if not,
+    in the growth glue (it prints which fields differ). It also prints
+    which trees' gradients agree and, for the first that does not, whether
+    its scores did and whether the card's objective gives the CPU's
+    gradients from the CPU's scores (and in how many rows `torch.exp`
+    differs). Either way it only prints the answer."""
     rng = np.random.RandomState(5)
     n = 100_000
     X = rng.randn(n, 10).astype(np.float32)
@@ -1504,10 +1617,31 @@ def cross_device_phase(lgt):
     y = (logit + rng.randn(n) > 0).astype(np.float32)
     params = {"objective": "binary", "num_leaves": 63, "verbosity": -1,
               "categorical_feature": "2"}
-    models = {}
+    models, first, seen = {}, {}, {"cuda": [], "cpu": []}
     for device in ("cuda", "cpu"):
         p = dict(params, device_type=device)
-        booster = lgt.train(p, lgt.Dataset(X, label=y, params=p), 5)
+        booster = lgt.Booster(p, lgt.Dataset(X, label=y, params=p))
+        gbdt = booster.gbdt
+        grow = gbdt._grow
+
+        def kept_grow(grad, hess, gbdt=gbdt, grow=grow, device=device):
+            # every tree's scores (those its gradients came from) and
+            # gradients
+            seen[device].append(dict(score=gbdt.train_score.clone(),
+                                     grad=grad, hess=hess))
+            if gbdt.iter_ == 0:
+                first[device] = dict(
+                    grad=grad, hess=hess, key=gbdt._tree_key(),
+                    mask=gbdt._feature_mask_at(0),
+                    kw=gbdt._mxu_grow_kwargs())
+            tree, row_node = grow(grad, hess)
+            if gbdt.iter_ == 0:
+                first[device].update(tree=tree, row_node=row_node)
+            return tree, row_node
+        gbdt._grow = kept_grow
+        for _ in range(5):
+            booster.update()
+        del gbdt._grow
         models[device] = booster
     card = models["cuda"]
     host = card.predict(X, raw_score=True)
@@ -1518,6 +1652,57 @@ def cross_device_phase(lgt):
     # the kinds of tree line (key before "=") that differ
     differ = sorted({a.split("=")[0] for a, b in zip(
         trees.splitlines(), cpu_trees.splitlines()) if a != b})
+
+    # tree 0 again on the card, from the CPU run's inputs
+    cpu, cuda = first["cpu"], first["cuda"]
+    g_cpu = models["cpu"].gbdt
+    dev = torch.device("cuda")
+
+    def to_card(t):
+        return None if t is None else t.to(dev)
+    again, row_node = grow_tree_mxu(
+        *(to_card(t) for t in (g_cpu.bins, cpu["grad"], cpu["hess"],
+                               g_cpu._cnt, cpu["mask"], g_cpu.num_bins_d,
+                               g_cpu.missing_is_nan_d, g_cpu.is_cat_d)),
+        rng_key=to_card(cpu["key"]), **cpu["kw"])
+    want = cpu["tree"]
+    fields = [fld for fld in want._fields if not torch.equal(
+        getattr(again, fld).cpu(), getattr(want, fld))]
+    regrow_equal = not fields and torch.equal(row_node.cpu(),
+                                              cpu["row_node"])
+    grad_diff = {}
+    for ch in ("grad", "hess"):
+        a, b = cuda[ch].cpu(), cpu[ch]
+        grad_diff[ch] = {
+            "bit_equal": torch.equal(a.view(torch.int32),
+                                     b.view(torch.int32)),
+            "rows_differ": int((a != b).sum()),
+            "max_abs_diff": float((a - b).abs().max())}
+
+    # the first tree whose gradients differ between the devices: were its
+    # scores equal, and does the card's objective give the CPU's gradients
+    # from the CPU's scores (where not: how many rows of the exp differ)
+    def same(a, b):
+        return torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
+    grads_equal = [same(c["grad"], h["grad"]) and same(c["hess"], h["hess"])
+                   for c, h in zip(seen["cuda"], seen["cpu"])]
+    upstream = None
+    if not all(grads_equal):
+        i = grads_equal.index(False)
+        score = seen["cpu"][i]["score"]
+        g, h = card.gbdt.objective.get_gradients(score.to(dev))
+        obj = models["cpu"].gbdt.objective
+        arg = obj.y_signed * obj.sigmoid * score
+        upstream = {
+            "tree": i,
+            "scores_equal": same(seen["cuda"][i]["score"], score),
+            "card_objective_on_cpu_scores_equal":
+                same(g, seen["cpu"][i]["grad"]) and
+                same(h, seen["cpu"][i]["hess"]),
+            "grad_rows_differ": int((g.cpu() != seen["cpu"][i]["grad"])
+                                    .sum()),
+            "exp_rows_differ": int((torch.exp(arg.to(dev)).cpu() !=
+                                    torch.exp(arg)).sum())}
     emit("cross_device", rows=n, categorical_splits="num_cat=0" not in
          text.split("Tree=0")[1].split("Tree=1")[0],
          host_vs_device_max_abs=err,
@@ -1526,7 +1711,18 @@ def cross_device_phase(lgt):
              trees.split("Tree=")[1:], cpu_trees.split("Tree=")[1:])],
          lines_that_differ=differ,
          max_pred_diff_vs_cpu=float(np.abs(
-             host - models["cpu"].predict(X, raw_score=True)).max()))
+             host - models["cpu"].predict(X, raw_score=True)).max()),
+         regrown_tree0_equals_cpu=regrow_equal,
+         regrown_tree0_fields_that_differ=fields + (
+             [] if torch.equal(row_node.cpu(), cpu["row_node"])
+             else ["row_node"]),
+         regrown_tree0_max_leaf_diff=float(
+             (again.leaf_value.cpu() - want.leaf_value).abs().max()),
+         first_gradients_card_vs_cpu=grad_diff,
+         gradients_equal_per_tree=grads_equal,
+         first_parting_gradients=upstream,
+         parted="nowhere" if trees == cpu_trees else
+         "upstream of the grower" if regrow_equal else "in the growth glue")
     check(err <= 1e-4, f"categorical/NaN model vs device score {err}")
 
 
@@ -1582,7 +1778,7 @@ def main():
         r["launches"] = counts[ROW_PATH[r["name"]]][r["name"]]
     check(sorted(r["name"] for r in rows) == sorted(ROW_PATH),
           "the kernel table and the paths' kernels differ")
-    cross_device_phase(lgt)
+    cross_device_phase(torch, lgt, grow_tree_mxu)
 
     print(json.dumps({"kernels": rows}))
     print(smi)

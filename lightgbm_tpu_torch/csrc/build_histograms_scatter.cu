@@ -7,7 +7,9 @@
 // build_histograms_scatter (pallas_call in _scatter_kernel), and — behind
 // the partition of the rows by row_slot — build_histograms_mxu and
 // build_histograms_mxu_v2 of lightgbm_tpu/learner/histogram_mxu.py (the
-// same function keyed by row_slot; histogram_mxu.build_histograms). The TPU
+// same function keyed by row_slot; histogram_mxu.build_histograms), and,
+// behind route_rows.cu's counts mode and the partition, the histogram half
+// of fused_route_hist_mxu there (histogram_mxu.fused_route_hist). The TPU
 // kernel gathers the partitioned rows into a padded copy of the bin matrix
 // and contracts each block's [8, row_block] channel matrix with its
 // (feature, bin) one-hots on the MXU, accumulating a slot's [8, F*B] block

@@ -1,5 +1,5 @@
-// Shared device code of the routing and histogram kernels
-// (fused_route_hist.cu, route_rows.cu, build_histograms_scatter.cu).
+// Shared device code of the routing and histogram kernels (route_rows.cu,
+// build_histograms_scatter.cu) and of node_sums.cu's fixed point.
 //
 // Node table layout (pack_route_tables in learner/histogram_mxu.py): one
 // row of kTblCols int32 per node id. The TPU kernels carried these values
@@ -134,48 +134,6 @@ __device__ __forceinline__ long long fixed_point(float v, double mul) {
 
 __device__ __forceinline__ float fixed_result(long long sum, double inv) {
   return static_cast<float>(static_cast<double>(sum) * inv);
-}
-
-// Add one row's fixed-point (grad, hess, count) q into hist[slot, j, bin, :]
-// for every feature j: int64 cells in global memory (two's complement, so
-// the unsigned add of a negative q subtracts it; native 64-bit atomics).
-// hist is [S, f, b, 3]. const_hess != 0 skips the hessian channel; the
-// wrapper fills it as const x count afterwards.
-template <bool kPacked>
-__device__ __forceinline__ void hist_accumulate(
-    unsigned long long* hist, int slot, const uint8_t* row_bins, int f,
-    int fh, int b, const long long (&q)[3], int const_hess) {
-  unsigned long long* base = hist + static_cast<size_t>(slot) * f * b * 3;
-  for (int j = 0; j < f; ++j) {
-    const int bin = read_bin<kPacked>(row_bins, j, fh);
-    if (bin >= b) continue;
-    unsigned long long* cell = base + (static_cast<size_t>(j) * b + bin) * 3;
-    atomicAdd(cell, static_cast<unsigned long long>(q[0]));
-    if (!const_hess) atomicAdd(cell + 1, static_cast<unsigned long long>(q[1]));
-    atomicAdd(cell + 2, static_cast<unsigned long long>(q[2]));
-  }
-}
-
-// Integer mode (quantized gradients): g and h are whole numbers in
-// [-127, 127] and add into int32 cells, exact and independent of order
-// (|sum| <= 127 x N < 2^31 for N < 16.9M rows). The count channel keeps
-// float atomics, in the same 32-bit word of the cell; with whole-number
-// count weights its sums are exact and order-free as well (below 2^24).
-template <bool kPacked>
-__device__ __forceinline__ void hist_accumulate(int* hist, int slot,
-                                                const uint8_t* row_bins,
-                                                int f, int fh, int b, int g,
-                                                int h, float c,
-                                                int const_hess) {
-  int* base = hist + static_cast<size_t>(slot) * f * b * 3;
-  for (int j = 0; j < f; ++j) {
-    const int bin = read_bin<kPacked>(row_bins, j, fh);
-    if (bin >= b) continue;
-    int* cell = base + (static_cast<size_t>(j) * b + bin) * 3;
-    atomicAdd(cell, g);
-    if (!const_hess) atomicAdd(cell + 1, h);
-    atomicAdd(reinterpret_cast<float*>(cell + 2), c);
-  }
 }
 
 inline int grid_for(int n) {

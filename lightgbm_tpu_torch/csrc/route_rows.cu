@@ -1,6 +1,7 @@
 // route_rows: advance every row one level through the split tables and
-// emit (row_node, row_slot) — the routing half of fused_route_hist — and,
-// in its counts mode, the number of rows that land in each slot.
+// emit (row_node, row_slot) and, in its counts mode, the number of rows
+// that land in each slot — on the card also the routing step of
+// fused_route_hist, whose counts feed the partition (partition_rows.cu).
 //
 // Replaces: lightgbm_tpu/learner/histogram_mxu.py, route_rows_mxu
 // (pallas_call in _route_kernel, with and without emit_counts). The TPU
@@ -11,10 +12,10 @@
 // Bound on this card: bytes — row_node in, (row_node, row_slot) out, and
 // one bin per routed row (12 bytes per row plus the bins it touches).
 // Design: one thread per row, node and feature tables in shared memory,
-// decision code shared with fused_route_hist (route_hist.cuh), unpacked or
-// 4-bit packed bins. Counts mode: a per-block [S] int32 tally of the rows
-// whose new slot lies in [0, S) (parked rows excluded), flushed with one
-// global atomic per nonzero slot per block — exact integers. Reading a
+// decision code in route_hist.cuh, unpacked or 4-bit packed bins. Counts
+// mode: a per-block [S] int32 tally of the rows whose new slot lies in
+// [0, S) (parked rows excluded), flushed with one global atomic per
+// nonzero slot per block — exact integers. Reading a
 // row's split-feature bin is a scattered byte load; a column-major copy of
 // the bins would coalesce it, which is later work.
 #include "route_hist.cuh"

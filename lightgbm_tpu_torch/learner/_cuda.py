@@ -46,14 +46,12 @@ _F = ctypes.c_float
 # kernel source stem -> (C entry point, argtypes); the last argument of
 # every entry is the CUDA stream
 KERNELS: Dict[str, tuple] = {
-    "fused_route_hist": ("lgbt_fused_route_hist",
-                         [_P] * 12 + [_I] * 7 + [_F, _I, _P]),
     "route_rows": ("lgbt_route_rows", [_P] * 8 + [_I] * 6 + [_P]),
     "partition_rows": ("lgbt_partition_rows", [_P] * 6 + [_I] * 4 + [_P]),
     "build_histograms_scatter": ("lgbt_build_histograms_scatter",
                                  [_P] * 10 + [_I] * 8 + [_F, _I, _P]),
     "node_values": ("lgbt_node_values", [_P] * 3 + [_I] * 2 + [_P]),
-    "node_sums": ("lgbt_node_sums", [_P] * 7 + [_I] * 2 + [_P]),
+    "node_sums": ("lgbt_node_sums", [_P] * 6 + [_I] * 2 + [_P]),
     "find_best_splits": ("lgbt_find_best_splits",
                          [_P] * 6 + [_I] * 4 + [_F] * 7 + [_P]),
 }

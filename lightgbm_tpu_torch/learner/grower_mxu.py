@@ -19,8 +19,9 @@ kernel (histogram_pallas); "scatter" routes the same way and builds with
 the segment-sum oracle (histogram.py). In the quantized posture all three
 give bit-identical histograms; with exact gradients the kernels of mxu and
 pallas do (integer sums of fixed-point values under one scale per tree,
-histogram_mxu.exact_scale), and the float64 oracle agrees within its
-rounding. Only the smaller child of a fresh split gets
+histogram_mxu.exact_scale; the root's sums take the same fixed point,
+exact_sums), and the float64 oracle agrees within its rounding. Only the
+smaller child of a fresh split gets
 a kernel slot; the larger sibling is parent minus smaller
 (serial_tree_learner.cpp:311-326). With packed4 the bin matrix is 4-bit
 packed (histogram_mxu.pack_bins_4bit) and every kernel reads the nibbles;
@@ -68,9 +69,9 @@ from .. import rng
 from ..utils.log import Log
 from . import histogram
 from .grower import TreeArrays, _init_tree
-from .histogram_mxu import (build_histograms_auto, exact_scale, fits_v2,
-                            fused_route_hist, fused_row_block, node_sums,
-                            node_values, pack_route_tables,
+from .histogram_mxu import (build_histograms_auto, exact_scale, exact_sums,
+                            fits_v2, fused_route_hist, fused_row_block,
+                            node_sums, node_values, pack_route_tables,
                             quantize_gradients, route_rows, unpack_bins_4bit)
 from .histogram_pallas import build_histograms_scatter
 from .split import BestSplits, SplitHyperParams, find_best_splits, leaf_output
@@ -410,8 +411,12 @@ def grow_tree_mxu(bins: torch.Tensor, grad: torch.Tensor,
         # the fixed point of every exact histogram of the tree, on the
         # device (no host sync)
         hist_fixed = exact_scale(grad, hess, cnt_weight)
-        root_g = torch.sum(grad)
-        root_h = root_c * ch if ch else torch.sum(hess)
+        # root sums in the same fixed point, so they are the same bits on
+        # every device (an f32 torch.sum adds in another order on the card
+        # than on the CPU) and right = parent - left is exact
+        root_g, root_h, _ = exact_sums(grad, hess, cnt_weight, hist_fixed)
+        if ch:
+            root_h = root_c * ch
     root_val = leaf_output(root_g, root_h, hp.lambda_l1, hp.lambda_l2,
                            hp.max_delta_step)
     tree0 = _init_tree(m, root_g, root_h, root_c, root_val,

@@ -5,7 +5,10 @@ every per-row gather and scatter into one-hot matmuls on the MXU; on the
 card those become plain indexing and atomics in hand-written CUDA kernels
 (csrc/):
 
-  fused_route_hist  <- fused_route_hist_mxu   (route + histogram, one sweep)
+  fused_route_hist  <- fused_route_hist_mxu   (route + histogram; on the
+                                               card route_rows with counts,
+                                               then the partition and the
+                                               scatter kernel)
   route_rows        <- route_rows_mxu         (route only; with
                                                emit_counts, rows per slot)
   build_histograms  <- build_histograms_mxu and build_histograms_mxu_v2
@@ -55,9 +58,10 @@ from . import _cuda
 
 __all__ = ["fused_route_hist", "route_rows", "build_histograms",
            "build_histograms_auto", "node_values", "node_sums",
-           "exact_scale", "EXACT_BITS", "NONFINITE_K",
+           "exact_scale", "exact_sums", "EXACT_BITS", "NONFINITE_K",
            "fused_route_hist_ref", "route_rows_ref", "build_histograms_ref",
-           "node_values_ref", "node_sums_ref", "quantize_gradients",
+           "node_values_ref", "node_sums_ref", "node_sums_scale",
+           "NODE_SUMS_BITS", "quantize_gradients",
            "pack_route_tables", "pack_bins_4bit", "unpack_bins_4bit",
            "fits_v2", "fused_row_block", "launch_counts",
            "reset_launch_counts"]
@@ -253,6 +257,17 @@ def exact_scale(grad, hess, cnt) -> torch.Tensor:
         .to(torch.int32)
 
 
+def exact_sums(grad, hess, cnt, scale: torch.Tensor) -> torch.Tensor:
+    """[3] f32: the (grad, hess, count) sums of all rows as the exact
+    histograms take them — each value's fixed point under `scale`
+    (exact_scale), summed in int64 and scaled back once — so they do not
+    depend on the order of the additions: the same bits on every device,
+    and equal to the sum of any exact histogram's cells before those are
+    rounded."""
+    return _exact_result(_fixed_point(
+        torch.stack([grad, hess, cnt], dim=1), scale).sum(0), scale)
+
+
 def _pow2(k: torch.Tensor) -> torch.Tensor:
     """2.0 ** k as float64, exactly (the exponent field written directly),
     for integer k in float64's normal range."""
@@ -391,17 +406,41 @@ def node_values_ref(row_node, values) -> torch.Tensor:
                        torch.zeros((), dtype=got.dtype, device=got.device))
 
 
+#: node_sums' fixed point: a channel's values take k = NODE_SUMS_BITS - e -
+#: lg (max |x| < 2^e, n <= 2^lg rows), so every row is at most
+#: 2^(NODE_SUMS_BITS - lg) and a node's sum at most 2^NODE_SUMS_BITS
+NODE_SUMS_BITS = 61
+
+
+def node_sums_scale(amax: torch.Tensor, n: int) -> torch.Tensor:
+    """[3] i32: node_sums' fixed-point exponent k of each channel from its
+    max |x| (amax, [3] f32) over all n rows; NONFINITE_K where the max is
+    not finite (csrc/node_sums.cu scale_of)."""
+    lg = (n - 1).bit_length() if n > 1 else 0
+    k = NODE_SUMS_BITS - lg - torch.frexp(amax).exponent
+    return torch.where(torch.isfinite(amax), k, NONFINITE_K) \
+        .to(torch.int32)
+
+
 def node_sums_ref(row_node, grad, hess, cnt, *, num_nodes: int
                   ) -> torch.Tensor:
-    """[num_nodes, 3] f32 per-node (sum grad, sum hess, sum count), summed
-    in float64 and rounded once; rows whose node is < 0 or >= num_nodes
-    are ignored."""
+    """[num_nodes, 3] f32 per-node (sum grad, sum hess, sum count): the
+    kernel's fixed-point sum. Each value adds rint(x x 2^k) as an int64
+    under its channel's node_sums_scale (from max |x| over all n rows,
+    ignored ones included), the int64 sums come out as f32(float64(sum) x
+    2^-k); a channel whose max is not finite is NaN in every node. Rows
+    whose node is < 0 or >= num_nodes are ignored."""
+    n = row_node.shape[0]
+    dev = row_node.device
+    if n == 0:
+        return torch.zeros((num_nodes, 3), dtype=torch.float32, device=dev)
+    data = torch.stack([grad, hess, cnt], dim=1)
+    k = node_sums_scale(data.abs().amax(0), n)
     node = row_node.to(torch.int64)
     keep = (node >= 0) & (node < num_nodes)
-    data = torch.stack([grad, hess, cnt], dim=1)[keep].to(torch.float64)
-    out = torch.zeros((num_nodes, 3), dtype=torch.float64,
-                      device=row_node.device)
-    return out.index_add_(0, node[keep], data).to(torch.float32)
+    sums = torch.zeros((num_nodes, 3), dtype=torch.int64, device=dev) \
+        .index_add_(0, node[keep], _fixed_point(data[keep], k))
+    return _exact_result(sums, k)
 
 
 def _fill_const_hess(hist: torch.Tensor, const_hess: float) -> torch.Tensor:
@@ -479,15 +518,6 @@ def _check_hist_args(bins, grad, hess, cnt, bmax, quantized,
     return f, fh
 
 
-def _quantized_result(raw, const_hess) -> torch.Tensor:
-    """The fused kernel's integer-mode cells (int32 gradient sums beside
-    f32 count bits) as [S, F, bmax, 3] f32, hessians filled for
-    const_hess."""
-    hist = raw.to(torch.float32)
-    hist[..., 2] = raw.view(torch.float32)[..., 2]
-    return _fill_const_hess(hist, const_hess)
-
-
 def _scale_of(scale, grad, hess, cnt, quantized):
     """The exact mode's fixed-point scale: the caller's (checked), else
     exact_scale of the inputs; None in quantized mode."""
@@ -505,40 +535,30 @@ def fused_route_hist(bins, grad, hess, cnt, row_node, tbl, member, feat_tbl,
                      scale: torch.Tensor = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Route rows through the previous pass's tables and build the new
-    frontier's histograms in one sweep. Returns (hist [S, F, bmax, 3],
-    new row_node [N] i32). quantized: grad and hess are int8 and the
-    gradient channels hold their unscaled integer sums; else scale ([3]
-    i32, exact_scale of grad, hess, cnt when None) is the fixed point of
-    the sums. num_features > 0: bins are 4-bit packed (pack_bins_4bit)
-    with that many features."""
+    frontier's histograms. Returns (hist [S, F, bmax, 3], new row_node [N]
+    i32). quantized: grad and hess are int8 and the gradient channels hold
+    their unscaled integer sums; else scale ([3] i32, exact_scale of grad,
+    hess, cnt when None) is the fixed point of the sums. num_features > 0:
+    bins are 4-bit packed (pack_bins_4bit) with that many features.
+
+    On the card: route_rows with per-slot counts, then the partition kernel
+    fed those counts and the scatter kernel (histogram_pallas
+    .scatter_histograms), the design of build_histograms; the scatter
+    kernel's launches count here, the routing's and the partition's under
+    their own names. Integer sums: the result is the plain version's bit
+    for bit."""
     args = (bins, grad, hess, cnt, row_node, tbl, member, feat_tbl)
+    kw = dict(num_slots=num_slots, bmax=bmax, const_hess=const_hess,
+              quantized=quantized, num_features=num_features, scale=scale)
     if _on_cpu(*args):
-        return fused_route_hist_ref(*args, num_slots=num_slots, bmax=bmax,
-                                    const_hess=const_hess,
-                                    quantized=quantized,
-                                    num_features=num_features, scale=scale)
-    f, fh = _check_route_args(bins, row_node, tbl, member, feat_tbl,
-                              num_features)
-    _check_hist_args(bins, grad, hess, cnt, bmax, quantized, num_features)
-    scale = _scale_of(scale, grad, hess, cnt, quantized)
-    n = bins.shape[0]
-    dev = bins.device
-    # the cells the kernel adds into: int32 (quantized) or int64
-    # fixed-point sums, which it scales back into `res` (exact)
-    shape = (num_slots, f, bmax, 3)
-    cells = torch.zeros(shape, device=dev,
-                        dtype=torch.int32 if quantized else torch.int64)
-    res = None if quantized else torch.empty(shape, dtype=torch.float32,
-                                             device=dev)
-    out = torch.empty(n, dtype=torch.int32, device=dev)
-    _cuda.call("fused_route_hist", dev, bins, grad, hess, cnt, row_node, tbl,
-               member, feat_tbl, scale, cells, res, out, n, f, fh, bmax,
-               num_slots, tbl.shape[0], member.shape[1], float(const_hess),
-               int(quantized))
-    count_launch("fused_route_hist", quantized=quantized, packed=fh > 0)
-    if quantized:
-        res = _quantized_result(cells, const_hess)
-    return res, out
+        return fused_route_hist_ref(*args, **kw)
+    node, slot, counts = route_rows(bins, row_node, tbl, member, feat_tbl,
+                                    num_features=num_features,
+                                    emit_counts=True, num_slots=num_slots)
+    from .histogram_pallas import scatter_histograms   # imports this module
+    hist = scatter_histograms("fused_route_hist", bins, grad, hess, cnt,
+                              slot, slot_counts=counts, **kw)
+    return hist, node
 
 
 def route_rows(bins, row_node, tbl, member, feat_tbl, *,
@@ -629,12 +649,19 @@ def node_values(row_node, values) -> torch.Tensor:
     return out
 
 
+# node_sums' scratch buffer per device, grown as needed and reused by every
+# call on that device (the kernel zeroes it on the caller's stream first):
+# four u32 words of channel maxima, then the [m, 3] int64 sums
+_NODE_SUMS_SCRATCH: Dict[torch.device, torch.Tensor] = {}
+
+
 def node_sums(row_node, grad, hess, cnt, *, num_nodes: int) -> torch.Tensor:
     """Exact per-node (sum grad, sum hess, sum count) as [num_nodes, 3]
-    f32; rows whose node is < 0 or >= num_nodes are ignored. The kernel's
-    sums are deterministic: fixed-point int64 accumulation (csrc/
-    node_sums.cu), within ~1e-13 of max|x| per row of the float64 sum.
-    Inputs must be finite."""
+    f32; rows whose node is < 0 or >= num_nodes are ignored. Fixed-point
+    int64 sums (node_sums_ref), so the kernel equals its plain version
+    bit for bit. On the card: one call, which takes the channel maxima,
+    sums and scales back on the device, into a scratch buffer cached per
+    device (calls on two streams of one device at once would share it)."""
     if _on_cpu(row_node, grad, hess, cnt):
         return node_sums_ref(row_node, grad, hess, cnt, num_nodes=num_nodes)
     n = row_node.shape[0]
@@ -643,12 +670,15 @@ def node_sums(row_node, grad, hess, cnt, *, num_nodes: int) -> torch.Tensor:
         _check(t, name, torch.float32, (n,))
     dev = row_node.device
     out = torch.empty((num_nodes, 3), dtype=torch.float32, device=dev)
-    if n == 0:
-        return out.zero_()
-    amax = torch.stack([torch.amax(torch.abs(t)) for t in (grad, hess, cnt)])
-    acc = torch.zeros((num_nodes, 3), dtype=torch.int64, device=dev)
-    _cuda.call("node_sums", dev, row_node, grad, hess, cnt, amax, acc, out,
-               n, num_nodes)
+    if num_nodes == 0:
+        return out
+    scratch = _NODE_SUMS_SCRATCH.get(dev)
+    if scratch is None or scratch.numel() < 2 + 3 * num_nodes:
+        scratch = torch.empty(2 + 3 * num_nodes, dtype=torch.int64,
+                              device=dev)
+        _NODE_SUMS_SCRATCH[dev] = scratch
+    _cuda.call("node_sums", dev, row_node, grad, hess, cnt, scratch, out, n,
+               num_nodes)
     count_launch("node_sums")
     return out
 

@@ -14,11 +14,12 @@ block with its bin one-hots on the MXU instead. The per-slot row counts
 can come straight from `route_rows(emit_counts=True)`, so routing,
 counting and partition metadata are one sweep. The same partition and
 kernel serve histogram_mxu.build_histograms (the JAX package's
-build_histograms_mxu and _v2) on the card: `scatter_histograms` launches
-both for either wrapper.
+build_histograms_mxu and _v2) and, after route_rows with counts,
+histogram_mxu.fused_route_hist on the card: `scatter_histograms` launches
+both for each of these wrappers.
 
 Both modes give integer sums, equal bit for bit to the other histogram
-kernels' (histogram_mxu: the fused kernel and build_histograms), so
+kernels' (histogram_mxu's fused_route_hist and build_histograms), so
 trees and model text do not depend on the backend: quantized mode adds
 int8 gradients into int32 cells, exact mode adds each f32 value as a
 fixed-point int64 (histogram_mxu.exact_scale) and scales the sums back
@@ -295,7 +296,8 @@ def scatter_histograms(name, bins, grad, hess, cnt, row_slot, *,
                        partition_impl: str = "auto",
                        scale: torch.Tensor = None) -> torch.Tensor:
     """The card's per-slot histograms for CUDA tensors, behind
-    build_histograms_scatter and histogram_mxu.build_histograms (`name`:
+    build_histograms_scatter, histogram_mxu.build_histograms and
+    histogram_mxu.fused_route_hist (`name`:
     the wrapper whose launch count the scatter kernel adds to; the
     partition counts as partition_rows): the partition kernel, then the
     scatter kernel, one launch of each per at most _PARTITION_MAX_SLOTS

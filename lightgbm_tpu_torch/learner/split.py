@@ -19,10 +19,11 @@ All math follows feature_histogram.hpp:737-860 and runs in f32 tensors:
 Basic monotone constraints clip both children's outputs to the node's
 [cons_min, cons_max], kill order-violating splits and scale constrained
 gains by the depth penalty; extra_trees evaluates one random threshold
-per (slot, feature). The numerical prefix sums along bins are summed in
-float64 and rounded to f32 once, so their value does not depend on the
-order of the additions: the fused scan kernel (split_kernel.py) sums the
-same way and picks the same splits. CEGB penalties are not ported;
+per (slot, feature). The prefix sums along bins (numerical, and the
+categorical scans' over bins sorted by ratio) are summed in float64 and
+rounded to f32 once, so their value does not depend on the order of the
+additions, which differs between the card and the CPU: the fused scan
+kernel (split_kernel.py) sums the same way and picks the same splits. CEGB penalties are not ported;
 boosting/gbdt.py refuses those params.
 """
 
@@ -301,7 +302,10 @@ def find_best_splits(hist: torch.Tensor, parent_grad: torch.Tensor,
 
         def scan_dir(order):
             sh = torch.gather(hist, 2, order[..., None].expand(s, f, b, 3))
-            sp = torch.cumsum(sh, dim=2)                           # [S,F,B,3]
+            # float64, rounded once, as numerical_inputs: an f32 cumsum
+            # adds in another order on the card than on the CPU
+            sp = torch.cumsum(sh.to(torch.float64), dim=2) \
+                .to(torch.float32)                                 # [S,F,B,3]
             slg, slh, slc = sp[..., 0], sp[..., 1], sp[..., 2]
             srg = tot[..., 0] - slg
             srh = tot[..., 1] - slh

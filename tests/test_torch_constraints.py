@@ -342,6 +342,15 @@ def test_monotone_growth_keeps_children_ordered():
 # booster
 # ---------------------------------------------------------------------------
 
+# the options together, as the card's constrained configuration sets them:
+# monotone +1/-1 on two features, three interaction groups, per-tree and
+# per-node feature sampling
+_ALL_OPTIONS = {"monotone_constraints": [1, -1, 0, 0, 0, 0, 0, 0, 0, 0],
+                "interaction_constraints": [[0, 1, 2], [3, 4, 5, 6],
+                                            [7, 8, 9]],
+                "feature_fraction": 0.8, "feature_fraction_bynode": 0.8}
+
+
 @pytest.mark.parametrize("extra", [
     {"feature_fraction": 0.6},
     {"feature_fraction_bynode": 0.5},
@@ -349,8 +358,9 @@ def test_monotone_growth_keeps_children_ordered():
     {"monotone_constraints": [1, 0, -1, 0, 0, 0, 0, 0, 0, 0],
      "monotone_penalty": 1.0},
     {"interaction_constraints": [[0, 1], [2, 3, 4], [5, 6, 7, 8, 9]]},
+    _ALL_OPTIONS,
 ], ids=["feature_fraction", "bynode", "extra_trees", "monotone",
-        "interaction"])
+        "interaction", "all"])
 def test_train_options_match_jax_package(extra):
     X, y = make_binary(n=2000, f=10)
     params = dict({"objective": "binary", "num_leaves": 15, "max_bin": 63,
@@ -362,6 +372,32 @@ def test_train_options_match_jax_package(extra):
     np.testing.assert_allclose(b_torch.predict(X, raw_score=True),
                                b_jax.predict(X, raw_score=True),
                                rtol=1e-5, atol=5e-5)
+
+
+def test_quantized_train_all_options_match_jax_package():
+    # quantized training under every option at once, held as
+    # test_quantized_booster_matches_jax_package holds quantized training:
+    # after the first tree each tree's rounding key folds in the bits of
+    # an f32 sum(grad) that torch and XLA add in different orders, so the
+    # trees may differ and the training losses agree to 1%
+    X, y = make_binary(n=2000, f=10)
+    params = dict({"objective": "binary", "num_leaves": 15, "max_bin": 63,
+                   "verbosity": -1, "use_quantized_grad": True},
+                  **_ALL_OPTIONS)
+    b_jax = _jax_booster(X, y, params, 3)
+    p = dict(params, device_type="cpu")
+    b_torch = lgt.train(p, lgt.Dataset(X, label=y, params=p), 3)
+
+    def logloss(b):
+        prob = np.clip(b.predict(X), 1e-15, 1 - 1e-15)
+        return float(-np.mean(y * np.log(prob) + (1 - y) * np.log(1 - prob)))
+    loss_jax, loss_torch = logloss(b_jax), logloss(b_torch)
+    assert abs(loss_torch - loss_jax) <= 0.01 * loss_jax, (loss_torch,
+                                                           loss_jax)
+    assert loss_torch < 0.95 * np.log(2.0)
+    np.testing.assert_allclose(b_torch.gbdt.train_score.numpy(),
+                               b_torch.predict(X, raw_score=True),
+                               rtol=1e-5, atol=1e-5)
 
 
 def test_train_monotone_predictions():

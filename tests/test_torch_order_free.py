@@ -21,8 +21,12 @@ import torch
 import lightgbm_tpu_torch as lgt
 from lightgbm_tpu.learner import histogram_mxu as jax_k
 from lightgbm_tpu.learner import histogram_pallas as jax_p
+from lightgbm_tpu_torch.learner import grower_mxu as torch_grower
 from lightgbm_tpu_torch.learner import histogram_mxu as torch_k
 from lightgbm_tpu_torch.learner import histogram_pallas as torch_p
+from lightgbm_tpu_torch.learner.split import (SplitHyperParams,
+                                              find_best_splits)
+from tests.test_torch_grower import _data
 from tests.test_torch_hist_backends import strip_backend_echo
 from tests.test_torch_kernels import (BMAX, N, NUM_SLOTS, _inputs,
                                       _jax_tables, _t, _torch_tables)
@@ -294,6 +298,93 @@ def test_non_finite_values_stay_non_finite(case):
         np.testing.assert_array_equal(h_t[..., 2], h_j[..., 2])
         if case != "nan_parked":
             assert not np.isfinite(h_j[..., bad]).all()
+
+
+# ---------------------------------------------------------------------------
+# the growth glue: no sum whose bits depend on the order of the additions
+# (torch adds in another order on the card than on the CPU)
+# ---------------------------------------------------------------------------
+
+def _grow(ds, grad, hess, idx):
+    hp = SplitHyperParams(has_categorical=True)
+    return torch_grower.grow_tree_mxu(
+        _t(ds.bins[idx]), _t(grad[idx]), _t(hess[idx]),
+        torch.ones(len(idx)), torch.ones(ds.num_features),
+        _t(ds.num_bins), _t(ds.missing_types == 2), _t(ds.is_categorical),
+        num_leaves=31, max_depth=-1, bmax=int(ds.num_bins.max()),
+        overshoot=2.0, hp=hp)
+
+
+def test_grower_permuted_rows_give_the_same_tree():
+    # exact growth on NaN and categorical data: the rows in another order
+    # give the same tree bit for bit (root sums in the histograms' fixed
+    # point, exact_sums; categorical scans in float64), while f32 sums of
+    # the same gradients in the two orders differ
+    ds, grad, hess = _data(6000, 6, seed=36, with_nan=True, with_cat=True)
+    grad = (grad * 10.0 ** np.random.RandomState(37).uniform(
+        -2, 2, grad.shape[0])).astype(np.float32)
+    perm = np.random.RandomState(38).permutation(ds.num_data)
+    ident = np.arange(ds.num_data)
+    assert torch.sum(_t(grad)) != torch.sum(_t(grad[perm]))
+    t1, r1 = _grow(ds, grad, hess, ident)
+    t2, r2 = _grow(ds, grad, hess, perm)
+    assert int(t1.num_leaves) == 31 and bool(t1.is_cat.any())
+    for fld in t1._fields:
+        a, b = getattr(t1, fld), getattr(t2, fld)
+        if a.dtype == torch.float32:
+            a, b = _bits(a), _bits(b)
+        assert torch.equal(a, b), fld
+    assert torch.equal(r1[perm], r2)
+    scale = torch_k.exact_scale(_t(grad), _t(hess), torch.ones(len(grad)))
+    root = torch_k.exact_sums(_t(grad), _t(hess), torch.ones(len(grad)),
+                              scale)
+    assert torch.equal(_bits(torch.stack([t1.sum_grad[0], t1.sum_hess[0],
+                                          t1.count[0]])), _bits(root))
+
+
+def test_categorical_left_sums_are_rounded_once(monkeypatch):
+    # the sorted-by-ratio categorical scan's left sums are the exact sums
+    # of the left set's bins rounded to f32 once: bins within 2^20 of each
+    # other in magnitude, so their float64 sum is exact in any order. The
+    # CPU's torch.cumsum accumulates f32 in double, the card's in f32: an
+    # f32 cumsum that accumulates in f32 stands in for the card's
+    real_cumsum = torch.cumsum
+
+    def f32_cumsum(x, dim, **kw):
+        if x.dtype != torch.float32:
+            return real_cumsum(x, dim, **kw)
+        parts = list(torch.unbind(x, dim))
+        for i in range(1, len(parts)):
+            parts[i] = parts[i - 1] + parts[i]
+        return torch.stack(parts, dim)
+    monkeypatch.setattr(torch, "cumsum", f32_cumsum)
+    r = np.random.RandomState(39)
+    s, f, b = 64, 3, 32
+    cnt = r.randint(20, 200, (s, f, b)).astype(np.float64)
+    g = r.randn(s, f, b) * 2.0 ** r.randint(0, 12, (s, f, b))
+    h = r.uniform(0.5, 1.0, (s, f, b)) * 2.0 ** r.randint(0, 8, (s, f, b))
+    hist = np.stack([g, h, cnt], -1).astype(np.float32)
+    tot = hist.astype(np.float64)[:, 0].sum(1).astype(np.float32)  # [S, 3]
+    best = find_best_splits(
+        _t(hist), _t(tot[:, 0]), _t(tot[:, 1]), _t(tot[:, 2]),
+        torch.zeros(s), torch.full((f,), b, dtype=torch.int32),
+        torch.zeros(f, dtype=torch.bool), torch.ones(f, dtype=torch.bool),
+        torch.ones(f), SplitHyperParams(has_categorical=True))
+    feat = best.feature.numpy()
+    assert (feat >= 0).sum() >= s // 2
+    words = best.cat_bitset.numpy()
+    sizes = []
+    for k in np.nonzero(feat >= 0)[0]:
+        member = np.array([(words[k, j >> 5] >> (j & 31)) & 1
+                           for j in range(b)], bool)
+        sizes.append(member.sum())
+        want = hist[k, feat[k]][member].astype(np.float64).sum(0) \
+            .astype(np.float32)
+        got = np.array([best.left_grad[k], best.left_hess[k],
+                        best.left_count[k]], np.float32)
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      want.view(np.uint32))
+    assert sum(n >= 3 for n in sizes) >= s // 4   # sums of several bins
 
 
 # ---------------------------------------------------------------------------
