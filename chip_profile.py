@@ -2,19 +2,25 @@
 """Where a tree's time goes in the PyTorch/CUDA port, on the card.
 
     python3 chip_profile.py [--trees 5] [--trace train_trace.json]
+                            [--root CHECKOUT]
 
 Trains the Higgs-like 1M x 28 binary configuration of chip_smoke.py
 (num_leaves 255, max_bin 255) through lightgbm_tpu_torch: two warm-up
 trees, --trees timed trees, then --trees more under torch.profiler (CPU +
 CUDA activity). Prints JSON lines: wall seconds per tree (unprofiled and
 profiled), device time summed over kernels and the device's idle share of
-the unprofiled wall time, device time per kernel name (top 15), and host
-time inside the growth layers (split search, route tables, the prune
-replay), bracketed with record_function around the grower's functions.
+the unprofiled wall time, device time per kernel name (top 15), the
+device time and launches per tree of each of the port's own kernels (the
+`__global__` functions of lightgbm_tpu_torch/csrc), and host time inside
+the growth layers (split search, route tables, the prune replay),
+bracketed with record_function around the grower's functions. --root
+profiles another checkout's lightgbm_tpu_torch on this script's data.
 """
 
 import argparse
 import json
+import os
+import re
 import sys
 import time
 
@@ -27,13 +33,26 @@ def main():
     from torch.profiler import ProfilerActivity, profile, record_function
 
     import chip_smoke
-    import lightgbm_tpu_torch as lgt
-    from lightgbm_tpu_torch.learner import grower_mxu
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--trees", type=int, default=5)
     ap.add_argument("--trace", default="")
+    ap.add_argument("--root", default=os.path.dirname(
+        os.path.abspath(__file__)), help="checkout whose lightgbm_tpu_torch "
+        "trains (default: this one)")
     args = ap.parse_args()
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.learner import _cuda, grower_mxu
+    if not os.path.abspath(lgt.__file__).startswith(root + os.sep):
+        print(f"chip_profile: imported {lgt.__file__}, not from {root}",
+              file=sys.stderr)
+        return 2
+    own = set()
+    for src in _cuda.CSRC.glob("*.cu"):
+        own.update(re.findall(r"__global__\s+void\s+(?:__launch_bounds__"
+                              r"\([^)]*\)\s+)?(\w+)", src.read_text()))
 
     # bracket the grower's host-side layers (the kernels show up by name)
     for fn_name in ("find_best_splits", "pack_route_tables",
@@ -91,6 +110,15 @@ def main():
     print(json.dumps({"phase": "device_time_by_kernel", "top": [
         {"name": k[:90], "ms_per_tree": us / 1e3 / args.trees,
          "calls_per_tree": c / args.trees} for k, (us, c) in top]}))
+    mine = {}
+    for k, (us, c) in kernels.items():
+        name = chip_smoke.kernel_name(k)
+        if name in own:
+            ms, calls = mine.get(name, (0.0, 0))
+            mine[name] = (ms + us / 1e3 / args.trees, calls + c / args.trees)
+    print(json.dumps({"phase": "port_kernels_per_tree", "package": root,
+                      "kernels": {k: {"ms": ms, "launches": c} for k, (ms, c)
+                                  in sorted(mine.items())}}))
     print(json.dumps({"phase": "host_ms_per_tree", "layers": host}))
     if args.trace:
         prof.export_chrome_trace(args.trace)

@@ -10,14 +10,16 @@ mode) and across two calls — at the shapes the training path gives it
 (1M rows x 28 features, 256 bins, up to 1024 tree nodes; 15 bins for the
 4-bit packed modes; 511 and 263 scan slots for the split scan; the root
 pass's single slot for the partition, the scatter histogram and the fused
-sweep, which on the card is route_rows with counts, the partition and the
-scatter kernel, timed at every width of the exact path), in every mode
-the paths run (f32 and the
-integer mode of quantized gradients; unpacked and packed bins; route
-counts; the split scan plain and monotone), times it — `ms`, one call as
+sweep, which on the card is route_rows with its chunk tallies, the
+partition fed those tallies and the scatter kernel, timed at every width
+of the exact path), in every mode the paths run (f32 and the integer mode
+of quantized gradients; unpacked and packed bins; route counts and chunk
+tallies; the partition given tallies, given counts and counting for
+itself; the split scan plain and monotone), times it — `ms`, one call as
 the training path makes it, host launch path included, and `device_ms`,
 the device alone over back-to-back calls; the same two for the PyTorch
-yardstick where one call computes the function — then trains through
+yardstick where one call computes the function; each launch of the
+partition and the routing apart under torch.profiler — then trains through
 lightgbm_tpu_torch's entry points along six paths, each with the launch
 counts reset before it and read after it:
 
@@ -67,6 +69,7 @@ power limit as nvidia-smi prints them, and the result
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -525,7 +528,8 @@ def k1_widths(torch, hm, hp, d, scale):
     parked), so that every slotted row lands in one of the S slots (at S =
     1 every run of the partition writes a partial that the reduce adds).
     Per width: the call's ms and device ms in both modes, and the device
-    ms of its first two steps (K2 with counts, the partition). Holds both
+    ms of its first two steps (K2 with chunk tallies, the partition given
+    them). Holds both
     modes bit for bit to the plain version at S = 1."""
     bins, cnt = d["bins"], d["cnt"]
     tbl = d["tbl"]
@@ -558,15 +562,17 @@ def k1_widths(torch, hm, hp, d, scale):
 
         def k2c():
             return hm.route_rows(bins, d["row_node"], *route,
-                                 emit_counts=True, num_slots=s)
-        _, slot, counts = k2c()
+                                 emit_counts=True, num_slots=s,
+                                 chunk_tallies=True)
+        _, slot, tallies = k2c()
         entry["route_counts_device_ms"] = device_ms(torch, k2c)
         entry["partition_device_ms"] = device_ms(
-            torch, lambda: hp._partition(slot, s, 1024, counts, "auto"))
-        entry["rows_slotted"] = int(counts.sum())
+            torch, lambda: hp._partition(slot, s, 1024, None, "auto",
+                                         tallies, True))
+        entry["rows_slotted"] = int(tallies[:s].sum())
         out.append(entry)
     emit("kernel_detail", name="fused_route_hist_widths", widths=out,
-         what="K1 (route_rows with counts, the partition, K7) at the exact "
+         what="K1 (route_rows with tallies, the partition, K7) at the exact "
               "path's kernel widths, 1M x 28, 256 bins; the rows' slots "
               "folded into each width")
 
@@ -587,63 +593,104 @@ def backend_rows(torch, hm, hp, rng_mod, d, row, dev):
     n_routed = int(node_split.sum())
     table_bytes = d["tbl"].numel() * 4 + d["member"].numel() * 4
 
+    # K2's counts modes: the chunk tallies K1 and the pallas backend hand
+    # to the partition (the row), and the [S] counts (route_rows' own)
     def k2c():
         return hm.route_rows(bins, d["row_node"], *route, emit_counts=True,
-                             num_slots=S_TUNE)
+                             num_slots=S_TUNE, chunk_tallies=True)
 
     def k2c_ref():
         return hm.route_rows_ref(bins, d["row_node"], *route,
-                                 emit_counts=True, num_slots=S_TUNE)
-    got, (_, slot, counts) = k2c(), k2c_ref()
-    check(all(torch.equal(a, b) for a, b in zip(got, (_, slot, counts))),
-          "route_rows counts mode differs from its plain version")
+                                 emit_counts=True, num_slots=S_TUNE,
+                                 chunk_tallies=True)
+    got, want = k2c(), k2c_ref()
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          "route_rows tally mode differs from its plain version")
+    _, slot, tallies = want
+    counts = tallies[:S_TUNE].sum(1).to(torch.int32)
     check(int(counts.sum()) == int(((slot >= 0) & (slot < S_TUNE)).sum()),
-          "route counts do not add up to the slotted rows")
+          "route tallies do not add up to the slotted rows")
+
+    def k2s():
+        return hm.route_rows(bins, d["row_node"], *route, emit_counts=True,
+                             num_slots=S_TUNE)
+    check(all(torch.equal(a, b) for a, b in zip(k2s(), hm.route_rows_ref(
+        bins, d["row_node"], *route, emit_counts=True, num_slots=S_TUNE)))
+        and torch.equal(k2s()[2], counts),
+        "route_rows counts mode differs from its plain version")
+    emit("kernel_check", name="route_rows_counts", mode="[S] counts",
+         slots=S_TUNE, equal=True, ms=time_ms(torch, k2s, 20),
+         device_ms=device_ms(torch, k2s))
+    chunks = tallies.shape[1]
     row("route_rows_counts", "lightgbm_tpu/learner/histogram_mxu.py:1065",
         0.0, k2c, k2c_ref, 5,
-        12 * n + n_routed + table_bytes + 4 * S_TUNE, 0, None,
+        12 * n + n_routed + table_bytes + 4 * tallies.numel(), 0, None,
         source="route_rows")
 
-    partition_checks(torch, hp, slot, counts, dev)
-    kw = dict(num_slots=S_TUNE, row_block=1024, counts=counts)
+    partition_checks(torch, hm, hp, dev)
     tb = -(-n // 1024) + S_TUNE + 1
 
     def part():
-        return hp.partition_rows(slot, **kw)
+        # as K1 and the pallas backend call it: given the tallies, its
+        # outputs in the device's scratch buffer
+        return hp._partition(slot, S_TUNE, 1024, None, "auto", tallies,
+                             True)[:2]
 
     def part_ref():
-        return hp.partition_rows_ref(slot, **kw)
-    # row_slot and counts read; block_slot, src and bounds written
+        return hp.partition_rows_ref(slot, num_slots=S_TUNE, row_block=1024,
+                                     tallies=tallies)
+    # row_slot and the tallies read; block_slot, src and bounds written
     row("partition_rows", "lightgbm_tpu/learner/histogram_pallas.py:106",
         0.0, part, part_ref, 5,
-        4 * n + 4 * S_TUNE + 4 * tb * 1025 + 4 * (S_TUNE + 2), 0, None)
+        4 * n + 4 * tallies.numel() + 4 * tb * 1025 + 4 * (S_TUNE + 2), 0,
+        None)
     emit("kernel_detail", name="partition_rows",
          torch_partition_rows_ms=time_ms(torch, part_ref, 20),
          # None: the torch partition waits for the device
          torch_partition_rows_device_ms=device_ms(torch, part_ref,
                                                   strict=False),
+         counting_itself_ms=time_ms(torch, lambda: hp.partition_rows(
+             slot, num_slots=S_TUNE, row_block=1024), 20),
+         counting_itself_device_ms=device_ms(torch, lambda: hp.partition_rows(
+             slot, num_slots=S_TUNE, row_block=1024)),
          what="the torch partition that the kernel replaces "
               "(partition_rows_ref: stable radix sort, searchsorted, "
-              "gathers), route counts given, 1M rows, 263 slots")
+              "gathers), and the kernel counting for itself; route tallies "
+              "given, 1M rows, 263 slots")
+    emit("kernel_detail", name="launches_apart", slots=S_TUNE,
+         chunks=chunks, launches=launch_parts(torch, {
+             "partition_given_tallies": part,
+             "partition_counting_itself": lambda: hp.partition_rows(
+                 slot, num_slots=S_TUNE, row_block=1024),
+             "route_rows_tallies": k2c, "route_rows_counts": k2s,
+             "route_rows": lambda: hm.route_rows(bins, d["row_node"],
+                                                 *route)}),
+         what="device ms of a launch of each kernel a call launches, and "
+              "its launches a call (torch.profiler, 20 calls), 1M x 28, "
+              "1024 route nodes; null where the profiler recorded no "
+              "device time")
 
     def scatter(dd, sl, cts, quantized, num_slots=S_TUNE):
         """K7 against its plain version, bit for bit, and against the
         per-row histogram of the same rows (build_histograms_ref, the
         other backend's function): (max abs error, kernel call, plain
-        call)."""
+        call). cts: route_rows' chunk tallies (2-D), as the pallas backend
+        hands them over, or per-slot counts."""
         g, h = (dd["g_q"], dd["h_q"]) if quantized else \
             (dd["grad"], dd["hess"])
         kw = dict(num_slots=num_slots, bmax=BMAX, quantized=quantized)
         if not quantized:
             kw["scale"] = hm.exact_scale(dd["grad"], dd["hess"], dd["cnt"])
+        k7_kw = dict(kw, **{"slot_tallies" if cts.dim() == 2
+                            else "slot_counts": cts})
 
         def k7():
             return hp.build_histograms_scatter(dd["bins"], g, h, dd["cnt"],
-                                               sl, slot_counts=cts, **kw)
+                                               sl, **k7_kw)
 
         def k7_ref():
             return hp.build_histograms_scatter_ref(
-                dd["bins"], g, h, dd["cnt"], sl, slot_counts=cts, **kw)
+                dd["bins"], g, h, dd["cnt"], sl, **k7_kw)
         want = k7_ref()
         err = check_hist(torch, "build_histograms_scatter" +
                          "_int" * quantized, k7, want)
@@ -658,7 +705,7 @@ def backend_rows(torch, hm, hp, rng_mod, d, row, dev):
              torch.stack([d["g_q"].int(), d["h_q"].int(), cnt.int()], 1)),
             (False, "build_histograms_scatter", 12,
              torch.stack([d["grad"], d["hess"], cnt], 1))):
-        err, k7, k7_ref = scatter(d, slot, counts, quantized)
+        err, k7, k7_ref = scatter(d, slot, tallies, quantized)
         row(name, "lightgbm_tpu/learner/histogram_pallas.py:211", err, k7,
             k7_ref, 3, 4 * n + n_slot * (f + chan_bytes) +
             S_TUNE * f * BMAX * 12, n_slot * f * 3,
@@ -681,11 +728,11 @@ def backend_rows(torch, hm, hp, rng_mod, d, row, dev):
     # the wide shape: 200 features, several feature groups
     dw = kernel_inputs(torch, hm, rng_mod, dev, n_rows=WIDE_ROWS,
                        n_features=WIDE_FEATURES)
-    _, wslot, wcounts = hm.route_rows(
+    _, wslot, wtallies = hm.route_rows(
         dw["bins"], dw["row_node"], dw["tbl"], dw["member"], dw["feat_tbl"],
-        emit_counts=True, num_slots=S_TUNE)
+        emit_counts=True, num_slots=S_TUNE, chunk_tallies=True)
     for quantized in (True, False):
-        err, k7, k7_ref = scatter(dw, wslot, wcounts, quantized)
+        err, k7, k7_ref = scatter(dw, wslot, wtallies, quantized)
         emit("kernel_check", name="build_histograms_scatter" +
              ("_int" if quantized else ""), rows=WIDE_ROWS,
              features=WIDE_FEATURES, slots=S_TUNE, max_abs_err=err,
@@ -722,43 +769,76 @@ def backend_rows(torch, hm, hp, rng_mod, d, row, dev):
     del dw
 
 
-def partition_checks(torch, hp, slot, counts, dev):
+def partition_checks(torch, hm, hp, dev):
     """The partition kernel against partition_rows_ref, element for
     element (block_slot and src; the kernel's slot bounds against
-    slot_bounds of the torch layout): at 263 slots with route counts, at
-    the root pass (1 slot, 3% parked), at 511 slots with 3% parked, and
-    counting for itself (counts=None) at 263 slots."""
+    slot_bounds of the torch layout), given chunk tallies, given counts
+    and counting for itself, at 1 slot (the root pass), 263 and 511, with
+    3% of rows parked at -1 and 1% past the last slot, at 1M rows and at
+    999,983 (not a multiple of the chunk)."""
     rng = np.random.RandomState(13)
     u = rng.rand(N_ROWS)
-    s511 = rng.randint(0, S_HIST, N_ROWS)
-    s511[u < 0.03] = -1
-    root = np.where(u < 0.03, -1, 0)
-
-    def live_counts(sl, s):
-        sl = sl[(sl >= 0) & (sl < s)].long()
-        return torch.bincount(sl, minlength=s).to(torch.int32)
-
     cases = []
-    for what, sl, s, c in (
-            ("263 slots, route counts", slot, S_TUNE, counts),
-            ("1 slot (root pass), 3% parked", root, 1, None),
-            ("511 slots, 3% parked", s511, S_HIST, None),
-            ("263 slots, counts=None", slot, S_TUNE, None)):
-        sl = torch.as_tensor(sl, dtype=torch.int32, device=dev)
-        if c is None and "counts=None" not in what:
-            c = live_counts(sl, s)
-        block_slot, src, bounds = hp._partition(sl, s, 1024, c, "auto")
-        want_bs, want_src = hp.partition_rows_ref(sl, num_slots=s,
-                                                  row_block=1024, counts=c)
-        equal = torch.equal(block_slot, want_bs) and torch.equal(src,
-                                                                 want_src)
-        check(equal, f"partition kernel differs from partition_rows_ref: "
-              f"{what}")
-        check(torch.equal(bounds[:s + 1].long(),
-                          hp.slot_bounds(want_bs, s)),
-              f"partition kernel slot bounds differ: {what}")
-        cases.append(what)
+    for s in (1, S_TUNE, S_HIST):
+        sl = rng.randint(0, s, N_ROWS)
+        sl[u < 0.03] = -1
+        sl[(u >= 0.03) & (u < 0.04)] = s + 1
+        for n in (N_ROWS, 999_983):
+            t = torch.as_tensor(sl[:n].astype(np.int32), device=dev)
+            tallies = hm.chunk_tallies_ref(t, s)
+            want_bs, want_src = hp.partition_rows_ref(t, num_slots=s,
+                                                      row_block=1024)
+            for what, c, tl in (
+                    ("tallies", None, tallies),
+                    ("counts", tallies[:s].sum(1).to(torch.int32), None),
+                    ("itself", None, None)):
+                # given tallies, as K1 calls it: into the scratch buffer
+                block_slot, src, bounds = hp._partition(
+                    t, s, 1024, c, "auto", tl, tl is not None)
+                case = f"{s} slots, {n} rows, {what}"
+                check(torch.equal(block_slot, want_bs) and
+                      torch.equal(src, want_src),
+                      f"partition kernel differs from partition_rows_ref: "
+                      f"{case}")
+                check(torch.equal(bounds[:s + 1].long(),
+                                  hp.slot_bounds(want_bs, s)),
+                      f"partition kernel slot bounds differ: {case}")
+                cases.append(case)
     emit("partition_check", cases=cases, equal=True)
+
+
+def kernel_name(key):
+    """A device kernel's function name from the profiler's key, as
+    "void (anonymous namespace)::scatter_kernel<true>(int const*, ...)"
+    gives it."""
+    key = key.replace("(anonymous namespace)::", "")
+    name = re.search(r"(\w+)\s*(<[^(]*>)?\s*\(", key)
+    return name.group(1) if name else key[:60]
+
+
+def launch_parts(torch, fns):
+    """{name: {kernel: {"device_ms": a launch, "launches": a call}}} for
+    each fn: torch.profiler over 20 calls, the kernels by name; None where
+    the profiler recorded no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+    for what, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+        parts = {}
+        for e in prof.key_averages():
+            us = getattr(e, "device_time_total", None)
+            if us is None:
+                us = e.cuda_time_total
+            if us > 0:
+                parts[kernel_name(e.key)] = {"device_ms": us / 1e3 / e.count,
+                                             "launches": e.count / 20}
+        out[what] = parts or None
+    return out
 
 
 def node_values_checks(torch, hm, dev):
@@ -820,7 +900,7 @@ def node_sums_checks(torch, hm, dev):
 
 
 def packed_rows(torch, hm, hp, rng_mod, dev, row):
-    """The 4-bit packed modes of K1, K2 (plain and counts), K4 (behind
+    """The 4-bit packed modes of K1, K2 (plain, counts, tallies), K4 (behind
     build_histograms_auto) and K7 at the max_bin 15 path's shapes: 1M rows
     x 28 features packed into 14 bytes a row, 15 bins."""
     d = kernel_inputs(torch, hm, rng_mod, dev, bmax=BMAX_PACKED)
@@ -836,25 +916,31 @@ def packed_rows(torch, hm, hp, rng_mod, dev, row):
     table_bytes = d["tbl"].numel() * 4 + d["member"].numel() * 4
     src = "lightgbm_tpu/learner/histogram_mxu.py"
 
-    for counts_mode in (False, True):
-        kw = dict(num_features=f, emit_counts=counts_mode, num_slots=S_TUNE)
+    # K2 packed: plain, [S] counts (checked) and chunk tallies (K1's mode)
+    for mode, kw in (("plain", dict()),
+                     ("counts", dict(emit_counts=True, num_slots=S_TUNE)),
+                     ("tallies", dict(emit_counts=True, num_slots=S_TUNE,
+                                      chunk_tallies=True))):
+        def k2p(kw=kw):
+            return hm.route_rows(pk, rnode, *route, num_features=f, **kw)
 
-        def k2p():
-            return hm.route_rows(pk, rnode, *route, **kw)
-
-        def k2p_ref():
-            return hm.route_rows_ref(pk, rnode, *route, **kw)
+        def k2p_ref(kw=kw):
+            return hm.route_rows_ref(pk, rnode, *route, num_features=f,
+                                     **kw)
         got, want = k2p(), k2p_ref()
         check(all(torch.equal(a, b) for a, b in zip(got, want)) and
               all(torch.equal(a, b) for a, b in zip(want, hm.route_rows_ref(
-                  d["bins"], rnode, *route, emit_counts=counts_mode,
-                  num_slots=S_TUNE))),
-              f"route_rows packed (counts={counts_mode}) differs")
-        row("route_rows" + "_counts" * counts_mode + "_packed",
+                  d["bins"], rnode, *route, **kw))),
+              f"route_rows packed ({mode}) differs")
+        if mode == "counts":
+            continue
+        tallies = mode == "tallies"
+        row("route_rows" + "_counts" * tallies + "_packed",
             src + ":1065", 0.0, k2p, k2p_ref, 3,
-            12 * n + n_routed + table_bytes + 4 * S_TUNE * counts_mode, 0,
-            None, source="route_rows")
-    _, slot, counts = want
+            12 * n + n_routed + table_bytes +
+            4 * (want[2].numel() if tallies else 0), 0, None,
+            source="route_rows")
+    _, slot, tallies = want
 
     for quantized in (False, True):
         g, h = (d["g_q"], d["h_q"]) if quantized else (d["grad"], d["hess"])
@@ -898,9 +984,9 @@ def packed_rows(torch, hm, hp, rng_mod, dev, row):
              hm.build_histograms_ref, src + ":608"),
             ("build_histograms_scatter_int_packed",
              lambda *a, **k: hp.build_histograms_scatter(
-                 *a, slot_counts=counts, **k),
+                 *a, slot_tallies=tallies, **k),
              lambda *a, **k: hp.build_histograms_scatter_ref(
-                 *a, slot_counts=counts, **k),
+                 *a, slot_tallies=tallies, **k),
              "lightgbm_tpu/learner/histogram_pallas.py:211")):
         def k():
             return fn(pk, d["g_q"], d["h_q"], cnt, slot, **kw)

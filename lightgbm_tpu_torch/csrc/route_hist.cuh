@@ -28,9 +28,6 @@ constexpr int kFlagSplit = 1;
 constexpr int kFlagDefaultLeft = 2;
 constexpr int kFlagCat = 4;
 
-constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 1024;
-
 // Bin of feature j in one row of the bin matrix. Unpacked: one byte per
 // feature. Packed (pack_bins_4bit in learner/histogram_mxu.py, the
 // reference's 4-bit DenseBin): fh = ceil(F/2) bytes a row in the
@@ -50,60 +47,94 @@ __host__ __device__ __forceinline__ int row_stride(int f, int fh) {
   return fh > 0 ? fh : f;
 }
 
-// Copy the node table [m, kTblCols] and the feature table [f, 2]
-// (num_bins, missing_is_nan) into shared memory; every thread of the block
-// then routes rows from there.
-__device__ __forceinline__ void load_tables(int* s_tbl, int* s_feat,
-                                            const int* tbl,
-                                            const int* feat_tbl, int m,
-                                            int f) {
-  for (int i = threadIdx.x; i < m * kTblCols; i += blockDim.x) {
-    s_tbl[i] = tbl[i];
-  }
-  for (int i = threadIdx.x; i < 2 * f; i += blockDim.x) {
-    s_feat[i] = feat_tbl[i];
-  }
-  __syncthreads();
-}
+// Rows a routing CTA takes, and the rows of a partition chunk: route_rows'
+// tallies of rows per slot and chunk (route_rows.cu) are the partition's
+// input (partition_rows.cu), so both cut the rows alike
+// (histogram_mxu.CHUNK_ROWS keeps the same constant)
+constexpr int kChunkRows = 2048;
 
 // Advance one row through the splits of this pass: numerical threshold,
 // NaN bin -> default direction, categorical left-set bitset (member:
-// [m, w] words in global memory, read only for categorical nodes). Rows of
-// nodes that did not split keep their node and their own slot.
-template <bool kPacked>
-__device__ __forceinline__ void route_decide(int node,
-                                             const uint8_t* row_bins,
-                                             int fh, const int* s_tbl,
-                                             const int* s_feat,
-                                             const int* member, int m, int w,
-                                             int* new_node, int* new_slot) {
-  if (node < 0 || node >= m) {
-    *new_node = node;
-    *new_slot = -1;
-    return;
-  }
-  const int* row = s_tbl + node * kTblCols;
-  const int flags = row[kTblFlags];
+// [m, w] words, read only for categorical nodes). Rows of nodes that did
+// not split keep their node and their own slot; ids outside [0, m) keep
+// their node and get slot -1. The node's table row is read whole, 32
+// bytes, through the read-only cache: a = (flags, feature, threshold,
+// left), b = (right, slot, left slot, right slot); binv is the row's bin
+// of feature a.y, read by the caller where the node splits.
+__device__ __forceinline__ void route_decide(int node, const int4& a,
+                                             const int4& b, int binv,
+                                             const int* __restrict__ feat_tbl,
+                                             const int* __restrict__ member,
+                                             int w, int* new_node,
+                                             int* new_slot) {
+  const int flags = a.x;
   if (!(flags & kFlagSplit)) {
     *new_node = node;
-    *new_slot = row[kTblSlot];
+    *new_slot = b.y;
     return;
   }
-  const int feat = row[kTblFeat];
-  const int binv = read_bin<kPacked>(row_bins, feat, fh);
   bool left;
   if (flags & kFlagCat) {
-    const unsigned word =
-        static_cast<unsigned>(__ldg(member + node * w + (binv >> 5)));
+    const unsigned word = static_cast<unsigned>(
+        __ldg(member + static_cast<size_t>(node) * w + (binv >> 5)));
     left = (word >> (binv & 31)) & 1u;
   } else {
-    const bool is_nan_bin =
-        s_feat[2 * feat + 1] != 0 && binv == s_feat[2 * feat] - 1;
-    left = is_nan_bin ? (flags & kFlagDefaultLeft) != 0
-                      : binv <= row[kTblThr];
+    const int feat = a.y;
+    const bool is_nan_bin = __ldg(feat_tbl + 2 * feat + 1) != 0 &&
+                            binv == __ldg(feat_tbl + 2 * feat) - 1;
+    left = is_nan_bin ? (flags & kFlagDefaultLeft) != 0 : binv <= a.z;
   }
-  *new_node = left ? row[kTblLeft] : row[kTblRight];
-  *new_slot = left ? row[kTblSlotL] : row[kTblSlotR];
+  *new_node = left ? a.w : b.x;
+  *new_slot = left ? b.z : b.w;
+}
+
+// The node table row of `node` as (a, b) (route_decide); an id outside
+// [0, m) reads an unsplit row of slot -1.
+__device__ __forceinline__ void table_row(const int* __restrict__ tbl,
+                                          int node, int m, int4* a,
+                                          int4* b) {
+  if (node >= 0 && node < m) {
+    const int4* row = reinterpret_cast<const int4*>(tbl) + 2 * node;
+    *a = __ldg(row);
+    *b = __ldg(row + 1);
+  } else {
+    *a = make_int4(0, 0, 0, 0);
+    *b = make_int4(0, -1, -1, -1);
+  }
+}
+
+// The lanes of the warp whose key equals this lane's, for keys in
+// [-1, 2^bits - 1): one ballot per bit of key + 1, a fixed cost, where
+// __match_any_sync's grows with the number of distinct keys in the warp.
+// Every lane of the warp takes part.
+__device__ __forceinline__ unsigned peers_of(int key, int bits) {
+  const unsigned v = static_cast<unsigned>(key + 1);
+  unsigned peers = 0xffffffffu;
+  for (int b = 0; b < bits; ++b) {
+    const bool on = (v >> b) & 1u;
+    const unsigned set = __ballot_sync(0xffffffffu, on);
+    peers &= on ? set : ~set;
+  }
+  return peers;
+}
+
+// Bits of the keys [-1, s] that peers_of takes: those of s + 1.
+__device__ __forceinline__ int key_bits(int s) { return 32 - __clz(s + 1); }
+
+// Count each lane's key (in [-1, 2^bits - 1)) into counter[key] (key < 0:
+// none) with the native 32-bit shared atomic. Keys of 6 bits and more
+// seldom meet in a warp, so each lane adds its own; fewer keys would queue
+// on one address, so the lanes of one key go together, the lowest of them
+// adding their number. Every lane of the warp takes part.
+__device__ __forceinline__ void tally_key(int* counter, int key, int bits) {
+  if (bits >= 6) {
+    if (key >= 0) atomicAdd(counter + key, 1);
+    return;
+  }
+  const unsigned peers = peers_of(key, bits);
+  if (key >= 0 && (__ffs(peers) - 1) == static_cast<int>(threadIdx.x & 31)) {
+    atomicAdd(counter + key, __popc(peers));
+  }
 }
 
 // Exact (f32) mode sums fixed-point integers (histogram_mxu.exact_scale):
@@ -134,11 +165,6 @@ __device__ __forceinline__ long long fixed_point(float v, double mul) {
 
 __device__ __forceinline__ float fixed_result(long long sum, double inv) {
   return static_cast<float>(static_cast<double>(sum) * inv);
-}
-
-inline int grid_for(int n) {
-  const int blocks = (n + kThreads - 1) / kThreads;
-  return blocks < kMaxBlocks ? blocks : kMaxBlocks;
 }
 
 // Dynamic shared memory above the 48 KB default needs an opt-in per kernel.

@@ -46,7 +46,7 @@ _F = ctypes.c_float
 # kernel source stem -> (C entry point, argtypes); the last argument of
 # every entry is the CUDA stream
 KERNELS: Dict[str, tuple] = {
-    "route_rows": ("lgbt_route_rows", [_P] * 8 + [_I] * 6 + [_P]),
+    "route_rows": ("lgbt_route_rows", [_P] * 9 + [_I] * 6 + [_P]),
     "partition_rows": ("lgbt_partition_rows", [_P] * 6 + [_I] * 4 + [_P]),
     "build_histograms_scatter": ("lgbt_build_histograms_scatter",
                                  [_P] * 10 + [_I] * 8 + [_F, _I, _P]),

@@ -472,20 +472,24 @@ def grow_tree_mxu(bins: torch.Tensor, grad: torch.Tensor,
         """Route rows through the previous pass's tables and build the
         frontier histograms. mxu: fused sweep where the reference takes
         its fused kernel, else route_rows + build_histograms_auto. pallas
-        and scatter: route_rows with per-slot counts, then the scatter
-        kernel over the slot partition, or the segment-sum oracle."""
+        and scatter: route_rows with per-slot counts (for pallas per slot
+        and partition chunk, which the partition takes as they are), then
+        the scatter kernel over the slot partition, or the segment-sum
+        oracle."""
         if m_cap is not None and m_cap < m_pad:
             tbl = tbl[:m_cap]
             member = member[:m_cap]
         if hist_backend != "mxu":
+            pallas = hist_backend == "pallas"
             rn, rs, cts = route_rows(bins, row_node, tbl, member, feat_tbl,
                                      num_features=nf_packed,
-                                     emit_counts=True, num_slots=nslots)
-            if hist_backend == "pallas":
+                                     emit_counts=True, num_slots=nslots,
+                                     chunk_tallies=pallas)
+            if pallas:
                 h = build_histograms_scatter(
                     bins, h_grad, h_hess, cnt_weight, rs, num_slots=nslots,
                     bmax=bmax, num_features=nf_packed, quantized=quant,
-                    const_hess=ch, slot_counts=cts,
+                    const_hess=ch, slot_tallies=cts,
                     partition_impl=partition_impl, scale=hist_fixed)
             else:
                 ub = unpack_bins_4bit(bins, f) if packed4 else bins

@@ -6,11 +6,13 @@ card those become plain indexing and atomics in hand-written CUDA kernels
 (csrc/):
 
   fused_route_hist  <- fused_route_hist_mxu   (route + histogram; on the
-                                               card route_rows with counts,
-                                               then the partition and the
-                                               scatter kernel)
+                                               card route_rows with chunk
+                                               tallies, then the partition
+                                               and the scatter kernel)
   route_rows        <- route_rows_mxu         (route only; with
-                                               emit_counts, rows per slot)
+                                               emit_counts, rows per slot,
+                                               or per slot and partition
+                                               chunk)
   build_histograms  <- build_histograms_mxu and build_histograms_mxu_v2
                        (histogram keyed by row_slot; build_histograms_auto
                        is the JAX package's build_histograms_mxu_auto; on
@@ -64,13 +66,17 @@ __all__ = ["fused_route_hist", "route_rows", "build_histograms",
            "NODE_SUMS_BITS", "quantize_gradients",
            "pack_route_tables", "pack_bins_4bit", "unpack_bins_4bit",
            "fits_v2", "fused_row_block", "launch_counts",
-           "reset_launch_counts"]
+           "reset_launch_counts", "chunk_tallies_ref", "num_chunks",
+           "CHUNK_ROWS"]
 
 # node table columns (csrc/route_hist.cuh keeps the same constants)
 TBL_FLAGS, TBL_FEAT, TBL_THR, TBL_LEFT, TBL_RIGHT = 0, 1, 2, 3, 4
 TBL_SLOT, TBL_SLOTL, TBL_SLOTR = 5, 6, 7
 TBL_COLS = 8
 FLAG_SPLIT, FLAG_DEFAULT_LEFT, FLAG_CAT = 1, 2, 4
+#: rows of a routing CTA and of a partition chunk (csrc/route_hist.cuh
+#: kChunkRows): route_rows' chunk tallies are the partition's input
+CHUNK_ROWS = 2048
 
 
 def _round_up(x: int, k: int) -> int:
@@ -297,12 +303,33 @@ def _exact_result(sums: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
 # plain versions (CPU path, and the yardstick the kernels are held to)
 # ---------------------------------------------------------------------------
 
+def num_chunks(n: int) -> int:
+    """Partition chunks of n rows (CHUNK_ROWS each, at least one)."""
+    return max(1, -(-n // CHUNK_ROWS))
+
+
+def chunk_tallies_ref(row_slot, num_slots: int) -> torch.Tensor:
+    """[num_slots + 1, C] i32, C = num_chunks(n): the rows of each slot in
+    each chunk of CHUNK_ROWS consecutive rows, slot-major; the last row
+    (the trash slot) counts the rows whose slot is < 0 or >= num_slots.
+    Its row sums are the per-slot counts, the trash slot's included."""
+    n = row_slot.shape[0]
+    c = num_chunks(n)
+    key = torch.where((row_slot < 0) | (row_slot >= num_slots), num_slots,
+                      row_slot).to(torch.int64)
+    chunk = torch.arange(n, device=row_slot.device) // CHUNK_ROWS
+    flat = torch.bincount(key * c + chunk, minlength=(num_slots + 1) * c)
+    return flat.view(num_slots + 1, c).to(torch.int32)
+
+
 def route_rows_ref(bins, row_node, tbl, member, feat_tbl, *,
                    num_features: int = 0, emit_counts: bool = False,
-                   num_slots: int = 0):
+                   num_slots: int = 0, chunk_tallies: bool = False):
     """(new row_node, new row_slot) after one level of routing; with
     emit_counts also the [num_slots] i32 count of rows whose new slot is
-    in [0, num_slots). num_features > 0: bins are 4-bit packed."""
+    in [0, num_slots), or with chunk_tallies too the rows per slot and
+    chunk (chunk_tallies_ref, trash slot included). num_features > 0:
+    bins are 4-bit packed."""
     bins = _unpacked(bins, num_features)
     m = tbl.shape[0]
     f = bins.shape[1]
@@ -329,6 +356,8 @@ def route_rows_ref(bins, row_node, tbl, member, feat_tbl, *,
     new_slot = torch.where(split, slot_child, own_slot).to(torch.int32)
     if not emit_counts:
         return new_node, new_slot
+    if chunk_tallies:
+        return new_node, new_slot, chunk_tallies_ref(new_slot, num_slots)
     live = new_slot[(new_slot >= 0) & (new_slot < num_slots)]
     counts = torch.bincount(live.to(torch.int64), minlength=num_slots)
     return new_node, new_slot, counts.to(torch.int32)
@@ -472,6 +501,8 @@ def _on_cpu(*tensors) -> bool:
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
+    if t.dtype == dtype and t.shape == shape and t.is_contiguous():
+        return                      # the launch path's common case, at once
     if t.dtype != dtype:
         raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
@@ -499,6 +530,9 @@ def _check_route_args(bins, row_node, tbl, member, feat_tbl,
     f, fh = _bin_dims(bins, num_features)
     _check(row_node, "row_node", torch.int32, (bins.shape[0],))
     _check(tbl, "tbl", torch.int32, (tbl.shape[0], TBL_COLS))
+    if tbl.data_ptr() % 16:
+        raise ValueError("tbl must start on a 16-byte boundary (the kernel "
+                         "reads a node's row as two int4)")
     _check(member, "member", torch.int32, (tbl.shape[0], member.shape[1]))
     _check(feat_tbl, "feat_tbl", torch.int32, (f, 2))
     return f, fh
@@ -541,55 +575,94 @@ def fused_route_hist(bins, grad, hess, cnt, row_node, tbl, member, feat_tbl,
     hess, cnt when None) is the fixed point of the sums. num_features > 0:
     bins are 4-bit packed (pack_bins_4bit) with that many features.
 
-    On the card: route_rows with per-slot counts, then the partition kernel
-    fed those counts and the scatter kernel (histogram_pallas
-    .scatter_histograms), the design of build_histograms; the scatter
-    kernel's launches count here, the routing's and the partition's under
-    their own names. Integer sums: the result is the plain version's bit
-    for bit."""
+    On the card: route_rows with chunk tallies, then the partition kernel
+    fed those tallies (no count pass of its own) and the scatter kernel
+    (histogram_pallas.scatter_histograms), the design of build_histograms;
+    the scatter kernel's launches count here, the routing's (as
+    route_rows_counts) and the partition's under their own names. Only the
+    outputs are allocated: the slots, tallies and partition live in the
+    device's scratch buffers. Integer sums: the result is the plain
+    version's bit for bit."""
     args = (bins, grad, hess, cnt, row_node, tbl, member, feat_tbl)
     kw = dict(num_slots=num_slots, bmax=bmax, const_hess=const_hess,
               quantized=quantized, num_features=num_features, scale=scale)
     if _on_cpu(*args):
         return fused_route_hist_ref(*args, **kw)
-    node, slot, counts = route_rows(bins, row_node, tbl, member, feat_tbl,
-                                    num_features=num_features,
-                                    emit_counts=True, num_slots=num_slots)
+    _check_hist_args(bins, grad, hess, cnt, bmax, quantized, num_features)
+    n = bins.shape[0]
+    dev = bins.device
+    node = torch.empty(n, dtype=torch.int32, device=dev)
+    slot = scratch(dev, "route_slot", n)
+    tallies = scratch(dev, "route_tallies",
+                      (num_slots + 1) * num_chunks(n)).view(num_slots + 1, -1)
+    _route(bins, row_node, tbl, member, feat_tbl, num_features, node, slot,
+           tallies, None, num_slots)
     from .histogram_pallas import scatter_histograms   # imports this module
     hist = scatter_histograms("fused_route_hist", bins, grad, hess, cnt,
-                              slot, slot_counts=counts, **kw)
+                              slot, slot_tallies=tallies, **kw)
     return hist, node
+
+
+#: slots the routing kernel tallies at most (its [S + 1] shared counters)
+_ROUTE_MAX_SLOTS = 232448 // 4 - 1
 
 
 def route_rows(bins, row_node, tbl, member, feat_tbl, *,
                num_features: int = 0, emit_counts: bool = False,
-               num_slots: int = 0):
+               num_slots: int = 0, chunk_tallies: bool = False):
     """Advance rows one level: (new row_node, new row_slot), both [N] i32.
     emit_counts (needs num_slots > 0): also the [num_slots] i32 count of
     rows whose new slot is in [0, num_slots), parked rows excluded — the
-    metadata of the scatter histogram's partition, from the same sweep.
-    num_features > 0: bins are 4-bit packed."""
-    if emit_counts and num_slots <= 0:
-        raise ValueError("emit_counts needs num_slots > 0")
+    metadata of the scatter histogram's partition, from the same sweep;
+    with chunk_tallies, in its place the [num_slots + 1, C] i32 rows per
+    slot and partition chunk (chunk_tallies_ref: the trash slot last), the
+    partition's own input. num_features > 0: bins are 4-bit packed. Both
+    count modes launch as route_rows_counts; the counts are the tallies'
+    row sums, taken on the card by a second kernel of the same call."""
+    if emit_counts and not 0 < num_slots <= _ROUTE_MAX_SLOTS:
+        raise ValueError(f"emit_counts needs num_slots in (0, "
+                         f"{_ROUTE_MAX_SLOTS}], got {num_slots}")
+    if chunk_tallies and not emit_counts:
+        raise ValueError("chunk_tallies needs emit_counts")
     kw = dict(num_features=num_features, emit_counts=emit_counts,
-              num_slots=num_slots)
+              num_slots=num_slots, chunk_tallies=chunk_tallies)
     if _on_cpu(bins, row_node, tbl, member, feat_tbl):
         return route_rows_ref(bins, row_node, tbl, member, feat_tbl, **kw)
-    f, fh = _check_route_args(bins, row_node, tbl, member, feat_tbl,
-                              num_features)
     n = bins.shape[0]
     dev = bins.device
-    node_out = torch.empty(n, dtype=torch.int32, device=dev)
-    slot_out = torch.empty(n, dtype=torch.int32, device=dev)
-    counts = torch.zeros(num_slots, dtype=torch.int32, device=dev) \
-        if emit_counts else None
-    _cuda.call("route_rows", dev, bins, row_node, tbl, member, feat_tbl,
-               node_out, slot_out, counts, n, f, fh, tbl.shape[0],
-               member.shape[1], num_slots if emit_counts else 0)
-    count_launch("route_rows", counts=emit_counts, packed=fh > 0)
-    if emit_counts:
-        return node_out, slot_out, counts
-    return node_out, slot_out
+    # one allocation; the slots start on a 16-byte boundary, as the
+    # kernel's int4 stores want
+    n4 = -(-n // 4) * 4
+    out = torch.empty(2 * n4, dtype=torch.int32, device=dev)
+    node_out, slot_out = out[:n], out[n4:n4 + n]
+    if not emit_counts:
+        _route(bins, row_node, tbl, member, feat_tbl, num_features,
+               node_out, slot_out, None, None, 0)
+        return node_out, slot_out
+    shape = (num_slots + 1, num_chunks(n))
+    if chunk_tallies:
+        tallies = torch.empty(shape, dtype=torch.int32, device=dev)
+        counts = None
+    else:
+        tallies = scratch(dev, "route_tallies", shape[0] * shape[1])
+        counts = torch.empty(num_slots, dtype=torch.int32, device=dev)
+    _route(bins, row_node, tbl, member, feat_tbl, num_features, node_out,
+           slot_out, tallies, counts, num_slots)
+    return node_out, slot_out, tallies if chunk_tallies else counts
+
+
+def _route(bins, row_node, tbl, member, feat_tbl, num_features, node_out,
+           slot_out, tallies, counts, num_slots) -> None:
+    """The routing kernel into node_out and slot_out ([N] i32) and, given
+    tallies ([num_slots + 1, C] i32, or a scratch buffer that long), the
+    chunk tallies; given counts ([num_slots] i32) too, their row sums. The
+    one launch path of route_rows and fused_route_hist."""
+    f, fh = _check_route_args(bins, row_node, tbl, member, feat_tbl,
+                              num_features)
+    _cuda.call("route_rows", bins.device, bins, row_node, tbl, member,
+               feat_tbl, node_out, slot_out, tallies, counts, bins.shape[0],
+               f, fh, tbl.shape[0], member.shape[1], num_slots)
+    count_launch("route_rows", counts=tallies is not None, packed=fh > 0)
 
 
 def build_histograms(bins, grad, hess, cnt, row_slot, *, num_slots: int,
@@ -649,10 +722,20 @@ def node_values(row_node, values) -> torch.Tensor:
     return out
 
 
-# node_sums' scratch buffer per device, grown as needed and reused by every
-# call on that device (the kernel zeroes it on the caller's stream first):
-# four u32 words of channel maxima, then the [m, 3] int64 sums
-_NODE_SUMS_SCRATCH: Dict[torch.device, torch.Tensor] = {}
+# the kernels' scratch buffers, by device and use, grown as needed and
+# reused by every call on that device in stream order (calls on two streams
+# of one device at once would share them)
+_SCRATCH: Dict[Tuple[torch.device, str], torch.Tensor] = {}
+
+
+def scratch(dev: torch.device, name: str, numel: int,
+            dtype=torch.int32) -> torch.Tensor:
+    """[numel] of the device's scratch buffer `name`, uninitialised."""
+    buf = _SCRATCH.get((dev, name))
+    if buf is None or buf.numel() < numel:
+        buf = torch.empty(numel, dtype=dtype, device=dev)
+        _SCRATCH[(dev, name)] = buf
+    return buf[:numel]
 
 
 def node_sums(row_node, grad, hess, cnt, *, num_nodes: int) -> torch.Tensor:
@@ -672,13 +755,11 @@ def node_sums(row_node, grad, hess, cnt, *, num_nodes: int) -> torch.Tensor:
     out = torch.empty((num_nodes, 3), dtype=torch.float32, device=dev)
     if num_nodes == 0:
         return out
-    scratch = _NODE_SUMS_SCRATCH.get(dev)
-    if scratch is None or scratch.numel() < 2 + 3 * num_nodes:
-        scratch = torch.empty(2 + 3 * num_nodes, dtype=torch.int64,
-                              device=dev)
-        _NODE_SUMS_SCRATCH[dev] = scratch
-    _cuda.call("node_sums", dev, row_node, grad, hess, cnt, scratch, out, n,
-               num_nodes)
+    # four u32 words of channel maxima, then the [m, 3] int64 sums (the
+    # kernel zeroes them first)
+    _cuda.call("node_sums", dev, row_node, grad, hess, cnt,
+               scratch(dev, "node_sums", 2 + 3 * num_nodes, torch.int64),
+               out, n, num_nodes)
     count_launch("node_sums")
     return out
 

@@ -2,19 +2,21 @@
 
 Port of lightgbm_tpu/learner/histogram_pallas.py. Rows are partitioned by
 frontier slot on the device (`partition_rows`: the kernel
-csrc/partition_rows.cu, a stable counting sort; `partition_rows_ref` is
-its torch version), padded so that every `row_block` consecutive
-positions hold rows of one slot. The histogram kernel
+csrc/partition_rows.cu, a stable counting sort over chunks of
+histogram_mxu.CHUNK_ROWS rows; `partition_rows_ref` is its torch
+version), padded so that every `row_block` consecutive positions hold
+rows of one slot. The histogram kernel
 (csrc/build_histograms_scatter.cu) then walks each slot's blocks in runs
 of at most RUN_BLOCKS blocks (`scatter_runs`), a CTA per run and feature
 group with its cells in shared memory; a run that is its whole slot
 writes the slot's cells once, the runs of a larger slot write partials
 that a second kernel adds in run order. The TPU kernel contracts each
-block with its bin one-hots on the MXU instead. The per-slot row counts
-can come straight from `route_rows(emit_counts=True)`, so routing,
-counting and partition metadata are one sweep. The same partition and
+block with its bin one-hots on the MXU instead. The rows per slot and
+chunk can come straight from `route_rows(emit_counts=True,
+chunk_tallies=True)`, so routing and counting are one sweep and the
+partition runs no count pass of its own. The same partition and
 kernel serve histogram_mxu.build_histograms (the JAX package's
-build_histograms_mxu and _v2) and, after route_rows with counts,
+build_histograms_mxu and _v2) and, after route_rows with chunk tallies,
 histogram_mxu.fused_route_hist on the card: `scatter_histograms` launches
 both for each of these wrappers.
 
@@ -39,7 +41,7 @@ from . import _cuda
 from .histogram_mxu import (_check, _check_hist_args, _exact_result,
                             _fill_const_hess, _fixed_point, _on_cpu,
                             _scale_of, _unpacked, count_launch,
-                            exact_scale)
+                            exact_scale, num_chunks, scratch)
 
 __all__ = ["build_histograms_scatter", "build_histograms_scatter_ref",
            "partition_rows", "partition_rows_ref", "scatter_histograms",
@@ -52,15 +54,16 @@ RUN_BLOCKS = 4
 # exact mode: rows a run may hold (row_block x RUN_BLOCKS), so that its
 # 32-bit shared-memory words cannot overflow (csrc kWordRows)
 _WORD_ROWS = 4096
-# the partition kernel keeps 8 warps' per-slot counters in shared memory
-_PARTITION_MAX_SLOTS = 232448 // (8 * 4) - 1
-_PARTITION_CHUNK_ROWS = 8192
+# slots a partition launch takes, twice the widest frontier of the growth
+# plan at num_leaves 255: its scatter kernel keeps 8 warps' per-slot
+# counters and a staged chunk in shared memory (64 KB at 1023 slots)
+_PARTITION_MAX_SLOTS = 1023
 _IMPLS = ("auto", "argsort", "scan")
 
 
 def partition_rows_ref(row_slot: torch.Tensor, *, num_slots: int,
                        row_block: int, counts: torch.Tensor = None,
-                       impl: str = "auto"):
+                       impl: str = "auto", tallies: torch.Tensor = None):
     """Plain version of partition_rows, in torch ops on the tensors'
     device: the padded partition of rows by frontier slot.
 
@@ -68,7 +71,10 @@ def partition_rows_ref(row_slot: torch.Tensor, *, num_slots: int,
     slot, in row order within the slot; the trash slot `num_slots` takes
     parked rows (slot < 0 or >= num_slots) and the layout's tail. counts:
     optional per-slot row counts ([num_slots] or longer, e.g.
-    route_rows(emit_counts=True)'s) — skips counting here. impl: the
+    route_rows(emit_counts=True)'s) — skips counting here; or tallies:
+    the [num_slots + 1, C] rows per slot and chunk
+    (route_rows(emit_counts=True, chunk_tallies=True)'s, trash slot
+    included), whose row sums are the counts. impl: the
     JAX package's names ("auto", "argsort", "scan"), which all give the
     one layout; every one ranks rows by a stable sort here, since on the
     card the radix sort beats the JAX package's blocked prefix sums
@@ -85,7 +91,11 @@ def partition_rows_ref(row_slot: torch.Tensor, *, num_slots: int,
     dev = row_slot.device
     slot_full = torch.where((row_slot < 0) | (row_slot >= s), s,
                             row_slot).to(torch.int64)
-    if counts is None:
+    if tallies is not None:
+        if counts is not None:
+            raise ValueError("give counts or tallies, not both")
+        counts = tallies.to(torch.int64).sum(1)
+    elif counts is None:
         counts = torch.bincount(slot_full, minlength=s + 1)
     else:
         live = counts[:s].to(torch.int64)
@@ -109,14 +119,22 @@ def partition_rows_ref(row_slot: torch.Tensor, *, num_slots: int,
     r = p - blk_start[pslot] * nb                        # offset in slot
     take = (r >= 0) & (r < counts[pslot])
     src_sorted = torch.clamp(sort_start[pslot] + r, 0, max(n - 1, 0))
-    src = torch.where(take, order[src_sorted], n)
+    # no rows: every position is padding (and `order` is empty)
+    src = torch.where(take, order[src_sorted], n) if n else \
+        torch.zeros_like(p)
     return block_slot.to(torch.int32), src.to(torch.int32)
 
 
-def _partition(row_slot, num_slots: int, row_block: int, counts, impl):
+def _partition(row_slot, num_slots: int, row_block: int, counts, impl,
+               tallies=None, reuse: bool = False):
     """The partition kernel: (block_slot [TB], src [TB * row_block],
     bounds [num_slots + 2], the first block of every slot and the end of
-    the trash slot's blocks), all i32, with no host sync."""
+    the trash slot's blocks), all i32, with no host sync. tallies
+    ([num_slots + 1, C] i32, route_rows' chunk tallies of row_slot): the
+    kernel runs no count pass. Without them it counts per chunk itself,
+    so counts (checked, [>= num_slots] i32) that agree with row_slot give
+    the same layout as none. reuse: the outputs live in the device's
+    scratch buffer, valid until the next partition on the device."""
     if impl not in _IMPLS:
         raise ValueError(f"unknown partition impl {impl!r}")
     n = row_slot.shape[0]
@@ -130,33 +148,49 @@ def _partition(row_slot, num_slots: int, row_block: int, counts, impl):
         raise ValueError(f"num_slots {num_slots} outside (0, "
                          f"{_PARTITION_MAX_SLOTS}] (the partition kernel's "
                          "shared-memory counters)")
-    dev = row_slot.device
+    chunks = num_chunks(n)
+    if tallies is not None:
+        if counts is not None:
+            raise ValueError("give counts or tallies, not both")
+        _check(tallies, "tallies", torch.int32, (num_slots + 1, chunks))
     tb = -(-n // row_block) + num_slots + 1
-    block_slot = torch.empty(tb, dtype=torch.int32, device=dev)
-    src = torch.empty(tb * row_block, dtype=torch.int32, device=dev)
-    bounds = torch.empty(num_slots + 2, dtype=torch.int32, device=dev)
-    chunks = max(1, -(-n // _PARTITION_CHUNK_ROWS))
-    scratch = torch.empty(chunks * (num_slots + 1), dtype=torch.int32,
-                          device=dev)
-    _cuda.call("partition_rows", dev, row_slot, counts, block_slot, src,
-               bounds, scratch, n, num_slots, row_block, tb)
+    if tb * row_block >= 2 ** 31:
+        raise ValueError(f"{tb * row_block} partition positions: the "
+                         "kernel indexes them with int32")
+    dev = row_slot.device
+    work = (num_slots + 1) * (2 * chunks + 1)
+    if reuse:
+        size = tb * row_block
+        buf = scratch(dev, "partition", size + tb + num_slots + 2 + work)
+        src = buf[:size]
+        block_slot = buf[size:size + tb]
+        bounds = buf[size + tb:size + tb + num_slots + 2]
+        work = buf[size + tb + num_slots + 2:]
+    else:
+        block_slot = torch.empty(tb, dtype=torch.int32, device=dev)
+        src = torch.empty(tb * row_block, dtype=torch.int32, device=dev)
+        bounds = torch.empty(num_slots + 2, dtype=torch.int32, device=dev)
+        work = scratch(dev, "partition_work", work)
+    _cuda.call("partition_rows", dev, row_slot, tallies, block_slot, src,
+               bounds, work, n, num_slots, row_block, tb)
     count_launch("partition_rows")
     return block_slot, src, bounds
 
 
 def partition_rows(row_slot: torch.Tensor, *, num_slots: int,
                    row_block: int, counts: torch.Tensor = None,
-                   impl: str = "auto"):
+                   impl: str = "auto", tallies: torch.Tensor = None):
     """Padded partition of rows by frontier slot: (block_slot [TB] i32,
     src [TB * row_block] i32), the layout of partition_rows_ref, through
     the partition kernel for CUDA tensors (counts: i32, [num_slots] or
-    longer) and partition_rows_ref for CPU tensors."""
+    longer; tallies: route_rows' [num_slots + 1, C] i32 chunk tallies) and
+    partition_rows_ref for CPU tensors."""
     if _on_cpu(row_slot):
         return partition_rows_ref(row_slot, num_slots=num_slots,
                                   row_block=row_block, counts=counts,
-                                  impl=impl)
+                                  impl=impl, tallies=tallies)
     block_slot, src, _ = _partition(row_slot, num_slots, row_block, counts,
-                                    impl)
+                                    impl, tallies)
     return block_slot, src
 
 
@@ -203,7 +237,8 @@ def build_histograms_scatter_ref(bins, grad, hess, cnt, row_slot, *,
                                  quantized: bool = False,
                                  slot_counts: torch.Tensor = None,
                                  partition_impl: str = "auto",
-                                 scale: torch.Tensor = None
+                                 scale: torch.Tensor = None,
+                                 slot_tallies: torch.Tensor = None
                                  ) -> torch.Tensor:
     """Plain version of build_histograms_scatter: the same partition and
     runs; each run's rows summed into its (feature, bin) cells by
@@ -215,7 +250,8 @@ def build_histograms_scatter_ref(bins, grad, hess, cnt, row_slot, *,
     block_slot, src = partition_rows_ref(row_slot, num_slots=num_slots,
                                          row_block=row_block,
                                          counts=slot_counts,
-                                         impl=partition_impl)
+                                         impl=partition_impl,
+                                         tallies=slot_tallies)
     runs = scatter_runs(slot_bounds(block_slot, num_slots),
                         num_slots=num_slots)
     n = row_slot.shape[0]
@@ -267,7 +303,9 @@ def build_histograms_scatter(bins, grad, hess, cnt, row_slot, *,
                              quantized: bool = False,
                              slot_counts: torch.Tensor = None,
                              partition_impl: str = "auto",
-                             scale: torch.Tensor = None) -> torch.Tensor:
+                             scale: torch.Tensor = None,
+                             slot_tallies: torch.Tensor = None
+                             ) -> torch.Tensor:
     """Per-slot histograms [num_slots, F, bmax, 3] f32 (grad, hess, count)
     through the partition kernel and the slot-grouped scatter kernel; rows
     with slot < 0 or >= num_slots are dropped. num_features > 0: bins are
@@ -275,12 +313,14 @@ def build_histograms_scatter(bins, grad, hess, cnt, row_slot, *,
     int8 and the gradient channels hold their unscaled integer sums; else
     scale ([3] i32, exact_scale of grad, hess, cnt when None) is the fixed
     point of the sums. slot_counts: per-slot row counts from
-    route_rows(emit_counts=True), so the partition skips its own count.
+    route_rows(emit_counts=True); slot_tallies: its chunk tallies
+    (chunk_tallies=True), so the partition skips its own count.
     partition_impl: partition_rows' impl."""
     kw = dict(num_slots=num_slots, bmax=bmax, row_block=row_block,
               num_features=num_features, const_hess=const_hess,
               quantized=quantized, slot_counts=slot_counts,
-              partition_impl=partition_impl, scale=scale)
+              partition_impl=partition_impl, scale=scale,
+              slot_tallies=slot_tallies)
     if _on_cpu(bins, grad, hess, cnt, row_slot):
         return build_histograms_scatter_ref(bins, grad, hess, cnt, row_slot,
                                             **kw)
@@ -294,15 +334,19 @@ def scatter_histograms(name, bins, grad, hess, cnt, row_slot, *,
                        quantized: bool = False,
                        slot_counts: torch.Tensor = None,
                        partition_impl: str = "auto",
-                       scale: torch.Tensor = None) -> torch.Tensor:
+                       scale: torch.Tensor = None,
+                       slot_tallies: torch.Tensor = None) -> torch.Tensor:
     """The card's per-slot histograms for CUDA tensors, behind
     build_histograms_scatter, histogram_mxu.build_histograms and
     histogram_mxu.fused_route_hist (`name`:
     the wrapper whose launch count the scatter kernel adds to; the
     partition counts as partition_rows): the partition kernel, then the
     scatter kernel, one launch of each per at most _PARTITION_MAX_SLOTS
-    slots (wider frontiers go in slot ranges, the others' rows parked).
-    Arguments as build_histograms_scatter's."""
+    slots (wider frontiers go in slot ranges, the others' rows parked, and
+    the partition counts each range itself: slot_tallies serve one range
+    only). The partition and the scatter kernel's partials live in the
+    device's scratch buffers: only the output is allocated. Arguments as
+    build_histograms_scatter's."""
     f, fh = _check_hist_args(bins, grad, hess, cnt, bmax, quantized,
                             num_features)
     n = bins.shape[0]
@@ -314,16 +358,22 @@ def scatter_histograms(name, bins, grad, hess, cnt, row_slot, *,
                          f"{_WORD_ROWS // RUN_BLOCKS} rows a block")
     out = torch.empty((num_slots, f, bmax, 3), dtype=torch.float32,
                       device=dev)
+    one_range = num_slots <= _PARTITION_MAX_SLOTS
     for s0 in range(0, num_slots, _PARTITION_MAX_SLOTS):
         s = min(_PARTITION_MAX_SLOTS, num_slots - s0)
         sl = row_slot if s0 == 0 else row_slot - s0
-        counts = None if slot_counts is None else slot_counts[s0:s0 + s]
-        block_slot, src, bounds = _partition(sl, s, row_block, counts,
-                                             partition_impl)
+        if one_range and slot_tallies is not None:
+            block_slot, src, bounds = _partition(
+                sl, s, row_block, None, partition_impl, slot_tallies, True)
+        else:
+            counts = None if slot_counts is None else \
+                slot_counts[s0:s0 + s]
+            block_slot, src, bounds = _partition(sl, s, row_block, counts,
+                                                 partition_impl, None, True)
         tb = block_slot.shape[0]
-        part = torch.empty((2 * -(-tb // RUN_BLOCKS), f * bmax * 3),
-                           device=dev, dtype=torch.int32 if quantized
-                           else torch.int64)
+        part = scratch(dev, "scatter_part" + "_int" * quantized,
+                       2 * -(-tb // RUN_BLOCKS) * f * bmax * 3,
+                       torch.int32 if quantized else torch.int64)
         _cuda.call("build_histograms_scatter", dev, bins, grad, hess, cnt,
                    block_slot, src, bounds, scale, out[s0:s0 + s], part, n,
                    f, fh, bmax, s, row_block, tb, RUN_BLOCKS,

@@ -1,17 +1,19 @@
 """The card's design of fused_route_hist, composed from plain versions.
 
-On the card, histogram_mxu.fused_route_hist routes the rows with per-slot
-counts (route_rows, emit_counts), partitions them by their new slot from
-those counts (histogram_pallas.partition_rows) and sums them with the
-slot-grouped scatter kernel (build_histograms_scatter). Here the same
-composition runs on the kernels' plain versions, on the CPU, and is held
-bit for bit to fused_route_hist_ref (every histogram sums integers) and to
-the JAX package's fused_route_hist_mxu in Pallas interpret mode within the
-K1 bars of tests/test_torch_kernels.py (integer mode bit for bit): exact
-and integer channels, unpacked and 4-bit packed bins, with and without a
-constant hessian, at one slot (the root pass: a partition of several runs,
-whose partials the reduce adds) and at a frontier of 40 slots with rows
-parked at slot -1 and at slots >= S, and with a non-finite channel.
+On the card, histogram_mxu.fused_route_hist routes the rows with their
+tallies per slot and partition chunk (route_rows, emit_counts and
+chunk_tallies), partitions them by their new slot from those tallies, with
+no count pass of the partition's own (histogram_pallas.partition_rows), and
+sums them with the slot-grouped scatter kernel (build_histograms_scatter).
+Here the same composition runs on the kernels' plain versions, on the CPU,
+and is held bit for bit to fused_route_hist_ref (every histogram sums
+integers) and to the JAX package's fused_route_hist_mxu in Pallas
+interpret mode within the K1 bars of tests/test_torch_kernels.py (integer
+mode bit for bit): exact and integer channels, unpacked and 4-bit packed
+bins, with and without a constant hessian, at one slot (the root pass: a
+partition of several runs, whose partials the reduce adds) and at a
+frontier of 40 slots with rows parked at slot -1 and at slots >= S, and
+with a non-finite channel.
 """
 
 import jax.numpy as jnp
@@ -38,21 +40,22 @@ def card_design(bins, grad, hess, cnt, row_node, tables, *, num_slots,
                 bmax, const_hess=0.0, quantized=False, num_features=0,
                 scale=None):
     """fused_route_hist's function as the card computes it, on the plain
-    versions: route with counts, partition from the counts, scatter."""
-    node, slot, counts = torch_k.route_rows_ref(
+    versions: route with chunk tallies, partition from the tallies,
+    scatter."""
+    node, slot, tallies = torch_k.route_rows_ref(
         bins, row_node, *tables, num_features=num_features,
-        emit_counts=True, num_slots=num_slots)
-    # the counts the routing hands over are the ones the partition would
+        emit_counts=True, num_slots=num_slots, chunk_tallies=True)
+    # the tallies the routing hands over are the ones the partition would
     # take itself: the same layout
     given = torch_p.partition_rows_ref(slot, num_slots=num_slots,
-                                       row_block=ROW_BLOCK, counts=counts)
+                                       row_block=ROW_BLOCK, tallies=tallies)
     own = torch_p.partition_rows_ref(slot, num_slots=num_slots,
                                      row_block=ROW_BLOCK)
     assert all(torch.equal(a, b) for a, b in zip(given, own))
     hist = torch_p.build_histograms_scatter_ref(
         bins, grad, hess, cnt, slot, num_slots=num_slots, bmax=bmax,
         row_block=ROW_BLOCK, num_features=num_features,
-        const_hess=const_hess, quantized=quantized, slot_counts=counts,
+        const_hess=const_hess, quantized=quantized, slot_tallies=tallies,
         scale=scale)
     return hist, node
 

@@ -206,7 +206,9 @@ def test_slot_ranges_past_the_partition_limit(quantized, monkeypatch):
                             .long(), minlength=NUM_SLOTS).to(torch.int32)
     seen = []
 
-    def partition(sl, s, nb, cts, impl):
+    def partition(sl, s, nb, cts, impl, tallies, reuse):
+        # slot ranges count themselves: chunk tallies serve one range only
+        assert tallies is None and reuse
         block_slot, src = torch_p.partition_rows_ref(
             sl, num_slots=s, row_block=nb, counts=cts, impl=impl)
         seen.append((s, None if cts is None else cts.tolist()))

@@ -149,16 +149,25 @@ def test_partition_wrapper_on_cpu_is_its_plain_version():
     (dict(num_slots=torch_p._PARTITION_MAX_SLOTS + 1), "num_slots"),
     (dict(row_slot=torch.zeros(16, dtype=torch.int64)), "row_slot: dtype"),
     (dict(impl="radix"), "partition impl"),
+    (dict(tallies=torch.zeros((9, 1), dtype=torch.int64)), "tallies: dtype"),
+    (dict(tallies=torch.zeros((8, 1), dtype=torch.int32)), "tallies: shape"),
+    (dict(tallies=torch.zeros((9, 2), dtype=torch.int32)), "tallies: shape"),
+    (dict(tallies=torch.zeros((9, 2), dtype=torch.int32)[:, :1]),
+     "tallies must be contiguous"),
+    (dict(tallies=torch.zeros((9, 1), dtype=torch.int32),
+          counts=torch.zeros(8, dtype=torch.int32)), "not both"),
 ], ids=["counts_dtype", "counts_short", "too_many_slots", "slot_dtype",
-        "impl"])
+        "impl", "tallies_dtype", "tallies_slots", "tallies_chunks",
+        "tallies_layout", "counts_and_tallies"])
 def test_partition_kernel_wrapper_checks_before_launch(bad, match):
     # the checks run before the launch, so a CPU tensor reaches them
     args = dict(row_slot=torch.zeros(16, dtype=torch.int32), num_slots=8,
-                row_block=4, counts=None, impl="auto")
+                row_block=4, counts=None, impl="auto", tallies=None)
     args.update(bad)
     with pytest.raises(ValueError, match=match):
         torch_p._partition(args["row_slot"], args["num_slots"],
-                           args["row_block"], args["counts"], args["impl"])
+                           args["row_block"], args["counts"], args["impl"],
+                           args["tallies"])
 
 
 def test_c_args_convert_in_one_pass():
