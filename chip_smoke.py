@@ -8,7 +8,8 @@ holds each kernel against its plain PyTorch version on the card — every
 histogram kernel and the node sums bit for bit (integer sums in every
 mode) and across two calls — at the shapes the training path gives it
 (1M rows x 28 features, 256 bins, up to 1024 tree nodes; 15 bins for the
-4-bit packed modes; 511 and 263 scan slots for the split scan; the root
+4-bit packed modes; 511 and 263 scan slots for the split scan, at 256,
+15, 100 and 255 bins and with inf and NaN cells; the root
 pass's single slot for the partition, the scatter histogram and the fused
 sweep, which on the card is route_rows with its chunk tallies, the
 partition fed those tallies and the scatter kernel, timed at every width
@@ -92,6 +93,20 @@ M_GROWN = 1020        # node ids of the overgrown (overshoot 2) tree
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, HBM3 peak rate
 LEAF_TOL = 1e-2       # a leaf value against -G/H of its rows' float64 sums
 F32_OPS_PER_S = 67e12         # H100 SXM, f32 outside the tensor cores
+# one instruction a lane a clock (128 f32 lanes a SM, 4 warp issues a
+# clock): the 67 TFLOP/s count an FMA as two operations
+F32_INST_PER_S = F32_OPS_PER_S / 2
+# SASS instructions of one K8 threshold, by (monotone mode, NaN bin): its
+# bin's share of the lane totals and the kernel's scan_bin at the main
+# path's gain forms (lambda_l1 0, no max_delta_step, no path_smooth; the
+# division's fast path), both NaN options where the feature has that bin;
+# counted by `python3 chip_parts.py --k8` from csrc/find_best_splits.cu
+# built for sm_90a (PERF.md section 6)
+K8_INST = {(False, False): 69, (False, True): 113, (True, False): 98,
+           (True, True): 163}
+# K8 widths beside 256 and the packed 15: not multiples of 32 (5 and 9 bins
+# a lane), with 16-byte and 4-byte row copies
+K8_ODD_BINS = (100, 255)
 TRAIN_PARAMS = {"objective": "binary", "num_leaves": 255,
                 "learning_rate": 0.1, "max_bin": 255,
                 "min_data_in_leaf": 20, "verbosity": -1}
@@ -347,13 +362,14 @@ def kernel_phase(torch, hm, hp, rng_mod, dev):
     rows = []
 
     def row(name, replaces, err, fn, plain_fn, plain_reps, nbytes, ops,
-            library_fn, source=None):
+            library_fn, source=None, ops_per_s=F32_OPS_PER_S):
         # ms: one call as the main path makes it (host launch path
         # included); device_ms: the device alone (back-to-back calls).
         # ops: one add per histogram cell update (f32 or int32), held to
-        # the f32 rate outside the tensor cores; every row is bytes-bound
+        # the f32 rate outside the tensor cores (bytes-bound); K8 counts
+        # its instructions at the f32 instruction rate (ops_per_s)
         bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        bound_ops = ops / F32_OPS_PER_S * 1e3
+        bound_ops = ops / ops_per_s * 1e3
         rows.append({
             "name": name, "route": "cuda",
             "source": f"lightgbm_tpu_torch/csrc/{source or name}.cu",
@@ -1018,24 +1034,21 @@ def packed_rows(torch, hm, hp, rng_mod, dev, row):
          device_ms=device_ms(torch, k7p))
 
 
-def split_rows(torch, hm, rng_mod, dev, row):
-    """K8 (find_best_splits) at the scan path's shapes: histograms of the
-    1M x 28 kernel inputs (two NaN-bin and two categorical features) in
-    511 slots (the fix-up passes' scan width) and 263, random per-slot
-    feature masks; plain mode and monotone mode (+1 on feature 0, -1 on
-    feature 1, per-slot output bounds, depth penalty); every 37th slot is
-    empty. Each launch is held to the plain version on every slot: the
-    selection (has_split, feature, threshold, NaN direction) equal, the
-    picked sums within 1e-6 relative."""
-    from lightgbm_tpu_torch.learner import split_kernel as sk
-    from lightgbm_tpu_torch.learner.split import (SplitHyperParams,
-                                                  find_best_splits)
-    d = kernel_inputs(torch, hm, rng_mod, dev)
+def split_inputs(torch, hm, sk, d, s, bmax, seed=11):
+    """K8's inputs at s slots: histograms of kernel_inputs' rows `d` (two
+    NaN-bin and two categorical features) at bmax bins, every 37th slot
+    empty, random parent outputs and per-slot feature masks. Returns
+    (hist, args, modes): args as find_best_splits_kernel takes them after
+    hist, and modes {launch-count name: (hp, monotone kwargs)}, plain and
+    monotone (+1 on feature 0, -1 on feature 1, per-slot output bounds,
+    depth penalty)."""
+    from lightgbm_tpu_torch.learner.split import SplitHyperParams
+    dev = d["bins"].device
     f = d["bins"].shape[1]
     num_bins, missing_is_nan = d["feat_tbl"][:, 0], d["feat_tbl"][:, 1] > 0
     is_cat = torch.zeros(f, dtype=torch.bool, device=dev)
     is_cat[[5, 11]] = True
-    rng = np.random.RandomState(11)
+    rng = np.random.RandomState(seed)
     plain = SplitHyperParams(min_data_in_leaf=20)
     mono_hp = dataclasses.replace(plain, has_monotone=True,
                                   monotone_penalty=1.5)
@@ -1044,69 +1057,139 @@ def split_rows(torch, hm, rng_mod, dev, row):
 
     def t(a):
         return torch.as_tensor(a, device=dev)
-    for s in (S_HIST, S_FUSED):
-        hist = hm.build_histograms(d["bins"], d["grad"], d["hess"], d["cnt"],
-                                   d["row_slot"], num_slots=s, bmax=BMAX)
-        hist[::37] = 0.0        # empty slots: no split, the junk selection
-        sums = hist[:, 0].sum(1)                                   # [S, 3]
-        args = (hist, sums[:, 0], sums[:, 1], sums[:, 2],
-                t(rng.randn(s).astype(np.float32) * 0.1), num_bins,
-                missing_is_nan, is_cat,
-                t((rng.rand(s, f) < 0.8).astype(np.float32)))
-        bound = t(rng.uniform(0.05, 0.5, s).astype(np.float32))
-        mono_kw = dict(monotone=monotone, cons_min=-bound, cons_max=bound,
-                       depth=t(rng.randint(0, 12, s).astype(np.int32)))
-        for name, hp, kw in (("find_best_splits", plain, {}),
-                             ("find_best_splits_mono", mono_hp, mono_kw)):
-            tables = sk.pack_inputs(*args[1:], hp, **kw)
+    hist = hm.build_histograms(d["bins"], d["grad"], d["hess"], d["cnt"],
+                               d["row_slot"], num_slots=s, bmax=bmax)
+    hist[::37] = 0.0        # empty slots: no split, the junk selection
+    sums = hist[:, 0].sum(1)                                       # [S, 3]
+    args = (sums[:, 0], sums[:, 1], sums[:, 2],
+            t(rng.randn(s).astype(np.float32) * 0.1), num_bins,
+            missing_is_nan, is_cat,
+            t((rng.rand(s, f) < 0.8).astype(np.float32)))
+    bound = t(rng.uniform(0.05, 0.5, s).astype(np.float32))
+    mono_kw = dict(monotone=monotone, cons_min=-bound, cons_max=bound,
+                   depth=t(rng.randint(0, 12, s).astype(np.int32)))
+    return hist, args, {"find_best_splits": (plain, {}),
+                        "find_best_splits_mono": (mono_hp, mono_kw)}
 
-            def k8():
-                return sk._launch(hist, *tables, hp)
 
-            def k8_ref():
-                return sk.find_best_splits_kernel_ref(hist, *tables, hp)
-            got, want = k8(), k8_ref()
-            torch.cuda.synchronize()
-            sel = slice(sk.O_HAS, sk.O_NAL + 1)
-            check(torch.equal(got[:, sel], want[:, sel]),
-                  f"{name} at {s} slots: the selection differs from its "
-                  "plain version on slots " + str(torch.nonzero(
-                      (got[:, sel] != want[:, sel]).any(1))[:8, 0].tolist()))
-            sums_sel = slice(sk.O_LR, sk.O_LL + 3)
-            diff = (got[:, sums_sel] - want[:, sums_sel]).abs()
-            err = float(diff.max())
-            rel = float((diff / want[:, sums_sel].abs().clamp(
-                min=1e-30)).max())
-            check(rel <= 1e-6, f"{name} at {s} slots: picked sums rel "
-                  f"error {rel}")
-            n_split = int(got[:, sk.O_HAS].sum())
-            # every input read once: the histograms and the small tables
-            nbytes = hist.numel() * 4 + sum(x.numel() * 4 for x in tables
-                                            if x is not None) + \
-                s * sk.N_OUT * 4
-            # ~50 f32 ops a candidate (two NaN options of split.py's
-            # gain forms), ~70 with the monotone clip and penalty
-            ops = s * f * BMAX * (70 if kw else 50)
-            whole = dict(
-                wrapper_ms=time_ms(torch, lambda: sk.find_best_splits_kernel(
-                    *args, hp, **kw), 20),
-                find_best_splits_ms=time_ms(torch, lambda: find_best_splits(
-                    *args, hp, **kw), 20))
-            if s == S_HIST:
-                row(name, "lightgbm_tpu/learner/split_kernel.py:249", err,
-                    k8, k8_ref, 5, nbytes, ops, None,
-                    source="find_best_splits")
-                emit("kernel_detail", name=name, slots=s, slots_split=n_split,
-                     what="the whole wrapper (kernel + [S] recompute) and "
-                          "split.find_best_splits on the same inputs",
-                     **whole)
-            else:
-                emit("kernel_check", name=name, slots=s, slots_split=n_split,
-                     max_abs_err=err, ms=time_ms(torch, k8, 20),
-                     device_ms=device_ms(torch, k8),
-                     plain_ms=time_ms(torch, k8_ref, 5),
-                     bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, **whole)
-    del d
+def k8_work(torch, sk, hist, tables):
+    """(bytes, thresholds) K8 needs on these inputs: the bins a slot's
+    unmasked features need (0 .. num_bins - 2: the thresholds and, with a
+    NaN bin, that bin), 12 bytes each, every table read once and the
+    selection written once; and the thresholds it evaluates, {NaN bin:
+    count}, by whether their feature has a NaN bin."""
+    parent, fmask, feat_tbl, mono = tables
+    b = hist.shape[2]
+    num_bins = feat_tbl[:, 0].long()
+    m_nan = feat_tbl[:, 1] > 0
+    t_limit = num_bins - 2 - m_nan.long()
+    on = ((fmask > 0) & (t_limit >= 0)[None, :]).long()            # [S, F]
+    cap = torch.full_like(num_bins, b)
+    need = torch.clamp(torch.minimum(num_bins - 1, cap), min=0)
+    cand = (on * torch.clamp(torch.minimum(t_limit + 1, cap), min=0)[None])
+    nbytes = int((on * need[None]).sum()) * 12 + sum(
+        x.numel() * 4 for x in tables if x is not None) + \
+        hist.shape[0] * sk.N_OUT * 4
+    return nbytes, {nan: int(cand[:, m_nan == nan].sum())
+                    for nan in (False, True)}
+
+
+def nonfinite_check(torch, sk, hist, tables, hp, name):
+    """K8 on histograms with an inf, a -inf and a NaN cell: the selection
+    equal to the plain version's."""
+    bad = hist.clone()
+    bad[3, 2, 10, 0] = float("inf")
+    bad[7, 4, 20, 1] = float("nan")
+    bad[11, 6, 0, 2] = float("-inf")
+    got = sk._launch(bad, *tables, hp)
+    want = sk.find_best_splits_kernel_ref(bad, *tables, hp)
+    sel = slice(sk.O_HAS, sk.O_NAL + 1)
+    check(torch.equal(got[:, sel], want[:, sel]),
+          f"{name} with non-finite cells: the selection differs from its "
+          "plain version")
+    emit("kernel_check", name=name, what="inf, -inf and NaN cells",
+         selection_equal=True)
+
+
+def split_rows(torch, hm, rng_mod, dev, row):
+    """K8 (find_best_splits) at the scan path's shapes: split_inputs at
+    511 slots (the fix-up passes' scan width) and 263, at 256 bins, at the
+    packed width (15 bins: two 16-lane features a warp) and at K8_ODD_BINS;
+    plain and monotone mode. Each launch is held to the plain version on
+    every slot: the selection (has_split, feature, threshold, NaN
+    direction) equal, the picked sums within 1e-6 relative."""
+    from lightgbm_tpu_torch.learner import split_kernel as sk
+    from lightgbm_tpu_torch.learner.split import find_best_splits
+    for bmax in (BMAX, BMAX_PACKED) + K8_ODD_BINS:
+        d = kernel_inputs(torch, hm, rng_mod, dev, bmax=bmax)
+        for s in (S_HIST, S_FUSED):
+            hist, args, modes = split_inputs(torch, hm, sk, d, s, bmax)
+            for name, (hp, kw) in modes.items():
+                tables = sk.pack_inputs(*args, hp, **kw)
+
+                def k8():
+                    return sk._launch(hist, *tables, hp)
+
+                def k8_ref():
+                    return sk.find_best_splits_kernel_ref(hist, *tables, hp)
+                got, want = k8(), k8_ref()
+                torch.cuda.synchronize()
+                at = f"{name} at {s} slots, {bmax} bins"
+                sel = slice(sk.O_HAS, sk.O_NAL + 1)
+                check(torch.equal(got[:, sel], want[:, sel]),
+                      f"{at}: the selection differs from its plain version "
+                      "on slots " + str(torch.nonzero(
+                          (got[:, sel] != want[:, sel]).any(1))[:8, 0]
+                          .tolist()))
+                sums_sel = slice(sk.O_LR, sk.O_LL + 3)
+                diff = (got[:, sums_sel] - want[:, sums_sel]).abs()
+                err = float(diff.max())
+                rel = float((diff / want[:, sums_sel].abs().clamp(
+                    min=1e-30)).max())
+                check(rel <= 1e-6, f"{at}: picked sums rel error {rel}")
+                n_split = int(got[:, sk.O_HAS].sum())
+                nbytes, cands = k8_work(torch, sk, hist, tables)
+                inst = sum(K8_INST[(bool(kw), nan)] * n
+                           for nan, n in cands.items())
+                if bmax != BMAX:
+                    emit("kernel_check", name=name, slots=s, bins=bmax,
+                         slots_split=n_split, max_abs_err=err,
+                         sums_equal=bool(torch.equal(got, want)),
+                         device_ms=device_ms(torch, k8))
+                    continue
+                whole = dict(
+                    wrapper_ms=time_ms(
+                        torch, lambda: sk.find_best_splits_kernel(
+                            hist, *args, hp, **kw), 20),
+                    find_best_splits_ms=time_ms(
+                        torch, lambda: find_best_splits(hist, *args, hp,
+                                                        **kw), 20))
+                if s == S_HIST:
+                    row(name, "lightgbm_tpu/learner/split_kernel.py:249",
+                        err, k8, k8_ref, 5, nbytes, inst, None,
+                        source="find_best_splits",
+                        ops_per_s=F32_INST_PER_S)
+                    emit("kernel_detail", name=name, slots=s,
+                         slots_split=n_split, instructions=inst,
+                         sums_equal=bool(torch.equal(got, want)),
+                         what="the whole wrapper (kernel + [S] recompute) "
+                              "and split.find_best_splits on the same "
+                              "inputs", **whole)
+                    if s == S_HIST:
+                        nonfinite_check(torch, sk, hist, tables, hp, name)
+                else:
+                    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                    bound_ops = inst / F32_INST_PER_S * 1e3
+                    emit("kernel_check", name=name, slots=s, bins=bmax,
+                         slots_split=n_split, max_abs_err=err,
+                         sums_equal=bool(torch.equal(got, want)),
+                         ms=time_ms(torch, k8, 20),
+                         device_ms=device_ms(torch, k8),
+                         plain_ms=time_ms(torch, k8_ref, 5),
+                         bound_ms=max(bound_bytes, bound_ops),
+                         bound_by="bytes" if bound_bytes >= bound_ops
+                         else "operations", **whole)
+        del d
 
 
 def train_booster(name, torch, lgt, hm, ds, params, trees, metric,
