@@ -2,7 +2,7 @@
 """Where a tree's time goes in the PyTorch/CUDA port, on the card.
 
     python3 chip_profile.py [--trees 5] [--trace train_trace.json]
-                            [--root CHECKOUT]
+                            [--root CHECKOUT] [--fused]
 
 Trains the Higgs-like 1M x 28 binary configuration of chip_smoke.py
 (num_leaves 255, max_bin 255) through lightgbm_tpu_torch: two warm-up
@@ -13,8 +13,13 @@ the unprofiled wall time, device time per kernel name (top 15), the
 device time and launches per tree of each of the port's own kernels (the
 `__global__` functions of lightgbm_tpu_torch/csrc), and host time inside
 the growth layers (split search, route tables, the prune replay),
-bracketed with record_function around the grower's functions. --root
-profiles another checkout's lightgbm_tpu_torch on this script's data.
+bracketed with record_function around the grower's functions, and the
+device-to-host copies a tree (each one a host sync). --root profiles
+another checkout's lightgbm_tpu_torch on this script's data. --fused
+trains through Booster.update_batch instead (the fused trainer's CUDA
+graphs): iteration 0 and two trees that capture the graphs as the
+warm-up, then blocks of --trees trees, each replayed; the host layers
+then read only what runs outside the graphs.
 """
 
 import argparse
@@ -37,6 +42,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--trees", type=int, default=5)
     ap.add_argument("--trace", default="")
+    ap.add_argument("--fused", action="store_true",
+                    help="train through Booster.update_batch")
     ap.add_argument("--root", default=os.path.dirname(
         os.path.abspath(__file__)), help="checkout whose lightgbm_tpu_torch "
         "trains (default: this one)")
@@ -68,27 +75,35 @@ def main():
                                       chip_smoke.N_FEATURES)
     ds = lgt.Dataset(X, label=y, params=chip_smoke.TRAIN_PARAMS)
     booster = lgt.Booster(chip_smoke.TRAIN_PARAMS, ds)
-    for _ in range(2):
-        booster.update()
+
+    def trees(k):
+        if args.fused:
+            with record_function("train_many"):
+                booster.update_batch(k)
+            return
+        for _ in range(k):
+            with record_function("train_one_iter"):
+                booster.update()
+    trees(3 if args.fused else 2)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(args.trees):
-        booster.update()
+    trees(args.trees)
     torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(args.trees):
-            with record_function("train_one_iter"):
-                booster.update()
+        trees(args.trees)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     from torch.autograd import DeviceType
-    marks = ("train_one_iter", "grower.")
+    marks = ("train_one_iter", "train_many", "grower.")
     kernels = {}
     host = {}
+    d2h = 0
     for e in prof.events():
+        if e.device_type == DeviceType.CUDA and "DtoH" in e.name:
+            d2h += 1
         if e.device_type == DeviceType.CUDA and \
                 not e.name.startswith(marks):
             us, calls = kernels.get(e.name, (0.0, 0))
@@ -102,7 +117,9 @@ def main():
     # kernel durations do not change under the profiler; the host does
     # slow down, so the idle share is taken against the unprofiled wall
     print(json.dumps({"phase": "profile", "device": name,
+                      "path": "fused" if args.fused else "per_iteration",
                       "trees": args.trees,
+                      "d2h_copies_per_tree": d2h / args.trees,
                       "wall_s_per_tree": plain_wall / args.trees,
                       "profiled_wall_s_per_tree": wall / args.trees,
                       "device_busy_s_per_tree": busy_s / args.trees,

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
-Builds the port's six CUDA kernel sources from lightgbm_tpu_torch/csrc,
+Builds the port's seven CUDA kernel sources from lightgbm_tpu_torch/csrc,
 holds each kernel against its plain PyTorch version on the card — every
 histogram kernel and the node sums bit for bit (integer sums in every
 mode) and across two calls — at the shapes the training path gives it
@@ -20,9 +20,11 @@ itself; the split scan plain and monotone), times it — `ms`, one call as
 the training path makes it, host launch path included, and `device_ms`,
 the device alone over back-to-back calls; the same two for the PyTorch
 yardstick where one call computes the function; each launch of the
-partition and the routing apart under torch.profiler — then trains through
-lightgbm_tpu_torch's entry points along six paths, each with the launch
-counts reset before it and read after it:
+partition and the routing apart under torch.profiler; the best-first
+prune's kernel against its plain version on overgrown trees of the main
+path's 1020 node ids — then trains through lightgbm_tpu_torch's entry
+points along seven paths, each with the launch counts reset before it and
+read after it:
 
 - exact histograms: the Higgs-like binary configuration (num_leaves 255,
   max_bin 255), the same with min_data_in_leaf 1000 (which runs the
@@ -32,6 +34,23 @@ counts reset before it and read after it:
   binary run whose wide passes take route_rows + build_histograms in
   integer mode (on the card: the partition kernel and the scatter
   kernel);
+- K trees per dispatch (phases `fused*`): the exact and the quantized
+  binary configurations, trees that run fix-up passes (min_data_in_leaf
+  1000) and the split options with extra_trees, through engine.train at
+  the default fused_block_size 10 (which frees its trainer when done),
+  then update_batch(10) twice on the same booster (a new trainer: a
+  capture, then replays of CUDA graphs of its programs: prologue, each
+  pass width, bridge, fix-up, epilogue), against 30 Booster.update()
+  calls in turns: the model text byte-equal (sha256) after 10, 20 and 30
+  trees, every program captured, the launches the per-iteration run's
+  plus the no-op fix-up passes the trainers report, and the graphs' pool
+  given back when the booster is deleted with garbage collection paused;
+  prints trees/s of both paths, host syncs a tree, graph memory, capture
+  seconds and the memory around the deletion; then (`fused_configs`, a
+  check) the quantized backends, exact pallas, packed bins and regression
+  through train against update(), 5 trees each, byte-equal, and
+  (`fused_scratch_check`) a small booster's graphs replayed after a
+  larger booster grew the shared scratch buffers, byte-equal to update();
 - the histogram backends on the binary configuration: quantized under
   hist_backend pallas (route counts, the partition kernel and the scatter
   kernel), scatter (the segment-sum oracle) and auto (the autotune), each
@@ -68,6 +87,7 @@ power limit as nvidia-smi prints them, and the result
 """
 
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -157,8 +177,31 @@ CONSTRAINT_PATH = ("fused_route_hist", "route_rows", "node_values",
 SCAN_PATH = ("find_best_splits", "find_best_splits_mono")
 SCAN_PLAIN_TREES = 3
 MONO_ROWS = 2000      # held-out rows swept over a feature's bin bounds
+# K iterations per dispatch (engine.train at fused_block_size 10, CUDA
+# graphs) against the per-iteration path (Booster.update): both main
+# configurations, then trees that run fix-up passes (the fix-up graph
+# reads its pass number from a buffer the host fills before each replay)
+# and the split options (per-pass draws from that number, the interaction
+# groups' matmul)
+FUSED_RUNS = (("fused", TRAIN_PARAMS), ("fused_quantized", QUANT_PARAMS),
+              ("fused_fixups", dict(TRAIN_PARAMS,
+                                    min_data_in_leaf=FIXUP_MIN_DATA)),
+              ("fused_constraints", dict(CONSTRAINT_PARAMS,
+                                         extra_trees=True)))
+FUSED_PATH = ("prune_best_first", "fused_route_hist", "fused_route_hist_int",
+              "node_values", "node_sums")
+# trees of each configuration fused_configs_check holds to update()
+FUSED_CHECK_TREES = 5
+# fused_scratch_check: a booster's graphs, replayed after a booster with
+# more rows than any earlier phase grew the scratch buffers
+SCRATCH_SMALL_ROWS = 200_000
+SCRATCH_LARGE_ROWS = N_ROWS + N_ROWS // 4
+# the prune at the main path's shapes: 255 leaves kept of an overgrown
+# tree of up to 510 leaves in 1020 node ids
+PRUNE_LEAVES = 255
 # the path whose counts a kernel row reports
-ROW_PATH = {**dict.fromkeys(EXACT_PATH, "exact"),
+ROW_PATH = {"prune_best_first": "fused",
+            **dict.fromkeys(EXACT_PATH, "exact"),
             **dict.fromkeys(("fused_route_hist_int", "build_histograms_int",
                              "node_sums"), "quantized"),
             **dict.fromkeys(BACKEND_PATH[:4], "backends"),
@@ -355,10 +398,6 @@ def index_add_fn(torch, bins, slot, cols, num_slots, bmax):
 
 def kernel_phase(torch, hm, hp, rng_mod, dev):
     d = kernel_inputs(torch, hm, rng_mod, dev)
-    bins, grad, hess, cnt = d["bins"], d["grad"], d["hess"], d["cnt"]
-    g_q, h_q = d["g_q"], d["h_q"]
-    route = (d["tbl"], d["member"], d["feat_tbl"])
-    n, f = bins.shape
     rows = []
 
     def row(name, replaces, err, fn, plain_fn, plain_reps, nbytes, ops,
@@ -385,6 +424,11 @@ def kernel_phase(torch, hm, hp, rng_mod, dev):
             "library_device_ms": None if library_fn is None
             else device_ms(torch, library_fn)})
         emit("kernel", **rows[-1])
+
+    bins, grad, hess, cnt = d["bins"], d["grad"], d["hess"], d["cnt"]
+    g_q, h_q = d["g_q"], d["h_q"]
+    route = (d["tbl"], d["member"], d["feat_tbl"])
+    n, f = bins.shape
 
     # rows whose node splits read one bin to route; rows landing in a slot
     # below S read all F bins and their channels, and add F x 3 values
@@ -534,6 +578,7 @@ def kernel_phase(torch, hm, hp, rng_mod, dev):
         k5, k5_ref, 5, 16 * n + M_REFIT * 12, 3 * int(keep.numel()),
         lambda: acc5.index_add_(0, idx5, data5))
     node_sums_checks(torch, hm, dev)
+    prune_rows(torch, dev, row)
     return rows
 
 
@@ -1190,6 +1235,336 @@ def split_rows(torch, hm, rng_mod, dev, row):
                          bound_by="bytes" if bound_bytes >= bound_ops
                          else "operations", **whole)
         del d
+
+
+def overgrown_tree(rng, m1, n_splits, ties):
+    """(left, right, parent [m1] i32, gain [m1] f32) of a random tree of
+    n_splits splits in an m1 node space, ids given as the grower gives
+    them (children after their parent, in pairs; the last id is scratch);
+    gains from five values where `ties`."""
+    left = np.full(m1, -1, np.int32)
+    right = np.full(m1, -1, np.int32)
+    parent = np.full(m1, -1, np.int32)
+    leaves, nn = [0], 1
+    for _ in range(n_splits):
+        j = leaves.pop(rng.randint(len(leaves)))
+        left[j], right[j] = nn, nn + 1
+        parent[nn] = parent[nn + 1] = j
+        leaves += [nn, nn + 1]
+        nn += 2
+    gain = (rng.randint(1, 6, m1) if ties else rng.rand(m1) * 10) \
+        .astype(np.float32)
+    return left, right, parent, np.where(left >= 0, gain, 0) \
+        .astype(np.float32)
+
+
+def prune_rows(torch, dev, row):
+    """The prune kernel (prune_best_first) against its plain version,
+    every output equal: at the main path's shape (an overgrown tree of
+    510 leaves in 1020 ids, 255 kept; the row), with tied gains, a tree
+    smaller than the leaves asked for, and 4000 ids (several nodes a
+    thread, 125 a lane). Bound: the bytes of its inputs and outputs and,
+    as operations, the JAX formulation's compares (every node each replay
+    step) at the f32 rate; the replay is 254 dependent steps, so neither
+    bounds it (PERF.md)."""
+    from lightgbm_tpu_torch.learner import prune
+    rng = np.random.RandomState(31)
+    cases = []
+    for what, m1, splits, leaves, ties in (
+            ("main path", M_GROWN, M_GROWN // 2 - 1, PRUNE_LEAVES, False),
+            ("tied gains", M_GROWN, M_GROWN // 2 - 1, PRUNE_LEAVES, True),
+            ("small tree", M_GROWN, 100, PRUNE_LEAVES, True),
+            ("4000 ids", 4000, 1999, 1000, False)):
+        args = [torch.as_tensor(a, device=dev)
+                for a in overgrown_tree(rng, m1, splits, ties)]
+
+        def k(args=args, leaves=leaves):
+            return prune.prune_best_first(*args, num_leaves=leaves)
+
+        def k_ref(args=args, leaves=leaves):
+            return prune.prune_best_first_ref(*args, num_leaves=leaves)
+        got, want = k(), k_ref()
+        names = ("sel", "kept", "new_id", "composed")
+        bad = [n for n, a, b in zip(names, got, want) if not torch.equal(a, b)]
+        check(not bad, f"prune_best_first differs from its plain version "
+              f"({what}): {bad}")
+        cases.append(what)
+        if what == "main path":
+            nbytes = m1 * (16 + 10)      # 4 inputs, 4 outputs of [m1]
+            ops = (leaves - 1) * m1 + 2 * m1 * (m1 - 1).bit_length()
+            row("prune_best_first",
+                "lightgbm_tpu/learner/grower_mxu.py:57", 0.0, k, k_ref, 3,
+                nbytes, ops, None)
+    emit("kernel_check", name="prune_best_first", cases=cases, equal=True)
+
+
+def fused_path(torch, lgt, hm, ds, y):
+    """K iterations per dispatch: for each of FUSED_RUNS (the exact and
+    the quantized binary configurations, trees that run fix-up passes,
+    the split options with extra_trees), engine.train at the default
+    fused_block_size (10: iteration 0 on the per-iteration path, the other
+    9 trees through the fused trainer's CUDA graphs; train frees the
+    trainer when it is done), then Booster.update_batch(10) twice on the
+    same booster (a new trainer: its first tree eager, a capture, 9
+    replays; then 10 replays), against Booster.update() 30 times, in turns
+    (per-iteration, fused, fused, per-iteration). The model text after 10,
+    20 and 30 trees must be byte-equal (sha256) to the per-iteration
+    run's; every program captured; the launches equal the per-iteration
+    run's plus the fix-up kernels of the no-op passes the trainers report.
+    Then `del booster`, with garbage collection paused, must give back
+    the graphs' memory pool, and leave as many bytes allocated as the
+    runs after the first. Prints trees/s of both paths (the last 10 trees:
+    replays alone), the host reads of `done` a tree (with the lagged stall
+    poll, the block's syncs), graph memory, capture seconds and the
+    memory before and after the booster goes. Returns the launch
+    counts."""
+    import hashlib
+    logloss = logloss_of(torch, y)
+    hm.reset_launch_counts()
+    steps = ("10", "20", "30")
+
+    def sha(booster):
+        return hashlib.sha256(booster.model_to_string().encode()) \
+            .hexdigest()
+
+    def timed(fn):
+        """(seconds, launches, fn's result) of one call of fn."""
+        before = hm.launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, {
+            k: v - before[k] for k, v in hm.launch_counts().items()}, result
+
+    def update_loop(booster):
+        for _ in range(TRAIN_TREES):
+            booster.update()
+        return booster
+
+    def update_batch(booster):
+        booster.update_batch(TRAIN_TREES)
+        return booster
+
+    def noops(booster):
+        return sum(st["noop_fixups"] for st in booster.gbdt.fused_stats)
+
+    for name, params in FUSED_RUNS:
+        runs = []
+        for path in ("per_iteration", "fused", "fused", "per_iteration"):
+            out = {"path": path}
+            fused = path == "fused"
+            booster = None
+            for step in steps:
+                if step == "10":
+                    fn = (lambda: lgt.train(params, ds, TRAIN_TREES)) \
+                        if fused else \
+                        (lambda: update_loop(lgt.Booster(params, ds)))
+                else:
+                    fn = (lambda: update_batch(booster)) if fused else \
+                        (lambda: update_loop(booster))
+                n0 = 0 if booster is None else noops(booster)
+                out["s" + step], out["l" + step], booster = timed(fn)
+                out["noop" + step] = noops(booster) - n0
+                out["sha" + step] = sha(booster)
+            out["logloss"] = float(logloss(booster.gbdt.train_score))
+            out["leaves"] = [int(t.num_leaves) for t in booster.gbdt.trees]
+            if fused:
+                trainer = booster.gbdt._fused_run
+                out["stats"] = [dict(st) for st in booster.gbdt.fused_stats]
+                out["stall_polls"] = booster.gbdt.stall_polls
+                out["programs"] = list(trainer.programs)
+                out["fixup_tally"] = dict(trainer.graphs["fixup"][1])
+                del trainer
+            # the booster goes with reference counts alone: with garbage
+            # collection paused, its trainer's graph pool must be given
+            # back
+            held = card_memory(torch)
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                del booster
+                torch.cuda.empty_cache()
+                freed = card_memory(torch)
+            finally:
+                if collecting:
+                    gc.enable()
+            out["memory"] = {"held": held, "after_del": freed,
+                             "released_bytes": held["reserved"] -
+                             freed["reserved"]}
+            runs.append(out)
+        eager = [r for r in runs if r["path"] == "per_iteration"]
+        fused = [r for r in runs if r["path"] == "fused"]
+        for r in runs:
+            check(all(r["sha" + k] == eager[0]["sha" + k] for k in steps),
+                  f"{name}: {r['path']} model text differs from the "
+                  "per-iteration run's")
+        for r in fused:
+            st = r["stats"]
+            check([s_["graphs"] for s_ in st] == [len(r["programs"])] * 2
+                  and [s_["trees"] for s_ in st] ==
+                  [TRAIN_TREES - 1, 2 * TRAIN_TREES],
+                  f"{name}: graphs {[s_['graphs'] for s_ in st]} of "
+                  f"{len(r['programs'])} programs, trees "
+                  f"{[s_['trees'] for s_ in st]}")
+            check(min(r["leaves"]) > 1, f"{name}: a tree stalled")
+            for k in steps:
+                noop = r["noop" + k]
+                want = {key: v + noop * r["fixup_tally"].get(key, 0)
+                        for key, v in eager[0]["l" + k].items()}
+                check(r["l" + k] == want, f"{name}: fused launches "
+                      f"{r['l' + k]} are not the per-iteration run's "
+                      f"{want} plus {noop} no-op fix-up passes")
+            mem = r["memory"]
+            check(mem["released_bytes"] >= st[1]["graph_pool_bytes"] > 0,
+                  f"{name}: del booster gave back {mem['released_bytes']} "
+                  f"bytes, less than its graphs' pool "
+                  f"{st[1]['graph_pool_bytes']}")
+        # from the second run on (the first fused run may size a scratch
+        # buffer for the warm-up's fix-up pass), every booster leaves the
+        # same bytes behind: a trainer leaves nothing
+        left = [r["memory"]["after_del"]["allocated"] for r in runs]
+        check(len(set(left[1:])) == 1, f"{name}: bytes allocated after "
+              f"each booster went: {left}")
+        st = fused[0]["stats"]
+        trees = sum(s_["trees"] for s_ in st)
+        reads = sum(sum(s_["fixup_reads"]) for s_ in st)
+        emit(name, params={k: v for k, v in params.items()
+                           if k != "verbosity"},
+             trees=3 * TRAIN_TREES, fused_block_size=TRAIN_TREES,
+             model_sha256_10=eager[0]["sha10"][:16],
+             model_sha256_30=eager[0]["sha30"][:16], byte_equal=True,
+             order=[r["path"] for r in runs],
+             train_s_first10=[r["s10"] for r in runs],
+             train_s_next10=[r["s20"] for r in runs],
+             train_s_last10=[r["s30"] for r in runs],
+             trees_per_s_first10=[TRAIN_TREES / r["s10"] for r in runs],
+             trees_per_s_next10=[TRAIN_TREES / r["s20"] for r in runs],
+             trees_per_s_last10=[TRAIN_TREES / r["s30"] for r in runs],
+             graphs=st[0]["graphs"], programs=fused[0]["programs"],
+             capture_s=[s_["capture_s"] for r in fused
+                        for s_ in r["stats"]],
+             graph_pool_bytes=[s_["graph_pool_bytes"] for r in fused
+                               for s_ in r["stats"]],
+             buffer_bytes=st[0]["buffer_bytes"],
+             fixup_passes_per_tree=[s_["fixup_passes"] for s_ in st],
+             noop_fixups=[s_["noop_fixups"] for s_ in st],
+             done_reads_per_tree=reads / trees,
+             stall_polls=fused[0]["stall_polls"],
+             host_syncs_per_tree=(reads + fused[0]["stall_polls"]) / trees,
+             fixup_tally=fused[0]["fixup_tally"],
+             launches_fused_first10=fused[0]["l10"],
+             launches_per_iteration_first10=eager[0]["l10"],
+             memory=[r["memory"] for r in runs],
+             logloss=[r["logloss"] for r in runs])
+    counts = hm.launch_counts()
+    for key in FUSED_PATH:
+        check(counts[key] > 0, f"{key} was not launched on the fused path")
+    return counts
+
+
+def card_memory(torch):
+    """The card's reserved and allocated bytes, after its queued work."""
+    torch.cuda.synchronize()
+    return {"reserved": torch.cuda.memory_reserved(),
+            "allocated": torch.cuda.memory_allocated()}
+
+
+def fused_configs_check(torch, lgt, X, y, ds):
+    """engine.train's fused path (CUDA graphs) beside update() in the
+    configurations the fused phases do not run: the quantized backends
+    (pallas, scatter, auto), exact pallas, packed bins exact and
+    quantized, L2 regression exact and quantized; FUSED_CHECK_TREES trees
+    each. The model text must be byte-equal and the train scores
+    bit-equal, with every program captured. A check, not a path."""
+    import hashlib
+    y_reg = (1.2 * X[:, 0] - 0.8 * X[:, 1] + 0.6 * X[:, 2] * X[:, 3]) \
+        .astype(np.float32)
+    reg_params = {k: v for k, v in TRAIN_PARAMS.items() if k != "objective"}
+    packed = lgt.Dataset(X, label=y, params=PACKED_PARAMS)
+    reg = lgt.Dataset(X, label=y_reg, params=reg_params)
+    runs = (("quantized_pallas", ds,
+             dict(QUANT_PARAMS, hist_backend="pallas")),
+            ("quantized_scatter", ds,
+             dict(QUANT_PARAMS, hist_backend="scatter")),
+            ("quantized_auto", ds, dict(QUANT_PARAMS, hist_backend="auto")),
+            ("exact_pallas", ds, dict(TRAIN_PARAMS, hist_backend="pallas")),
+            ("packed", packed, PACKED_PARAMS),
+            ("packed_quantized", packed,
+             dict(PACKED_PARAMS, use_quantized_grad=True)),
+            ("regression", reg, reg_params),
+            ("regression_quantized", reg,
+             dict(reg_params, use_quantized_grad=True)))
+    out = {}
+    for name, data, params in runs:
+        a = lgt.Booster(params, data)
+        for _ in range(FUSED_CHECK_TREES):
+            a.update()
+        b = lgt.train(params, data, FUSED_CHECK_TREES)
+        st = b.gbdt.fused_stats
+        same = a.model_to_string() == b.model_to_string() and torch.equal(
+            a.gbdt.train_score.view(torch.int32),
+            b.gbdt.train_score.view(torch.int32))
+        check(same, f"fused {name}: model text or scores differ from "
+              "update()'s")
+        check(len(st) == 1 and st[0]["graphs"] == st[0]["programs"] and
+              b.gbdt._fused_run is None,
+              f"fused {name}: trainers {st}: not one, with every program "
+              "captured, freed by train")
+        out[name] = hashlib.sha256(b.model_to_string().encode()) \
+            .hexdigest()[:16]
+        del a, b
+        torch.cuda.empty_cache()
+    emit("fused_configs", trees=FUSED_CHECK_TREES, byte_equal=True,
+         model_sha256=out)
+
+
+def fused_scratch_check(torch, lgt, hm, X, y):
+    """Two boosters that share the card's scratch buffers: a small one
+    (SCRATCH_SMALL_ROWS rows) captures its graphs through update_batch,
+    a larger one (SCRATCH_LARGE_ROWS rows, more than any earlier phase)
+    grows the scratch buffers, and the small one then trains on by
+    replaying its graphs while the larger one lives. Its model text must
+    be byte-equal to FUSED_CHECK_TREES x 2 update() calls: the graphs
+    write the buffers their trainer holds, not memory the growth freed.
+    A check, not a path."""
+    import hashlib
+
+    def sha(booster):
+        return hashlib.sha256(booster.model_to_string().encode()) \
+            .hexdigest()
+
+    small = lgt.Dataset(X[:SCRATCH_SMALL_ROWS], label=y[:SCRATCH_SMALL_ROWS],
+                        params=TRAIN_PARAMS)
+    ref = lgt.Booster(TRAIN_PARAMS, small)
+    for _ in range(2 * FUSED_CHECK_TREES):
+        ref.update()
+    a = lgt.Booster(TRAIN_PARAMS, small)
+    a.update_batch(FUSED_CHECK_TREES)
+    dev = a.gbdt.train_score.device     # the scratch buffers' key
+    before = {t.data_ptr() for t in hm.scratch_buffers(dev)}
+    Xl, yl = make_higgs_like(SCRATCH_LARGE_ROWS, N_FEATURES, seed=23)
+    big = lgt.Booster(TRAIN_PARAMS, lgt.Dataset(Xl, label=yl,
+                                                params=TRAIN_PARAMS))
+    big.update_batch(FUSED_CHECK_TREES)
+    after = {t.data_ptr() for t in hm.scratch_buffers(dev)}
+    replaced = len(before - after)
+    check(replaced > 0, "the larger booster grew no scratch buffer: the "
+          "check does not test what it should")
+    a.update_batch(FUSED_CHECK_TREES)
+    check(sha(a) == sha(ref), "a booster's graphs replayed after another "
+          "booster grew the scratch buffers give another model than "
+          "update()")
+    check(all(st["graphs"] == st["programs"] for st in
+              a.gbdt.fused_stats + big.gbdt.fused_stats),
+          "a fused trainer of the scratch check did not capture every "
+          "program")
+    emit("fused_scratch_check", small_rows=SCRATCH_SMALL_ROWS,
+         large_rows=SCRATCH_LARGE_ROWS, trees=2 * FUSED_CHECK_TREES,
+         scratch_buffers_replaced=replaced, byte_equal=True,
+         model_sha256=sha(a)[:16])
+    del a, big, ref
+    torch.cuda.empty_cache()
 
 
 def train_booster(name, torch, lgt, hm, ds, params, trees, metric,
@@ -1934,6 +2309,10 @@ def main():
                           "train_quantized_check")
     check(abs(q_auc - exact_auc) <= 0.005,
           f"quantized held-out AUC {q_auc} vs exact {exact_auc}")
+    counts["fused"] = fused_path(torch, lgt, hm, ds, y)
+    fused_configs_check(torch, lgt, X, y, ds)
+    fused_scratch_check(torch, lgt, hm, X, y)
+    torch.cuda.empty_cache()
     counts["backends"] = backends_path(torch, lgt, hm, X, y, ds, q_booster,
                                        booster)
     counts["constraints"] = constraints_path(torch, lgt, hm, y, ds, booster)

@@ -2,7 +2,7 @@
 
 Port of the dense-numpy subset of lightgbm_tpu/basic.py: `Dataset(data,
 label, ...)` with lazy construction and `Booster(params, train_set)` with
-update / predict / model_to_string / save_model. Training runs on the
+update / update_batch / predict / model_to_string / save_model. Training runs on the
 device named by `device_type` ("cuda" by default, "cpu" on request);
 prediction runs on the host model (numpy tree walk), like the JAX
 package's Booster.predict.
@@ -145,6 +145,25 @@ class Booster:
                 "lightgbm_tpu_torch yet (ROADMAP.md port queue P10)")
         self._model = None
         return self.gbdt.train_one_iter()
+
+    def update_batch(self, num_iterations: int) -> bool:
+        """num_iterations boosting iterations, the trees of as many
+        update() calls, grown through the fused trainer (CUDA graphs on
+        the card); returns True if training cannot continue (a lagged
+        poll, as in the JAX package)."""
+        self._model = None
+        return self.gbdt.train_many(num_iterations)
+
+    def update_batch_dispatch(self, num_iterations: int) -> dict:
+        """update_batch split where the trees are appended: run the block
+        and return the handle finalize_block takes; update_batch(n) is
+        finalize_block(update_batch_dispatch(n))."""
+        self._model = None
+        return self.gbdt.train_many_dispatch(num_iterations)
+
+    def finalize_block(self, handle: dict) -> bool:
+        self._model = None
+        return self.gbdt.finalize_block(handle)
 
     def current_iteration(self) -> int:
         if self.gbdt is not None:

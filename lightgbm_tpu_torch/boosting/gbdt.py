@@ -20,12 +20,19 @@ slot-grouped scatter kernel on the card in the quantized posture and pins
 the faster. Bin matrices whose every feature fits a nibble are stored
 4-bit packed where the JAX package packs them (bin_pack_4bit).
 
-Every iteration reads the new tree's leaf count on the host (the JAX
-package lags that poll to spare a remote accelerator round trips); a tree
-that made no split is kept as a constant tree and update() returns True,
-as in the reference. The JAX package's pipelined and fused multi-tree
-executors produce byte-identical models to this per-iteration loop, so
-the port runs the loop whatever `pipeline` says.
+train_one_iter reads each new tree's leaf count on the host; a tree that
+made no split is kept as a constant tree and update() returns True, as in
+the reference. train_many runs K iterations through the fused trainer
+(boosting/fused.py: CUDA graphs on the card, the same programs eagerly on
+the CPU), byte-identical to K train_one_iter calls: a stalled tree
+becomes the same constant tree on the device, and the stall poll is
+lagged, as in the JAX package (each block's last leaf count is copied
+back without waiting and read when a later block crosses a poll
+boundary). Iteration 0 always runs train_one_iter, which owns
+boost-from-average. The JAX package's pipelined executor produces the
+same models as block dispatch, so the port ignores `pipeline`; its
+retry-and-fall-back around a fused dispatch (reliability, ROADMAP A9) is
+not ported: a failed dispatch raises.
 
 `check_supported` refuses every parameter value whose code is not ported,
 naming the ROADMAP.md port-queue item that will bring it.
@@ -33,6 +40,7 @@ naming the ROADMAP.md port-queue item that will bring it.
 
 from __future__ import annotations
 
+import functools
 from typing import List
 
 import math
@@ -44,14 +52,40 @@ from .. import rng
 from ..config import Config
 from ..data import BinnedDataset
 from ..learner.grower import TreeArrays
-from ..learner.grower_mxu import (_kernel_cap, autotune_hist_backend,
-                                  grow_tree_mxu)
+from ..learner.grower_mxu import (Grower, _kernel_cap,
+                                  autotune_hist_backend)
 from ..learner.histogram_mxu import fits_v2, node_values, pack_bins_4bit
 from ..learner.split import SplitHyperParams
 from ..objectives import ObjectiveFunction
 from ..utils.log import Log
 
 __all__ = ["GBDT", "check_supported", "resolve_device"]
+
+# train_many reads a block's stall state every this many iterations (the
+# JAX package's _stop_poll_every)
+_STOP_POLL_EVERY = 8
+
+
+def _feature_mask(it, *, f: int, fraction: float, seed: int,
+                  device: torch.device) -> torch.Tensor:
+    """Iteration `it`'s feature_fraction mask [F] f32: the first
+    max(1, round(F * fraction)) features of a permutation under
+    fold_in(PRNGKey(seed), it), as the JAX package draws it. it: an int,
+    or a device int32 scalar (the fused trainer's iteration, which its
+    graphs replay)."""
+    if fraction >= 1.0:
+        return torch.ones(f, dtype=torch.float32, device=device)
+    key = rng.fold_in(rng.PRNGKey(seed, device), it)
+    kf = max(1, int(round(f * fraction)))
+    mask = torch.zeros(f, dtype=torch.float32, device=device)
+    return mask.index_fill_(0, rng.permutation(key, f)[:kf]
+                            .to(torch.int64), 1.0)
+
+
+def _tree_key(it, *, seed: int, device: torch.device) -> torch.Tensor:
+    """The JAX package's per-tree key, fold_in(PRNGKey(seed), it); it: an
+    int or a device int32 scalar."""
+    return rng.fold_in(rng.PRNGKey(seed, device), it)
 
 
 def resolve_device(device_type: str) -> torch.device:
@@ -126,6 +160,15 @@ class GBDT:
         self.iter_ = 0
         self.trees: List[TreeArrays] = []
         self.tree_class: List[int] = []
+        self._fused_run = None
+        #: the stats of each fused trainer built (FusedTrainer.stats),
+        #: kept after release_fused
+        self.fused_stats: List[dict] = []
+        self._grower_obj = None
+        # the lagged stall poll of train_many: the last leaf count of the
+        # latest block, copied to the host without waiting
+        self._pending_nleaves = None
+        self.stall_polls = 0    # host reads of a pending leaf count
         self._setup_train(train_set)
 
     def _setup_train(self, ds: BinnedDataset) -> None:
@@ -284,39 +327,46 @@ class GBDT:
             hist_backend=self._resolved_hist_backend(),
             partition_impl=cfg.partition_impl)
 
-    def _feature_mask_at(self, it: int) -> torch.Tensor:
-        """Iteration `it`'s feature_fraction mask [F] f32: the first
-        max(1, round(F * feature_fraction)) features of a permutation under
-        fold_in(PRNGKey(feature_fraction_seed), it), as the JAX package
-        draws it."""
+    def _mask_settings(self) -> dict:
         cfg = self.config
-        f = int(self.num_bins_d.shape[0])
-        if cfg.feature_fraction >= 1.0:
-            return torch.ones(f, dtype=torch.float32, device=self.device)
-        key = rng.fold_in(rng.PRNGKey(cfg.feature_fraction_seed, self.device),
-                          it)
-        kf = max(1, int(round(f * cfg.feature_fraction)))
-        mask = torch.zeros(f, dtype=torch.float32, device=self.device)
-        mask[rng.permutation(key, f)[:kf].to(torch.int64)] = 1.0
-        return mask
+        return dict(f=int(self.num_bins_d.shape[0]),
+                    fraction=cfg.feature_fraction,
+                    seed=cfg.feature_fraction_seed, device=self.device)
 
-    def _tree_key(self):
-        """The JAX package's per-tree key, fold_in(PRNGKey(extra_seed),
-        iteration), where growth draws from it (extra_trees, bynode
-        sampling, quantized gradients); else None."""
+    def _feature_mask_at(self, it) -> torch.Tensor:
+        """Iteration `it`'s feature_fraction mask (_feature_mask)."""
+        return _feature_mask(it, **self._mask_settings())
+
+    def _needs_rng(self) -> bool:
+        """Whether growth draws from the per-tree key (extra_trees, bynode
+        sampling, quantized gradients)."""
         cfg = self.config
-        if not (self.hp.extra_trees or cfg.feature_fraction_bynode < 1.0 or
-                cfg.use_quantized_grad):
+        return bool(self.hp.extra_trees or cfg.feature_fraction_bynode < 1.0
+                    or cfg.use_quantized_grad)
+
+    def _tree_key(self, it=None):
+        """The JAX package's per-tree key, fold_in(PRNGKey(extra_seed), it)
+        (it: this iteration by default, an int or a device int32 scalar),
+        where growth draws from it; else None."""
+        if not self._needs_rng():
             return None
-        return rng.fold_in(rng.PRNGKey(cfg.extra_seed, self.device),
-                           self.iter_)
+        return _tree_key(self.iter_ if it is None else it,
+                         seed=self.config.extra_seed, device=self.device)
+
+    def _grower(self) -> Grower:
+        """The booster's Grower (grow_tree_mxu's programs with this
+        booster's settings), built once: the per-iteration path and the
+        fused trainer grow through it."""
+        if self._grower_obj is None:
+            self._grower_obj = Grower(
+                self.bins, self.num_bins_d, self.missing_is_nan_d,
+                self.is_cat_d, **self._mxu_grow_kwargs())
+        return self._grower_obj
 
     def _grow(self, grad, hess):
-        return grow_tree_mxu(
-            self.bins, grad, hess, self._cnt,
-            self._feature_mask_at(self.iter_), self.num_bins_d,
-            self.missing_is_nan_d, self.is_cat_d, rng_key=self._tree_key(),
-            **self._mxu_grow_kwargs())
+        return self._grower().grow(grad, hess, self._cnt,
+                                   self._feature_mask_at(self.iter_),
+                                   self._tree_key())
 
     def train_one_iter(self) -> bool:
         """One boosting iteration (reference TrainOneIter gbdt.cpp:371-449).
@@ -352,6 +402,112 @@ class GBDT:
         self.tree_class.append(0)
         self.iter_ += 1
         return finished
+
+    # ------------------------------------------------------------------
+    # K iterations per dispatch (boosting/fused.py)
+    def _fused_eligible(self) -> bool:
+        """Whether engine.train may dispatch K iterations at a time
+        through the fused trainer, with the trees of K train_one_iter
+        calls: the JAX package's rule (plain gbdt on the serial grower, no
+        guard rails, no linear trees, no leaf renewal, no CEGB). The port
+        trains nothing else (check_supported refuses the rest), so it
+        holds for every booster it builds."""
+        cfg = self.config
+        return (type(self) is GBDT and cfg.boosting == "gbdt"
+                and cfg.guard_nonfinite == "off" and not cfg.linear_tree
+                and self.objective is not None)
+
+    def _build_fused(self):
+        """The fused trainer. It gets no reference to the booster (its
+        draws are plain functions of the iteration), so dropping the
+        booster or release_fused frees its graphs at once, without a
+        garbage collection."""
+        from .fused import build_fused_train
+        key_fn = None
+        if self._needs_rng():
+            key_fn = functools.partial(_tree_key,
+                                       seed=self.config.extra_seed,
+                                       device=self.device)
+        return build_fused_train(
+            objective=self.objective, grower=self._grower(),
+            cnt_weight=self._cnt,
+            feature_mask_fn=functools.partial(_feature_mask,
+                                              **self._mask_settings()),
+            key_fn=key_fn, shrinkage=self.shrinkage_rate,
+            const_tree=self._constant_tree(0.0),
+            block=self.config.fused_block_size)
+
+    def release_fused(self) -> None:
+        """Free the fused trainer: its CUDA graphs, their memory pool and
+        its buffers (engine.train does, when it is done). A later
+        train_many builds and captures a new one."""
+        self._fused_run = None
+
+    def train_many(self, k: int) -> bool:
+        """K boosting iterations, the same trees and scores as K
+        train_one_iter calls, with the trees of iterations after the first
+        grown by the fused trainer. Returns True when training cannot
+        continue (the lagged stall poll)."""
+        return self.finalize_block(self.train_many_dispatch(k))
+
+    def train_many_dispatch(self, k: int) -> dict:
+        """First half of train_many: run the k iterations and leave all
+        but appending the trees done; returns the handle finalize_block
+        takes. Iteration 0 runs train_one_iter (boost-from-average); a run
+        that stalls there finishes the block with train_one_iter too."""
+        stop = False
+        if self.iter_ == 0 and k > 0:
+            stop = self.train_one_iter()
+            k -= 1
+            if stop:
+                for _ in range(k):
+                    self.train_one_iter()
+                return {"mode": "done", "stop": True}
+        if k <= 0:
+            return {"mode": "done", "stop": stop}
+        if self._fused_run is None:
+            self._fused_run = self._build_fused()
+            self.fused_stats.append(self._fused_run.stats)
+        score, stacked = self._fused_run(self.train_score, self.iter_, k)
+        self.train_score = score
+        self.iter_ += k
+        # lagged stall poll: read the count an earlier block left (its copy
+        # has long landed) when this block crossed a poll boundary
+        crossed = (self.iter_ // _STOP_POLL_EVERY !=
+                   (self.iter_ - k) // _STOP_POLL_EVERY)
+        stop_hint = crossed and self._pending_nleaves is not None and \
+            self._read_pending() <= 1
+        self._pending_nleaves = self._start_copy(stacked.num_leaves[k - 1])
+        return {"mode": "fused", "stacked": stacked, "k": k,
+                "stop": stop_hint}
+
+    def finalize_block(self, handle: dict) -> bool:
+        """Second half of train_many: the block's trees, views of its
+        stack, onto self.trees (no device work)."""
+        if handle["mode"] == "fused":
+            stacked = handle["stacked"]
+            for i in range(handle["k"]):
+                self.trees.append(TreeArrays(*[t[i] for t in stacked]))
+                self.tree_class.append(0)
+        return handle["stop"]
+
+    def _start_copy(self, count: torch.Tensor):
+        """(host tensor, event) of a device scalar being copied back
+        without waiting; the CPU's own tensor on the CPU."""
+        if count.device.type != "cuda":
+            return count, None
+        host = torch.empty((), dtype=count.dtype, pin_memory=True)
+        host.copy_(count, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return host, event
+
+    def _read_pending(self) -> int:
+        host, event = self._pending_nleaves
+        if event is not None:
+            event.synchronize()
+        self.stall_polls += 1
+        return int(host)
 
     def _constant_tree(self, value: float) -> TreeArrays:
         m1 = 2 * self.config.num_leaves

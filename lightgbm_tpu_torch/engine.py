@@ -1,8 +1,13 @@
 """train() entry point (reference python-package/lightgbm/engine.py).
 
 Port of lightgbm_tpu/engine.py:34 without validation sets, callbacks,
-custom objectives, continued training or checkpoint resume: a per-
-iteration loop of Booster.update().
+custom objectives, continued training or checkpoint resume. As in the
+JAX package, iterations go fused_block_size at a time through
+Booster.update_batch (the fused trainer, boosting/fused.py) when the
+booster is fused-eligible, else one Booster.update() each; the models are
+the same either way. The booster returned holds no fused trainer: its
+CUDA graphs are freed when training ends. `pipeline` (the JAX package's
+pipelined executor, ROADMAP A3) is accepted and ignored.
 """
 
 from __future__ import annotations
@@ -39,7 +44,18 @@ def train(params: Dict[str, Any], train_set: Dataset,
             num_boost_round = int(params.pop(alias))
             break
     booster = Booster(params=params, train_set=train_set)
-    for _ in range(num_boost_round):
-        booster.update()
+    block = int(booster.config.fused_block_size or 1)
+    use_blocks = block > 1 and booster.gbdt._fused_eligible()
+    i = 0
+    while i < num_boost_round:
+        b = min(block, num_boost_round - i) if use_blocks else 1
+        if b > 1:
+            booster.update_batch(b)
+        else:
+            booster.update()
+        i += b
+    # the trained booster keeps no CUDA graphs (update_batch on it
+    # captures anew)
+    booster.gbdt.release_fused()
     booster.best_iteration = booster.current_iteration()
     return booster

@@ -54,6 +54,7 @@ KERNELS: Dict[str, tuple] = {
     "node_sums": ("lgbt_node_sums", [_P] * 6 + [_I] * 2 + [_P]),
     "find_best_splits": ("lgbt_find_best_splits",
                          [_P] * 6 + [_I] * 4 + [_F] * 7 + [_P]),
+    "prune_best_first": ("lgbt_prune_best_first", [_P] * 8 + [_I] * 3 + [_P]),
 }
 
 _lock = threading.Lock()

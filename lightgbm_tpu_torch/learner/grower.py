@@ -54,7 +54,7 @@ def _init_tree(max_nodes: int, root_grad, root_hess, root_count,
         return torch.full((m1,), v, dtype=torch.int32, device=device)
 
     is_leaf = torch.zeros(m1, dtype=torch.bool, device=device)
-    is_leaf[0] = True
+    is_leaf[0].fill_(True)
     return TreeArrays(
         split_feature=full_i(-1), threshold_bin=full_i(0),
         default_left=torch.zeros(m1, dtype=torch.bool, device=device),
@@ -65,5 +65,5 @@ def _init_tree(max_nodes: int, root_grad, root_hess, root_count,
         leaf_value=with_root(root_value), sum_grad=with_root(root_grad),
         sum_hess=with_root(root_hess), count=with_root(root_count),
         gain=zf(), depth=full_i(0), is_leaf=is_leaf,
-        num_nodes=torch.tensor(1, dtype=torch.int32, device=device),
-        num_leaves=torch.tensor(1, dtype=torch.int32, device=device))
+        num_nodes=torch.ones((), dtype=torch.int32, device=device),
+        num_leaves=torch.ones((), dtype=torch.int32, device=device))

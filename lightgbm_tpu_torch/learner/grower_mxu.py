@@ -49,18 +49,26 @@ use_scan_kernel=True scans splits with the fused kernel
 (split_kernel.find_best_splits_kernel) wherever it covers the pass: no
 categorical features, no extra_trees.
 
-Where the JAX package had lax.cond / while_loop / fori_loop this runs
-Python loops with host syncs for the loop conditions. Not ported: psum
-(distributed), EFB, forced splits, CEGB; boosting/gbdt.py refuses the
-params that need them.
+No pass reads the device: the budget, the split count and `done` stay
+device tensors, writes the JAX package parks in the scratch node m go to
+pad rows that are sliced off, and a pass that finds the tree done returns
+its state unchanged (the JAX package's lax.cond), so the doubling
+schedule, the gate and the bridge are one fixed sequence. Only the fix-up
+loop (the JAX package's while_loop) reads `done`, once before each fix-up
+pass. The prune's replay is one kernel (prune.prune_best_first, the JAX
+package's fori_loop). `Grower` holds these programs apart, so the fused
+trainer (boosting/fused.py) can capture each in a CUDA graph;
+grow_tree_mxu runs them eagerly. Not ported: psum (distributed), EFB,
+forced splits, CEGB; boosting/gbdt.py refuses the params that need them.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 import time
 import types
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -74,10 +82,11 @@ from .histogram_mxu import (build_histograms_auto, exact_scale, exact_sums,
                             node_sums, node_values, pack_route_tables,
                             quantize_gradients, route_rows, unpack_bins_4bit)
 from .histogram_pallas import build_histograms_scatter
+from .prune import prune_best_first
 from .split import BestSplits, SplitHyperParams, find_best_splits, leaf_output
 from .split_kernel import find_best_splits_kernel, kernel_supports
 
-__all__ = ["autotune_hist_backend", "grow_tree_mxu", "growth_plan"]
+__all__ = ["Grower", "autotune_hist_backend", "grow_tree_mxu", "growth_plan"]
 
 HIST_BACKENDS = ("mxu", "pallas", "scatter")
 
@@ -201,7 +210,7 @@ class _GrowState(NamedTuple):
     member: torch.Tensor       # [m_pad, W] i32 categorical left sets
     slot_nodes: torch.Tensor   # [s_max] i32 node id per scan slot (m = none)
     best: BestSplits           # per-NODE arrays [m1]
-    done: bool
+    done: torch.Tensor         # [] bool: growth is over, passes are no-ops
     parent_hist: torch.Tensor  # [P, F*B*3] parent scan rows, pair-indexed
     pair_parent: torch.Tensor  # [P] i32 parent's scan slot (-1 = stale)
     pair_sleft: torch.Tensor   # [P] bool smaller child is the left one
@@ -211,14 +220,40 @@ class _GrowState(NamedTuple):
     path_mask: torch.Tensor    # [m1, F] bool features on the node's path
 
 
+class _TreeInputs(NamedTuple):
+    """What one tree grows from, fixed through its passes."""
+    grad: torch.Tensor           # [N] f32
+    hess: torch.Tensor
+    cnt: torch.Tensor
+    feature_mask: torch.Tensor   # [F]
+    rng_key: Optional[torch.Tensor]
+    h_grad: torch.Tensor         # what the histograms sum (int8 quantized)
+    h_hess: torch.Tensor
+    hist_scale: Optional[torch.Tensor]   # [3] f32 quantized sums' scales
+    hist_fixed: Optional[torch.Tensor]   # [3] i32 exact fixed point
+
+
 def _set_dropping(base: torch.Tensor, idx: torch.Tensor,
                   vals: torch.Tensor) -> torch.Tensor:
     """base.at[idx].set(vals) with out-of-range indices dropped (the JAX
-    scatter semantics the reference relies on)."""
-    out = base.clone()
-    keep = (idx >= 0) & (idx < base.shape[0])
-    out[idx[keep].to(torch.int64)] = vals[keep]
-    return out
+    scatter semantics the reference relies on): they write a pad row that
+    is sliced off, so no index is selected on the host."""
+    n = base.shape[0]
+    i = torch.where((idx >= 0) & (idx < n), idx, n).to(torch.int64)
+    out = torch.cat([base, base[:1]])
+    out[i] = vals
+    return out[:n]
+
+
+def _select(done: torch.Tensor, old, new):
+    """torch.where(done, old, new) over a state (nested named tuples of
+    tensors): a pass that finds growth over leaves the state as it was,
+    bit for bit, as the JAX package's lax.cond does."""
+    if isinstance(old, tuple):
+        return type(old)(*[_select(done, o, n) for o, n in zip(old, new)])
+    if old is None or old is new:
+        return new
+    return torch.where(done, old, new)
 
 
 def _prune_to_best_first(tree: TreeArrays, row_node: torch.Tensor, *,
@@ -227,76 +262,37 @@ def _prune_to_best_first(tree: TreeArrays, row_node: torch.Tensor, *,
     """Replay the reference's strict best-first growth order over an
     OVERGROWN tree's recorded split gains, keep the winning num_leaves-1
     splits, compact, and move rows to their nearest kept-leaf ancestor.
-    The replay is a short sequential loop over <= 2*L nodes: it runs on
-    the host (numpy f32, first-index argmax as the JAX package's). `aux`:
-    (per-node array, fill) pairs compacted the same way and returned as a
-    third element."""
+    The replay and its closure are one kernel (prune.prune_best_first);
+    the compaction writes dropped nodes to a pad row, so nothing here
+    syncs. `aux`: (per-node array, fill) pairs compacted the same way and
+    returned as a third element."""
     dev = row_node.device
-    m1g = m_grow + 1
-    mf = 2 * num_leaves - 1
-    mf1 = mf + 1
-    left = tree.left.cpu().numpy().astype(np.int64)
-    right = tree.right.cpu().numpy().astype(np.int64)
-    parent = tree.parent.cpu().numpy().astype(np.int64)
-    gains = np.where(left >= 0, tree.gain.cpu().numpy(),
-                     np.float32(-np.inf)).astype(np.float32)
-
-    avail = np.full(m1g, -np.inf, np.float32)
-    avail[0] = gains[0]
-    sel = np.zeros(m1g, bool)
-    for _ in range(num_leaves - 1):
-        j = int(np.argmax(avail))
-        ok = avail[j] > -np.inf
-        sel[j] |= ok
-        avail[j] = -np.inf
-        cl = min(max(int(left[j]), 0), m_grow) if ok else m_grow
-        cr = min(max(int(right[j]), 0), m_grow) if ok else m_grow
-        avail[cl] = gains[cl] if cl < m_grow else -np.inf
-        avail[cr] = gains[cr] if cr < m_grow else -np.inf
-
-    # kept iff every proper ancestor was selected (pointer doubling)
-    par = np.clip(parent, 0, m_grow)
-    ids = np.arange(m1g)
-    is_root = ids == 0
-    ptr = np.where(is_root, ids, par)
-    acc = np.where(is_root, True, sel[par])
-    for _ in range(max(1, (m1g - 1).bit_length())):
-        acc = acc & acc[ptr]
-        ptr = ptr[ptr]
-    kept = acc & (is_root | (parent >= 0))
+    mf1 = 2 * num_leaves
+    sel, kept, new_id, composed = prune_best_first(
+        tree.left, tree.right, tree.parent, tree.gain, num_leaves=num_leaves)
     final_leaf = kept & ~sel
-    # rows ascend to the nearest kept-leaf ancestor
-    nxt = np.where(final_leaf | is_root, ids, par)
-    for _ in range(max(1, (m1g - 1).bit_length())):
-        nxt = nxt[nxt]
-    new_id = np.cumsum(kept) - 1
-
-    sel_d = torch.as_tensor(sel, device=dev)
-    kept_d = torch.as_tensor(kept, device=dev)
-    dst = torch.as_tensor(new_id[kept], device=dev)
-    new_id_d = torch.as_tensor(new_id, device=dev)
-    par_d = torch.as_tensor(par, device=dev)
+    dst = torch.where(kept, new_id, mf1).to(torch.int64)
+    par = tree.parent.to(torch.int64).clamp(0, m_grow)
 
     def compact(arr, fill):
-        out = torch.full((mf1,) + tuple(arr.shape[1:]), fill,
+        out = torch.full((mf1 + 1,) + tuple(arr.shape[1:]), fill,
                          dtype=arr.dtype, device=dev)
-        out[dst] = arr[kept_d]
-        return out
+        out[dst] = arr
+        return out[:mf1]
 
     def child_new(c):
         cc = c.to(torch.int64).clamp(0, m_grow)
-        return torch.where(sel_d & (c >= 0), new_id_d[cc], -1) \
-            .to(torch.int32)
+        return torch.where(sel & (c >= 0), new_id[cc], -1).to(torch.int32)
 
     zero_f = torch.zeros((), dtype=torch.float32, device=dev)
-    parent_new = torch.where(tree.parent >= 0, new_id_d[par_d], -1) \
+    parent_new = torch.where(tree.parent >= 0, new_id[par], -1) \
         .to(torch.int32)
     pruned = TreeArrays(
-        split_feature=compact(torch.where(sel_d, tree.split_feature, -1), -1),
-        threshold_bin=compact(torch.where(sel_d, tree.threshold_bin, 0), 0),
-        default_left=compact(sel_d & tree.default_left, False),
-        is_cat=compact(sel_d & tree.is_cat, False),
-        cat_bitset=compact(torch.where(sel_d[:, None], tree.cat_bitset, 0), 0),
+        split_feature=compact(torch.where(sel, tree.split_feature, -1), -1),
+        threshold_bin=compact(torch.where(sel, tree.threshold_bin, 0), 0),
+        default_left=compact(sel & tree.default_left, False),
+        is_cat=compact(sel & tree.is_cat, False),
+        cat_bitset=compact(torch.where(sel[:, None], tree.cat_bitset, 0), 0),
         left=compact(child_new(tree.left), -1),
         right=compact(child_new(tree.right), -1),
         parent=compact(parent_new, -1),
@@ -304,171 +300,296 @@ def _prune_to_best_first(tree: TreeArrays, row_node: torch.Tensor, *,
         sum_grad=compact(tree.sum_grad, 0.0),
         sum_hess=compact(tree.sum_hess, 0.0),
         count=compact(tree.count, 0.0),
-        gain=compact(torch.where(sel_d, tree.gain, zero_f), 0.0),
+        gain=compact(torch.where(sel, tree.gain, zero_f), 0.0),
         depth=compact(tree.depth, 0),
-        is_leaf=compact(torch.as_tensor(final_leaf, device=dev), False),
-        num_nodes=torch.tensor(int(kept.sum()), dtype=torch.int32,
-                               device=dev),
-        num_leaves=torch.tensor(int(final_leaf.sum()), dtype=torch.int32,
-                                device=dev))
+        is_leaf=compact(final_leaf, False),
+        num_nodes=torch.sum(kept, dtype=torch.int32),
+        num_leaves=torch.sum(final_leaf, dtype=torch.int32))
     # per-row lookup of the compacted kept-leaf id (ids are f32-exact)
-    composed = torch.as_tensor(new_id[nxt].astype(np.float32), device=dev)
     row_new = node_values(row_node, composed).to(torch.int32)
     if aux:
         return pruned, row_new, tuple(compact(a, fill) for a, fill in aux)
     return pruned, row_new
 
 
-def grow_tree_mxu(bins: torch.Tensor, grad: torch.Tensor,
-                  hess: torch.Tensor, cnt_weight: torch.Tensor,
-                  feature_mask: torch.Tensor, num_bins: torch.Tensor,
-                  missing_is_nan: torch.Tensor, is_cat_feat: torch.Tensor,
-                  *, num_leaves: int, max_depth: int, hp: SplitHyperParams,
-                  bmax: int, monotone: Optional[torch.Tensor] = None,
-                  interaction_groups: Optional[tuple] = None,
-                  feature_fraction_bynode: float = 1.0,
-                  tail_split_cap: int = 0,
-                  hist_subtraction: bool = True, overshoot: float = 0.0,
-                  bridge_gate: float = 0.0, const_hessian: float = 0.0,
-                  quantized_grad: bool = False,
-                  rng_key: Optional[torch.Tensor] = None,
-                  packed4: bool = False, hist_backend: str = "mxu",
-                  partition_impl: str = "auto",
-                  use_scan_kernel: bool = False
-                  ) -> Tuple[TreeArrays, torch.Tensor]:
-    """Grow one tree. Returns (TreeArrays, row_node [N] i32: each row's
-    leaf node id). Same contract and same trees as the JAX package's
-    grow_tree_mxu (serial mode) with the same arguments.
+class Grower:
+    """One configuration's tree growth, cut into programs with static
+    shapes and no host sync, which a CUDA graph can capture (the fused
+    trainer, boosting/fused.py) or eager code runs in turn (grow, the
+    per-iteration path):
 
-    bins: [N, F] uint8; grad/hess/cnt_weight: [N] f32; feature_mask: [F];
-    num_bins: [F] i32; missing_is_nan, is_cat_feat: [F] bool; all on one
-    device. monotone: [F] int constraint per feature (with
-    hp.has_monotone); interaction_groups: tuple of tuples of feature
-    indices; feature_fraction_bynode < 1 and hp.extra_trees draw under
-    rng_key (a key of lightgbm_tpu_torch.rng; None turns both off, as in
-    the JAX package). const_hessian != 0: per-row hessians are const x
-    cnt_weight and the kernels drop the hessian channel. quantized_grad:
-    grow on quantized gradients drawn under rng_key (None = PRNGKey(0)),
-    then refit the leaves exactly. use_scan_kernel: scan splits with the
-    fused kernel where it covers the pass (module docstring). packed4: bins
-    are [N, ceil(F/2)] 4-bit packed (histogram_mxu.pack_bins_4bit), F taken
-    from num_bins. hist_backend: "mxu", "pallas" or "scatter" (module
-    docstring) — a resolved backend, never "auto", which the booster
-    resolves first (autotune_hist_backend); partition_impl: the pallas
-    backend's partition_rows impl."""
-    if hist_backend not in HIST_BACKENDS:
-        raise ValueError(f"grow_tree_mxu needs a resolved hist_backend, one "
-                         f"of {HIST_BACKENDS}; got {hist_backend!r} (the "
-                         "booster resolves 'auto' before growth)")
-    dev = bins.device
-    n = bins.shape[0]
-    f = int(num_bins.shape[0]) if packed4 else bins.shape[1]
-    nf_packed = f if packed4 else 0
-    plan = growth_plan(num_leaves=num_leaves, overshoot=overshoot,
-                       tail_split_cap=tail_split_cap,
-                       hist_subtraction=hist_subtraction,
-                       bridge_gate=bridge_gate)
-    over, L_g, m_pad, s_max = plan.over, plan.L_g, plan.m_pad, plan.s_max
-    tail_split_cap = plan.tail_split_cap
-    m = 2 * L_g - 1
-    m1 = m + 1
-    k_top = L_g - 1
-    w_cat = (bmax + 31) // 32
-    P_all = (s_max + 1) // 2 + 2   # pair-state capacity (subtraction)
-    ch = const_hessian
-    quant = quantized_grad
-    ninf = torch.full((), float("-inf"), dtype=torch.float32, device=dev)
+      start      the prologue: quantization or the exact fixed point, root
+                 sums, the initial tables and state
+      scheduled  the doubling passes, then the bridge gate and the bridge
+                 pass, a fixed sequence: a pass that finds the tree done
+                 leaves the state as it was (_select)
+      fixup      one fix-up pass at the fix-up width, numbered pass_idx
+      finish     the epilogue: the last routing flush, the prune, the
+                 quantized refit
 
-    def ifull(size, v):
-        return torch.full((size,), v, dtype=torch.int32, device=dev)
+    The fix-up loop (grow) is the only code that reads the device: `done`,
+    once before each fix-up pass. Settings as grow_tree_mxu's."""
 
-    def farange(size):
-        return torch.arange(size, dtype=torch.int32, device=dev)
+    def __init__(self, bins: torch.Tensor, num_bins: torch.Tensor,
+                 missing_is_nan: torch.Tensor, is_cat_feat: torch.Tensor,
+                 *, num_leaves: int, max_depth: int, hp: SplitHyperParams,
+                 bmax: int, monotone: Optional[torch.Tensor] = None,
+                 interaction_groups: Optional[tuple] = None,
+                 feature_fraction_bynode: float = 1.0,
+                 tail_split_cap: int = 0, hist_subtraction: bool = True,
+                 overshoot: float = 0.0, bridge_gate: float = 0.0,
+                 const_hessian: float = 0.0, quantized_grad: bool = False,
+                 packed4: bool = False, hist_backend: str = "mxu",
+                 partition_impl: str = "auto",
+                 use_scan_kernel: bool = False):
+        if hist_backend not in HIST_BACKENDS:
+            raise ValueError(f"grow_tree_mxu needs a resolved hist_backend, "
+                             f"one of {HIST_BACKENDS}; got {hist_backend!r} "
+                             "(the booster resolves 'auto' before growth)")
+        self.bins, self.num_bins = bins, num_bins
+        self.missing_is_nan, self.is_cat_feat = missing_is_nan, is_cat_feat
+        self.dev = dev = bins.device
+        self.n = bins.shape[0]
+        self.f = f = int(num_bins.shape[0]) if packed4 else bins.shape[1]
+        self.nf_packed = f if packed4 else 0
+        self.plan = plan = growth_plan(
+            num_leaves=num_leaves, overshoot=overshoot,
+            tail_split_cap=tail_split_cap, hist_subtraction=hist_subtraction,
+            bridge_gate=bridge_gate)
+        self.num_leaves, self.max_depth, self.hp = num_leaves, max_depth, hp
+        self.bmax, self.monotone = bmax, monotone
+        self.hist_subtraction = hist_subtraction
+        self.tail_split_cap = plan.tail_split_cap
+        self.ch, self.quant = const_hessian, quantized_grad
+        self.hist_backend, self.partition_impl = hist_backend, partition_impl
+        self.m = 2 * plan.L_g - 1
+        self.m1 = self.m + 1
+        self.k_top = plan.L_g - 1
+        self.w_cat = (bmax + 31) // 32
+        self.P_all = (plan.s_max + 1) // 2 + 2   # pair-state capacity
+        self.feat_tbl = torch.stack([num_bins.to(torch.int32),
+                                     missing_is_nan.to(torch.int32)],
+                                    dim=1).contiguous()
+        self.group_masks = None
+        if interaction_groups:
+            gm = np.zeros((len(interaction_groups), f), np.bool_)
+            for gi, grp in enumerate(interaction_groups):
+                for fi in grp:
+                    if 0 <= fi < f:
+                        gm[gi, fi] = True
+            self.group_masks = torch.as_tensor(gm, device=dev)
+        self.feature_fraction_bynode = feature_fraction_bynode
+        self.k_bynode = max(1, int(round(feature_fraction_bynode * f)))
+        self.use_kernel = use_scan_kernel and kernel_supports(hp)
+        #: the host counter of the first fix-up pass; pass it + 1000 runs
+        #: while it < L_g
+        self.first_fixup = len(plan.schedule) + 1
+        #: the last grow()'s fix-up passes and reads of `done`
+        self.last_fixups = (0, 0)
 
-    root_c = torch.sum(cnt_weight)
-    if quant:
-        # the JAX package's key schedule: a fixed fold, then the bits of
-        # sum(grad), so each iteration's rounding noise differs (the sum
-        # stays on the device: no host sync)
-        qkey = rng_key if rng_key is not None else rng.PRNGKey(0, dev)
-        qkey = rng.fold_in(rng.fold_in(qkey, 6271),
-                           torch.sum(grad).view(torch.int32))
-        g_q, h_q, gscale, hscale = quantize_gradients(
-            grad, None if ch else hess, qkey)
-        h_grad = g_q.to(torch.int8)
-        # const hessian: the kernels never read the hessian channel
-        h_hess = h_grad if h_q is None else h_q.to(torch.int8)
-        hist_scale = torch.stack([gscale, hscale, torch.ones_like(gscale)])
-        # histogram-consistent root sums (exact integer sums x scale), so
-        # right = parent - left stays consistent
-        root_g = torch.sum(h_grad, dtype=torch.int64).to(torch.float32) * \
-            gscale
-        root_h = root_c * ch if ch else \
-            torch.sum(h_hess, dtype=torch.int64).to(torch.float32) * hscale
-        hist_fixed = None
-    else:
-        h_grad, h_hess = grad, hess
-        # the fixed point of every exact histogram of the tree, on the
-        # device (no host sync)
-        hist_fixed = exact_scale(grad, hess, cnt_weight)
-        # root sums in the same fixed point, so they are the same bits on
-        # every device (an f32 torch.sum adds in another order on the card
-        # than on the CPU) and right = parent - left is exact
-        root_g, root_h, _ = exact_sums(grad, hess, cnt_weight, hist_fixed)
-        if ch:
-            root_h = root_c * ch
-    root_val = leaf_output(root_g, root_h, hp.lambda_l1, hp.lambda_l2,
-                           hp.max_delta_step)
-    tree0 = _init_tree(m, root_g, root_h, root_c, root_val,
-                       bitset_words=w_cat, device=dev)
-    zf = torch.zeros(m1, dtype=torch.float32, device=dev)
-    best0 = BestSplits(
-        gain=ninf.expand(m1).clone(), feature=ifull(m1, -1),
-        threshold_bin=ifull(m1, 0),
-        default_left=torch.zeros(m1, dtype=torch.bool, device=dev),
-        left_grad=zf, left_hess=zf, left_count=zf, left_output=zf,
-        right_output=zf,
-        cat_bitset=torch.zeros((m1, w_cat), dtype=torch.int64, device=dev))
-    feat_tbl = torch.stack([num_bins.to(torch.int32),
-                            missing_is_nan.to(torch.int32)], dim=1) \
-        .contiguous()
+    # ---- small constructors on the device (fills: no host copies)
+    def _ifull(self, size, v):
+        return torch.full((size,), v, dtype=torch.int32, device=self.dev)
 
-    use_interaction = bool(interaction_groups)
-    if use_interaction:
-        gm = np.zeros((len(interaction_groups), f), np.bool_)
-        for gi, grp in enumerate(interaction_groups):
-            for fi in grp:
-                if 0 <= fi < f:
-                    gm[gi, fi] = True
-        group_masks = torch.as_tensor(gm, device=dev)
-    use_bynode = feature_fraction_bynode < 1.0 and rng_key is not None
-    k_bynode = max(1, int(round(feature_fraction_bynode * f)))
-    use_kernel = use_scan_kernel and kernel_supports(hp)
+    def _farange(self, size):
+        return torch.arange(size, dtype=torch.int32, device=self.dev)
 
-    def slot_masks(s, sn, path_mask, pass_idx):
+    def _ninf(self):
+        return torch.full((), float("-inf"), dtype=torch.float32,
+                          device=self.dev)
+
+    # ------------------------------------------------------------------
+    def start(self, grad: torch.Tensor, hess: torch.Tensor,
+              cnt_weight: torch.Tensor, feature_mask: torch.Tensor,
+              rng_key: Optional[torch.Tensor] = None
+              ) -> Tuple[_TreeInputs, _GrowState]:
+        """The prologue: the tree's inputs and its initial state."""
+        dev, hp, ch = self.dev, self.hp, self.ch
+        m, m1, w_cat, P_all = self.m, self.m1, self.w_cat, self.P_all
+        ifull = self._ifull
+        ninf = self._ninf()
+        root_c = torch.sum(cnt_weight)
+        if self.quant:
+            # the JAX package's key schedule: a fixed fold, then the bits
+            # of sum(grad), so each iteration's rounding noise differs
+            qkey = rng_key if rng_key is not None else rng.PRNGKey(0, dev)
+            qkey = rng.fold_in(rng.fold_in(qkey, 6271),
+                               torch.sum(grad).view(torch.int32))
+            g_q, h_q, gscale, hscale = quantize_gradients(
+                grad, None if ch else hess, qkey)
+            h_grad = g_q.to(torch.int8)
+            # const hessian: the kernels never read the hessian channel
+            h_hess = h_grad if h_q is None else h_q.to(torch.int8)
+            hist_scale = torch.stack([gscale, hscale,
+                                      torch.ones_like(gscale)])
+            # histogram-consistent root sums (exact integer sums x scale),
+            # so right = parent - left stays consistent
+            root_g = torch.sum(h_grad, dtype=torch.int64) \
+                .to(torch.float32) * gscale
+            root_h = root_c * ch if ch else \
+                torch.sum(h_hess, dtype=torch.int64).to(torch.float32) * \
+                hscale
+            hist_fixed = None
+        else:
+            h_grad, h_hess, hist_scale = grad, hess, None
+            # the fixed point of every exact histogram of the tree
+            hist_fixed = exact_scale(grad, hess, cnt_weight)
+            # root sums in the same fixed point, so they are the same bits
+            # on every device (an f32 torch.sum adds in another order on
+            # the card than on the CPU) and right = parent - left is exact
+            root_g, root_h, _ = exact_sums(grad, hess, cnt_weight,
+                                           hist_fixed)
+            if ch:
+                root_h = root_c * ch
+        root_val = leaf_output(root_g, root_h, hp.lambda_l1, hp.lambda_l2,
+                               hp.max_delta_step)
+        tree0 = _init_tree(m, root_g, root_h, root_c, root_val,
+                           bitset_words=w_cat, device=dev)
+        zf = torch.zeros(m1, dtype=torch.float32, device=dev)
+        best0 = BestSplits(
+            gain=ninf.expand(m1).clone(), feature=ifull(m1, -1),
+            threshold_bin=ifull(m1, 0),
+            default_left=torch.zeros(m1, dtype=torch.bool, device=dev),
+            left_grad=zf, left_hess=zf, left_count=zf, left_output=zf,
+            right_output=zf,
+            cat_bitset=torch.zeros((m1, w_cat), dtype=torch.int64,
+                                   device=dev))
+        # initial tables: nothing split, the root (node 0) sits in kernel
+        # slot 0, so the first sweep is an identity route + a root
+        # histogram. Pair 0 of the first pass is the root, built as a
+        # "stale" pair so its histogram comes straight from kernel slot 0
+        slot0 = ifull(m1, -1)
+        slot0[0].fill_(0)
+        zb = torch.zeros(m1, dtype=torch.bool, device=dev)
+        tbl0, member0 = pack_route_tables(
+            zb, ifull(m1, 0), ifull(m1, 0), zb, zb, ifull(m1, m),
+            ifull(m1, m), slot0,
+            torch.zeros((m1, w_cat), dtype=torch.int64, device=dev),
+            self.plan.m_pad)
+        slot_nodes0 = ifull(self.plan.s_max, m)
+        slot_nodes0[0].fill_(0)
+        kstart0 = ifull(P_all, -1)
+        kstart0[0].fill_(0)
+        sub = self.hist_subtraction
+        state = _GrowState(
+            tree0, torch.zeros(self.n, dtype=torch.int32, device=dev), tbl0,
+            member0, slot_nodes0, best0,
+            torch.zeros((), dtype=torch.bool, device=dev),
+            torch.zeros((P_all if sub else 1,
+                         self.f * self.bmax * 3 if sub else 1),
+                        dtype=torch.float32, device=dev),
+            ifull(P_all, -1),
+            torch.ones(P_all, dtype=torch.bool, device=dev), kstart0,
+            ninf.expand(m1).clone(), (-ninf).expand(m1).clone(),
+            torch.zeros((m1, self.f) if self.group_masks is not None
+                        else (1, 1), dtype=torch.bool, device=dev))
+        inputs = _TreeInputs(grad, hess, cnt_weight, feature_mask, rng_key,
+                             h_grad, h_hess, hist_scale, hist_fixed)
+        return inputs, state
+
+    def scheduled(self):
+        """[(name, fn(inputs, state) -> state)]: the doubling passes (pass
+        p numbered p, as in the JAX package), then "bridge": the gate and
+        the bridge pass at full capacity (numbered len(schedule))."""
+        plan = self.plan
+        out = [(f"pass{p}", functools.partial(self._doubling, p, s_p))
+               for p, s_p in enumerate(plan.schedule)]
+        return out + [("bridge", self._bridge)]
+
+    def _doubling(self, p, s_p, inputs, state):
+        return self.one_pass(s_p, inputs, state, p,
+                             m_cap=self.plan.m_cap_of(s_p))
+
+    def _bridge(self, inputs, state):
+        plan = self.plan
+        if plan.gate_leaves is not None:
+            state = state._replace(done=state.done | (
+                state.tree.num_leaves >= plan.gate_leaves))
+        if plan.schedule:
+            state = self.one_pass(plan.s_max, inputs, state,
+                                  len(plan.schedule), k_cap=plan.k_fix,
+                                  sk_next=plan.sk_fix)
+        return state
+
+    def fixup(self, inputs: _TreeInputs, state: _GrowState,
+              pass_idx) -> _GrowState:
+        """One fix-up pass for the leaves left over; pass_idx (an int, or
+        a device int32 scalar that a replayed graph advances) numbers its
+        random draws: host counter it gives it + 1000."""
+        plan = self.plan
+        return self.one_pass(plan.s_fix, inputs, state, pass_idx,
+                             k_cap=plan.k_fix, sk_next=plan.sk_fix,
+                             sk_self=plan.sk_fix)
+
+    def fixup_loop(self, is_done: Callable[[], bool],
+                   run: Callable[[int], None], warm: bool = False
+                   ) -> Tuple[int, int, bool]:
+        """The fix-up loop, the only place growth reads the device: while
+        fix-up passes are left, one read of `done` (is_done()) before each,
+        and run(pass_idx) runs the pass numbered pass_idx (host counter
+        + 1000, as in the JAX package) if the tree is not done. warm: the
+        first pass runs even on a done tree, where it changes nothing (a
+        caller that captures runs it to size its buffers). Returns (fix-up
+        passes, reads of `done`, whether the warm pass ran on a done
+        tree)."""
+        it, reads = self.first_fixup, 0
+        while it < self.plan.L_g:
+            reads += 1
+            done = is_done()
+            if done and not warm:
+                break
+            run(it + 1000)
+            if done:
+                return it - self.first_fixup, reads, True
+            warm = False
+            it += 1
+        return it - self.first_fixup, reads, False
+
+    def grow(self, grad, hess, cnt_weight, feature_mask, rng_key=None
+             ) -> Tuple[TreeArrays, torch.Tensor]:
+        """Grow one tree eagerly: start, the scheduled passes, the fix-up
+        loop, finish. last_fixups: the loop's (passes, reads of `done`)."""
+        inputs, state = self.start(grad, hess, cnt_weight, feature_mask,
+                                   rng_key)
+        for _, fn in self.scheduled():
+            state = fn(inputs, state)
+
+        def run(pass_idx):
+            nonlocal state
+            state = self.fixup(inputs, state, pass_idx)
+
+        passes, reads, _ = self.fixup_loop(lambda: bool(state.done), run)
+        self.last_fixups = (passes, reads)
+        return self.finish(inputs, state)
+
+    # ------------------------------------------------------------------
+    def slot_masks(self, inputs: _TreeInputs, s, sn, path_mask, pass_idx):
         """[s, F] feature mask of each scan slot (the tree's mask, bynode
         sampling, interaction groups) and the extra_trees draws."""
+        f, dev, key = self.f, self.dev, inputs.rng_key
+        feature_mask = inputs.feature_mask
         slot_fmask = feature_mask[None, :].expand(s, f)
-        if use_bynode:
-            u = rng.uniform(rng.fold_in(rng_key, pass_idx), (s, f))
+        if self.feature_fraction_bynode < 1.0 and key is not None:
+            u = rng.uniform(rng.fold_in(key, pass_idx), (s, f))
             u = torch.where(feature_mask[None, :] > 0, u,
                             torch.full((), float("inf"), device=dev))
-            kth = torch.sort(u, dim=1).values[:, k_bynode - 1][:, None]
+            kth = torch.sort(u, dim=1).values[:, self.k_bynode - 1][:, None]
             slot_fmask = slot_fmask * (u <= kth)
-        if use_interaction:
+        if self.group_masks is not None:
+            gmask = self.group_masks
             pm = path_mask[sn]
-            subset = torch.all((~pm[:, None, :]) | group_masks[None, :, :],
-                               dim=2)
+            subset = torch.all((~pm[:, None, :]) | gmask[None, :, :], dim=2)
             allowed = (subset.to(torch.float32) @
-                       group_masks.to(torch.float32)) > 0
+                       gmask.to(torch.float32)) > 0
             slot_fmask = slot_fmask * (allowed | pm)
         rand_bins = None
-        if hp.extra_trees and rng_key is not None:
-            kr = rng.fold_in(rng.fold_in(rng_key, 7919), pass_idx)
-            rand_bins = rng.randint(kr, (s, f), 0, bmax)
+        if self.hp.extra_trees and key is not None:
+            kr = rng.fold_in(rng.fold_in(key, 7919), pass_idx)
+            rand_bins = rng.randint(kr, (s, f), 0, self.bmax)
         return slot_fmask, rand_bins
 
-    def sweep(row_node, tbl, member, nslots, m_cap=None):
+    def sweep(self, inputs: _TreeInputs, row_node, tbl, member, nslots,
+              m_cap=None):
         """Route rows through the previous pass's tables and build the
         frontier histograms. mxu: fused sweep where the reference takes
         its fused kernel, else route_rows + build_histograms_auto. pallas
@@ -476,69 +597,82 @@ def grow_tree_mxu(bins: torch.Tensor, grad: torch.Tensor,
         and partition chunk, which the partition takes as they are), then
         the scatter kernel over the slot partition, or the segment-sum
         oracle."""
-        if m_cap is not None and m_cap < m_pad:
+        bins, f, bmax, ch = self.bins, self.f, self.bmax, self.ch
+        quant, nfp, feat_tbl = self.quant, self.nf_packed, self.feat_tbl
+        h_grad, h_hess, cnt = inputs.h_grad, inputs.h_hess, inputs.cnt
+        if m_cap is not None and m_cap < self.plan.m_pad:
             tbl = tbl[:m_cap]
             member = member[:m_cap]
-        if hist_backend != "mxu":
-            pallas = hist_backend == "pallas"
+        if self.hist_backend != "mxu":
+            pallas = self.hist_backend == "pallas"
             rn, rs, cts = route_rows(bins, row_node, tbl, member, feat_tbl,
-                                     num_features=nf_packed,
-                                     emit_counts=True, num_slots=nslots,
-                                     chunk_tallies=pallas)
+                                     num_features=nfp, emit_counts=True,
+                                     num_slots=nslots, chunk_tallies=pallas)
             if pallas:
                 h = build_histograms_scatter(
-                    bins, h_grad, h_hess, cnt_weight, rs, num_slots=nslots,
-                    bmax=bmax, num_features=nf_packed, quantized=quant,
+                    bins, h_grad, h_hess, cnt, rs, num_slots=nslots,
+                    bmax=bmax, num_features=nfp, quantized=quant,
                     const_hess=ch, slot_tallies=cts,
-                    partition_impl=partition_impl, scale=hist_fixed)
+                    partition_impl=self.partition_impl,
+                    scale=inputs.hist_fixed)
             else:
-                ub = unpack_bins_4bit(bins, f) if packed4 else bins
-                h = histogram.build_histograms(ub, h_grad, h_hess, rs,
-                                               cnt_weight, num_slots=nslots,
-                                               bmax=bmax)
+                ub = unpack_bins_4bit(bins, f) if nfp else bins
+                h = histogram.build_histograms(ub, h_grad, h_hess, rs, cnt,
+                                               num_slots=nslots, bmax=bmax)
                 if ch:
                     # const x count, as the kernel backends' channel drop
                     h[..., 1] = h[..., 2] * ch
         elif fits_v2(nslots, f, bmax, quant,
                      row_block=fused_row_block(nslots, f, bmax, ch, quant),
                      const_hess=ch):
-            h, rn = fused_route_hist(bins, h_grad, h_hess, cnt_weight,
-                                     row_node, tbl, member, feat_tbl,
+            h, rn = fused_route_hist(bins, h_grad, h_hess, cnt, row_node,
+                                     tbl, member, feat_tbl,
                                      num_slots=nslots, bmax=bmax,
                                      const_hess=ch, quantized=quant,
-                                     num_features=nf_packed,
-                                     scale=hist_fixed)
+                                     num_features=nfp,
+                                     scale=inputs.hist_fixed)
         else:
             rn, rs = route_rows(bins, row_node, tbl, member, feat_tbl,
-                                num_features=nf_packed)
-            h = build_histograms_auto(bins, h_grad, h_hess, cnt_weight, rs,
+                                num_features=nfp)
+            h = build_histograms_auto(bins, h_grad, h_hess, cnt, rs,
                                       num_slots=nslots, bmax=bmax,
                                       const_hess=ch, quantized=quant,
-                                      num_features=nf_packed,
-                                      scale=hist_fixed)
+                                      num_features=nfp,
+                                      scale=inputs.hist_fixed)
         if quant:
-            h = h * hist_scale   # integer sums -> gradient units
+            h = h * inputs.hist_scale   # integer sums -> gradient units
         return h, rn
 
-    def one_pass(s, st: _GrowState, pass_idx, k_cap=None, sk_next=None,
-                 m_cap=None, sk_self=None) -> _GrowState:
+    def one_pass(self, s, inputs: _TreeInputs, st: _GrowState, pass_idx,
+                 k_cap=None, sk_next=None, m_cap=None, sk_self=None
+                 ) -> _GrowState:
         """One growth pass at scan capacity `s`, number `pass_idx` (its
         random draws); sk_next is the kernel-slot capacity of the NEXT pass
-        (selection is throttled so committed splits' children fit it)."""
+        (selection is throttled so committed splits' children fit it). No
+        host sync: the budget, the split count and `done` stay on the
+        device, and writes that the JAX package parks in the scratch node
+        go to pad rows. A pass on a done state returns it unchanged."""
+        dev, f, bmax, hp = self.dev, self.f, self.bmax, self.hp
+        m, m1, k_top, P_all = self.m, self.m1, self.k_top, self.P_all
+        s_max, L_g = self.plan.s_max, self.plan.L_g
+        sub = self.hist_subtraction
+        ifull, farange = self._ifull, self._farange
+        ninf = self._ninf()
+        monotone = self.monotone
         tree, best = st.tree, st.best
         cons_min, cons_max, path_mask = st.cons_min, st.cons_max, \
             st.path_mask
         sn = st.slot_nodes[:s].to(torch.int64)
         if sk_next is None:
-            sk_next = _kernel_cap(min(2 * s, s_max)) if hist_subtraction \
+            sk_next = _kernel_cap(min(2 * s, s_max)) if sub \
                 else min(2 * s, s_max)
 
-        if hist_subtraction:
+        if sub:
             # build only the slots assigned by the previous pass (smaller
             # siblings + both children of stale parents) ...
             sk = sk_self if sk_self is not None else _kernel_cap(s)
-            kern, row_node = sweep(st.row_node, st.tbl, st.member, sk,
-                                   m_cap=m_cap)
+            kern, row_node = self.sweep(inputs, st.row_node, st.tbl,
+                                        st.member, sk, m_cap=m_cap)
             # ... and assemble the full scan tensor: slot s of pair i = s//2
             # is kern[ks_i] (smaller side), parent_hist[i] - kern[ks_i]
             # (larger side of a fresh pair) or kern[ks_i + 1] (other side
@@ -566,17 +700,18 @@ def grow_tree_mxu(bins: torch.Tensor, grad: torch.Tensor,
                                torch.where(st_i[:, None], stale2, large)) \
                 .reshape(s, f, bmax, 3)
         else:
-            hist, row_node = sweep(st.row_node, st.tbl, st.member, s,
-                                   m_cap=m_cap)
+            hist, row_node = self.sweep(inputs, st.row_node, st.tbl,
+                                        st.member, s, m_cap=m_cap)
 
-        slot_fmask, rand_bins = slot_masks(s, sn, path_mask, pass_idx)
+        slot_fmask, rand_bins = self.slot_masks(inputs, s, sn, path_mask,
+                                                pass_idx)
         args = (hist, tree.sum_grad[sn], tree.sum_hess[sn], tree.count[sn],
-                tree.leaf_value[sn], num_bins, missing_is_nan, is_cat_feat,
-                slot_fmask, hp)
+                tree.leaf_value[sn], self.num_bins, self.missing_is_nan,
+                self.is_cat_feat, slot_fmask, hp)
         mono_kw = dict(monotone=monotone, cons_min=cons_min[sn],
                        cons_max=cons_max[sn], depth=tree.depth[sn]) \
             if hp.has_monotone else {}
-        if use_kernel and rand_bins is None:
+        if self.use_kernel and rand_bins is None:
             bs = find_best_splits_kernel(*args, **mono_kw)
         else:
             bs = find_best_splits(*args, **mono_kw, rand_bins=rand_bins)
@@ -586,27 +721,28 @@ def grow_tree_mxu(bins: torch.Tensor, grad: torch.Tensor,
 
         # ---- choose splits: top-budget by gain; children fit next pass
         eligible = tree.is_leaf & torch.isfinite(best.gain) & (best.gain > 0)
-        if max_depth > 0:
-            eligible &= tree.depth < max_depth
+        if self.max_depth > 0:
+            eligible &= tree.depth < self.max_depth
         gains = torch.where(eligible[:m], best.gain[:m], ninf)
-        budget = L_g - int(tree.num_leaves)
+        budget = L_g - tree.num_leaves
         if k_cap is None:
             k_cap = min(k_top, s)   # children fill the next pass (2*s)
-        k_allowed = min(k_cap, budget)
-        if tail_split_cap > 0:
+        k_allowed = torch.clamp(budget, max=k_cap)
+        if self.tail_split_cap > 0:
             # hybrid growth: once fewer leaves remain than candidates the
             # commit order matters — throttle and re-rank
-            n_elig = int(torch.sum(gains > ninf))
-            if n_elig >= budget:
-                k_allowed = min(k_allowed, tail_split_cap)
+            n_elig = torch.sum(gains > ninf)
+            k_allowed = torch.where(
+                n_elig >= budget,
+                torch.clamp(k_allowed, max=self.tail_split_cap), k_allowed)
         # top_k with ties broken lower index first, as lax.top_k does
         top_vals, top_idx = torch.sort(gains, descending=True, stable=True)
         top_vals, top_idx = top_vals[:k_top], top_idx[:k_top]
         take = (torch.arange(k_top, device=dev) < k_allowed) & \
             torch.isfinite(top_vals)
         ssn = _set_dropping(ifull(m1, -1), sn, farange(s))
-        ssn[m] = -1
-        if hist_subtraction:
+        ssn[m].fill_(-1)
+        if sub:
             # fresh parents cost 1 kernel slot (smaller child only), stale
             # parents 2 (both children built)
             cand_fresh = ssn[top_idx] >= 0
@@ -614,8 +750,8 @@ def grow_tree_mxu(bins: torch.Tensor, grad: torch.Tensor,
             take &= cumcost <= sk_next
         split_mask = torch.zeros(m1, dtype=torch.bool, device=dev)
         split_mask[top_idx] = take
-        split_mask[m] = False
-        k = int(torch.sum(split_mask))
+        split_mask[m].fill_(False)
+        k = torch.sum(split_mask, dtype=torch.int32)
 
         # ---- apply splits
         order = (torch.cumsum(split_mask.to(torch.int32), dim=0) - 1) \
@@ -636,7 +772,8 @@ def grow_tree_mxu(bins: torch.Tensor, grad: torch.Tensor,
                                       tree.threshold_bin),
             default_left=torch.where(split_mask, best.default_left,
                                      tree.default_left),
-            is_cat=torch.where(split_mask, is_cat_feat[fclip], tree.is_cat),
+            is_cat=torch.where(split_mask, self.is_cat_feat[fclip],
+                               tree.is_cat),
             cat_bitset=torch.where(sm2, best.cat_bitset, tree.cat_bitset),
             left=torch.where(split_mask, child_l, tree.left),
             right=torch.where(split_mask, child_r, tree.right),
@@ -644,22 +781,32 @@ def grow_tree_mxu(bins: torch.Tensor, grad: torch.Tensor,
             is_leaf=tree.is_leaf & ~split_mask,
             num_nodes=tree.num_nodes + 2 * k,
             num_leaves=tree.num_leaves + k)
-        # children of the committed splits (unsplit nodes write nowhere;
-        # the JAX package parks those writes in the scratch node m)
-        cl = child_l[split_mask].to(torch.int64)
-        cr = child_r[split_mask].to(torch.int64)
+        # the children of the committed splits, each with the node that
+        # split and its side: unsplit nodes point their writes at a pad
+        # row (the JAX package parks them in the scratch node m), so
+        # every child write below is a gather
+        nodes = torch.arange(m1, dtype=torch.int64, device=dev)
+        writer = torch.full((m1 + 1,), -1, dtype=torch.int64, device=dev)
+        writer[torch.where(split_mask, child_l, m1).to(torch.int64)] = nodes
+        writer[torch.where(split_mask, child_r, m1).to(torch.int64)] = \
+            nodes + m1
+        writer = writer[:m1]
+        is_child = writer >= 0
+        from_right = writer >= m1
+        src = torch.where(from_right, writer - m1, writer).clamp(min=0)
 
         def scat(arr, lv, rv):
-            out = arr.clone()
-            out[cl] = lv[split_mask]
-            out[cr] = rv[split_mask]
-            return out
+            if arr.dim() == 2:
+                return torch.where(is_child[:, None], torch.where(
+                    from_right[:, None], rv[src], lv[src]), arr)
+            return torch.where(is_child, torch.where(from_right, rv[src],
+                                                     lv[src]), arr)
 
-        nodes = farange(m1)
+        nodes32 = farange(m1)
         neg1 = ifull(m1, -1)
         d1 = tree.depth + 1
         new_tree = new_tree._replace(
-            parent=scat(new_tree.parent, nodes, nodes),
+            parent=scat(new_tree.parent, nodes32, nodes32),
             leaf_value=scat(new_tree.leaf_value, best.left_output,
                             best.right_output),
             sum_grad=scat(new_tree.sum_grad, best.left_grad, rg),
@@ -670,8 +817,7 @@ def grow_tree_mxu(bins: torch.Tensor, grad: torch.Tensor,
             split_feature=scat(new_tree.split_feature, neg1, neg1),
             left=scat(new_tree.left, neg1, neg1),
             right=scat(new_tree.right, neg1, neg1))
-        ninf_m1 = ninf.expand(m1)
-        best = best._replace(gain=scat(best.gain, ninf_m1, ninf_m1))
+        best = best._replace(gain=torch.where(is_child, ninf, best.gain))
         if hp.has_monotone:
             # children's output bounds meet at the split's midpoint on the
             # side the constraint orders (the reference's basic method)
@@ -683,7 +829,7 @@ def grow_tree_mxu(bins: torch.Tensor, grad: torch.Tensor,
             rmax = torch.where(mcf < 0, torch.minimum(cons_max, mid), cons_max)
             cons_min = scat(cons_min, lmin, rmin)
             cons_max = scat(cons_max, lmax, rmax)
-        if use_interaction:
+        if self.group_masks is not None:
             fsel = (torch.arange(f, device=dev)[None, :] == fclip[:, None]) \
                 & split_mask[:, None]
             child_pm = path_mask | fsel
@@ -698,7 +844,7 @@ def grow_tree_mxu(bins: torch.Tensor, grad: torch.Tensor,
         # ---- kernel slots + pair bookkeeping for the next pass
         parent_hist, pair_parent = st.parent_hist, st.pair_parent
         pair_sleft, pair_kstart = st.pair_sleft, st.pair_kstart
-        if hist_subtraction:
+        if sub:
             fresh_node = ssn >= 0
             small_left = best.left_count <= rc
             cost_node = torch.where(split_mask,
@@ -723,9 +869,8 @@ def grow_tree_mxu(bins: torch.Tensor, grad: torch.Tensor,
             parent_hist = hist_z[torch.where((pp >= 0) & (pp < s), pp, s)]
         else:
             route_l, route_r = slot_l, slot_r
-        slot_of_node = ifull(m1, -1)
-        slot_of_node[cl] = route_l[split_mask].to(torch.int32)
-        slot_of_node[cr] = route_r[split_mask].to(torch.int32)
+        slot_of_node = scat(ifull(m1, -1), route_l.to(torch.int32),
+                            route_r.to(torch.int32))
 
         # ---- pack the split tables; the NEXT pass's sweep routes rows
         # through them (the final flush after the loops applies the last
@@ -733,86 +878,85 @@ def grow_tree_mxu(bins: torch.Tensor, grad: torch.Tensor,
         tbl, member = pack_route_tables(
             split_mask, fclip, best.threshold_bin, best.default_left,
             new_tree.is_cat, child_l, child_r, slot_of_node,
-            new_tree.cat_bitset, m_pad)
+            new_tree.cat_bitset, self.plan.m_pad)
 
-        done = k == 0 or int(new_tree.num_leaves) >= L_g
-        return _GrowState(new_tree, row_node, tbl, member, slot_nodes, best,
-                          done, parent_hist, pair_parent, pair_sleft,
-                          pair_kstart, cons_min, cons_max, path_mask)
+        done = (k == 0) | (new_tree.num_leaves >= L_g)
+        new = _GrowState(new_tree, row_node, tbl, member, slot_nodes, best,
+                         st.done | done, parent_hist, pair_parent,
+                         pair_sleft, pair_kstart, cons_min, cons_max,
+                         path_mask)
+        return _select(st.done, st, new)
 
-    # initial tables: nothing split, the root (node 0) sits in kernel slot
-    # 0, so the first sweep is an identity route + a root histogram. Pair 0
-    # of the first pass is the root, built as a "stale" pair so its
-    # histogram comes straight from kernel slot 0
-    slot0 = ifull(m1, -1)
-    slot0[0] = 0
-    zb = torch.zeros(m1, dtype=torch.bool, device=dev)
-    tbl0, member0 = pack_route_tables(
-        zb, ifull(m1, 0), ifull(m1, 0), zb, zb, ifull(m1, m), ifull(m1, m),
-        slot0, torch.zeros((m1, w_cat), dtype=torch.int64, device=dev),
-        m_pad)
-    slot_nodes0 = ifull(s_max, m)
-    slot_nodes0[0] = 0
-    kstart0 = ifull(P_all, -1)
-    kstart0[0] = 0
-    state = _GrowState(
-        tree0, torch.zeros(n, dtype=torch.int32, device=dev), tbl0, member0,
-        slot_nodes0, best0, False,
-        torch.zeros((P_all if hist_subtraction else 1,
-                     f * bmax * 3 if hist_subtraction else 1),
-                    dtype=torch.float32, device=dev),
-        ifull(P_all, -1), torch.ones(P_all, dtype=torch.bool, device=dev),
-        kstart0, ninf.expand(m1).clone(), (-ninf).expand(m1).clone(),
-        torch.zeros((m1, f) if use_interaction else (1, 1),
-                    dtype=torch.bool, device=dev))
+    def finish(self, inputs: _TreeInputs, st: _GrowState
+               ) -> Tuple[TreeArrays, torch.Tensor]:
+        """The epilogue: flush the routing of the last pass's splits
+        (sweeps route at the START of a pass), prune to best-first, and
+        refit the leaves of a quantized tree exactly."""
+        hp = self.hp
+        row_node, _ = route_rows(self.bins, st.row_node, st.tbl, st.member,
+                                 self.feat_tbl, num_features=self.nf_packed)
+        tree = st.tree
+        cmin, cmax = st.cons_min, st.cons_max
+        if self.plan.over and self.quant and hp.has_monotone:
+            tree, row_node, (cmin, cmax) = _prune_to_best_first(
+                tree, row_node, num_leaves=self.num_leaves, m_grow=self.m,
+                aux=((cmin, float("-inf")), (cmax, float("inf"))))
+        elif self.plan.over:
+            tree, row_node = _prune_to_best_first(
+                tree, row_node, num_leaves=self.num_leaves, m_grow=self.m)
+        if self.quant:
+            # exact leaf refit from the unquantized gradients (reference
+            # closed form, feature_histogram.hpp:737); path smoothing pulls
+            # toward the parent's growth-time (quantized) output, as in the
+            # JAX package
+            nn = tree.leaf_value.shape[0]
+            sums = node_sums(row_node, inputs.grad, inputs.hess, inputs.cnt,
+                             num_nodes=nn)
+            pout = tree.leaf_value[tree.parent.to(torch.int64)
+                                   .clamp(0, nn - 1)]
+            ex_val = leaf_output(sums[:, 0], sums[:, 1], hp.lambda_l1,
+                                 hp.lambda_l2, hp.max_delta_step,
+                                 hp.path_smooth, sums[:, 2], pout)
+            if hp.has_monotone:
+                ex_val = torch.clamp(ex_val, cmin, cmax)
+            lf = tree.is_leaf
+            tree = tree._replace(
+                leaf_value=torch.where(lf, ex_val, tree.leaf_value),
+                sum_grad=torch.where(lf, sums[:, 0], tree.sum_grad),
+                sum_hess=torch.where(lf, sums[:, 1], tree.sum_hess),
+                count=torch.where(lf, sums[:, 2], tree.count))
+        return tree, row_node
 
-    # ---- unrolled doubling schedule; pass numbers as the JAX package's
-    # (a skipped pass still consumes its number)
-    for p, s_p in enumerate(plan.schedule):
-        if not state.done:
-            state = one_pass(s_p, state, p, m_cap=plan.m_cap_of(s_p))
-    if plan.gate_leaves is not None and \
-            int(state.tree.num_leaves) >= plan.gate_leaves:
-        state = state._replace(done=True)
-    # ---- bridge pass at full capacity, then fix-ups for the leftovers
-    if plan.schedule and not state.done:
-        state = one_pass(s_max, state, len(plan.schedule), k_cap=plan.k_fix,
-                         sk_next=plan.sk_fix)
-    it = len(plan.schedule) + 1
-    while not state.done and it < L_g:
-        state = one_pass(plan.s_fix, state, it + 1000, k_cap=plan.k_fix,
-                         sk_next=plan.sk_fix, sk_self=plan.sk_fix)
-        it += 1
 
-    # ---- epilogue: flush the routing of the last pass's splits (sweeps
-    # route at the START of a pass), then prune to best-first
-    row_node, _ = route_rows(bins, state.row_node, state.tbl, state.member,
-                             feat_tbl, num_features=nf_packed)
-    tree = state.tree
-    cmin, cmax = state.cons_min, state.cons_max
-    if over and quant and hp.has_monotone:
-        tree, row_node, (cmin, cmax) = _prune_to_best_first(
-            tree, row_node, num_leaves=num_leaves, m_grow=m,
-            aux=((cmin, float("-inf")), (cmax, float("inf"))))
-    elif over:
-        tree, row_node = _prune_to_best_first(
-            tree, row_node, num_leaves=num_leaves, m_grow=m)
-    if quant:
-        # exact leaf refit from the unquantized gradients (reference closed
-        # form, feature_histogram.hpp:737); path smoothing pulls toward the
-        # parent's growth-time (quantized) output, as in the JAX package
-        nn = tree.leaf_value.shape[0]
-        sums = node_sums(row_node, grad, hess, cnt_weight, num_nodes=nn)
-        pout = tree.leaf_value[tree.parent.to(torch.int64).clamp(0, nn - 1)]
-        ex_val = leaf_output(sums[:, 0], sums[:, 1], hp.lambda_l1,
-                             hp.lambda_l2, hp.max_delta_step, hp.path_smooth,
-                             sums[:, 2], pout)
-        if hp.has_monotone:
-            ex_val = torch.clamp(ex_val, cmin, cmax)
-        lf = tree.is_leaf
-        tree = tree._replace(
-            leaf_value=torch.where(lf, ex_val, tree.leaf_value),
-            sum_grad=torch.where(lf, sums[:, 0], tree.sum_grad),
-            sum_hess=torch.where(lf, sums[:, 1], tree.sum_hess),
-            count=torch.where(lf, sums[:, 2], tree.count))
-    return tree, row_node
+def grow_tree_mxu(bins: torch.Tensor, grad: torch.Tensor,
+                  hess: torch.Tensor, cnt_weight: torch.Tensor,
+                  feature_mask: torch.Tensor, num_bins: torch.Tensor,
+                  missing_is_nan: torch.Tensor, is_cat_feat: torch.Tensor,
+                  *, rng_key: Optional[torch.Tensor] = None, **settings
+                  ) -> Tuple[TreeArrays, torch.Tensor]:
+    """Grow one tree. Returns (TreeArrays, row_node [N] i32: each row's
+    leaf node id). Same contract and same trees as the JAX package's
+    grow_tree_mxu (serial mode) with the same arguments.
+
+    bins: [N, F] uint8; grad/hess/cnt_weight: [N] f32; feature_mask: [F];
+    num_bins: [F] i32; missing_is_nan, is_cat_feat: [F] bool; all on one
+    device. Settings (Grower's): num_leaves, max_depth, hp (SplitHyper-
+    Params), bmax; monotone: [F] int constraint per feature (with
+    hp.has_monotone); interaction_groups: tuple of tuples of feature
+    indices; feature_fraction_bynode < 1 and hp.extra_trees draw under
+    rng_key (a key of lightgbm_tpu_torch.rng; None turns both off, as in
+    the JAX package); tail_split_cap, hist_subtraction, overshoot,
+    bridge_gate: the growth plan (growth_plan). const_hessian != 0:
+    per-row hessians are const x cnt_weight and the kernels drop the
+    hessian channel. quantized_grad: grow on quantized gradients drawn
+    under rng_key (None = PRNGKey(0)), then refit the leaves exactly.
+    use_scan_kernel: scan splits with the fused kernel where it covers the
+    pass (module docstring). packed4: bins are [N, ceil(F/2)] 4-bit packed
+    (histogram_mxu.pack_bins_4bit), F taken from num_bins. hist_backend:
+    "mxu", "pallas" or "scatter" (module docstring) — a resolved backend,
+    never "auto", which the booster resolves first (autotune_hist_backend);
+    partition_impl: the pallas backend's partition_rows impl. The only
+    host reads are the fix-up loop's `done` (Grower.fixup_loop)."""
+    return Grower(bins, num_bins, missing_is_nan, is_cat_feat,
+                  **settings).grow(grad, hess, cnt_weight, feature_mask,
+                                   rng_key)

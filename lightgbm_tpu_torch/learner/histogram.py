@@ -35,19 +35,20 @@ def build_histograms(bins: torch.Tensor, grad: torch.Tensor,
         cnt = torch.ones(n, dtype=torch.float32, device=dev)
     data = torch.stack([grad.to(torch.float64), hess.to(torch.float64),
                         cnt.to(torch.float64)], dim=1)            # [N, 3]
-    rows = torch.nonzero((row_slot >= 0) & (row_slot < num_slots))[:, 0]
-    slot = row_slot[rows].to(torch.int64)
-    data = data[rows]
-    hist = torch.zeros((num_slots, f, bmax, 3), dtype=torch.float64,
+    # rows outside [0, num_slots) add into a trash slot that is sliced
+    # off: no row selection, so no host sync and shapes that do not
+    # depend on the data
+    slot = torch.where((row_slot >= 0) & (row_slot < num_slots), row_slot,
+                       num_slots).to(torch.int64)
+    hist = torch.zeros((num_slots + 1, f, bmax, 3), dtype=torch.float64,
                        device=dev)
     flat = hist.view(-1, 3)
-    brows = bins[rows]
     fb = max(1, min(_FEATURE_BLOCK, f))
     for f0 in range(0, f, fb):
         js = torch.arange(f0, min(f0 + fb, f), device=dev)
         ids = (slot[:, None] * f + js[None, :]) * bmax + \
-            brows[:, f0:f0 + fb].to(torch.int64)                  # [Nv, fb]
+            bins[:, f0:f0 + fb].to(torch.int64)                   # [N, fb]
         flat.index_add_(0, ids.reshape(-1),
                         data[:, None, :].expand(-1, js.numel(), 3)
                         .reshape(-1, 3))
-    return hist.to(torch.float32)
+    return hist[:num_slots].to(torch.float32)

@@ -49,7 +49,8 @@ the TPU layout's base-256 digit pairs existed only to stay exact in bf16.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import contextlib
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -66,8 +67,9 @@ __all__ = ["fused_route_hist", "route_rows", "build_histograms",
            "NODE_SUMS_BITS", "quantize_gradients",
            "pack_route_tables", "pack_bins_4bit", "unpack_bins_4bit",
            "fits_v2", "fused_row_block", "launch_counts",
-           "reset_launch_counts", "chunk_tallies_ref", "num_chunks",
-           "CHUNK_ROWS"]
+           "reset_launch_counts", "recording_launches", "add_launches",
+           "scratch_buffers",
+           "chunk_tallies_ref", "num_chunks", "CHUNK_ROWS"]
 
 # node table columns (csrc/route_hist.cuh keeps the same constants)
 TBL_FLAGS, TBL_FEAT, TBL_THR, TBL_LEFT, TBL_RIGHT = 0, 1, 2, 3, 4
@@ -221,7 +223,7 @@ def pack_route_tables(split_mask, feat, thr, default_left, is_cat, child_l,
              is_cat.to(torch.int32) * FLAG_CAT)
     cols = [flags, feat, thr, child_l, child_r, slot_of_node, slot_l, slot_r]
     tbl = torch.zeros((m_pad, TBL_COLS), dtype=torch.int32, device=dev)
-    tbl[:, TBL_SLOT:] = -1
+    tbl[:, TBL_SLOT:].fill_(-1)
     tbl[:m1] = torch.stack([c.to(torch.int32) for c in cols], dim=1)
     member = torch.zeros((m_pad, cat_bitset.shape[1]), dtype=torch.int32,
                          device=dev)
@@ -730,12 +732,32 @@ _SCRATCH: Dict[Tuple[torch.device, str], torch.Tensor] = {}
 
 def scratch(dev: torch.device, name: str, numel: int,
             dtype=torch.int32) -> torch.Tensor:
-    """[numel] of the device's scratch buffer `name`, uninitialised."""
+    """[numel] of the device's scratch buffer `name`, uninitialised. A
+    buffer never grows while a CUDA graph is captured (the graph would
+    keep the new one, and every later call would use memory of the graph's
+    pool): a caller that captures sizes the buffers first, by running the
+    captured code once eagerly. Outside a capture a buffer grows by
+    replacing the old one, which is then freed unless someone holds it: a
+    caller that keeps captured graphs holds scratch_buffers(dev), taken
+    after its captures, for as long as it replays them."""
     buf = _SCRATCH.get((dev, name))
     if buf is None or buf.numel() < numel:
+        if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"scratch buffer {name!r} would grow to {numel} elements "
+                "during a CUDA graph capture: run the captured code once "
+                "eagerly first")
         buf = torch.empty(numel, dtype=dtype, device=dev)
         _SCRATCH[(dev, name)] = buf
     return buf[:numel]
+
+
+def scratch_buffers(dev: torch.device) -> List[torch.Tensor]:
+    """The device's scratch buffers as they stand. Taken after a capture
+    (no buffer grows during one), they are every buffer the captured
+    graphs use: holding them keeps that memory for the graphs, whatever
+    later calls grow."""
+    return [buf for (d, _), buf in _SCRATCH.items() if d == dev]
 
 
 def node_sums(row_node, grad, hess, cnt, *, num_nodes: int) -> torch.Tensor:
@@ -780,15 +802,45 @@ _MODES = {"fused_route_hist": ("_int", "_packed"),
           "partition_rows": (),
           "node_values": (), "node_sums": (),
           # split_kernel.find_best_splits_kernel: plain and monotone modes
-          "find_best_splits": (), "find_best_splits_mono": ()}
+          "find_best_splits": (), "find_best_splits_mono": (),
+          # prune.prune_best_first
+          "prune_best_first": ()}
 _LAUNCHES: Dict[str, int] = {}
+# tallies of launches recorded into CUDA graphs being captured (innermost
+# last): a captured launch does not run then, it runs at each replay
+_RECORDING: List[Dict[str, int]] = []
 
 
 def count_launch(name: str, *, quantized: bool = False, packed: bool = False,
                  counts: bool = False) -> None:
-    """Count one kernel launch of wrapper `name` in the given modes."""
+    """Count one kernel launch of wrapper `name` in the given modes; while
+    a CUDA graph is captured (recording_launches), into the graph's tally
+    instead."""
     key = name + "_int" * quantized + "_counts" * counts + "_packed" * packed
-    _LAUNCHES[key] += 1
+    if _RECORDING:
+        tally = _RECORDING[-1]
+        tally[key] = tally.get(key, 0) + 1
+    else:
+        _LAUNCHES[key] += 1
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Within the block, launches go to the yielded tally, not the counts:
+    wrap a CUDA graph's capture in it, and add the tally at each replay
+    (add_launches), so the counts stay the launches that ran."""
+    tally: Dict[str, int] = {}
+    _RECORDING.append(tally)
+    try:
+        yield tally
+    finally:
+        _RECORDING.pop()
+
+
+def add_launches(tally: Dict[str, int]) -> None:
+    """Add a replayed graph's recorded launches to the counts."""
+    for key, n in tally.items():
+        _LAUNCHES[key] += n
 
 
 def launch_counts() -> Dict[str, int]:

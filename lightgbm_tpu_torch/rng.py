@@ -9,8 +9,9 @@ its per-slot uniforms and extra_trees its random thresholds, so the port
 and the JAX package draw the same numbers under the same key.
 
 A key is an int64 tensor of shape [2] holding two uint32 words, on the
-device of the caller; every function here stays on that device and never
-reads a value back to the host. torch's uint32 lacks most arithmetic, so
+device of the caller; every function here stays on that device, never
+reads a value back to the host and never copies one to the device, so a
+CUDA graph can capture it. torch's uint32 lacks most arithmetic, so
 the words ride in int64 and are masked to 32 bits after each add and
 shift.
 """
@@ -53,22 +54,27 @@ def threefry2x32(key: torch.Tensor, x0: torch.Tensor, x1: torch.Tensor
     return x0, x1
 
 
+def _word(v: int, device) -> torch.Tensor:
+    """A 0-dim int64 word filled on `device` (no host-to-device copy, so
+    it can be captured in a CUDA graph)."""
+    return torch.full((), v & _MASK, dtype=torch.int64, device=device)
+
+
 def PRNGKey(seed: int, device="cpu") -> torch.Tensor:
     """jax.random.PRNGKey(seed): the words [seed >> 32, seed & 0xFFFFFFFF]."""
-    return torch.tensor([(seed >> 32) & _MASK, seed & _MASK],
-                        dtype=torch.int64, device=device)
+    return torch.stack([_word(seed >> 32, device), _word(seed, device)])
 
 
 def fold_in(key: torch.Tensor, data: Union[int, torch.Tensor]
             ) -> torch.Tensor:
     """jax.random.fold_in: threefry2x32(key, (0, uint32(data))). A tensor
-    `data` (an int32 scalar, e.g. the bit pattern of an f32 sum) stays on
-    the device; its uint32 cast wraps negative values."""
+    `data` (an int32 scalar: the bit pattern of an f32 sum, or an
+    iteration or pass index that a CUDA graph replays) stays on the
+    device; its uint32 cast wraps negative values."""
     if isinstance(data, torch.Tensor):
         d = data.to(torch.int64).reshape(()) & _MASK
     else:
-        d = torch.tensor(int(data) & _MASK, dtype=torch.int64,
-                         device=key.device)
+        d = _word(int(data), key.device)
     x0, x1 = threefry2x32(key, torch.zeros_like(d), d)
     return torch.stack([x0, x1])
 
