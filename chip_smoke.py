@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
-Builds the port's seven CUDA kernel sources from lightgbm_tpu_torch/csrc,
+Builds the port's eight CUDA kernel sources from lightgbm_tpu_torch/csrc,
 holds each kernel against its plain PyTorch version on the card — every
 histogram kernel and the node sums bit for bit (integer sums in every
 mode) and across two calls — at the shapes the training path gives it
@@ -22,9 +22,11 @@ the device alone over back-to-back calls; the same two for the PyTorch
 yardstick where one call computes the function; each launch of the
 partition and the routing apart under torch.profiler; the best-first
 prune's kernel against its plain version on overgrown trees of the main
-path's 1020 node ids — then trains through lightgbm_tpu_torch's entry
-points along seven paths, each with the launch counts reset before it and
-read after it:
+path's 1020 node ids; the traversal kernel (valid scores) against its
+plain version on 10 stacked 255-leaf trees over 40,000 rows, with
+categorical and NaN nodes — then trains through lightgbm_tpu_torch's
+entry points along eight paths, each with the launch counts reset before
+it and read after it:
 
 - exact histograms: the Higgs-like binary configuration (num_leaves 255,
   max_bin 255), the same with min_data_in_leaf 1000 (which runs the
@@ -51,6 +53,16 @@ read after it:
   through train against update(), 5 trees each, byte-equal, and
   (`fused_scratch_check`) a small booster's graphs replayed after a
   larger booster grew the shared scratch buffers, byte-equal to update();
+- validation sets (phase `valid*`): the binary configuration through
+  engine.train with a held-out set (40,000 rows, binned with the
+  training set's mappers) and metrics binary_logloss and auc, 30 rounds
+  at fused_block_size 10 against 1: the block's valid-score trajectory
+  (the traversal kernel) bit-equal to the per-iteration valid scores,
+  the model text byte-equal, the recorded AUC to the host model's; an
+  early stop inside the first block (permuted labels) equal to the
+  per-iteration run's; feval with the training set as a valid set (one
+  iteration a dispatch) giving the same model; trees/s with and without
+  a valid set, host syncs a tree;
 - the histogram backends on the binary configuration: quantized under
   hist_backend pallas (route counts, the partition kernel and the scatter
   kernel), scatter (the segment-sum oracle) and auto (the autotune), each
@@ -70,15 +82,22 @@ read after it:
   byte-equal to the same run on unpacked bins, and quantized under auto
   and pallas.
 
+Beside the main path (`native_host`), the native host runtime
+(lightgbm_tpu_torch/cext, C++ built with g++ at first use) bins the 1M x
+28 matrix and predicts the 10-tree booster on the host against its numpy
+plain versions: mappers repr-equal, bin matrix byte-equal, predictions
+bit-equal, leaf indices equal, seconds of each.
+
 It checks what comes out, including that every leaf of every tree holds
 -G/H of its rows' gradients (unconstrained runs), that two identical
 runs write the same model text (exact and quantized), and that exact
 trees under hist_backend pallas and on packed bins equal the mxu and
 unpacked ones; K8 launches on the scan path only, and every K1, K3/K4
 and K7 call on a path launches exactly one partition kernel. Last, a
-categorical and NaN run on the card and the CPU: whether their trees are
-equal, and tree 0 regrown on the card from the CPU run's gradients, which
-shows whether the two part upstream of the grower or in its glue.
+categorical and NaN run on the card and the CPU: tree 0, and tree 0
+regrown on the card from the CPU run's gradients, must equal the CPU's;
+whether the later trees are equal is printed, with where the two part
+(upstream of the grower or in its glue).
 Every phase prints one JSON line; any failed check raises, so the exit
 code is non-zero and no result line is printed.
 The last three lines are the kernel table (JSON), the card's name and
@@ -90,6 +109,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -199,8 +219,18 @@ SCRATCH_LARGE_ROWS = N_ROWS + N_ROWS // 4
 # the prune at the main path's shapes: 255 leaves kept of an overgrown
 # tree of up to 510 leaves in 1020 node ids
 PRUNE_LEAVES = 255
+# the valid phase: a held-out set of the Higgs-like problem (seed 99, as
+# check_outputs), binned with the training set's mappers, 30 rounds at
+# fused_block_size 10 against 1; the traversal kernel's row at its shapes
+# (a block of 10 stacked trees)
+VALID_ROWS = 40_000
+VALID_ROUNDS = 30
+VALID_TRAJ_TREES = 10
+VALID_PARAMS = dict(TRAIN_PARAMS, metric="binary_logloss,auc")
+VALID_PATH = ("predict_binned", "prune_best_first", "fused_route_hist",
+              "node_values")
 # the path whose counts a kernel row reports
-ROW_PATH = {"prune_best_first": "fused",
+ROW_PATH = {"prune_best_first": "fused", "predict_binned": "valid",
             **dict.fromkeys(EXACT_PATH, "exact"),
             **dict.fromkeys(("fused_route_hist_int", "build_histograms_int",
                              "node_sums"), "quantized"),
@@ -270,7 +300,8 @@ def device_ms(torch, fn, reps=20, trials=3, strict=True):
     last call is queued), so they run back to back; CUDA events around the
     reps calls, divided by reps; median of `trials`. A fn that waits for
     the device (a host sync) cannot be queued: a check failure, or None
-    (not measured) when not strict."""
+    (not measured) when not strict. When strict, a trial not queued runs
+    again behind a sleep twice as long, up to 16 times the first."""
     if not _SLEEP_CYCLES_PER_MS:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
@@ -289,15 +320,22 @@ def device_ms(torch, fn, reps=20, trials=3, strict=True):
     torch.cuda.synchronize()
     times = []
     for _ in range(trials):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(int(_SLEEP_CYCLES_PER_MS[0] * (3 * host_ms + 2)))
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        queued = not a.query()
-        b.synchronize()
+        # a host slowed by its neighbours may enqueue slower than it was
+        # timed: the sleep doubles, up to 16x, before the trial counts as
+        # not queued (a fn that syncs is never queued, however long)
+        for stretch in (1, 2, 4, 8, 16) if strict else (1,):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(int(_SLEEP_CYCLES_PER_MS[0] *
+                                  stretch * (3 * host_ms + 2)))
+            a.record()
+            for _ in range(reps):
+                fn()
+            b.record()
+            queued = not a.query()
+            b.synchronize()
+            if queued:
+                break
         if not strict and not queued:
             return None
         check(queued, "device_ms: the host had not queued every call when "
@@ -401,12 +439,16 @@ def kernel_phase(torch, hm, hp, rng_mod, dev):
     rows = []
 
     def row(name, replaces, err, fn, plain_fn, plain_reps, nbytes, ops,
-            library_fn, source=None, ops_per_s=F32_OPS_PER_S):
+            library_fn, source=None, ops_per_s=F32_OPS_PER_S,
+            library_queues=True):
         # ms: one call as the main path makes it (host launch path
         # included); device_ms: the device alone (back-to-back calls).
         # ops: one add per histogram cell update (f32 or int32), held to
         # the f32 rate outside the tensor cores (bytes-bound); K8 counts
-        # its instructions at the f32 instruction rate (ops_per_s)
+        # its instructions at the f32 instruction rate (ops_per_s). A
+        # library formulation of thousands of launches a call fills the
+        # launch queue behind device_ms' sleep (library_queues=False):
+        # its device ms is not measured (None)
         bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         bound_ops = ops / ops_per_s * 1e3
         rows.append({
@@ -422,7 +464,7 @@ def kernel_phase(torch, hm, hp, rng_mod, dev):
             "library_ms": None if library_fn is None
             else time_ms(torch, library_fn, 20),
             "library_device_ms": None if library_fn is None
-            else device_ms(torch, library_fn)})
+            else device_ms(torch, library_fn, strict=library_queues)})
         emit("kernel", **rows[-1])
 
     bins, grad, hess, cnt = d["bins"], d["grad"], d["hess"], d["cnt"]
@@ -579,6 +621,7 @@ def kernel_phase(torch, hm, hp, rng_mod, dev):
         lambda: acc5.index_add_(0, idx5, data5))
     node_sums_checks(torch, hm, dev)
     prune_rows(torch, dev, row)
+    predict_binned_rows(torch, dev, row)
     return rows
 
 
@@ -1296,6 +1339,366 @@ def prune_rows(torch, dev, row):
                 "lightgbm_tpu/learner/grower_mxu.py:57", 0.0, k, k_ref, 3,
                 nbytes, ops, None)
     emit("kernel_check", name="prune_best_first", cases=cases, equal=True)
+
+
+def random_trees(rng, k, m1, leaves, f, bmax, words, cat_share):
+    """k trees in the grower's layout ([m1] node arrays, children after
+    their parent, -1 beyond num_nodes), grown by splitting a random leaf
+    until `leaves` leaves: random features and threshold bins, NaN
+    directions, and a share of categorical nodes with random bin sets
+    (int64 words of 32 bits). Returns a dict of [k, ...] numpy arrays."""
+    out = {"split_feature": np.full((k, m1), -1, np.int32),
+           "threshold_bin": np.zeros((k, m1), np.int32),
+           "default_left": rng.rand(k, m1) < 0.5,
+           "is_cat": np.zeros((k, m1), bool),
+           "cat_bitset": np.zeros((k, m1, words), np.int64),
+           "left": np.full((k, m1), -1, np.int32),
+           "right": np.full((k, m1), -1, np.int32),
+           "leaf_value": (0.1 * rng.randn(k, m1)).astype(np.float32)}
+    for t in range(k):
+        open_leaves, n = [0], 1
+        while len(open_leaves) < leaves and n + 2 <= m1:
+            j = open_leaves.pop(rng.randint(len(open_leaves)))
+            out["split_feature"][t, j] = rng.randint(f)
+            out["threshold_bin"][t, j] = rng.randint(bmax - 1)
+            if rng.rand() < cat_share:
+                out["is_cat"][t, j] = True
+                for b in np.nonzero(rng.rand(32 * words) < 0.5)[0]:
+                    out["cat_bitset"][t, j, b // 32] |= 1 << int(b % 32)
+            out["left"][t, j], out["right"][t, j] = n, n + 1
+            open_leaves += [n, n + 1]
+            n += 2
+    return out
+
+
+def predict_binned_rows(torch, dev, row):
+    """The traversal kernel (predict_binned, kernel V) against its plain
+    version at the valid phase's shapes: 10 stacked trees of 255 leaves in
+    510 node ids over 40,000 rows x 28 features of 256 bins (two features
+    with a NaN bin), from a score (the row: bit for bit, trajectory and
+    leaf ids); then categorical trees (8 words), a bitset narrower than the
+    bins (2 words: bins from 64 up read the last word, as the JAX gather
+    clamps) and one tree without a score (predict_binned_tree,
+    leaf_index_tree). Bound: the bytes the walk needs (each row's bins on
+    its paths, the trees' nodes, the score in, the trajectory out) or its
+    node visits at the f32 rate; library: the PyTorch indexing walk, one
+    gather a level to the tree's depth, no host sync."""
+    from lightgbm_tpu_torch.learner import predict as pr
+    from lightgbm_tpu_torch.learner.grower import TreeArrays
+    rng = np.random.RandomState(41)
+    n, f, k, leaves = VALID_ROWS, N_FEATURES, VALID_TRAJ_TREES, 255
+    m1 = 2 * leaves
+    bins = torch.as_tensor(rng.randint(0, BMAX, (n, f)).astype(np.uint8),
+                           device=dev)
+    num_bins = torch.full((f,), BMAX, dtype=torch.int32, device=dev)
+    nan = np.zeros(f, bool)
+    nan[[1, 5]] = True
+    nan = torch.as_tensor(nan, device=dev)
+    score0 = torch.as_tensor(rng.randn(n).astype(np.float32), device=dev)
+
+    def stacked(arrays):
+        z = torch.zeros(k, m1, device=dev)
+        zi = torch.zeros((k, m1), dtype=torch.int32, device=dev)
+        one = torch.ones((), dtype=torch.int32, device=dev)
+        return TreeArrays(
+            **{key: torch.as_tensor(v, device=dev)
+               for key, v in arrays.items()},
+            parent=zi, sum_grad=z, sum_hess=z, count=z, gain=z, depth=zi,
+            is_leaf=torch.as_tensor(arrays["split_feature"] < 0,
+                                    device=dev),
+            num_nodes=one.expand(k), num_leaves=one.expand(k))
+
+    cases = []
+    for what, words, cat_share in (("main path", (BMAX + 31) // 32, 0.0),
+                                   ("categorical", (BMAX + 31) // 32, 0.3),
+                                   ("narrow bitset", 2, 0.5)):
+        arrays = random_trees(rng, k, m1, leaves, f, BMAX, words, cat_share)
+        trees = stacked(arrays)
+        traj, leaf = pr.stacked_leaf_nodes(trees, bins, num_bins, nan,
+                                           score0)
+        fin, want, want_leaf = pr.stacked_score_traj_ref(
+            trees, score0, bins, num_bins, nan, leaves=True)
+        check(same_bits(torch, traj, want) and torch.equal(leaf, want_leaf),
+              f"predict_binned differs from its plain version ({what})")
+        one = TreeArrays(*[t[0] for t in trees])
+        check(same_bits(torch, pr.predict_binned_tree(one, bins, num_bins,
+                                                      nan),
+                        pr.predict_binned_tree_ref(one, bins, num_bins,
+                                                   nan)) and
+              torch.equal(pr.leaf_index_tree(one, bins, num_bins, nan),
+                          pr.leaf_index_tree_ref(one, bins, num_bins, nan)),
+              f"predict_binned_tree/leaf_index_tree differ ({what})")
+        cases.append(what)
+        if what != "main path":
+            continue
+        # the bound: each row's bins on its paths once, the nodes present
+        # (22 bytes of fields each), the score in and the trajectory out
+        # (walked up from each row's leaf through the parents)
+        rows_ = torch.arange(n, device=dev)
+        seen = torch.zeros((n, f), dtype=torch.bool, device=dev)
+        visits, depth = 0, []
+        sf = trees.split_feature.long()
+        parent = np.full((k, m1), -1, np.int64)
+        for t in range(k):
+            inner = np.nonzero(arrays["left"][t] >= 0)[0]
+            parent[t, arrays["left"][t][inner]] = inner
+            parent[t, arrays["right"][t][inner]] = inner
+        parent = torch.as_tensor(parent, device=dev)
+        for t in range(k):
+            cur, d = leaf[t].long(), 0
+            while True:
+                up = parent[t][cur]
+                active = up >= 0
+                m = int(active.sum())
+                if m == 0:
+                    break
+                up = up.clamp(min=0)
+                visits += m
+                seen[rows_[active], sf[t][up][active]] = True
+                cur = torch.where(active, up, cur)
+                d += 1
+            depth.append(d)
+        nodes = int((np.asarray(arrays["left"]) >= 0).sum()) * 2 + k
+        nbytes = int(seen.sum()) + 22 * nodes + 4 * n + 4 * k * n
+
+        def kern(trees=trees):
+            return pr.stacked_score_traj(trees, score0, bins, num_bins, nan)
+
+        def plain(trees=trees):
+            return pr.stacked_score_traj_ref(trees, score0, bins, num_bins,
+                                             nan)
+
+        def library(trees=trees, depth=depth):
+            s_ = score0
+            for t in range(k):
+                node = torch.zeros(n, dtype=torch.int64, device=dev)
+                for _ in range(depth[t]):
+                    feat = sf[t][node]
+                    b = bins[rows_, feat.clamp(min=0)].int()
+                    go = torch.where(nan[feat.clamp(min=0)] &
+                                     (b == BMAX - 1),
+                                     trees.default_left[t][node],
+                                     b <= trees.threshold_bin[t][node])
+                    nxt = torch.where(go, trees.left[t][node],
+                                      trees.right[t][node]).long()
+                    node = torch.where(feat >= 0, nxt, node)
+                s_ = s_ + trees.leaf_value[t][node]
+            return s_
+        row("predict_binned", "lightgbm_tpu/learner/predict.py:25 "
+            "(_traverse, predict_binned_tree; lightgbm_tpu/boosting/"
+            "fused.py:54 stacked_score_traj; XLA, no Pallas)", 0.0, kern,
+            plain, 3, nbytes, visits, library, library_queues=False)
+    emit("kernel_check", name="predict_binned", cases=cases, equal=True,
+         rows=n, trees=k, node_ids=m1)
+
+
+def native_host_phase(lgt, X, y, booster):
+    """The native host runtime (lightgbm_tpu_torch/cext, C++ built with
+    g++ at first use) against its numpy plain versions at 1M x 28: the
+    bin mappers (repr-equal: bounds can be NaN) and the bin matrix (byte
+    for byte), then the host model of the main path's 10-tree booster:
+    raw predictions (bit for bit: both add each row's leaf values in tree
+    order in float64) and leaf indices (equal). Prints the seconds of
+    each."""
+    from lightgbm_tpu_torch import cext
+    from lightgbm_tpu_torch.data import BinnedDataset, Metadata
+    cfg = lgt.Config(TRAIN_PARAMS)
+    kw = dict(max_bin=cfg.max_bin, min_data_in_bin=cfg.min_data_in_bin,
+              sample_cnt=cfg.bin_construct_sample_cnt,
+              use_missing=cfg.use_missing,
+              zero_as_missing=cfg.zero_as_missing,
+              seed=cfg.data_random_seed)
+    cext.build_all()
+    out, timed = {}, {}
+    for native in (True, False):
+        t0 = time.perf_counter()
+        out[native] = BinnedDataset.from_raw(X, Metadata(len(y), label=y),
+                                             native=native, **kw)
+        timed["binning_s_" + ("native" if native else "numpy")] = \
+            time.perf_counter() - t0
+    check([repr(m.to_dict()) for m in out[True].mappers] ==
+          [repr(m.to_dict()) for m in out[False].mappers],
+          "native bin mappers differ from numpy's")
+    check(out[True].bins.dtype == out[False].bins.dtype and
+          np.array_equal(out[True].bins, out[False].bins),
+          "native bin matrix differs from numpy's")
+    model = booster._host_model()
+    pred = {}
+    for what, kw in (("host_predict", {"raw_score": True}),
+                     ("pred_leaf", {"pred_leaf": True})):
+        for native in (True, False):
+            t0 = time.perf_counter()
+            pred[what, native] = model.predict(X, native=native, **kw)
+            timed[f"{what}_s_" + ("native" if native else "numpy")] = \
+                time.perf_counter() - t0
+    check(np.array_equal(pred["host_predict", True],
+                         pred["host_predict", False]),
+          "native raw predictions differ from the numpy walk's")
+    check(np.array_equal(pred["pred_leaf", True], pred["pred_leaf", False]),
+          "native leaf indices differ from the numpy walk's")
+    emit("native_host", rows=N_ROWS, features=N_FEATURES,
+         trees=len(model.trees), mappers_repr_equal=True,
+         bins_byte_equal=True, predictions_bit_equal=True,
+         leaves_equal=True, gxx_flags=dict(cext.FLAGS_USED),
+         host_cpus=os.cpu_count(), **timed)
+
+
+def valid_path(torch, lgt, hm, ds, y):
+    """Validation sets on train's block dispatch (binary exact, 1M x 28,
+    255 leaves), against fused_block_size 1, metrics binary_logloss and
+    auc on a held-out set binned with the training mappers:
+    (a) 30 rounds with record_evaluation: every inner iteration's valid
+    scores (the block's trajectory, from the traversal kernel) bit-equal
+    to the per-iteration run's, the model text byte-equal, the recorded
+    AUC of the last iteration within 1e-6 of the host model's, the host
+    model's predictions within 1e-4 of the device valid scores; trees/s
+    beside a run without a valid set, host syncs a tree, the kernel's
+    launches; (b) the labels permuted under a fixed seed with
+    early_stopping_round 3, so the stop falls inside the first block:
+    best_iteration, best_score, current_iteration and model text equal to
+    the per-iteration run's; (c) feval and the training set among the
+    valid sets, which force one iteration a dispatch: the model of (a).
+    Returns the launch counts of the three."""
+    Xva, yva = make_higgs_like(VALID_ROWS, N_FEATURES, seed=99)
+    yperm = yva[np.random.RandomState(7).permutation(VALID_ROWS)]
+
+    def strip(text):
+        return "\n".join(ln for ln in text.splitlines()
+                         if not ln.startswith("[fused_block_size:"))
+
+    def marker(marks):
+        """A callback that notes the time, the card drained, when the first
+        block's last iteration is evaluated: the trees after it are
+        replays alone (no capture, no eager first tree)."""
+        def mark(env):
+            if env.iteration == VALID_TRAJ_TREES - 1:
+                torch.cuda.synchronize()
+                marks.append(time.perf_counter())
+        mark.block_safe = True
+        mark.order = 26
+        return mark
+
+    def run(block, label, rounds=VALID_ROUNDS, with_train=False, **kw):
+        params = dict(VALID_PARAMS, fused_block_size=block,
+                      **kw.pop("params", {}))
+        valid = ds.create_valid(Xva, label=label)
+        ev, snaps, marks = {}, [], []
+
+        def snap(env):
+            # reads only the valid scores, which the engine pins to each
+            # inner iteration's trajectory point
+            snaps.append(env.model.gbdt.valid_scores[-1].clone())
+        snap.block_safe = True
+        snap.order = 25
+        before = hm.launch_counts()["predict_binned"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        booster = lgt.train(
+            params, ds, rounds,
+            valid_sets=[ds, valid] if with_train else [valid],
+            callbacks=[lgt.record_evaluation(ev), snap, marker(marks)],
+            **kw)
+        torch.cuda.synchronize()
+        end = time.perf_counter()
+        return {"booster": booster, "s": end - t0, "ev": ev, "snaps": snaps,
+                "last20_s": end - marks[0] if marks else None,
+                "v_launches": hm.launch_counts()["predict_binned"] - before}
+
+    def syncs_per_tree(booster):
+        """A fused run's host reads a tree: the fix-up loop's reads of
+        `done`, the lagged stall polls and the trajectories' copies."""
+        gb = booster.gbdt
+        reads = sum(sum(st["fixup_reads"]) for st in gb.fused_stats)
+        return (reads + gb.stall_polls + gb.valid_host_copies) / \
+            booster.current_iteration()
+
+    hm.reset_launch_counts()
+    plain_marks = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = lgt.train(VALID_PARAMS, ds, VALID_ROUNDS,
+                      callbacks=[marker(plain_marks)])
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    plain_last20_s = t0 + plain_s - plain_marks[0]
+    del plain
+    a10, a1 = run(10, yva), run(1, yva)
+    b10 = a10["booster"]
+    check(len(a10["snaps"]) == len(a1["snaps"]) == VALID_ROUNDS and all(
+        same_bits(torch, p, q) for p, q in zip(a10["snaps"], a1["snaps"])),
+        "valid: the block's valid-score trajectory differs from the "
+        "per-iteration run's valid scores")
+    model = b10.model_to_string()
+    check(strip(model) == strip(a1["booster"].model_to_string()),
+          "valid: model text differs between fused_block_size 10 and 1")
+    host = b10.predict(Xva, raw_score=True)
+    host_auc = auc(host, yva)
+    rec_auc = a10["ev"]["valid_0"]["auc"][-1]
+    dev_err = float(np.abs(host - b10.gbdt.valid_scores[0].cpu().numpy())
+                    .max())
+    check(abs(rec_auc - host_auc) <= 1e-6, f"valid: recorded AUC {rec_auc} "
+          f"vs the host model's {host_auc}")
+    check(dev_err <= 1e-4, f"valid: host predict vs device valid score "
+          f"{dev_err}")
+    emit("valid", rows=N_ROWS, valid_rows=VALID_ROWS, rounds=VALID_ROUNDS,
+         fused_block_size=[10, 1], trajectory_bit_equal=True,
+         model_txt_byte_equal=True, recorded_auc=rec_auc,
+         host_model_auc=host_auc, host_vs_device_valid_max_abs=dev_err,
+         logloss_last=a10["ev"]["valid_0"]["binary_logloss"][-1],
+         train_s_no_valid=plain_s, train_s_valid=[a10["s"], a1["s"]],
+         trees_per_s_no_valid=VALID_ROUNDS / plain_s,
+         trees_per_s_valid=[VALID_ROUNDS / a10["s"], VALID_ROUNDS / a1["s"]],
+         trees_per_s_last20_no_valid=(VALID_ROUNDS - VALID_TRAJ_TREES) /
+         plain_last20_s,
+         trees_per_s_last20_valid=[
+             (VALID_ROUNDS - VALID_TRAJ_TREES) / r["last20_s"]
+             for r in (a10, a1)],
+         capture_s=[st["capture_s"] for st in b10.gbdt.fused_stats],
+         host_syncs_per_tree=syncs_per_tree(b10),
+         valid_host_copies=b10.gbdt.valid_host_copies,
+         predict_binned_launches=[a10["v_launches"], a1["v_launches"]])
+    del a1
+
+    es = {"early_stopping_round": 3}
+    b10, b1 = run(10, yperm, params=es), run(1, yperm, params=es)
+    x, z = b10["booster"], b1["booster"]
+    same = (x.best_iteration == z.best_iteration and
+            x.current_iteration() == z.current_iteration() and
+            dict(x.best_score) == dict(z.best_score) and
+            strip(x.model_to_string()) == strip(z.model_to_string()))
+    emit("valid_early_stop", labels="permuted (seed 7)",
+         early_stopping_round=3, best_iteration=x.best_iteration,
+         best_iteration_block1=z.best_iteration,
+         current_iteration=x.current_iteration(),
+         current_iteration_block1=z.current_iteration(),
+         best_score={k: dict(v) for k, v in x.best_score.items()},
+         equal_to_block1=same, seconds=[b10["s"], b1["s"]])
+    check(same, "valid: an early stop at fused_block_size 10 differs from "
+          "the per-iteration run's")
+    check(1 < x.current_iteration() < 10, "valid: the early stop did not "
+          f"fall inside the first block ({x.current_iteration()} trees)")
+    del b10, b1, x, z
+
+    def feval(score, data):
+        return "score_mean", float(np.mean(score)), False
+    c = run(10, yva, with_train=True, feval=feval)
+    check(c["booster"].model_to_string() == model,
+          "valid: the per-iteration cadence (feval, the training set as a "
+          "valid set) gives another model")
+    check("score_mean" in c["ev"]["training"] and
+          len(c["ev"]["valid_1"]["auc"]) == VALID_ROUNDS,
+          f"valid: feval/training entries missing: {list(c['ev'])}")
+    emit("valid_per_iteration", rounds=VALID_ROUNDS, train_s=c["s"],
+         trees_per_s=VALID_ROUNDS / c["s"], model_equal_to_fused=True,
+         eval_entries={k: list(v) for k, v in c["ev"].items()},
+         valid_host_copies_per_tree=c["booster"].gbdt.valid_host_copies /
+         VALID_ROUNDS,
+         predict_binned_launches=c["v_launches"])
+    del c
+    counts = hm.launch_counts()
+    for key in VALID_PATH:
+        check(counts[key] > 0, f"{key} was not launched on the valid path")
+    return counts
 
 
 def fused_path(torch, lgt, hm, ds, y):
@@ -2150,7 +2553,9 @@ def cross_device_phase(torch, lgt, grow_tree_mxu):
     which trees' gradients agree and, for the first that does not, whether
     its scores did and whether the card's objective gives the CPU's
     gradients from the CPU's scores (and in how many rows `torch.exp`
-    differs). Either way it only prints the answer."""
+    differs). It checks that tree 0 and the regrown tree 0 equal the
+    CPU's (the trees after it may part: the card's torch.exp differs in
+    the last bits, ROADMAP C3)."""
     rng = np.random.RandomState(5)
     n = 100_000
     X = rng.randn(n, 10).astype(np.float32)
@@ -2268,6 +2673,12 @@ def cross_device_phase(torch, lgt, grow_tree_mxu):
          parted="nowhere" if trees == cpu_trees else
          "upstream of the grower" if regrow_equal else "in the growth glue")
     check(err <= 1e-4, f"categorical/NaN model vs device score {err}")
+    # tree 0 and everything the grower computes from equal gradients are
+    # the same bits on both devices (the root sums and categorical scans)
+    check(regrow_equal, "cross_device: tree 0 regrown on the card from the "
+          f"CPU run's gradients differs from the CPU's: {fields}")
+    check(trees.split("Tree=")[1] == cpu_trees.split("Tree=")[1],
+          "cross_device: tree 0 on the card differs from the CPU's")
 
 
 def main():
@@ -2303,6 +2714,7 @@ def main():
     counts = {}
     booster, ds, reg_ds, counts["exact"] = main_path(torch, lgt, hm, X, y)
     exact_auc = check_outputs(torch, lgt, booster, ds, X)
+    native_host_phase(lgt, X, y, booster)
     q_booster, counts["quantized"] = quantized_path(torch, lgt, hm, X, y, ds,
                                                     reg_ds)
     q_auc = check_outputs(torch, lgt, q_booster, ds, X, QUANT_PARAMS,
@@ -2310,6 +2722,7 @@ def main():
     check(abs(q_auc - exact_auc) <= 0.005,
           f"quantized held-out AUC {q_auc} vs exact {exact_auc}")
     counts["fused"] = fused_path(torch, lgt, hm, ds, y)
+    counts["valid"] = valid_path(torch, lgt, hm, ds, y)
     fused_configs_check(torch, lgt, X, y, ds)
     fused_scratch_check(torch, lgt, hm, X, y)
     torch.cuda.empty_cache()

@@ -8,10 +8,15 @@ imports torch and numpy, never JAX or lightgbm_tpu. See README.md ("PyTorch
 
 __version__ = "0.1.0"
 
+from . import callback
 from .basic import Booster, Dataset
+from .callback import (EarlyStopException, early_stopping, log_evaluation,
+                       record_evaluation, reset_parameter)
 from .config import Config
 from .engine import train
 from .utils.log import LightGBMError, register_logger
 
 __all__ = ["Dataset", "Booster", "train", "Config", "LightGBMError",
-           "register_logger", "__version__"]
+           "register_logger", "callback", "EarlyStopException",
+           "early_stopping", "log_evaluation", "record_evaluation",
+           "reset_parameter", "__version__"]

@@ -1,22 +1,30 @@
 """User-facing Dataset and Booster (reference python-package/lightgbm/basic.py).
 
 Port of the dense-numpy subset of lightgbm_tpu/basic.py: `Dataset(data,
-label, ...)` with lazy construction and `Booster(params, train_set)` with
-update / update_batch / predict / model_to_string / save_model. Training runs on the
-device named by `device_type` ("cuda" by default, "cpu" on request);
-prediction runs on the host model (numpy tree walk), like the JAX
-package's Booster.predict.
+label, ..., reference=)` with lazy construction (a validation set bins
+with its reference's mappers; `Dataset.create_valid`) and
+`Booster(params, train_set)` with update (optionally on a custom
+objective's gradients) / update_batch / rollback_one_iter / add_valid /
+eval_train / eval_valid / reset_parameter / predict (raw, converted or leaf
+indices) / model_to_string / save_model. A booster trained on from an
+init_model keeps the base model's trees in front of its own. Training runs
+on the device named by `device_type` ("cuda" by default, "cpu" on
+request); prediction runs on the host model (the native predictor), like
+the JAX package's Booster.predict.
 """
 
 from __future__ import annotations
 
+import collections
 from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
+import torch
 
 from .boosting.gbdt import GBDT, check_supported, resolve_device
 from .config import Config
 from .data import BinnedDataset, Metadata
+from .metrics import METRIC_ALIASES, create_metric
 from .objectives import create_objective
 from .tree import HostModel
 from .utils.log import LightGBMError, Log
@@ -42,13 +50,15 @@ def _to_2d_float(data) -> np.ndarray:
 class Dataset:
     """Lazily-constructed binned dataset (reference basic.py:1163)."""
 
-    def __init__(self, data, label=None, weight=None, init_score=None,
+    def __init__(self, data, label=None, reference: Optional["Dataset"] = None,
+                 weight=None, init_score=None,
                  feature_name: Union[str, List[str]] = "auto",
                  categorical_feature: Union[str, List] = "auto",
                  params: Optional[Dict[str, Any]] = None,
                  free_raw_data: bool = True):
         self.data = data
         self.label = label
+        self.reference = reference
         self.weight = weight
         self.init_score = init_score
         self.feature_name = feature_name
@@ -86,6 +96,13 @@ class Dataset:
             np.asarray(self.weight, np.float32),
             init_score=None if self.init_score is None else
             np.asarray(self.init_score))
+        if self.reference is not None:
+            # a valid set: the training set's mappers and used features
+            self._binned = BinnedDataset.from_reference(
+                X, md, self.reference.binned, names)
+            if self.free_raw_data:
+                self.data = None
+            return self
         self._binned = BinnedDataset.from_raw(
             X, md, max_bin=cfg.max_bin, min_data_in_bin=cfg.min_data_in_bin,
             sample_cnt=cfg.bin_construct_sample_cnt,
@@ -101,9 +118,19 @@ class Dataset:
         self.construct()
         return self._binned
 
+    def create_valid(self, data, label=None, weight=None, init_score=None,
+                     params=None) -> "Dataset":
+        """A validation Dataset binned with this one's mappers (reference
+        basic.py Dataset.create_valid)."""
+        return Dataset(data, label=label, reference=self, weight=weight,
+                       init_score=init_score, params=params or self.params,
+                       free_raw_data=self.free_raw_data)
+
 
 class Booster:
     """Training/prediction handle (reference basic.py:2594)."""
+
+    train_data_name = "training"
 
     def __init__(self, params: Optional[Dict[str, Any]] = None,
                  train_set: Optional[Dataset] = None,
@@ -116,6 +143,12 @@ class Booster:
         self.gbdt: Optional[GBDT] = None
         self.train_set: Optional[Dataset] = None
         self.best_iteration = -1
+        self.best_score: Dict[str, Dict[str, float]] = {}
+        self.name_valid_sets: List[str] = []
+        self._valid_data: List[Dataset] = []
+        # a model continued from (engine.train(init_model=...)): its trees
+        # ride in front of this booster's in predict and the model text
+        self._base_model: Optional["Booster"] = None
         if model_file is not None:
             with open(model_file) as fh:
                 model_str = fh.read()
@@ -129,28 +162,74 @@ class Booster:
         # refuse before paying for binning
         check_supported(self.config)
         device = resolve_device(self.config.device_type)
-        objective = create_objective(self.config.objective, self.config)
+        cfg = self.config
+        objective = create_objective(cfg.objective, cfg)
+        metric_names = cfg.metric_list()
+        if not metric_names and cfg.objective in METRIC_ALIASES:
+            metric_names = [cfg.objective]
+        self._metric_names = metric_names
+        # refuse an unported metric before binning too
+        metrics = self._metrics()
         self.train_set = train_set
         merged = dict(train_set.params)
         merged.update(self.params)
         train_set.params = merged
-        self.gbdt = GBDT(self.config, train_set.binned, objective, device)
+        binned = train_set.binned
+        for m in metrics:
+            m.init(binned.metadata, binned.num_data)
+        # the JAX package hands the booster the same metrics whichever way
+        # is_provide_training_metric is set (lightgbm_tpu/basic.py:726-728)
+        self.gbdt = GBDT(cfg, binned, objective, device,
+                         train_metrics=metrics)
+
+    def _metrics(self) -> list:
+        return [m for m in (create_metric(nm, self.config)
+                            for nm in self._metric_names) if m is not None]
+
+    # ------------------------------------------------------------------
+    def add_valid(self, data: Dataset, name: str) -> "Booster":
+        """Evaluate `data` (binned with the training set's mappers) under
+        `name` from now on; the trees trained so far are replayed over
+        it."""
+        data.reference = self.train_set
+        data.construct()
+        metrics = self._metrics()
+        for m in metrics:
+            m.init(data.binned.metadata, data.binned.num_data)
+        self.gbdt.add_valid(data.binned, name, metrics)
+        self.name_valid_sets.append(name)
+        self._valid_data.append(data)
+        return self
 
     def update(self, train_set=None, fobj=None) -> bool:
         """One boosting iteration; returns True if no further splits
-        (reference LGBM_BoosterUpdateOneIter)."""
-        if train_set is not None or fobj is not None:
+        (reference LGBM_BoosterUpdateOneIter). fobj(score, train_set) ->
+        (grad, hess): train on a custom objective's gradients (the
+        booster's constant-hessian gate is dropped for good)."""
+        if train_set is not None and train_set is not self.train_set:
             raise NotImplementedError(
-                "update(train_set=..., fobj=...) is not ported to "
-                "lightgbm_tpu_torch yet (ROADMAP.md port queue P10)")
+                "update(train_set=<another Dataset>) is not ported to "
+                "lightgbm_tpu_torch (ROADMAP.md port queue A12)")
         self._model = None
+        if fobj is not None:
+            gb = self.gbdt
+            gb.set_custom_objective()
+            score = gb.train_score
+            grad, hess = fobj(score.cpu().numpy(), self.train_set)
+
+            def dev(a):
+                return torch.as_tensor(np.asarray(a, np.float32),
+                                       device=score.device).reshape(
+                                           score.shape)
+            return gb.train_one_iter(dev(grad), dev(hess))
         return self.gbdt.train_one_iter()
 
     def update_batch(self, num_iterations: int) -> bool:
         """num_iterations boosting iterations, the trees of as many
         update() calls, grown through the fused trainer (CUDA graphs on
         the card); returns True if training cannot continue (a lagged
-        poll, as in the JAX package)."""
+        poll, as in the JAX package). With valid sets the block leaves its
+        valid-score trajectory (GBDT._fused_valid_traj)."""
         self._model = None
         return self.gbdt.train_many(num_iterations)
 
@@ -165,22 +244,101 @@ class Booster:
         self._model = None
         return self.gbdt.finalize_block(handle)
 
+    def rollback_one_iter(self) -> "Booster":
+        """Drop the last iteration's tree (and its scores)."""
+        self._model = None
+        self.gbdt.rollback_one_iter()
+        return self
+
     def current_iteration(self) -> int:
         if self.gbdt is not None:
-            return self.gbdt.current_iteration()
+            n = self.gbdt.current_iteration()
+            if self._base_model is not None:
+                n += self._base_model.current_iteration()
+            return n
         return self._model.num_iterations if self._model else 0
 
+    def num_trees(self) -> int:
+        if self.gbdt is not None:
+            n = len(self.gbdt.trees)
+            if self._base_model is not None:
+                n += self._base_model.num_trees()
+            return n
+        return len(self._model.trees) if self._model else 0
+
+    # ------------------------------------------------------------------
+    def eval_train(self, feval=None) -> List:
+        """[(data name, metric name, value, is higher better)] of the
+        training set."""
+        res = [(self.train_data_name, name, val, _higher_better(name))
+               for name, val in self.gbdt.eval_train().items()]
+        res.extend(self._custom_eval(feval, self.train_data_name, None))
+        return res
+
+    def eval_valid(self, feval=None) -> List:
+        """The same for every validation set, in the order added."""
+        res = []
+        for i, name in enumerate(self.name_valid_sets):
+            for mname, val in self.gbdt.eval_valid(i).items():
+                res.append((name, mname, val, _higher_better(mname)))
+            res.extend(self._custom_eval(feval, name, i))
+        return res
+
+    def _custom_eval(self, feval, data_name, valid_idx):
+        """feval(score, dataset) -> (name, value, is_higher_better) or a
+        list of them, on host scores."""
+        if feval is None:
+            return []
+        funcs = feval if isinstance(feval, (list, tuple)) else [feval]
+        if valid_idx is None:
+            score = self.gbdt.train_score.cpu().numpy()
+            data = self.train_set
+        else:
+            score = self.gbdt._valid_score_host(valid_idx)
+            data = self._valid_data[valid_idx]
+        out = []
+        for fn in funcs:
+            r = fn(score, data)
+            for name, val, higher in (r if isinstance(r, list) else [r]):
+                out.append((data_name, name, val, higher))
+        return out
+
+    def reset_parameter(self, params: Dict[str, Any]) -> "Booster":
+        """Change parameters between iterations (the learning rate of the
+        next trees, reset_parameter callbacks); the fused trainer, built
+        with the old settings, goes."""
+        self.params.update(params)
+        self.config.update(params)
+        if self.gbdt is not None:
+            self.gbdt.shrinkage_rate = float(self.config.learning_rate)
+            self.gbdt.config = self.config
+            self.gbdt.release_fused()
+        return self
+
+    # ------------------------------------------------------------------
     def _host_model(self) -> HostModel:
         if self._model is None:
-            self._model = HostModel.from_gbdt(self.gbdt, self.train_set)
+            model = HostModel.from_gbdt(self.gbdt, self.train_set)
+            if self._base_model is not None:
+                # continued training: the base model's trees in front
+                base = self._base_model._host_model()
+                model.trees = list(base.trees) + model.trees
+                model.tree_class = list(base.tree_class) + model.tree_class
+                if not model.feature_names and base.feature_names:
+                    model.feature_names = base.feature_names
+                    model.feature_infos = base.feature_infos
+                    model.max_feature_idx = base.max_feature_idx
+            self._model = model
         return self._model
 
     def predict(self, data, start_iteration: int = 0,
                 num_iteration: Optional[int] = None,
-                raw_score: bool = False) -> np.ndarray:
+                raw_score: bool = False,
+                pred_leaf: bool = False) -> np.ndarray:
         return self._host_model().predict(
             _to_2d_float(data), start_iteration=start_iteration,
-            num_iteration=num_iteration, raw_score=raw_score)
+            num_iteration=num_iteration, raw_score=raw_score,
+            pred_leaf=pred_leaf)
 
     def model_to_string(self, num_iteration: Optional[int] = None,
                         start_iteration: int = 0) -> str:
@@ -192,3 +350,15 @@ class Booster:
         with open(filename, "w") as fh:
             fh.write(self.model_to_string(num_iteration, start_iteration))
         return self
+
+
+def _higher_better(metric_name: str) -> bool:
+    return metric_name.split("@")[0] in ("auc", "ndcg", "map",
+                                         "average_precision", "auc_mu")
+
+
+def _best_score_dict(evaluation_result_list) -> Dict[str, Dict[str, float]]:
+    best = collections.defaultdict(collections.OrderedDict)
+    for data_name, eval_name, score, _ in evaluation_result_list or []:
+        best[data_name][eval_name] = score
+    return best

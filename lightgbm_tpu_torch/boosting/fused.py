@@ -33,7 +33,10 @@ written into the buffer the fix-up graph reads. A capture or replay that
 fails raises; nothing falls back to another path. On the CPU the same
 programs run eagerly, in the same order.
 
-stacked_score_traj (validation sets, ROADMAP A4) is not ported.
+The JAX package's stacked_score_traj (:54-79) is
+learner/predict.stacked_score_traj here: GBDT.train_many scores each
+block's stacked trees over the validation sets with it after the block,
+one kernel launch a set, outside any graph.
 """
 
 from __future__ import annotations

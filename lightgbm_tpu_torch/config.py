@@ -658,6 +658,10 @@ def _coerce(spec: ParamSpec, value: Any) -> Any:
             return list(value)
         return [value]
     if spec.type is str:
+        if isinstance(value, (list, tuple)):
+            # metric=["auc", "binary_logloss"] as the reference takes it
+            # (the JAX package's copy turns the list into its repr)
+            return ",".join(str(v) for v in value)
         return str(value)
     return value
 

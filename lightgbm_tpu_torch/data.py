@@ -5,7 +5,11 @@ PyTorch/CUDA port (reference include/LightGBM/dataset.h:355 `Dataset`,
 dataset.h:45 `Metadata`): a row-major `[num_data, num_used_features]`
 uint8/uint16 bin matrix, trivial features dropped up front like the
 reference's feature_pre_filter, and the used->original index map kept for
-model output. The booster copies the bin matrix to the device once.
+model output. The booster copies the bin matrix to the device once. A
+validation set bins with its training set's mappers and keeps its used
+features (BinnedDataset.from_reference; the JAX package's
+basic.py:462-477, reference LoadFromFileAlignWithOtherDataset,
+dataset_loader.cpp:299).
 """
 
 from __future__ import annotations
@@ -87,8 +91,10 @@ class BinnedDataset:
                  use_missing: bool = True, zero_as_missing: bool = False,
                  categorical_features: Optional[Sequence[int]] = None,
                  seed: int = 1, feature_names: Optional[List[str]] = None,
-                 feature_pre_filter: bool = True) -> "BinnedDataset":
-        """Quantize a dense raw feature matrix."""
+                 feature_pre_filter: bool = True,
+                 native: bool = True) -> "BinnedDataset":
+        """Quantize a dense raw feature matrix (native=False: the numpy
+        plain versions of the mapper search and the quantization)."""
         X = np.asarray(X)
         if X.ndim != 2:
             raise ValueError("X must be 2-dimensional")
@@ -97,12 +103,36 @@ class BinnedDataset:
             X, max_bin=max_bin, min_data_in_bin=min_data_in_bin,
             sample_cnt=sample_cnt, use_missing=use_missing,
             zero_as_missing=zero_as_missing,
-            categorical_features=categorical_features, seed=seed)
+            categorical_features=categorical_features, seed=seed,
+            native=native)
         used, used_mappers, dtype = _select_used_features(
             all_mappers, feature_pre_filter)
-        binned = bin_columns(X, used, used_mappers, dtype)
+        binned = bin_columns(X, used, used_mappers, dtype, native=native)
         return BinnedDataset(binned, used_mappers, used, num_total, metadata,
                              feature_names)
+
+    @staticmethod
+    def from_reference(X: np.ndarray, metadata: Metadata,
+                       reference: "BinnedDataset",
+                       feature_names: Optional[List[str]] = None,
+                       native: bool = True) -> "BinnedDataset":
+        """Quantize X with the reference (training) dataset's mappers,
+        keeping its used features: the bin matrix the JAX package gets by
+        binning every column with the reference's mappers and keeping the
+        used ones (the same dtype: the other columns' trivial mappers have
+        one bin)."""
+        X = np.asarray(X)
+        if X.ndim != 2 or X.shape[1] != reference.num_total_features:
+            raise ValueError(
+                f"validation data has shape {X.shape}; the training data "
+                f"has {reference.num_total_features} features")
+        used = reference.used_features
+        dtype = reference.bins.dtype
+        binned = bin_columns(X, used, reference.mappers, dtype,
+                             native=native)
+        return BinnedDataset(binned, list(reference.mappers), used,
+                             reference.num_total_features, metadata,
+                             feature_names or reference.feature_names)
 
     @property
     def num_data(self) -> int:

@@ -804,7 +804,9 @@ _MODES = {"fused_route_hist": ("_int", "_packed"),
           # split_kernel.find_best_splits_kernel: plain and monotone modes
           "find_best_splits": (), "find_best_splits_mono": (),
           # prune.prune_best_first
-          "prune_best_first": ()}
+          "prune_best_first": (),
+          # predict.stacked_score_traj / predict_binned_tree
+          "predict_binned": ()}
 _LAUNCHES: Dict[str, int] = {}
 # tallies of launches recorded into CUDA graphs being captured (innermost
 # last): a captured launch does not run then, it runs at each replay

@@ -9,6 +9,11 @@ JAX package's operation order:
   regression L2: grad = score - label, hess = 1 (constant hessian)
   binary:        response = -y*sigma / (1 + exp(y*sigma*score)),
                  hess = |r| * (sigma - |r|), y in {-1, +1}
+
+Objective "none" (a custom objective: engine.train sets it for fobj) makes
+no objective; the caller supplies the gradients. `convert_output` maps raw
+host scores (f32 numpy) to predictions for the metrics, in f32 as the JAX
+package's does.
 """
 
 from __future__ import annotations
@@ -67,6 +72,9 @@ class ObjectiveFunction:
     def boost_from_score(self, class_id: int = 0) -> float:
         return 0.0
 
+    def convert_output(self, raw: np.ndarray) -> np.ndarray:
+        return raw
+
 
 class RegressionL2(ObjectiveFunction):
     name = "regression"
@@ -95,6 +103,11 @@ class RegressionL2(ObjectiveFunction):
             w = np.asarray(self._weight_np, dtype=np.float64)
             return float((lbl * w).sum() / max(w.sum(), _EPS))
         return float(lbl.mean())
+
+    def convert_output(self, raw):
+        if self.sqrt:
+            return np.sign(raw) * raw * raw
+        return raw
 
 
 class BinaryLogloss(ObjectiveFunction):
@@ -147,6 +160,11 @@ class BinaryLogloss(ObjectiveFunction):
                  self.name, pavg, init)
         return init
 
+    def convert_output(self, raw):
+        raw = np.asarray(raw, np.float32)
+        return np.float32(1.0) / (np.float32(1.0) + np.exp(
+            np.float32(-self.sigmoid) * raw))
+
 
 # objective names the port trains, with their aliases (the subset of the
 # JAX package's OBJECTIVE_ALIASES that maps to regression or binary)
@@ -155,16 +173,22 @@ SUPPORTED_OBJECTIVES = {
     "l2": "regression", "mean_squared_error": "regression",
     "mse": "regression", "l2_root": "regression",
     "root_mean_squared_error": "regression", "rmse": "regression",
-    "binary": "binary",
+    "binary": "binary", "none": "none", "null": "none", "custom": "none",
+    "na": "none",
 }
 
 
-def create_objective(name: str, config: Config) -> ObjectiveFunction:
+def create_objective(name: str,
+                     config: Config) -> Optional[ObjectiveFunction]:
+    """The objective `name` names, or None for "none" (gradients from the
+    caller)."""
     canonical = SUPPORTED_OBJECTIVES.get(name)
     if canonical is None:
         raise NotImplementedError(
             f"objective={name!r} is not ported to lightgbm_tpu_torch yet: "
             "it trains regression and binary (ROADMAP.md port queue P7)")
+    if canonical == "none":
+        return None
     if name in ("l2_root", "rmse", "root_mean_squared_error"):
         config.reg_sqrt = True
     return RegressionL2(config) if canonical == "regression" \

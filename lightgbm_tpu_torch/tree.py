@@ -19,9 +19,12 @@ decision_type packs {categorical:1, default_left:2, missing_type<<2}
 (tree.h decision-type masks; missing: None=0, Zero=1, NaN=2).
 
 Copy of lightgbm_tpu/tree.py for the PyTorch/CUDA port without linear
-leaves, SHAP, refit, JSON dump and the native predictor: prediction runs
-the numpy tree walk. A model text written by either package loads in the
-other.
+leaves, SHAP, refit, JSON dump and prediction early stop. Prediction runs
+the native runtime's forest predictor (cext/predict.cpp, OpenMP over
+rows), as the JAX package's does; the numpy tree walk stays as its plain
+version (native=False) and gives the same bits: both add each row's leaf
+values in tree order in float64. A model text written by either package
+loads in the other.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from . import cext
 
 __all__ = ["HostTree", "HostModel"]
 
@@ -224,6 +228,45 @@ class HostModel:
     def num_iterations(self) -> int:
         return len(self.trees) // max(self.num_tree_per_iteration, 1)
 
+    def _flatten_native(self) -> dict:
+        """The forest as the concatenated arrays the native predictor
+        reads (the JAX package's HostModel._flatten_native without linear
+        leaves); cached until the tree list changes."""
+        cached = getattr(self, "_native_flat", None)
+        if cached is not None and cached["num_trees"] == len(self.trees):
+            return cached
+        trees = self.trees
+        k = max(self.num_tree_per_iteration, 1)
+
+        def offsets(sizes):
+            return np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+
+        def cat(key, dtype):
+            parts = [np.asarray(getattr(t, key), dtype) for t in trees]
+            return np.ascontiguousarray(np.concatenate(parts)) if parts \
+                else np.zeros(0, dtype)
+
+        flat = {
+            "num_trees": len(trees),
+            "tree_class": np.ascontiguousarray(
+                [self.tree_class[i] if i < len(self.tree_class) else i % k
+                 for i in range(len(trees))], np.int32),
+            "node_off": offsets([max(t.num_leaves - 1, 0) for t in trees]),
+            "leaf_off": offsets([t.num_leaves for t in trees]),
+            "catb_off": offsets([len(t.cat_boundaries) for t in trees]),
+            "catt_off": offsets([len(t.cat_threshold) for t in trees]),
+            "split_feature": cat("split_feature", np.int32),
+            "threshold": cat("threshold", np.float64),
+            "decision_type": cat("decision_type", np.uint8),
+            "left": cat("left_child", np.int32),
+            "right": cat("right_child", np.int32),
+            "leaf_value": cat("leaf_value", np.float64),
+            "cat_boundaries": cat("cat_boundaries", np.int64),
+            "cat_threshold": cat("cat_threshold", np.uint32),
+        }
+        self._native_flat = flat
+        return flat
+
     # ------------------------------------------------------------------
     @staticmethod
     def from_gbdt(gbdt, train_dataset) -> "HostModel":
@@ -255,17 +298,34 @@ class HostModel:
     # ------------------------------------------------------------------
     def predict(self, X: np.ndarray, start_iteration: int = 0,
                 num_iteration: Optional[int] = None,
-                raw_score: bool = False) -> np.ndarray:
+                raw_score: bool = False, pred_leaf: bool = False,
+                native: bool = True) -> np.ndarray:
+        """Scores ([n] or [n, k]; raw or converted) or, with pred_leaf,
+        each row's leaf index in each tree ([n, trees] int32), through
+        the native predictor or (native=False) the numpy tree walk."""
         k = max(self.num_tree_per_iteration, 1)
         total_iters = self.num_iterations
         if num_iteration is None or num_iteration <= 0:
             num_iteration = total_iters - start_iteration
         end_iteration = min(start_iteration + num_iteration, total_iters)
         rng = range(start_iteration * k, end_iteration * k)
-        out = np.zeros((X.shape[0], k), np.float64)
-        for ti in rng:
-            cls = self.tree_class[ti] if ti < len(self.tree_class) else ti % k
-            out[:, cls] += self.trees[ti].predict_rows(X)
+        if pred_leaf:
+            if native:
+                return cext.forest_predict_leaf(
+                    self._flatten_native(), X, rng.start, rng.stop)
+            out = np.zeros((X.shape[0], len(rng)), np.int32)
+            for j, ti in enumerate(rng):
+                out[:, j] = self.trees[ti].leaf_index_rows(X)
+            return out
+        if native:
+            out = cext.forest_predict(self._flatten_native(), X, k,
+                                      rng.start, rng.stop)
+        else:
+            out = np.zeros((X.shape[0], k), np.float64)
+            for ti in rng:
+                cls = self.tree_class[ti] if ti < len(self.tree_class) \
+                    else ti % k
+                out[:, cls] += self.trees[ti].predict_rows(X)
         if self.average_output:
             out /= max(end_iteration - start_iteration, 1)
         if not raw_score:

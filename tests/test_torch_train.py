@@ -194,10 +194,21 @@ def test_unsupported_params_raise(extra):
 
 
 def test_valid_sets_and_callbacks_raise():
+    """Valid sets and callbacks train (tests/test_torch_valid.py); what
+    stays unported around them refuses, naming its queue item: the
+    checkpoint callback and checkpoint_period with checkpoint_dir (A9),
+    resume_from (A9), multiclass and ranking metrics (A6)."""
     X, y = make_binary(n=200, f=4)
     ds = lgt.Dataset(X, label=y)
     params = {"objective": "binary", "device_type": "cpu", "verbosity": -1}
-    with pytest.raises(NotImplementedError, match="valid_sets"):
-        lgt.train(params, ds, 1, valid_sets=[ds])
-    with pytest.raises(NotImplementedError, match="callbacks"):
-        lgt.train(params, ds, 1, callbacks=[lambda env: None])
+    with pytest.raises(NotImplementedError, match="A9"):
+        lgt.callback.checkpoint(5, "ckpt")
+    with pytest.raises(NotImplementedError, match="A9"):
+        lgt.train(params, ds, 1, resume_from="ckpt")
+    with pytest.raises(NotImplementedError, match="A9"):
+        lgt.train(dict(params, checkpoint_period=5, checkpoint_dir="ckpt"),
+                  ds, 1)
+    for metric in ("multi_logloss", "multi_error", "auc_mu", "ndcg", "map"):
+        with pytest.raises(NotImplementedError, match="A6"):
+            lgt.train(dict(params, metric=metric), ds, 1,
+                      valid_sets=[ds.create_valid(X, label=y)])
