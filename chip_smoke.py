@@ -24,9 +24,11 @@ partition and the routing apart under torch.profiler; the best-first
 prune's kernel against its plain version on overgrown trees of the main
 path's 1020 node ids; the traversal kernel (valid scores) against its
 plain version on 10 stacked 255-leaf trees over 40,000 rows, with
-categorical and NaN nodes — then trains through lightgbm_tpu_torch's
-entry points along eight paths, each with the launch counts reset before
-it and read after it:
+categorical and NaN nodes; K1 (f32 and integer), K3, K7 (integer) and
+K5 again on sampled rows, a bagging mask and GOSS's weights and count,
+bit for bit, with GOSS's sampler and threshold timed — then trains through
+lightgbm_tpu_torch's entry points along nine paths, each with the launch
+counts reset before it and read after it:
 
 - exact histograms: the Higgs-like binary configuration (num_leaves 255,
   max_bin 255), the same with min_data_in_leaf 1000 (which runs the
@@ -63,6 +65,20 @@ it and read after it:
   per-iteration run's; feval with the training set as a valid set (one
   iteration a dispatch) giving the same model; trees/s with and without
   a valid set, host syncs a tree;
+- row sampling, random forest and DART (phases `sampling*`): bagging
+  (fraction 0.8, freq 5), GOSS (top_rate 0.2, other_rate 0.1) and
+  bagging with quantized gradients through the fused phases' turns
+  (train, update_batch(10) twice, against 30 update() calls, byte-equal
+  after 10, 20 and 30 trees), each turn's host predictions within 1e-4
+  of its device scores and held-out AUC above 0.75; bagging with fix-up
+  passes and quantized bagging under hist_backend pallas, train against
+  update(); random forest (10 trees) and DART (20 trees), one iteration
+  a dispatch, engine.train with a valid set against update() twice,
+  byte-equal, host predictions against the averaged or renormalized
+  device scores, DART's traversal launches against its dropped trees,
+  and kernel V's row at one DART tree over the 1M training rows; trees/s
+  beside the unsampled fused path, host syncs a tree, DART's V device ms
+  a tree (derived: V's launches a tree x its one-tree row's device ms);
 - the histogram backends on the binary configuration: quantized under
   hist_backend pallas (route counts, the partition kernel and the scatter
   kernel), scatter (the segment-sum oracle) and auto (the autotune), each
@@ -229,8 +245,46 @@ VALID_TRAJ_TREES = 10
 VALID_PARAMS = dict(TRAIN_PARAMS, metric="binary_logloss,auc")
 VALID_PATH = ("predict_binned", "prune_best_first", "fused_route_hist",
               "node_values")
-# the path whose counts a kernel row reports
-ROW_PATH = {"prune_best_first": "fused", "predict_binned": "valid",
+# the sampling phases: bagging, GOSS and quantized bagging on train's block
+# dispatch against update() (30 trees in turns); bagging whose trees run
+# fix-up passes (K3) and quantized bagging under hist_backend pallas (K7),
+# 10 trees; random forest and DART, one iteration a dispatch
+BAGGING = {"bagging_fraction": 0.8, "bagging_freq": 5}
+GOSS = {"boosting": "goss", "top_rate": 0.2, "other_rate": 0.1}
+SAMPLING_RUNS = (("sampling_bagging", dict(TRAIN_PARAMS, **BAGGING)),
+                 ("sampling_goss", dict(TRAIN_PARAMS, **GOSS)),
+                 ("sampling_bagging_quantized", dict(QUANT_PARAMS,
+                                                     **BAGGING)))
+SAMPLING_CHECKS = (
+    ("sampling_bagging_fixups", dict(TRAIN_PARAMS, **BAGGING,
+                                     min_data_in_leaf=FIXUP_MIN_DATA)),
+    ("sampling_bagging_pallas", dict(QUANT_PARAMS, **BAGGING,
+                                     hist_backend="pallas")))
+RF_PARAMS = dict(TRAIN_PARAMS, boosting="rf", bagging_fraction=0.7,
+                 bagging_freq=1)
+RF_TREES = 10
+DART_PARAMS = dict(TRAIN_PARAMS, boosting="dart", drop_rate=0.1)
+DART_TREES = 20
+SAMPLING_PATH = ("fused_route_hist", "fused_route_hist_int", "route_rows",
+                 "build_histograms", "build_histograms_scatter_int",
+                 "node_sums", "node_values", "prune_best_first",
+                 "predict_binned")
+# the kernels held to their plain versions on sampled rows, by the key
+# their launches count under
+SAMPLED_REPLACES = {
+    "fused_route_hist": "lightgbm_tpu/learner/histogram_mxu.py:785",
+    "fused_route_hist_int": "lightgbm_tpu/learner/histogram_mxu.py:785",
+    "build_histograms": "lightgbm_tpu/learner/histogram_mxu.py:472",
+    "build_histograms_scatter_int":
+        "lightgbm_tpu/learner/histogram_pallas.py:211",
+    "node_sums": "lightgbm_tpu/learner/histogram_mxu.py:1192"}
+# the launch-count key of a row named otherwise
+ROW_KEY = {**{k + "_sampled": k for k in SAMPLED_REPLACES},
+           "predict_binned_train": "predict_binned"}
+# the paths whose counts a kernel row reports
+ROW_PATH = {"prune_best_first": "fused",
+            "predict_binned": ("valid", "sampling"),
+            **dict.fromkeys(ROW_KEY, "sampling"),
             **dict.fromkeys(EXACT_PATH, "exact"),
             **dict.fromkeys(("fused_route_hist_int", "build_histograms_int",
                              "node_sums"), "quantized"),
@@ -434,9 +488,10 @@ def index_add_fn(torch, bins, slot, cols, num_slots, bmax):
     return lambda: flat.index_add_(0, cells, vals)
 
 
-def kernel_phase(torch, hm, hp, rng_mod, dev):
-    d = kernel_inputs(torch, hm, rng_mod, dev)
-    rows = []
+def make_row(torch, rows):
+    """row(name, replaces, err, fn, plain_fn, plain_reps, nbytes, ops,
+    library_fn, ...): times a kernel and appends its line of the kernel
+    table to `rows` (launches are set by the path that owns it)."""
 
     def row(name, replaces, err, fn, plain_fn, plain_reps, nbytes, ops,
             library_fn, source=None, ops_per_s=F32_OPS_PER_S,
@@ -466,6 +521,15 @@ def kernel_phase(torch, hm, hp, rng_mod, dev):
             "library_device_ms": None if library_fn is None
             else device_ms(torch, library_fn, strict=library_queues)})
         emit("kernel", **rows[-1])
+
+    row.rows = rows
+    return row
+
+
+def kernel_phase(torch, hm, hp, rng_mod, dev):
+    d = kernel_inputs(torch, hm, rng_mod, dev)
+    rows = []
+    row = make_row(torch, rows)
 
     bins, grad, hess, cnt = d["bins"], d["grad"], d["hess"], d["cnt"]
     g_q, h_q = d["g_q"], d["h_q"]
@@ -573,6 +637,7 @@ def kernel_phase(torch, hm, hp, rng_mod, dev):
         source="build_histograms_scatter")
     del h, h_ref
 
+    sampled_rows(torch, hm, hp, rng_mod, d, row, dev)
     backend_rows(torch, hm, hp, rng_mod, d, row, dev)
     packed_rows(torch, hm, hp, rng_mod, dev, row)
     split_rows(torch, hm, rng_mod, dev, row)
@@ -1719,11 +1784,27 @@ def fused_path(torch, lgt, hm, ds, y):
     runs after the first. Prints trees/s of both paths (the last 10 trees:
     replays alone), the host reads of `done` a tree (with the lagged stall
     poll, the block's syncs), graph memory, capture seconds and the
-    memory before and after the booster goes. Returns the launch
-    counts."""
-    import hashlib
+    memory before and after the booster goes. Returns the launch counts
+    and each configuration's trees/s (fused_turns)."""
     logloss = logloss_of(torch, y)
     hm.reset_launch_counts()
+    rates = {name: fused_turns(torch, lgt, hm, ds, logloss, name, params)
+             for name, params in FUSED_RUNS}
+    counts = hm.launch_counts()
+    for key in FUSED_PATH:
+        check(counts[key] > 0, f"{key} was not launched on the fused path")
+    return counts, rates
+
+
+def fused_turns(torch, lgt, hm, ds, logloss, name, params, inspect=None):
+    """One configuration of the fused phases (fused_path): train, then
+    update_batch(10) twice, against 30 update() calls, in turns
+    (per-iteration, fused, fused, per-iteration), every check of
+    fused_path, and the phase line `name`. inspect(booster) -> dict runs
+    on each turn's booster after its 30 trees (before it is deleted) and
+    its results are printed as `inspected`. Returns the trees/s of the
+    last 10 trees of each turn."""
+    import hashlib
     steps = ("10", "20", "30")
 
     def sha(booster):
@@ -1752,118 +1833,118 @@ def fused_path(torch, lgt, hm, ds, y):
     def noops(booster):
         return sum(st["noop_fixups"] for st in booster.gbdt.fused_stats)
 
-    for name, params in FUSED_RUNS:
-        runs = []
-        for path in ("per_iteration", "fused", "fused", "per_iteration"):
-            out = {"path": path}
-            fused = path == "fused"
-            booster = None
-            for step in steps:
-                if step == "10":
-                    fn = (lambda: lgt.train(params, ds, TRAIN_TREES)) \
-                        if fused else \
-                        (lambda: update_loop(lgt.Booster(params, ds)))
-                else:
-                    fn = (lambda: update_batch(booster)) if fused else \
-                        (lambda: update_loop(booster))
-                n0 = 0 if booster is None else noops(booster)
-                out["s" + step], out["l" + step], booster = timed(fn)
-                out["noop" + step] = noops(booster) - n0
-                out["sha" + step] = sha(booster)
-            out["logloss"] = float(logloss(booster.gbdt.train_score))
-            out["leaves"] = [int(t.num_leaves) for t in booster.gbdt.trees]
-            if fused:
-                trainer = booster.gbdt._fused_run
-                out["stats"] = [dict(st) for st in booster.gbdt.fused_stats]
-                out["stall_polls"] = booster.gbdt.stall_polls
-                out["programs"] = list(trainer.programs)
-                out["fixup_tally"] = dict(trainer.graphs["fixup"][1])
-                del trainer
-            # the booster goes with reference counts alone: with garbage
-            # collection paused, its trainer's graph pool must be given
-            # back
-            held = card_memory(torch)
-            collecting = gc.isenabled()
-            gc.disable()
-            try:
-                del booster
-                torch.cuda.empty_cache()
-                freed = card_memory(torch)
-            finally:
-                if collecting:
-                    gc.enable()
-            out["memory"] = {"held": held, "after_del": freed,
-                             "released_bytes": held["reserved"] -
-                             freed["reserved"]}
-            runs.append(out)
-        eager = [r for r in runs if r["path"] == "per_iteration"]
-        fused = [r for r in runs if r["path"] == "fused"]
-        for r in runs:
-            check(all(r["sha" + k] == eager[0]["sha" + k] for k in steps),
-                  f"{name}: {r['path']} model text differs from the "
-                  "per-iteration run's")
-        for r in fused:
-            st = r["stats"]
-            check([s_["graphs"] for s_ in st] == [len(r["programs"])] * 2
-                  and [s_["trees"] for s_ in st] ==
-                  [TRAIN_TREES - 1, 2 * TRAIN_TREES],
-                  f"{name}: graphs {[s_['graphs'] for s_ in st]} of "
-                  f"{len(r['programs'])} programs, trees "
-                  f"{[s_['trees'] for s_ in st]}")
-            check(min(r["leaves"]) > 1, f"{name}: a tree stalled")
-            for k in steps:
-                noop = r["noop" + k]
-                want = {key: v + noop * r["fixup_tally"].get(key, 0)
-                        for key, v in eager[0]["l" + k].items()}
-                check(r["l" + k] == want, f"{name}: fused launches "
-                      f"{r['l' + k]} are not the per-iteration run's "
-                      f"{want} plus {noop} no-op fix-up passes")
-            mem = r["memory"]
-            check(mem["released_bytes"] >= st[1]["graph_pool_bytes"] > 0,
-                  f"{name}: del booster gave back {mem['released_bytes']} "
-                  f"bytes, less than its graphs' pool "
-                  f"{st[1]['graph_pool_bytes']}")
-        # from the second run on (the first fused run may size a scratch
-        # buffer for the warm-up's fix-up pass), every booster leaves the
-        # same bytes behind: a trainer leaves nothing
-        left = [r["memory"]["after_del"]["allocated"] for r in runs]
-        check(len(set(left[1:])) == 1, f"{name}: bytes allocated after "
-              f"each booster went: {left}")
-        st = fused[0]["stats"]
-        trees = sum(s_["trees"] for s_ in st)
-        reads = sum(sum(s_["fixup_reads"]) for s_ in st)
-        emit(name, params={k: v for k, v in params.items()
-                           if k != "verbosity"},
-             trees=3 * TRAIN_TREES, fused_block_size=TRAIN_TREES,
-             model_sha256_10=eager[0]["sha10"][:16],
-             model_sha256_30=eager[0]["sha30"][:16], byte_equal=True,
-             order=[r["path"] for r in runs],
-             train_s_first10=[r["s10"] for r in runs],
-             train_s_next10=[r["s20"] for r in runs],
-             train_s_last10=[r["s30"] for r in runs],
-             trees_per_s_first10=[TRAIN_TREES / r["s10"] for r in runs],
-             trees_per_s_next10=[TRAIN_TREES / r["s20"] for r in runs],
-             trees_per_s_last10=[TRAIN_TREES / r["s30"] for r in runs],
-             graphs=st[0]["graphs"], programs=fused[0]["programs"],
-             capture_s=[s_["capture_s"] for r in fused
-                        for s_ in r["stats"]],
-             graph_pool_bytes=[s_["graph_pool_bytes"] for r in fused
-                               for s_ in r["stats"]],
-             buffer_bytes=st[0]["buffer_bytes"],
-             fixup_passes_per_tree=[s_["fixup_passes"] for s_ in st],
-             noop_fixups=[s_["noop_fixups"] for s_ in st],
-             done_reads_per_tree=reads / trees,
-             stall_polls=fused[0]["stall_polls"],
-             host_syncs_per_tree=(reads + fused[0]["stall_polls"]) / trees,
-             fixup_tally=fused[0]["fixup_tally"],
-             launches_fused_first10=fused[0]["l10"],
-             launches_per_iteration_first10=eager[0]["l10"],
-             memory=[r["memory"] for r in runs],
-             logloss=[r["logloss"] for r in runs])
-    counts = hm.launch_counts()
-    for key in FUSED_PATH:
-        check(counts[key] > 0, f"{key} was not launched on the fused path")
-    return counts
+    runs = []
+    for path in ("per_iteration", "fused", "fused", "per_iteration"):
+        out = {"path": path}
+        fused = path == "fused"
+        booster = None
+        for step in steps:
+            if step == "10":
+                fn = (lambda: lgt.train(params, ds, TRAIN_TREES)) \
+                    if fused else \
+                    (lambda: update_loop(lgt.Booster(params, ds)))
+            else:
+                fn = (lambda: update_batch(booster)) if fused else \
+                    (lambda: update_loop(booster))
+            n0 = 0 if booster is None else noops(booster)
+            out["s" + step], out["l" + step], booster = timed(fn)
+            out["noop" + step] = noops(booster) - n0
+            out["sha" + step] = sha(booster)
+        out["logloss"] = float(logloss(booster.gbdt.train_score))
+        out["leaves"] = [int(t.num_leaves) for t in booster.gbdt.trees]
+        if inspect is not None:
+            out["inspected"] = inspect(booster)
+        if fused:
+            trainer = booster.gbdt._fused_run
+            out["stats"] = [dict(st) for st in booster.gbdt.fused_stats]
+            out["stall_polls"] = booster.gbdt.stall_polls
+            out["programs"] = list(trainer.programs)
+            out["fixup_tally"] = dict(trainer.graphs["fixup"][1])
+            del trainer
+        # the booster goes with reference counts alone: with garbage
+        # collection paused, its trainer's graph pool must be given
+        # back
+        held = card_memory(torch)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            del booster
+            torch.cuda.empty_cache()
+            freed = card_memory(torch)
+        finally:
+            if collecting:
+                gc.enable()
+        out["memory"] = {"held": held, "after_del": freed,
+                         "released_bytes": held["reserved"] -
+                         freed["reserved"]}
+        runs.append(out)
+    eager = [r for r in runs if r["path"] == "per_iteration"]
+    fused = [r for r in runs if r["path"] == "fused"]
+    for r in runs:
+        check(all(r["sha" + k] == eager[0]["sha" + k] for k in steps),
+              f"{name}: {r['path']} model text differs from the "
+              "per-iteration run's")
+    for r in fused:
+        st = r["stats"]
+        check([s_["graphs"] for s_ in st] == [len(r["programs"])] * 2
+              and [s_["trees"] for s_ in st] ==
+              [TRAIN_TREES - 1, 2 * TRAIN_TREES],
+              f"{name}: graphs {[s_['graphs'] for s_ in st]} of "
+              f"{len(r['programs'])} programs, trees "
+              f"{[s_['trees'] for s_ in st]}")
+        check(min(r["leaves"]) > 1, f"{name}: a tree stalled")
+        for k in steps:
+            noop = r["noop" + k]
+            want = {key: v + noop * r["fixup_tally"].get(key, 0)
+                    for key, v in eager[0]["l" + k].items()}
+            check(r["l" + k] == want, f"{name}: fused launches "
+                  f"{r['l' + k]} are not the per-iteration run's "
+                  f"{want} plus {noop} no-op fix-up passes")
+        mem = r["memory"]
+        check(mem["released_bytes"] >= st[1]["graph_pool_bytes"] > 0,
+              f"{name}: del booster gave back {mem['released_bytes']} "
+              f"bytes, less than its graphs' pool "
+              f"{st[1]['graph_pool_bytes']}")
+    # from the second run on (the first fused run may size a scratch
+    # buffer for the warm-up's fix-up pass), every booster leaves the
+    # same bytes behind: a trainer leaves nothing
+    left = [r["memory"]["after_del"]["allocated"] for r in runs]
+    check(len(set(left[1:])) == 1, f"{name}: bytes allocated after "
+          f"each booster went: {left}")
+    st = fused[0]["stats"]
+    trees = sum(s_["trees"] for s_ in st)
+    reads = sum(sum(s_["fixup_reads"]) for s_ in st)
+    emit(name, params={k: v for k, v in params.items()
+                       if k != "verbosity"},
+         trees=3 * TRAIN_TREES, fused_block_size=TRAIN_TREES,
+         model_sha256_10=eager[0]["sha10"][:16],
+         model_sha256_30=eager[0]["sha30"][:16], byte_equal=True,
+         order=[r["path"] for r in runs],
+         train_s_first10=[r["s10"] for r in runs],
+         train_s_next10=[r["s20"] for r in runs],
+         train_s_last10=[r["s30"] for r in runs],
+         trees_per_s_first10=[TRAIN_TREES / r["s10"] for r in runs],
+         trees_per_s_next10=[TRAIN_TREES / r["s20"] for r in runs],
+         trees_per_s_last10=[TRAIN_TREES / r["s30"] for r in runs],
+         graphs=st[0]["graphs"], programs=fused[0]["programs"],
+         capture_s=[s_["capture_s"] for r in fused
+                    for s_ in r["stats"]],
+         graph_pool_bytes=[s_["graph_pool_bytes"] for r in fused
+                           for s_ in r["stats"]],
+         buffer_bytes=st[0]["buffer_bytes"],
+         fixup_passes_per_tree=[s_["fixup_passes"] for s_ in st],
+         noop_fixups=[s_["noop_fixups"] for s_ in st],
+         done_reads_per_tree=reads / trees,
+         stall_polls=fused[0]["stall_polls"],
+         host_syncs_per_tree=(reads + fused[0]["stall_polls"]) / trees,
+         fixup_tally=fused[0]["fixup_tally"],
+         launches_fused_first10=fused[0]["l10"],
+         launches_per_iteration_first10=eager[0]["l10"],
+         memory=[r["memory"] for r in runs],
+         logloss=[r["logloss"] for r in runs],
+         **({"inspected": [r["inspected"] for r in runs]}
+            if inspect is not None else {}))
+    return [TRAIN_TREES / r["s30"] for r in runs]
 
 
 def card_memory(torch):
@@ -1969,6 +2050,419 @@ def fused_scratch_check(torch, lgt, hm, X, y):
     del a, big, ref
     torch.cuda.empty_cache()
 
+
+def sampled_inputs(torch, hm, rng_mod, d, dev):
+    """The kernel inputs' gradients under the two samplers, through the
+    port's own functions: a bagging mask at fraction 0.8 (counts 0/1) and
+    GOSS at top_rate 0.2, other_rate 0.1 (counts 0/1, the sampled rest's
+    gradients and hessians amplified 8x); each with its int8 quantized
+    gradients. [(label, grad, hess, cnt, g_q, h_q)]"""
+    from lightgbm_tpu_torch.boosting import gbdt as gb
+    grad, hess = d["grad"], d["hess"]
+    n = grad.shape[0]
+    mask = gb._bag_mask(0, n=n, seed=3, freq=BAGGING["bagging_freq"],
+                        fraction=gb._f32(BAGGING["bagging_fraction"]),
+                        device=dev)
+    out = [("bagged", grad * mask, hess * mask, mask)]
+    out.append(("goss",) + gb._goss_sample(
+        grad, hess, None, rng_mod.PRNGKey(5, dev), **goss_settings(gb, n)))
+    res = []
+    for label, g, h, c in out:
+        g_q, h_q, _, _ = hm.quantize_gradients(g, h, rng_mod.PRNGKey(1, dev))
+        res.append((label, g, h, c, g_q.to(torch.int8), h_q.to(torch.int8)))
+    return res
+
+
+def goss_settings(gb, n):
+    """_goss_sample's settings at the sampling phases' GOSS rates."""
+    return gb._goss_settings(n, GOSS["top_rate"], GOSS["other_rate"])
+
+
+def sampled_rows(torch, hm, hp, rng_mod, d, row, dev):
+    """K1 (f32 and integer), K3, K7 (integer) and K5 on sampled rows: the
+    count channel a 0/1 mask (bagging, 0.8) and GOSS's weights and count
+    (rows kept at 1 and at 8x, the rest at 0), at the kernel inputs'
+    shapes (1M x 28, K1 and K7 at 263 slots, K3 at 511, K5 at 510 nodes),
+    each bit for bit against its plain version and across two calls. The
+    rows are timed on GOSS's inputs, and their bounds count what the
+    function needs there: g, h and the count of every routed row (12
+    bytes, 6 with int8 gradients), but a row's F bins and its F x 3 adds
+    only where its count, g or h is not zero (about 30% of rows). Also
+    prints GOSS's sampling, its top-k threshold alone and bagging's mask,
+    ms at 1M rows."""
+    from lightgbm_tpu_torch.boosting import gbdt as gb
+    bins = d["bins"]
+    route = (d["tbl"], d["member"], d["feat_tbl"])
+    n, f = bins.shape
+    node_split = d["split"][d["row_node"].long()]
+    n_routed = int(node_split.sum())
+    table_bytes = d["tbl"].numel() * 4 + d["member"].numel() * 4
+    _, slot, tallies = hm.route_rows_ref(
+        bins, d["row_node"], *route, emit_counts=True, num_slots=S_TUNE,
+        chunk_tallies=True)
+    rslot = d["row_slot"]
+    rng = np.random.RandomState(9)
+    node = rng.randint(0, M_REFIT, n)
+    u = rng.rand(n)
+    node[u < 0.03] = -1
+    node[(u >= 0.03) & (u < 0.04)] += M_REFIT
+    node = torch.as_tensor(node.astype(np.int32), device=dev)
+    n_fused = int(((slot >= 0) & (slot < S_FUSED)).sum())
+    n_tune = int(((slot >= 0) & (slot < S_TUNE)).sum())
+    n_hist = int((rslot >= 0).sum())
+    kept = {}
+    for label, g, h, c, g_q, h_q in sampled_inputs(torch, hm, rng_mod, d,
+                                                   dev):
+        scale = hm.exact_scale(g, h, c)
+        kern = {
+            "fused_route_hist": lambda: hm.fused_route_hist(
+                bins, g, h, c, d["row_node"], *route, num_slots=S_FUSED,
+                bmax=BMAX, scale=scale),
+            "fused_route_hist_int": lambda: hm.fused_route_hist(
+                bins, g_q, h_q, c, d["row_node"], *route,
+                num_slots=S_FUSED, bmax=BMAX, quantized=True),
+            "build_histograms": lambda: hm.build_histograms(
+                bins, g, h, c, rslot, num_slots=S_HIST, bmax=BMAX,
+                scale=scale),
+            "build_histograms_scatter_int": lambda: hp.build_histograms_scatter(
+                bins, g_q, h_q, c, slot, slot_tallies=tallies,
+                num_slots=S_TUNE, bmax=BMAX, quantized=True),
+            "node_sums": lambda: hm.node_sums(node, g, h, c,
+                                              num_nodes=M_REFIT)}
+        plain = {
+            "fused_route_hist": lambda: hm.fused_route_hist_ref(
+                bins, g, h, c, d["row_node"], *route, num_slots=S_FUSED,
+                bmax=BMAX, scale=scale),
+            "fused_route_hist_int": lambda: hm.fused_route_hist_ref(
+                bins, g_q, h_q, c, d["row_node"], *route,
+                num_slots=S_FUSED, bmax=BMAX, quantized=True),
+            "build_histograms": lambda: hm.build_histograms_ref(
+                bins, g, h, c, rslot, num_slots=S_HIST, bmax=BMAX,
+                scale=scale),
+            "build_histograms_scatter_int":
+                lambda: hp.build_histograms_scatter_ref(
+                    bins, g_q, h_q, c, slot, slot_tallies=tallies,
+                    num_slots=S_TUNE, bmax=BMAX, quantized=True),
+            "node_sums": lambda: hm.node_sums_ref(node, g, h, c,
+                                                  num_nodes=M_REFIT)}
+        for name, fn in kern.items():
+            want = plain[name]()
+            if name.startswith("fused_route_hist"):
+                check(torch.equal(fn()[1], want[1]),
+                      f"{name} routing differs on {label} rows")
+                want = want[0]
+            check_hist(torch, f"{name} on {label} rows", fn, want)
+        emit("kernel_check", name="sampled_rows", rows=label,
+             kept=float(c.sum()),
+             amplified=int(((c > 0) & (g != d["grad"])).sum()),
+             kernels=sorted(kern), equal=True)
+        kept[label] = (kern, plain, g, h, c, g_q, h_q)
+    kern, plain, g, h, c, g_q, h_q = kept["goss"]
+    idx5 = node.long()
+    keep5 = (node >= 0) & (node < M_REFIT)
+    acc5 = torch.zeros((M_REFIT + 1, 3), device=dev)
+    data5 = torch.stack([g, h, c], 1)
+    sink = torch.where(keep5, idx5, M_REFIT)
+    libs = {
+        "fused_route_hist": None, "fused_route_hist_int": None,
+        "build_histograms": index_add_fn(
+            torch, bins, rslot, torch.stack([g, h, c], 1), S_HIST, BMAX),
+        "build_histograms_scatter_int": index_add_fn(
+            torch, bins, slot, torch.stack([g_q.int(), h_q.int(), c.int()],
+                                           1), S_TUNE, BMAX),
+        "node_sums": lambda: acc5.index_add_(0, sink, data5)}
+    # the rows that add to a histogram: a count, g or h not zero (GOSS
+    # zeroes all three of the rows it drops), in each kernel's slots
+    live = (c != 0) | (g != 0) | (h != 0)
+    live_q = (c != 0) | (g_q != 0) | (h_q != 0)
+    in_fused = (slot >= 0) & (slot < S_FUSED)
+    in_tune = (slot >= 0) & (slot < S_TUNE)
+    in_hist = rslot >= 0
+    l_fused, lq_fused = int((live & in_fused).sum()), int(
+        (live_q & in_fused).sum())
+    l_hist, lq_tune = int((live & in_hist).sum()), int(
+        (live_q & in_tune).sum())
+    h_fused = S_FUSED * f * BMAX * 12
+    nbytes = {
+        "fused_route_hist": 8 * n + n_routed + 12 * n_fused +
+        f * l_fused + h_fused + table_bytes,
+        "fused_route_hist_int": 8 * n + n_routed + 6 * n_fused +
+        f * lq_fused + h_fused + table_bytes,
+        "build_histograms": 4 * n + 12 * n_hist + f * l_hist +
+        S_HIST * f * BMAX * 12,
+        "build_histograms_scatter_int": 4 * n + 6 * n_tune + f * lq_tune +
+        S_TUNE * f * BMAX * 12,
+        "node_sums": 16 * n + M_REFIT * 12}
+    ops = {"fused_route_hist": l_fused * f * 3,
+           "fused_route_hist_int": lq_fused * f * 3,
+           "build_histograms": l_hist * f * 3,
+           "build_histograms_scatter_int": lq_tune * f * 3,
+           "node_sums": 3 * int((keep5 & live).sum())}
+    emit("kernel_detail", name="sampled_bounds", rows=n,
+         live_rows={"fused": l_fused, "fused_int": lq_fused,
+                    "hist": l_hist, "tune_int": lq_tune},
+         routed_rows={"fused": n_fused, "hist": n_hist, "tune": n_tune},
+         what="rows in each sampled row's slots, and those of them with a "
+              "count, g or h not zero, on GOSS's inputs: the bound reads "
+              "bins and counts adds for the second only")
+    for name in kern:
+        source = {"node_sums": "node_sums"}.get(name,
+                                                "build_histograms_scatter")
+        row(name + "_sampled", SAMPLED_REPLACES[name], 0.0, kern[name],
+            plain[name], 3, nbytes[name], ops[name], libs[name],
+            source=source)
+    # GOSS's sampling and its threshold alone, and bagging's mask, on the
+    # kernel inputs' 1M gradients (the bound: GOSS reads g and h and
+    # writes g, h and the count, 20 bytes a row; the mask 4). The
+    # samplers' threefry draws are ~200 (GOSS) and ~350 (the mask: its key
+    # too) launches a call: device ms over 4 and 2 calls (more fill the
+    # launch queue behind the sleep), None where even those were not
+    # queued
+    kw = goss_settings(gb, n)
+    key = rng_mod.PRNGKey(5, dev)
+    order = (d["grad"].abs() * d["hess"]).view(torch.int32)
+
+    def goss():
+        return gb._goss_sample(d["grad"], d["hess"], None, key, **kw)
+
+    def bag():
+        return gb._bag_mask(0, n=n, seed=3, freq=BAGGING["bagging_freq"],
+                            fraction=gb._f32(BAGGING["bagging_fraction"]),
+                            device=dev)
+    emit("kernel_detail", name="samplers", rows=n, top_k=kw["top_k"],
+         goss_ms=time_ms(torch, goss, 20),
+         goss_device_ms=device_ms(torch, goss, reps=4, strict=False),
+         goss_threshold_device_ms=device_ms(torch, lambda: torch.topk(
+             order, kw["top_k"], sorted=False).values.min()),
+         goss_bound_ms=20 * n / HBM_BYTES_PER_S * 1e3,
+         bag_mask_ms=time_ms(torch, bag, 20),
+         bag_mask_device_ms=device_ms(torch, bag, reps=2, strict=False),
+         bag_mask_bound_ms=4 * n / HBM_BYTES_PER_S * 1e3,
+         what="boosting/gbdt._goss_sample (|g| x h, the top-k threshold "
+              "over order-preserving int32 keys, the uniform draw, the "
+              "weights), torch.topk alone, and _bag_mask (the uniform "
+              "draw and the comparison); torch ops, no kernel of the "
+              "port")
+
+
+def train_traversal_row(torch, row, gbdt, tree):
+    """Kernel V at one tree over the training bins (DART re-predicts each
+    dropped tree so, and the new tree when it rescales it): a 255-leaf
+    tree of the DART run over the 1M x 28 training rows against its plain
+    version, bit for bit. Bound: each row's bins on its path once, the
+    tree's nodes (22 bytes each), the [N] output; or its node visits at
+    the f32 rate. Library: the PyTorch indexing walk to the tree's
+    depth."""
+    from lightgbm_tpu_torch.learner import predict as pr
+    bins = gbdt._train_bins_unpacked()
+    num_bins, nan = gbdt.num_bins_d, gbdt.missing_is_nan_d
+    n, f = bins.shape
+    got = pr.predict_binned_tree(tree, bins, num_bins, nan)
+    want = pr.predict_binned_tree_ref(tree, bins, num_bins, nan)
+    check(same_bits(torch, got, want), "predict_binned differs from its "
+          "plain version at one tree over the training rows")
+    # each row's path, walked up from its leaf (the plain version's) by
+    # the parents of the children arrays: the features it reads, its node
+    # visits, the tree's depth
+    rows_ = torch.arange(n, device=bins.device)
+    sf = tree.split_feature.long()
+    left, right = tree.left.cpu().numpy(), tree.right.cpu().numpy()
+    parent = np.full(left.shape[0], -1, np.int64)
+    inner = np.nonzero(left >= 0)[0]
+    parent[left[inner]] = inner
+    parent[right[inner]] = inner
+    parent = torch.as_tensor(parent, device=bins.device)
+    cur = pr._traverse_ref(tree, bins, num_bins, nan).long()
+    seen = torch.zeros((n, f), dtype=torch.bool, device=bins.device)
+    visits, depth = 0, 0
+    while True:
+        up = parent[cur]
+        active = up >= 0
+        m = int(active.sum())
+        if m == 0:
+            break
+        up = up.clamp(min=0)
+        visits += m
+        seen[rows_[active], sf[up][active]] = True
+        cur = torch.where(active, up, cur)
+        depth += 1
+    nodes = int(tree.num_nodes)
+    nbytes = int(seen.sum()) + 22 * nodes + 4 * n
+
+    def library():
+        nd = torch.zeros(n, dtype=torch.int64, device=bins.device)
+        for _ in range(depth):
+            feat = sf[nd].clamp(min=0)
+            b = bins[rows_, feat].int()
+            go = torch.where(nan[feat] & (b == num_bins[feat] - 1),
+                             tree.default_left[nd],
+                             b <= tree.threshold_bin[nd])
+            nxt = torch.where(go, tree.left[nd], tree.right[nd]).long()
+            nd = torch.where(sf[nd] >= 0, nxt, nd)
+        return tree.leaf_value[nd]
+    row("predict_binned_train", "lightgbm_tpu/learner/predict.py:25 "
+        "(_traverse, predict_binned_tree; XLA, no Pallas)", 0.0,
+        lambda: pr.predict_binned_tree(tree, bins, num_bins, nan),
+        lambda: pr.predict_binned_tree_ref(tree, bins, num_bins, nan), 3,
+        nbytes, visits, library, source="predict_binned",
+        library_queues=False)
+    return depth
+
+
+def sampling_path(torch, lgt, hm, X, y, ds, row, fused_rates):
+    """Row sampling, random forest and DART at the main path's width
+    (binary, 1M x 28, 255 leaves), launch counts reset before and read
+    after:
+    (a) bagging (fraction 0.8, freq 5), GOSS (top_rate 0.2, other_rate
+    0.1), both exact, and bagging with quantized gradients, each through
+    fused_turns (train at fused_block_size 10, then update_batch(10)
+    twice, against 30 update() calls: sha256-equal model text after 10, 20
+    and 30 trees, two identical runs of each path); every turn's host
+    predictions within 1e-4 of its device scores and held-out AUC above
+    0.75; (b) bagging whose trees run fix-up passes (min_data_in_leaf
+    1000: K3) and quantized bagging under hist_backend pallas (K7), 10
+    trees, train against update(), byte-equal; (c) random forest
+    (bagging_freq 1, fraction 0.7, 10 trees) and DART (drop_rate 0.1, 20
+    trees), one iteration a dispatch: engine.train with a 40,000-row valid
+    set (auc) against update() twice, byte-equal; host predictions within
+    1e-4 of the averaged (RF: sum / trees + init score) or renormalized
+    (DART) device scores (the Higgs-like labels are balanced, so RF's
+    init score is 0 here and this check does not cover its init-score
+    half, which the host model drops: ROADMAP C11, held on the CPU by
+    tests/test_torch_sampling.py); the recorded AUC within 1e-6 of the
+    host model's; DART's kernel V launches at least its dropped trees;
+    then kernel V's row at one DART tree over the training rows. Prints
+    trees/s beside the unsampled fused path's (same call), host syncs a
+    tree and DART's V device ms a tree, derived: its launches a tree on
+    update() x the one-tree row's device ms (not timed inside the run).
+    Returns the launch counts."""
+    import hashlib
+    logloss = logloss_of(torch, y)
+    Xva, yva = make_higgs_like(VALID_ROWS, N_FEATURES, seed=99)
+    hm.reset_launch_counts()
+
+    def inspect(booster):
+        host = booster.predict(X, raw_score=True)
+        return {"host_vs_device_max_abs": float(np.abs(
+            host - booster.gbdt.train_score.cpu().numpy()).max()),
+            "held_out_auc": held_out_auc(booster)}
+
+    def inspect_checked(booster):
+        r = inspect(booster)
+        check(r["host_vs_device_max_abs"] <= 1e-4, f"{name}: host predict "
+              f"vs device score {r['host_vs_device_max_abs']}")
+        check(r["held_out_auc"] > 0.75, f"{name}: held-out AUC "
+              f"{r['held_out_auc']} <= 0.75")
+        return r
+
+    rates = {}
+    for name, params in SAMPLING_RUNS:
+        rates[name] = fused_turns(torch, lgt, hm, ds, logloss, name, params,
+                                  inspect=inspect_checked)
+    for name, params in SAMPLING_CHECKS:
+        a = lgt.Booster(params, ds)
+        for _ in range(TRAIN_TREES):
+            a.update()
+        b = lgt.train(params, ds, TRAIN_TREES)
+        st = b.gbdt.fused_stats
+        check(a.model_to_string() == b.model_to_string() and torch.equal(
+            a.gbdt.train_score.view(torch.int32),
+            b.gbdt.train_score.view(torch.int32)),
+            f"{name}: train's model text or scores differ from update()'s")
+        check(len(st) == 1 and st[0]["graphs"] == st[0]["programs"],
+              f"{name}: trainers {st}")
+        emit(name, trees=TRAIN_TREES, byte_equal=True,
+             fixup_passes=sum(st[0]["fixup_passes"]),
+             model_sha256=hashlib.sha256(
+                 b.model_to_string().encode()).hexdigest()[:16],
+             **inspect(b))
+        del a, b
+        torch.cuda.empty_cache()
+
+    for name, params, trees in (("sampling_rf", RF_PARAMS, RF_TREES),
+                                ("sampling_dart", DART_PARAMS, DART_TREES)):
+        params = dict(params, metric="auc")
+        ev = {}
+        valid = ds.create_valid(Xva, label=yva)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a = lgt.train(params, ds, trees, valid_sets=[valid],
+                      callbacks=[lgt.record_evaluation(ev)])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        runs = []
+        for _ in range(2):
+            v0 = hm.launch_counts()["predict_binned"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            b = lgt.Booster(params, ds)
+            for _ in range(trees):
+                b.update()
+            torch.cuda.synchronize()
+            runs.append((b, time.perf_counter() - t0,
+                         hm.launch_counts()["predict_binned"] - v0))
+        text = a.model_to_string()
+        check(all(r[0].model_to_string() == text for r in runs),
+              f"{name}: update() runs or train give other model text")
+        gb = a.gbdt
+        check(gb.fused_stats == [] and not gb._fused_eligible(),
+              f"{name}: ran through the fused trainer")
+        score = gb.train_score.cpu().numpy()
+        if name == "sampling_rf":
+            score = score / gb.iter_ + np.float32(gb._init_score)
+            check("average_output" in text, "rf: model is not averaged")
+        host = a.predict(X, raw_score=True)
+        err = float(np.abs(host - score).max())
+        host_auc = auc(a.predict(Xva, raw_score=True), yva)
+        rec_auc = ev["valid_0"]["auc"][-1]
+        emit(name, params={k: v for k, v in params.items()
+                           if k != "verbosity"}, trees=trees,
+             byte_equal=True, train_s=train_s,
+             trees_per_s_train=trees / train_s,
+             trees_per_s_update=[trees / r[1] for r in runs],
+             host_vs_device_max_abs=err, held_out_auc=host_auc,
+             recorded_auc=rec_auc,
+             init_score=getattr(gb, "_init_score", None),
+             dropped=getattr(gb, "num_dropped", None),
+             tree_weights=getattr(gb, "tree_weights", None),
+             predict_binned_launches=[r[2] for r in runs],
+             model_sha256=hashlib.sha256(text.encode()).hexdigest()[:16])
+        check(err <= 1e-4, f"{name}: host predict vs device score {err}")
+        check(host_auc > 0.75, f"{name}: held-out AUC {host_auc} <= 0.75")
+        check(abs(rec_auc - host_auc) <= 1e-6, f"{name}: recorded AUC "
+              f"{rec_auc} vs the host model's {host_auc}")
+        if name == "sampling_dart":
+            check(gb.num_dropped > 0 and all(
+                r[2] >= r[0].gbdt.num_dropped for r in runs),
+                f"dart: {[r[2] for r in runs]} V launches for "
+                f"{gb.num_dropped} dropped trees")
+            dart = (a, runs[0][2] / trees)
+        del a, gb, runs, b
+        torch.cuda.empty_cache()
+    counts = hm.launch_counts()
+    # V's row after the counts are read: its timing launches are not the
+    # path's
+    a, v_per_tree = dart
+    depth = train_traversal_row(torch, row, a.gbdt, a.gbdt.trees[-1])
+    v_row = next(r for r in row.rows if r["name"] == "predict_binned_train")
+    dart_v = {"v_launches_per_tree": v_per_tree,
+              "v_device_ms_per_tree_derived":
+                  v_per_tree * v_row["device_ms"],
+              "tree_depth": depth}
+    del a, dart
+    emit("sampling", trees_per_s_last10=rates,
+         unsampled_trees_per_s_last10=fused_rates, dart=dart_v,
+         what="trees/s of the last 10 of 30 trees in each turn "
+              "(per-iteration, fused, fused, per-iteration), beside the "
+              "unsampled fused phases of this call; DART's kernel V "
+              "launches a tree on update() and their device ms, derived "
+              "as launches x the device ms of V's one-tree row (the last "
+              "DART tree over the training rows), not timed in the run")
+    for key in SAMPLING_PATH:
+        check(counts[key] > 0, f"{key} was not launched on the sampling "
+              "path")
+    check_partition_launches(counts, "sampling")
+    return counts
 
 def train_booster(name, torch, lgt, hm, ds, params, trees, metric,
                   leaf_check=True, on_grow=None):
@@ -2721,8 +3215,10 @@ def main():
                           "train_quantized_check")
     check(abs(q_auc - exact_auc) <= 0.005,
           f"quantized held-out AUC {q_auc} vs exact {exact_auc}")
-    counts["fused"] = fused_path(torch, lgt, hm, ds, y)
+    counts["fused"], fused_rates = fused_path(torch, lgt, hm, ds, y)
     counts["valid"] = valid_path(torch, lgt, hm, ds, y)
+    counts["sampling"] = sampling_path(torch, lgt, hm, X, y, ds,
+                                       make_row(torch, rows), fused_rates)
     fused_configs_check(torch, lgt, X, y, ds)
     fused_scratch_check(torch, lgt, hm, X, y)
     torch.cuda.empty_cache()
@@ -2736,7 +3232,10 @@ def main():
         check(path == "scan" or all(c[k] == 0 for k in SCAN_PATH),
               f"the {path} path launched K8: the booster never asks for it")
     for r in rows:
-        r["launches"] = counts[ROW_PATH[r["name"]]][r["name"]]
+        paths = ROW_PATH[r["name"]]
+        key = ROW_KEY.get(r["name"], r["name"])
+        r["launches"] = sum(counts[p][key] for p in (
+            (paths,) if isinstance(paths, str) else paths))
     check(sorted(r["name"] for r in rows) == sorted(ROW_PATH),
           "the kernel table and the paths' kernels differ")
     cross_device_phase(torch, lgt, grow_tree_mxu)

@@ -21,7 +21,8 @@ from typing import Any, Dict, List, Optional, Union
 import numpy as np
 import torch
 
-from .boosting.gbdt import GBDT, check_supported, resolve_device
+from .boosting.gbdt import (GBDT, check_supported, create_boosting,
+                             resolve_device)
 from .config import Config
 from .data import BinnedDataset, Metadata
 from .metrics import METRIC_ALIASES, create_metric
@@ -179,8 +180,8 @@ class Booster:
             m.init(binned.metadata, binned.num_data)
         # the JAX package hands the booster the same metrics whichever way
         # is_provide_training_metric is set (lightgbm_tpu/basic.py:726-728)
-        self.gbdt = GBDT(cfg, binned, objective, device,
-                         train_metrics=metrics)
+        self.gbdt = create_boosting(cfg, binned, objective, device,
+                                    train_metrics=metrics)
 
     def _metrics(self) -> list:
         return [m for m in (create_metric(nm, self.config)

@@ -7,8 +7,11 @@ exact refit, shrinkage and the score update, the host seeing one dispatch
 per K trees. Here each tree is a fixed sequence of programs over buffers
 that live across trees (learner/grower_mxu.Grower):
 
-  prologue   gradients from the score, the tree's feature mask and key
-             (from the device iteration index), Grower.start
+  prologue   gradients from the score, the row sample (bagging's mask
+             from the device iteration index, GOSS under the key of the
+             tree's row in a buffer the host fills before each block),
+             the tree's feature mask and key (from the device iteration
+             index), Grower.start
   pass<p>    each doubling pass, then "bridge" (the gate and the bridge
              pass): a pass on a finished tree changes nothing
   fixup      one fix-up pass (its number read from a device buffer)
@@ -100,10 +103,14 @@ class FusedTrainer:
     def __init__(self, *, objective, grower: Grower,
                  cnt_weight: torch.Tensor,
                  feature_mask_fn: Callable, key_fn: Optional[Callable],
-                 shrinkage: float, const_tree: TreeArrays, block: int):
+                 shrinkage: float, const_tree: TreeArrays, block: int,
+                 sample_fn: Optional[Callable] = None,
+                 sample_keys: bool = False):
         self.objective = objective
         self.grower = grower
         self.cnt = cnt_weight
+        self.sample_fn = sample_fn
+        self.sample_keys = sample_keys
         self.feature_mask_fn = feature_mask_fn
         self.key_fn = key_fn
         self.shrinkage = shrinkage
@@ -117,6 +124,9 @@ class FusedTrainer:
         self.it = torch.zeros((), dtype=torch.int32, device=dev)
         self.pos = torch.zeros(1, dtype=torch.int64, device=dev)
         self.fix_no = torch.zeros((), dtype=torch.int32, device=dev)
+        # the sampler's keys, a row a tree of the chunk
+        self.keys = torch.zeros((self.block, 2), dtype=torch.int64,
+                                device=dev) if sample_keys else None
         self.inputs = None
         self.state = None
         self.stacked = TreeArrays(*[
@@ -143,8 +153,14 @@ class FusedTrainer:
     # ---- the programs: each reads and writes only the buffers
     def _prologue(self) -> None:
         grad, hess = self.objective.get_gradients(self.score)
+        cnt = self.cnt
+        if self.sample_fn is not None:
+            skey = None if self.keys is None else \
+                self.keys.index_select(0, self.pos).reshape(2)
+            grad, hess, cnt = self.sample_fn(grad, hess, self.it, skey)
         key = None if self.key_fn is None else self.key_fn(self.it)
-        inputs, state = self.grower.start(grad, hess, self.cnt,
+        # the sampled count lands in self.inputs.cnt, which the passes read
+        inputs, state = self.grower.start(grad, hess, cnt,
                                           self.feature_mask_fn(self.it), key)
         if self.state is None:   # the first tree allocates the buffers
             self.inputs, self.state = _clone(inputs), _clone(state)
@@ -239,7 +255,11 @@ class FusedTrainer:
         self.stats["noop_fixups"] += noop
         self.stats["trees"] += 1
 
-    def __call__(self, score: torch.Tensor, it0: int, k: int):
+    def __call__(self, score: torch.Tensor, it0: int, k: int,
+                 keys: Optional[torch.Tensor] = None):
+        """keys: [k, 2] the sampler's key of each iteration (sample_keys)."""
+        if self.sample_keys and (keys is None or keys.shape != (k, 2)):
+            raise ValueError(f"this trainer's sampler takes [{k}, 2] keys")
         if self.score is None:
             self.score = torch.empty_like(score)
         self.score.copy_(score)
@@ -248,6 +268,8 @@ class FusedTrainer:
         for c0 in range(0, k, self.block):
             c = min(self.block, k - c0)
             self.pos.zero_()
+            if self.keys is not None:
+                self.keys[:c].copy_(keys[c0:c0 + c])
             for _ in range(c):
                 if self.use_graphs and not self.graphs:
                     side, cur = self._stream, torch.cuda.current_stream(
@@ -274,5 +296,8 @@ def build_fused_train(**settings) -> FusedTrainer:
     nothing), which take the iteration as a device int32 scalar;
     shrinkage; const_tree, the tree a stalled iteration keeps
     (GBDT._constant_tree); block, the trees a stack holds
-    (fused_block_size)."""
+    (fused_block_size); sample_fn(grad, hess, it, key) -> (grad, hess,
+    cnt), the row sampler in place of cnt_weight (GBDT._sample_fn: None,
+    bagging, GOSS), and sample_keys, whether it takes the [k, 2] keys the
+    run is then given."""
     return FusedTrainer(**settings)

@@ -48,6 +48,24 @@ same models as block dispatch, so the port ignores `pipeline`; its
 retry-and-fall-back around a fused dispatch (reliability, ROADMAP A9) is
 not ported: a failed dispatch raises.
 
+Row sampling (the JAX package's gbdt.py:925-975, reference
+gbdt.cpp:183-264 and goss.hpp): each tree grows on a sample of the rows
+drawn by _sample. Bagging (bagging_fraction, or pos_/neg_bagging_fraction
+by the objective's label, every bagging_freq iterations) zeroes the
+gradients, hessians and count of the rows out of the bag; the mask is a
+stateless function of the resample iteration, under
+fold_in(PRNGKey(bagging_seed), it - it % bagging_freq), kept between
+boundaries. GOSS (boosting="goss") keeps the rows whose |g| x h reaches
+the top_k-th largest (top_k = max(1, int(N x top_rate)), in the total
+order of lax.top_k), and of the rest those whose uniform under the next
+key of the booster's stream (split of PRNGKey(seed)) falls below
+other_rate / (1 - top_rate), their gradients and hessians amplified by
+(1 - top_rate) / other_rate; it turns the const-hessian gate off. Both ride
+the fused trainer: bagging recomputes its mask from the device iteration,
+GOSS reads keys the host draws from the same stream before each block.
+create_boosting picks GBDT, RF (boosting/rf.py) or DART (boosting/dart.py),
+which run one iteration a dispatch, as in the JAX package.
+
 `check_supported` refuses every parameter value whose code is not ported,
 naming the ROADMAP.md port-queue item that will bring it.
 """
@@ -75,7 +93,7 @@ from ..learner.split import SplitHyperParams
 from ..objectives import ObjectiveFunction
 from ..utils.log import Log
 
-__all__ = ["GBDT", "check_supported", "resolve_device"]
+__all__ = ["GBDT", "check_supported", "create_boosting", "resolve_device"]
 
 # train_many reads a block's stall state every this many iterations (the
 # JAX package's _stop_poll_every)
@@ -104,6 +122,62 @@ def _tree_key(it, *, seed: int, device: torch.device) -> torch.Tensor:
     return rng.fold_in(rng.PRNGKey(seed, device), it)
 
 
+def _f32(x: float) -> float:
+    """x rounded to float32, as the JAX package's weak-typed Python floats
+    meet f32 arrays: comparisons and products then agree in any
+    precision."""
+    return float(np.float32(x))
+
+
+def _bag_mask(it, *, n: int, seed: int, freq: int, fraction,
+              device: torch.device) -> torch.Tensor:
+    """The bagging mask [N] f32 at iteration `it` (an int, or the fused
+    trainer's device int32 scalar): that of its resample boundary
+    it - it % freq, 1 where a uniform under fold_in(PRNGKey(seed),
+    boundary) falls below `fraction` (a float, or [N] f32 of
+    pos_/neg_bagging_fraction by label), as the JAX package's _bagging and
+    fused bag_fn draw it."""
+    key = rng.fold_in(rng.PRNGKey(seed, device), it - it % freq)
+    return (rng.uniform(key, n) < fraction).to(torch.float32)
+
+
+def _bag_sample(grad, hess, it, key=None, **settings):
+    """Bagging as a sampler: (grad x mask, hess x mask, mask)."""
+    mask = _bag_mask(it, **settings)
+    return grad * mask, hess * mask, mask
+
+
+def _goss_settings(n: int, top_rate: float, other_rate: float) -> dict:
+    """_goss_sample's settings for n rows, as the JAX package's _goss
+    derives them."""
+    return dict(top_k=max(1, int(n * top_rate)),
+                rest_frac=_f32(other_rate / max(1.0 - top_rate, 1e-9)),
+                amplify=_f32((1.0 - top_rate) / other_rate))
+
+
+def _goss_sample(grad, hess, it=None, key=None, *, top_k: int,
+                 rest_frac: float, amplify: float):
+    """Gradient-based one-side sampling (the JAX package's _goss and fused
+    goss_fn) under `key` [2]: rows whose |g| x h reaches the top_k-th
+    largest score are kept at weight 1; of the others, those whose uniform
+    falls below rest_frac at weight `amplify`, the rest at 0. Returns
+    (grad x w, hess x w, cnt), cnt 1 on every kept row. The threshold is
+    lax.top_k's k-th value: its total order puts +NaN above inf and -0.0
+    below 0.0, so the scores are ranked as order-preserving int32 keys;
+    the comparison with it is IEEE's, as in the JAX package."""
+    score = grad.abs() * hess
+    bits = score.view(torch.int32)
+    order = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    t = torch.topk(order, top_k, sorted=False).values.min()
+    thresh = torch.where(t < 0, t ^ 0x7FFFFFFF, t).view(torch.float32)
+    is_top = score >= thresh
+    u = rng.uniform(key, score.shape[0])
+    is_other = ~is_top & (u < rest_frac)
+    w = torch.where(is_top, 1.0, is_other.to(torch.float32) * amplify)
+    cnt = (is_top | is_other).to(torch.float32)
+    return grad * w, hess * w, cnt
+
+
 def resolve_device(device_type: str) -> torch.device:
     """The training device: the card unless the caller asks for "cpu".
     Without a CUDA device the port refuses rather than fall back."""
@@ -122,12 +196,7 @@ def resolve_device(device_type: str) -> torch.device:
 def _unsupported(cfg: Config) -> List[tuple]:
     """(param, ROADMAP.md port-queue item) for every non-default value
     whose code this port does not have yet."""
-    bagging = cfg.bagging_freq > 0 and (
-        cfg.bagging_fraction < 1.0 or cfg.pos_bagging_fraction < 1.0 or
-        cfg.neg_bagging_fraction < 1.0)
     return [(name, item) for name, item, hit in [
-        ("bagging_fraction/bagging_freq", "P6", bagging),
-        ("boosting=" + str(cfg.boosting), "P6", cfg.boosting != "gbdt"),
         ("num_class", "P7", cfg.num_class > 1),
         ("level_pipeline", "P9", cfg.level_pipeline),
         # the JAX package grows these on its portable grower
@@ -206,6 +275,8 @@ class GBDT:
         # latest block, copied to the host without waiting
         self._pending_nleaves = None
         self.stall_polls = 0    # host reads of a pending leaf count
+        # GOSS's key stream (_next_key), split once a draw
+        self._rng_key = rng.PRNGKey(int(config.seed), device)
         self._setup_train(train_set)
 
     def _setup_train(self, ds: BinnedDataset) -> None:
@@ -252,7 +323,7 @@ class GBDT:
             self.train_score = torch.as_tensor(
                 ds.metadata.init_score.reshape(-1), dtype=torch.float32,
                 device=dev)
-        # no bagging: every row counts once in the count channel
+        # unsampled, every row counts once in the count channel
         self._cnt = torch.ones(self.num_data, dtype=torch.float32,
                                device=dev)
         # monotone constraints (original-feature order -> used-feature order)
@@ -301,12 +372,14 @@ class GBDT:
         """Constant-hessian fast path (reference IsConstantHessian,
         objective_function.h:42): per-row hessians are const x the count
         weight, so the kernels drop the hessian channel. User weights ride
-        the hessian but not the count, so they turn it off, and so does a
+        the hessian but not the count, so they turn it off, and so do a
         custom objective (set_custom_objective), whose hessians are the
-        caller's."""
+        caller's, and GOSS, whose amplified rows count 1. A bagging mask
+        scales the hessian and the count alike and keeps it."""
         if (not self._custom_objective and self.objective is not None and
                 self.objective.is_constant_hessian and
-                self.objective.weight is None):
+                self.objective.weight is None and
+                self.config.boosting != "goss"):
             return float(self.objective.constant_hessian_value)
         return 0.0
 
@@ -414,9 +487,61 @@ class GBDT:
         return self._grower_obj
 
     def _grow(self, grad, hess):
-        return self._grower().grow(grad, hess, self._cnt,
+        """This iteration's tree, grown on its row sample of (grad, hess)
+        (_sample)."""
+        grad, hess, cnt = self._sample(grad, hess)
+        return self._grower().grow(grad, hess, cnt,
                                    self._feature_mask_at(self.iter_),
                                    self._tree_key())
+
+    # ------------------------------------------------------------------
+    # row sampling: bagging and GOSS
+    def _needs_bagging(self) -> bool:
+        cfg = self.config
+        return cfg.bagging_freq > 0 and (
+            cfg.bagging_fraction < 1.0 or cfg.pos_bagging_fraction < 1.0
+            or cfg.neg_bagging_fraction < 1.0)
+
+    def _next_key(self) -> torch.Tensor:
+        """The next key of the booster's stream: split(key) into (key,
+        draw), as the JAX package's _next_key."""
+        self._rng_key, sub = rng.split(self._rng_key)
+        return sub
+
+    def _sample_fn(self):
+        """(sample_fn(grad, hess, it, key) -> (grad, hess, cnt), whether it
+        takes keys), or (None, False) with no sampling: the per-iteration
+        path's and the fused trainer's one definition (a partial of a
+        module function: the trainer holds no reference to the
+        booster)."""
+        cfg = self.config
+        if cfg.boosting == "goss":
+            return functools.partial(_goss_sample, **_goss_settings(
+                self.num_data, cfg.top_rate, cfg.other_rate)), True
+        if not self._needs_bagging():
+            return None, False
+        fraction = _f32(cfg.bagging_fraction)
+        if cfg.pos_bagging_fraction < 1.0 or cfg.neg_bagging_fraction < 1.0:
+            fraction = torch.where(
+                self.objective.label > 0,
+                _f32(cfg.pos_bagging_fraction),
+                _f32(cfg.neg_bagging_fraction)).to(torch.float32)
+        return functools.partial(
+            _bag_sample, n=self.num_data, seed=cfg.bagging_seed,
+            freq=cfg.bagging_freq, fraction=fraction,
+            device=self.device), False
+
+    def _sample(self, grad, hess):
+        """(grad, hess, cnt) of this iteration's row sample: GOSS under
+        the next key; the bagging mask of the current resample boundary
+        (a function of the boundary alone, so it is drawn anew each
+        iteration and equals the mask drawn at the boundary); else the
+        gradients as they are and a count of ones."""
+        fn, keyed = self._sample_fn()
+        if fn is None:
+            return grad, hess, self._cnt
+        return fn(grad, hess, self.iter_,
+                  self._next_key() if keyed else None)
 
     def train_one_iter(self, gradients: Optional[torch.Tensor] = None,
                        hessians: Optional[torch.Tensor] = None) -> bool:
@@ -474,12 +599,11 @@ class GBDT:
     def _fused_eligible(self) -> bool:
         """Whether engine.train may dispatch K iterations at a time
         through the fused trainer, with the trees of K train_one_iter
-        calls: the JAX package's rule (plain gbdt on the serial grower, no
-        guard rails, no linear trees, no leaf renewal, no CEGB). The port
-        trains nothing else (check_supported refuses the rest), so it
-        holds for every booster it builds."""
+        calls: the JAX package's rule (gbdt or GOSS on the serial grower,
+        bagging included; not RF or DART; no guard rails, no linear trees,
+        no leaf renewal, no CEGB, no custom objective)."""
         cfg = self.config
-        return (type(self) is GBDT and cfg.boosting == "gbdt"
+        return (type(self) is GBDT and cfg.boosting in ("gbdt", "goss")
                 and cfg.guard_nonfinite == "off" and not cfg.linear_tree
                 and self.objective is not None
                 and not self._custom_objective)
@@ -495,9 +619,10 @@ class GBDT:
             key_fn = functools.partial(_tree_key,
                                        seed=self.config.extra_seed,
                                        device=self.device)
+        sample_fn, keyed = self._sample_fn()
         return build_fused_train(
             objective=self.objective, grower=self._grower(),
-            cnt_weight=self._cnt,
+            cnt_weight=self._cnt, sample_fn=sample_fn, sample_keys=keyed,
             feature_mask_fn=functools.partial(_feature_mask,
                                               **self._mask_settings()),
             key_fn=key_fn, shrinkage=self.shrinkage_rate,
@@ -513,7 +638,8 @@ class GBDT:
     def train_many(self, k: int) -> bool:
         """K boosting iterations, the same trees and scores as K
         train_one_iter calls, with the trees of iterations after the first
-        grown by the fused trainer. Returns True when training cannot
+        grown by the fused trainer (a booster _fused_eligible refuses, RF
+        or DART, runs them one by one). Returns True when training cannot
         continue (the lagged stall poll)."""
         return self.finalize_block(self.train_many_dispatch(k))
 
@@ -549,13 +675,20 @@ class GBDT:
                     snap()
                 seal()
                 return {"mode": "done", "stop": True}
-        if k <= 0:
+        if k <= 0 or not self._fused_eligible():
+            for _ in range(k):
+                stop = self.train_one_iter() or stop
+                snap()
             seal()
             return {"mode": "done", "stop": stop}
         if self._fused_run is None:
             self._fused_run = self._build_fused()
             self.fused_stats.append(self._fused_run.stats)
-        score, stacked = self._fused_run(self.train_score, self.iter_, k)
+        # GOSS: the keys k train_one_iter calls would draw, drawn ahead
+        keys = torch.stack([self._next_key() for _ in range(k)]) \
+            if self._fused_run.sample_keys else None
+        score, stacked = self._fused_run(self.train_score, self.iter_, k,
+                                         keys)
         self.train_score = score
         if self.valid_sets:
             trajs = []
@@ -751,3 +884,15 @@ class GBDT:
 
     def current_iteration(self) -> int:
         return self.iter_
+
+
+def create_boosting(config: Config, train_set: BinnedDataset,
+                    objective: Optional[ObjectiveFunction],
+                    device: torch.device, train_metrics=None) -> GBDT:
+    """The booster of config.boosting (reference Boosting::CreateBoosting,
+    boosting.cpp:38-58): GBDT for gbdt and goss, RF, DART."""
+    from .dart import DART
+    from .rf import RF
+    cls = {"rf": RF, "dart": DART}.get(config.boosting, GBDT)
+    return cls(config, train_set, objective, device,
+               train_metrics=train_metrics)

@@ -270,12 +270,15 @@ class HostModel:
     # ------------------------------------------------------------------
     @staticmethod
     def from_gbdt(gbdt, train_dataset) -> "HostModel":
-        """Convert the booster's TreeArrays into reference numbering."""
+        """Convert the booster's TreeArrays into reference numbering; a
+        random forest's model averages its trees (average_output)."""
+        from .boosting.rf import RF
         model = HostModel()
         cfg = gbdt.config
         model.num_class = max(int(cfg.num_class), 1)
         model.num_tree_per_iteration = gbdt.num_tree_per_iteration
         model.objective = _objective_string(gbdt, cfg)
+        model.average_output = isinstance(gbdt, RF)
         ds = train_dataset.binned if train_dataset is not None else None
         if ds is not None:
             model.max_feature_idx = ds.num_total_features - 1

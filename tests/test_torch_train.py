@@ -166,9 +166,6 @@ def test_train_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("extra", [
-    {"use_quantized_grad": True, "boosting": "dart"},
-    {"bagging_fraction": 0.5, "bagging_freq": 1},
-    {"boosting": "goss"},
     {"monotone_constraints": [1, 0, 0, 0],
      "monotone_constraints_method": "intermediate"},
     {"monotone_constraints": [1, 0, 0, 0],
