@@ -27,7 +27,7 @@ plain version on 10 stacked 255-leaf trees over 40,000 rows, with
 categorical and NaN nodes; K1 (f32 and integer), K3, K7 (integer) and
 K5 again on sampled rows, a bagging mask and GOSS's weights and count,
 bit for bit, with GOSS's sampler and threshold timed — then trains through
-lightgbm_tpu_torch's entry points along nine paths, each with the launch
+lightgbm_tpu_torch's entry points along twelve paths, each with the launch
 counts reset before it and read after it:
 
 - exact histograms: the Higgs-like binary configuration (num_leaves 255,
@@ -96,7 +96,29 @@ counts reset before it and read after it:
   constrained configuration, 10 trees, and the plain one, 3 trees);
 - 4-bit packed bins (max_bin 15): exact and quantized under mxu, each
   byte-equal to the same run on unpacked bins, and quantized under auto
-  and pallas.
+  and pallas;
+- multiclass, 5 classes, 5 trees an iteration (phases `multiclass*`,
+  the task of the JAX package's helpers/bench_tasks.py at 1M x 28): exact
+  and quantized through the fused phases' turns (train at
+  fused_block_size 10, 50 trees a dispatch, then update_batch, against
+  update(), byte-equal; one set of graphs for all classes), host
+  predictions within 1e-4 of the device scores in every class; a
+  40,000-row held-out set on multi_logloss and multi_error at
+  fused_block_size 10 against 1 (metrics, valid scores and model equal,
+  the held-out loss below the class prior's), an early stop inside a
+  block equal to fused_block_size 1's, multiclassova for 5 iterations;
+  kernel V's class mode (`predict_binned_class`) bit-equal to its plain
+  version on that run's 10 x 5 trees over the held-out rows;
+- ranking (phase `ranking`): lambdarank and rank_xendcg over 50,000
+  queries of 20 documents, 10 iterations through train's fused path
+  against update(), byte-equal, held-out ndcg@10 above iteration 0's,
+  the gradient program's device ms;
+- the other objectives (phase `objectives`) on the regression task's
+  data: regression_l1, huber, fair, quantile and mape per iteration with
+  leaf renewal, poisson, gamma, tweedie, cross_entropy and
+  cross_entropy_lambda fused against update(), 5 iterations each, host
+  predictions within 1e-4 of the device scores and the training metric
+  below iteration 0's.
 
 Beside the main path (`native_host`), the native host runtime
 (lightgbm_tpu_torch/cext, C++ built with g++ at first use) bins the 1M x
@@ -278,12 +300,37 @@ SAMPLED_REPLACES = {
     "build_histograms_scatter_int":
         "lightgbm_tpu/learner/histogram_pallas.py:211",
     "node_sums": "lightgbm_tpu/learner/histogram_mxu.py:1192"}
+# the task matrix's other tasks (the JAX package's helpers/bench_tasks.py,
+# whose data makers are copied below): 5-class multiclass and lambdarank
+# over queries of 20 documents at the headline shape (1M x 28, 255 leaves,
+# 255 bins), each beside a held-out set of 40,000 rows (seed 99), and the
+# objectives on the regression task's data
+MC_CLASSES = 5
+MC_PARAMS = dict(TRAIN_PARAMS, objective="multiclass", num_class=MC_CLASSES)
+MC_QUANT_PARAMS = dict(MC_PARAMS, use_quantized_grad=True,
+                       hist_backend="mxu")
+MC_VALID_ROUNDS = 20
+OVA_TREES = 5
+HOST_ROWS = 100_000   # rows host predict is held to the device scores on
+RANK_QSIZE = 20
+RANK_TREES = 10
+OBJ_TREES = 5
+RENEW_OBJECTIVES = ("regression_l1", "huber", "fair", "quantile", "mape")
+FUSED_OBJECTIVES = ("poisson", "gamma", "tweedie", "cross_entropy",
+                    "cross_entropy_lambda")
+MULTICLASS_PATH = ("predict_binned_class", "predict_binned",
+                   "fused_route_hist", "fused_route_hist_int", "node_values",
+                   "node_sums", "prune_best_first")
+RANKING_PATH = ("fused_route_hist", "node_values", "prune_best_first",
+                "predict_binned")
+OBJECTIVES_PATH = ("fused_route_hist", "node_values", "prune_best_first")
 # the launch-count key of a row named otherwise
 ROW_KEY = {**{k + "_sampled": k for k in SAMPLED_REPLACES},
            "predict_binned_train": "predict_binned"}
 # the paths whose counts a kernel row reports
 ROW_PATH = {"prune_best_first": "fused",
             "predict_binned": ("valid", "sampling"),
+            "predict_binned_class": "multiclass",
             **dict.fromkeys(ROW_KEY, "sampling"),
             **dict.fromkeys(EXACT_PATH, "exact"),
             **dict.fromkeys(("fused_route_hist_int", "build_histograms_int",
@@ -303,6 +350,43 @@ def make_higgs_like(n, f, seed=17):
              0.3 * X[:, 6] * X[:, 0] + 0.35 * rng.randn(n))
     y = (logit > np.median(logit)).astype(np.float32)
     return X, y
+
+
+def make_regression(n, seed):
+    """The regression task of helpers/bench_tasks.py."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, N_FEATURES).astype(np.float32)
+    y = (1.5 * X[:, 0] - 0.9 * X[:, 1] + 0.8 * X[:, 2] * X[:, 3] +
+         0.6 * np.abs(X[:, 4]) - 0.5 * X[:, 5] ** 2 +
+         0.4 * np.sin(2 * X[:, 6]) + 0.3 * rng.randn(n)).astype(np.float32)
+    return X, y
+
+
+def make_multiclass(n, seed, k=MC_CLASSES):
+    """The multiclass task of helpers/bench_tasks.py: the class geometry
+    does not depend on the seed, so train and held-out sets share one
+    distribution."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, N_FEATURES).astype(np.float32)
+    centers = np.random.RandomState(7).randn(k, 6) * 1.2
+    d = ((X[:, None, :6] - centers[None]) ** 2).sum(-1)
+    d += 1.5 * rng.gumbel(size=(n, k))
+    y = np.argmin(d, axis=1).astype(np.float32)
+    return X, y
+
+
+def make_lambdarank(n, seed, qsize=RANK_QSIZE):
+    """The lambdarank task of helpers/bench_tasks.py: n // qsize queries,
+    5 relevance levels by global quantile."""
+    rng = np.random.RandomState(seed)
+    nq = n // qsize
+    n = nq * qsize
+    X = rng.randn(n, N_FEATURES).astype(np.float32)
+    raw = (1.1 * X[:, 0] - 0.7 * X[:, 1] + 0.5 * X[:, 2] * X[:, 3] +
+           0.9 * rng.randn(n))
+    qs = np.quantile(raw, [0.5, 0.75, 0.9, 0.97])
+    y = np.digitize(raw, qs).astype(np.float32)
+    return X, y, np.full(nq, qsize, np.int32)
 
 
 def check(ok, what):
@@ -396,6 +480,26 @@ def device_ms(torch, fn, reps=20, trials=3, strict=True):
               "the sleep ended")
         times.append(a.elapsed_time(b) / reps)
     return float(np.median(times))
+
+
+def graph_device_ms(torch, fn):
+    """Device milliseconds of fn() captured whole in one CUDA graph (after
+    a warm-up call on the capture stream) and replayed: a formulation of
+    thousands of launches a call, which would fill the launch queue behind
+    device_ms' sleep, is one launch so."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        fn()
+    try:
+        return device_ms(torch, graph.replay)
+    finally:
+        del graph
+        torch.cuda.synchronize()
 
 
 def kernel_inputs(torch, hm, rng_mod, dev, bmax=BMAX, n_rows=N_ROWS,
@@ -495,7 +599,7 @@ def make_row(torch, rows):
 
     def row(name, replaces, err, fn, plain_fn, plain_reps, nbytes, ops,
             library_fn, source=None, ops_per_s=F32_OPS_PER_S,
-            library_queues=True):
+            library_queues=True, library_graph=False):
         # ms: one call as the main path makes it (host launch path
         # included); device_ms: the device alone (back-to-back calls).
         # ops: one add per histogram cell update (f32 or int32), held to
@@ -503,7 +607,8 @@ def make_row(torch, rows):
         # its instructions at the f32 instruction rate (ops_per_s). A
         # library formulation of thousands of launches a call fills the
         # launch queue behind device_ms' sleep (library_queues=False):
-        # its device ms is not measured (None)
+        # its device ms is not measured (None), unless it is timed as one
+        # CUDA graph of the whole call (library_graph)
         bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         bound_ops = ops / ops_per_s * 1e3
         rows.append({
@@ -519,6 +624,7 @@ def make_row(torch, rows):
             "library_ms": None if library_fn is None
             else time_ms(torch, library_fn, 20),
             "library_device_ms": None if library_fn is None
+            else graph_device_ms(torch, library_fn) if library_graph
             else device_ms(torch, library_fn, strict=library_queues)})
         emit("kernel", **rows[-1])
 
@@ -1447,7 +1553,8 @@ def predict_binned_rows(torch, dev, row):
     leaf_index_tree). Bound: the bytes the walk needs (each row's bins on
     its paths, the trees' nodes, the score in, the trajectory out) or its
     node visits at the f32 rate; library: the PyTorch indexing walk, one
-    gather a level to the tree's depth, no host sync."""
+    gather a level to the tree's depth, no host sync (its device ms timed
+    as one CUDA graph: its launches would fill the queue)."""
     from lightgbm_tpu_torch.learner import predict as pr
     from lightgbm_tpu_torch.learner.grower import TreeArrays
     rng = np.random.RandomState(41)
@@ -1552,7 +1659,7 @@ def predict_binned_rows(torch, dev, row):
         row("predict_binned", "lightgbm_tpu/learner/predict.py:25 "
             "(_traverse, predict_binned_tree; lightgbm_tpu/boosting/"
             "fused.py:54 stacked_score_traj; XLA, no Pallas)", 0.0, kern,
-            plain, 3, nbytes, visits, library, library_queues=False)
+            plain, 3, nbytes, visits, library, library_graph=True)
     emit("kernel_check", name="predict_binned", cases=cases, equal=True,
          rows=n, trees=k, node_ids=m1)
 
@@ -1796,14 +1903,16 @@ def fused_path(torch, lgt, hm, ds, y):
     return counts, rates
 
 
-def fused_turns(torch, lgt, hm, ds, logloss, name, params, inspect=None):
+def fused_turns(torch, lgt, hm, ds, logloss, name, params, inspect=None,
+                classes=1):
     """One configuration of the fused phases (fused_path): train, then
     update_batch(10) twice, against 30 update() calls, in turns
     (per-iteration, fused, fused, per-iteration), every check of
     fused_path, and the phase line `name`. inspect(booster) -> dict runs
-    on each turn's booster after its 30 trees (before it is deleted) and
-    its results are printed as `inspected`. Returns the trees/s of the
-    last 10 trees of each turn."""
+    on each turn's booster after its 30 iterations (before it is deleted)
+    and its results are printed as `inspected`. classes: trees an
+    iteration (multiclass). Returns the trees/s of the last 10 iterations
+    of each turn."""
     import hashlib
     steps = ("10", "20", "30")
 
@@ -1888,7 +1997,7 @@ def fused_turns(torch, lgt, hm, ds, logloss, name, params, inspect=None):
         st = r["stats"]
         check([s_["graphs"] for s_ in st] == [len(r["programs"])] * 2
               and [s_["trees"] for s_ in st] ==
-              [TRAIN_TREES - 1, 2 * TRAIN_TREES],
+              [(TRAIN_TREES - 1) * classes, 2 * TRAIN_TREES * classes],
               f"{name}: graphs {[s_['graphs'] for s_ in st]} of "
               f"{len(r['programs'])} programs, trees "
               f"{[s_['trees'] for s_ in st]}")
@@ -1916,16 +2025,19 @@ def fused_turns(torch, lgt, hm, ds, logloss, name, params, inspect=None):
     reads = sum(sum(s_["fixup_reads"]) for s_ in st)
     emit(name, params={k: v for k, v in params.items()
                        if k != "verbosity"},
-         trees=3 * TRAIN_TREES, fused_block_size=TRAIN_TREES,
+         trees=3 * TRAIN_TREES * classes, fused_block_size=TRAIN_TREES,
          model_sha256_10=eager[0]["sha10"][:16],
          model_sha256_30=eager[0]["sha30"][:16], byte_equal=True,
          order=[r["path"] for r in runs],
          train_s_first10=[r["s10"] for r in runs],
          train_s_next10=[r["s20"] for r in runs],
          train_s_last10=[r["s30"] for r in runs],
-         trees_per_s_first10=[TRAIN_TREES / r["s10"] for r in runs],
-         trees_per_s_next10=[TRAIN_TREES / r["s20"] for r in runs],
-         trees_per_s_last10=[TRAIN_TREES / r["s30"] for r in runs],
+         trees_per_s_first10=[TRAIN_TREES * classes / r["s10"]
+                              for r in runs],
+         trees_per_s_next10=[TRAIN_TREES * classes / r["s20"]
+                             for r in runs],
+         trees_per_s_last10=[TRAIN_TREES * classes / r["s30"]
+                             for r in runs],
          graphs=st[0]["graphs"], programs=fused[0]["programs"],
          capture_s=[s_["capture_s"] for r in fused
                     for s_ in r["stats"]],
@@ -1944,7 +2056,7 @@ def fused_turns(torch, lgt, hm, ds, logloss, name, params, inspect=None):
          logloss=[r["logloss"] for r in runs],
          **({"inspected": [r["inspected"] for r in runs]}
             if inspect is not None else {}))
-    return [TRAIN_TREES / r["s30"] for r in runs]
+    return [TRAIN_TREES * classes / r["s30"] for r in runs]
 
 
 def card_memory(torch):
@@ -2252,7 +2364,7 @@ def train_traversal_row(torch, row, gbdt, tree):
     version, bit for bit. Bound: each row's bins on its path once, the
     tree's nodes (22 bytes each), the [N] output; or its node visits at
     the f32 rate. Library: the PyTorch indexing walk to the tree's
-    depth."""
+    depth (its device ms timed as one CUDA graph)."""
     from lightgbm_tpu_torch.learner import predict as pr
     bins = gbdt._train_bins_unpacked()
     num_bins, nan = gbdt.num_bins_d, gbdt.missing_is_nan_d
@@ -2305,7 +2417,7 @@ def train_traversal_row(torch, row, gbdt, tree):
         lambda: pr.predict_binned_tree(tree, bins, num_bins, nan),
         lambda: pr.predict_binned_tree_ref(tree, bins, num_bins, nan), 3,
         nbytes, visits, library, source="predict_binned",
-        library_queues=False)
+        library_graph=True)
     return depth
 
 
@@ -3175,6 +3287,366 @@ def cross_device_phase(torch, lgt, grow_tree_mxu):
           "cross_device: tree 0 on the card differs from the CPU's")
 
 
+def _strip_block(text):
+    """Model text without its [fused_block_size: ...] echo line."""
+    return "\n".join(ln for ln in text.splitlines()
+                     if not ln.startswith("[fused_block_size:"))
+
+
+def _sha(text):
+    import hashlib
+    return hashlib.sha256(_strip_block(text).encode()).hexdigest()
+
+
+def host_vs_device(booster, X):
+    """The host model's raw predictions on the first HOST_ROWS rows
+    against the booster's device training scores ([N] or [N, k]): the
+    largest absolute difference."""
+    raw = booster.predict(X[:HOST_ROWS], raw_score=True)
+    dev_ = booster.gbdt.train_score_host()[:HOST_ROWS]
+    return float(np.abs(raw - dev_).max())
+
+
+def class_traj_row(torch, dev, row, booster, Xv):
+    """Kernel V's class mode (predict_binned_class) against its plain
+    version at the multiclass valid phase's shapes: the booster's trees of
+    iterations 1-10 (10 x 5 stacked 255-leaf trees) over the 40,000
+    held-out rows' bins, from a random [N, 5] score, bit for bit, and one
+    tree into one class's column (class_score_add). Bound: every input
+    read once (the bins, the node fields the walk reads, the score) and
+    the trajectory written once, or one f32 add a row a tree; library: the
+    PyTorch indexing walk, one gather a level to each tree's depth, into
+    the class's column (device ms timed as one CUDA graph)."""
+    from lightgbm_tpu_torch.learner import predict as pr
+    from lightgbm_tpu_torch.learner.grower import TreeArrays
+    gb = booster.gbdt
+    c, k = MC_CLASSES, VALID_TRAJ_TREES
+    trees = gb.trees[c:c * (k + 1)]
+    stacked = TreeArrays(*[torch.stack(ts).reshape(
+        (k, c) + tuple(ts[0].shape)) for ts in zip(*trees)])
+    bins = gb.valid_bins[0]
+    n, f = bins.shape
+    nb, nan = gb.num_bins_d, gb.missing_is_nan_d
+    score0 = torch.as_tensor(np.random.RandomState(43).randn(n, c)
+                             .astype(np.float32), device=dev)
+    fin, traj = pr.stacked_score_traj(stacked, score0, bins, nb, nan,
+                                      num_class=c)
+    _, want = pr.stacked_score_traj_ref(stacked, score0, bins, nb, nan,
+                                        num_class=c)
+    check(same_bits(torch, traj, want), "predict_binned_class differs "
+          "from its plain version")
+    one = TreeArrays(*[t[3, 2] for t in stacked])
+    check(same_bits(torch, pr.class_score_add(one, score0, 2, bins, nb, nan),
+                    pr.class_score_add_ref(one, score0, 2, bins, nb, nan)),
+          "class_score_add differs from its plain version")
+    depth = []
+    left = stacked.left.reshape(k * c, -1).cpu().numpy()
+    right = stacked.right.reshape(k * c, -1).cpu().numpy()
+    for t in range(k * c):
+        d_ = np.zeros(left.shape[1], np.int64)
+        for j in range(left.shape[1]):       # children after their parent
+            for ch in (left[t, j], right[t, j]):
+                if ch >= 0:
+                    d_[ch] = d_[j] + 1
+        depth.append(int(d_.max()))
+    sf = stacked.split_feature.reshape(k * c, -1).long()
+    thr = stacked.threshold_bin.reshape(k * c, -1)
+    dl = stacked.default_left.reshape(k * c, -1)
+    lt = stacked.left.reshape(k * c, -1)
+    rt = stacked.right.reshape(k * c, -1)
+    lv = stacked.leaf_value.reshape(k * c, -1)
+    rows_ = torch.arange(n, device=dev)
+    nbins = nb.long()
+
+    def library():
+        s_ = score0
+        for t in range(k * c):
+            node = torch.zeros(n, dtype=torch.int64, device=dev)
+            for _ in range(depth[t]):
+                feat = sf[t][node]
+                fc = feat.clamp(min=0)
+                b = bins[rows_, fc].long()
+                go = torch.where(nan[fc] & (b == nbins[fc] - 1),
+                                 dl[t][node], b <= thr[t][node])
+                nxt = torch.where(go, lt[t][node], rt[t][node]).long()
+                node = torch.where(feat >= 0, nxt, node)
+            if t % c == 0:
+                s_ = s_.clone()
+            s_[:, t % c] += lv[t][node]
+        return s_
+    check(same_bits(torch, library(), fin), "the indexing walk differs "
+          "from predict_binned_class")
+    nodes = int(sum(int(t.num_nodes) for t in trees))
+    nbytes = n * f + 22 * nodes + 4 * n * c + 4 * k * n * c
+    row("predict_binned_class", "lightgbm_tpu/boosting/fused.py:53 "
+        "(stacked_score_traj num_class; lightgbm_tpu/learner/predict.py:25 "
+        "_traverse; XLA, no Pallas)", 0.0,
+        lambda: pr.stacked_score_traj(stacked, score0, bins, nb, nan,
+                                      num_class=c),
+        lambda: pr.stacked_score_traj_ref(stacked, score0, bins, nb, nan,
+                                          num_class=c),
+        3, nbytes, k * c * n, library, source="predict_binned",
+        library_graph=True)
+    emit("kernel_check", name="predict_binned_class", rows=n, classes=c,
+         iterations=k, equal=True, class_score_add_equal=True,
+         tree_depths=depth)
+
+
+def multiclass_path(torch, lgt, hm, dev, row):
+    """5-class multiclass (helpers/bench_tasks.py's task at 1M x 28, 255
+    leaves, 255 bins, learning rate 0.1), k = 5 trees an iteration:
+    (a) exact and quantized through fused_turns (train at
+    fused_block_size 10, 50 trees a dispatch, then update_batch(10) twice,
+    against update() in turns: sha256-equal model text, every program
+    captured once for all classes, launches, the graph pool given back;
+    trees/s, host syncs a tree, pool bytes and capture s), each turn's
+    host predictions within 1e-4 of its device scores in every class on
+    the first 100,000 rows; (b) a held-out set (40,000 rows, seed 99)
+    with multi_logloss and multi_error, 20 rounds at fused_block_size 10
+    against 1: the recorded metrics equal, the model and valid scores
+    equal, the host model's held-out predictions within 1e-4 of the
+    device valid scores, the held-out multi_logloss below the class
+    prior's (iteration 0's, printed); permuted held-out labels with
+    early_stopping_round 2: best iteration, best score and trees equal;
+    (c) multiclassova for 5 iterations through train, against update().
+    Returns the launch counts; then holds kernel V's class mode to its
+    plain version on the valid run's trees (class_traj_row)."""
+    X, y = make_multiclass(N_ROWS, seed=21)
+    Xv, yv = make_multiclass(VALID_ROWS, seed=99)
+    ds = lgt.Dataset(X, label=y, params=MC_PARAMS)
+    ds.construct()
+    yd = torch.as_tensor(y, device=dev).long()
+
+    def logloss(score):      # class-major [k, N]
+        return -torch.log_softmax(score.double(), 0).gather(
+            0, yd[None])[0].mean()
+
+    def inspect(booster):
+        diff = host_vs_device(booster, X)
+        check(diff <= 1e-4, f"multiclass host predict {diff} off the "
+              "device scores")
+        return {"host_vs_device_max_abs": diff}
+
+    hm.reset_launch_counts()
+    rates = {}
+    for name, params in (("multiclass", MC_PARAMS),
+                         ("multiclass_quantized", MC_QUANT_PARAMS)):
+        rates[name] = fused_turns(torch, lgt, hm, ds, logloss, name, params,
+                                  inspect=inspect, classes=MC_CLASSES)
+
+    def run(block, label, **extra):
+        params = dict(MC_PARAMS, metric="multi_logloss,multi_error",
+                      fused_block_size=block, **extra)
+        ev = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b = lgt.train(params, ds, MC_VALID_ROUNDS,
+                      valid_sets=[ds.create_valid(Xv, label=label)],
+                      callbacks=[lgt.record_evaluation(ev)])
+        torch.cuda.synchronize()
+        return b, ev, time.perf_counter() - t0
+
+    (b10, ev10, s10), (b1, ev1, s1) = run(10, yv), run(1, yv)
+    check(ev10 == ev1, "multiclass: the block's recorded metrics differ "
+          "from fused_block_size 1's")
+    check(_sha(b10.model_to_string()) == _sha(b1.model_to_string()),
+          "multiclass valid: model text differs between block sizes")
+    check(same_bits(torch, b10.gbdt.valid_scores[0], b1.gbdt.valid_scores[0]),
+          "multiclass valid scores differ between block sizes")
+    host = b10.predict(Xv, raw_score=True)
+    vdiff = float(np.abs(host - b10.gbdt.valid_scores[0].cpu().numpy())
+                  .max())
+    check(vdiff <= 1e-4, f"multiclass held-out host predict {vdiff} off "
+          "the device valid scores")
+    obj = b10.gbdt.objective
+    prior = np.array([obj.boost_from_score(c) for c in range(MC_CLASSES)])
+    p0 = np.exp(prior - prior.max())
+    p0 /= p0.sum()
+    prior_loss = float(-np.log(p0[yv.astype(int)]).mean())
+    losses = ev10["valid_0"]["multi_logloss"]
+    check(losses[-1] < prior_loss, f"held-out multi_logloss {losses[-1]} "
+          f"not below the class prior's {prior_loss}")
+    yp = yv[np.random.RandomState(7).permutation(VALID_ROWS)]
+    (e10, _, _), (e1, _, _) = run(10, yp, early_stopping_round=2), \
+        run(1, yp, early_stopping_round=2)
+    check(e10.best_iteration == e1.best_iteration and
+          e10.best_score == e1.best_score and
+          e10.num_trees() == e1.num_trees(),
+          f"multiclass early stop: block 10 best {e10.best_iteration}, "
+          f"block 1 best {e1.best_iteration}")
+    ova = dict(MC_PARAMS, objective="multiclassova")
+    b_ova = lgt.train(ova, ds, OVA_TREES)
+    b_upd = lgt.Booster(ova, ds)
+    for _ in range(OVA_TREES):
+        b_upd.update()
+    check(_sha(b_ova.model_to_string()) == _sha(b_upd.model_to_string()),
+          "multiclassova: train differs from update()")
+    ova_diff = host_vs_device(b_ova, X)
+    check(ova_diff <= 1e-4, f"multiclassova host predict {ova_diff} off")
+    counts = hm.launch_counts()
+    for key in MULTICLASS_PATH:
+        check(counts[key] > 0, f"{key} was not launched on the multiclass "
+              "path")
+    emit("multiclass_valid", rows=N_ROWS, valid_rows=VALID_ROWS,
+         classes=MC_CLASSES, rounds=MC_VALID_ROUNDS,
+         trajectory_equal=True, model_equal=True,
+         host_vs_device_valid_max_abs=vdiff,
+         multi_logloss_prior=prior_loss, multi_logloss=losses,
+         multi_error=ev10["valid_0"]["multi_error"],
+         train_s_block10=s10, train_s_block1=s1,
+         trees_per_s_block10=MC_VALID_ROUNDS * MC_CLASSES / s10,
+         trees_per_s_block1=MC_VALID_ROUNDS * MC_CLASSES / s1,
+         early_stop_best_iteration=e10.best_iteration,
+         ova_trees=b_ova.num_trees(), ova_host_vs_device_max_abs=ova_diff,
+         ova_byte_equal=True, replay_trees_per_s=rates,
+         predict_binned_class_launches=counts["predict_binned_class"])
+    class_traj_row(torch, dev, row, b10, Xv)
+    return counts
+
+
+def ranking_path(torch, lgt, hm, dev):
+    """lambdarank over 50,000 queries of 20 documents (helpers/
+    bench_tasks.py's task at 1M x 28, 255 leaves) and rank_xendcg, each
+    through train at fused_block_size 10 (iteration 0, then 9 through the
+    fused trainer, the pairwise gradients inside its prologue graph) with
+    a held-out set of 2,000 queries (40,000 rows, seed 99) on ndcg@10 and
+    map@10, against 10 update() calls: model text sha256-equal, the
+    held-out ndcg@10 above that of a zero score (iteration 0's), host
+    predictions within 1e-4 of the device scores; prints the gradient
+    program's device ms an iteration (as one CUDA graph). Returns the
+    launch counts."""
+    X, y, group = make_lambdarank(N_ROWS, seed=21)
+    Xv, yv, gv = make_lambdarank(VALID_ROWS, seed=99)
+    ds = lgt.Dataset(X, label=y, group=group, params=TRAIN_PARAMS)
+    ds.construct()
+    hm.reset_launch_counts()
+    out = {}
+    for name in ("lambdarank", "rank_xendcg"):
+        params = dict(TRAIN_PARAMS, objective=name, metric="ndcg,map",
+                      eval_at=[10])
+        ev = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fused = lgt.train(params, ds, RANK_TREES,
+                          valid_sets=[ds.create_valid(Xv, label=yv,
+                                                      group=gv)],
+                          callbacks=[lgt.record_evaluation(ev)])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        per = lgt.Booster(params, ds)
+        for _ in range(RANK_TREES):
+            per.update()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        check(_sha(fused.model_to_string()) == _sha(per.model_to_string()),
+              f"{name}: train's fused path differs from update()")
+        stats = fused.gbdt.fused_stats
+        check(len(stats) == 1 and stats[0]["trees"] == RANK_TREES - 1 and
+              stats[0]["graphs"] == stats[0]["programs"],
+              f"{name}: fused trainer stats {stats}")
+        from lightgbm_tpu_torch import metrics as mt
+        m0 = mt.create_metric("ndcg", lgt.Config(params))
+        m0.init(fused._valid_data[0].binned.metadata, VALID_ROWS)
+        ndcg0 = m0.evaluate_multi(np.zeros(VALID_ROWS, np.float32))[
+            "ndcg@10"]
+        ndcg = ev["valid_0"]["ndcg@10"]
+        check(ndcg[-1] > ndcg0, f"{name}: held-out ndcg@10 {ndcg[-1]} not "
+              f"above iteration 0's {ndcg0}")
+        diff = host_vs_device(fused, X)
+        check(diff <= 1e-4, f"{name}: host predict {diff} off the device")
+        gb = per.gbdt
+        # one graph of the program, as the fused prologue replays it
+        grad_ms = graph_device_ms(torch,
+                                  lambda: gb._gradients(gb.train_score))
+        out[name] = dict(train_s=t1 - t0, update_s=t2 - t1,
+                         trees_per_s_train=RANK_TREES / (t1 - t0),
+                         trees_per_s_update=RANK_TREES / (t2 - t1),
+                         ndcg_at_10_iteration0=ndcg0, ndcg_at_10=ndcg,
+                         map_at_10=ev["valid_0"]["map@10"],
+                         host_vs_device_max_abs=diff,
+                         gradient_device_ms=grad_ms,
+                         query_batch=gb.objective.query_batch,
+                         graph_pool_bytes=stats[0]["graph_pool_bytes"],
+                         capture_s=stats[0]["capture_s"],
+                         byte_equal=True)
+        del fused, per, gb
+    counts = hm.launch_counts()
+    for key in RANKING_PATH:
+        check(counts[key] > 0, f"{key} was not launched on the ranking "
+              "path")
+    emit("ranking", rows=N_ROWS, queries=N_ROWS // RANK_QSIZE,
+         valid_queries=VALID_ROWS // RANK_QSIZE, trees=RANK_TREES, **out)
+    return counts
+
+
+def objectives_path(torch, lgt, hm):
+    """The other objectives on the regression task's data (1M x 28, 255
+    leaves): regression_l1, huber, fair, quantile and mape on its label,
+    per iteration with leaf renewal (5 iterations through train, which
+    runs them one a dispatch); poisson, gamma and tweedie on the positive
+    label exp(0.5 z), cross_entropy and cross_entropy_lambda on the label
+    1 / (1 + exp(-z)) in (0, 1), z the label standardized, through train's
+    fused path at fused_block_size 5, against 5 update() calls (model text
+    sha256-equal). Each: host predictions within 1e-4 of the device
+    scores, the training metric after the 5 iterations below its value at
+    the boost-from-average score (iteration 0's). Returns the launch
+    counts."""
+    X, yreg = make_regression(N_ROWS, seed=21)
+    z = (yreg - yreg.mean()) / yreg.std()
+    labels = {"regression": yreg,
+              "positive": np.exp(0.5 * z).astype(np.float32),
+              "unit": (1.0 / (1.0 + np.exp(-z))).astype(np.float32)}
+    datasets = {}
+    for key, lab in labels.items():
+        datasets[key] = lgt.Dataset(X, label=lab, params=TRAIN_PARAMS)
+        datasets[key].construct()
+    hm.reset_launch_counts()
+    out = {}
+    for name in RENEW_OBJECTIVES + FUSED_OBJECTIVES:
+        key = "regression" if name in RENEW_OBJECTIVES else \
+            "positive" if name in ("poisson", "gamma", "tweedie") else "unit"
+        ds = datasets[key]
+        params = dict(TRAIN_PARAMS, objective=name, metric=name,
+                      fused_block_size=OBJ_TREES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b = lgt.train(params, ds, OBJ_TREES)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        fused = bool(b.gbdt.fused_stats)
+        check(fused == (name in FUSED_OBJECTIVES), f"{name}: fused path "
+              f"{fused}")
+        if fused:
+            per = lgt.Booster(params, ds)
+            for _ in range(OBJ_TREES):
+                per.update()
+            check(_sha(b.model_to_string()) == _sha(per.model_to_string()),
+                  f"{name}: train's fused path differs from update()")
+            del per
+        gb = b.gbdt
+        m = gb.train_metrics[0]
+        init = gb.objective.boost_from_score(0)
+        loss0 = m.evaluate(np.full(N_ROWS, init, np.float32),
+                           gb.objective.convert_output)
+        loss = b.eval_train()[0][2]
+        check(loss < loss0, f"{name}: training {m.name} {loss} not below "
+              f"iteration 0's {loss0}")
+        diff = host_vs_device(b, X)
+        check(diff <= 1e-4, f"{name}: host predict {diff} off the device")
+        out[name] = dict(label=key, fused=fused, train_s=seconds,
+                         trees_per_s=OBJ_TREES / seconds, metric=m.name,
+                         metric_iteration0=loss0, metric_last=loss,
+                         host_vs_device_max_abs=diff,
+                         leaves=[int(t.num_leaves) for t in gb.trees])
+        del b, gb
+    counts = hm.launch_counts()
+    for key in OBJECTIVES_PATH:
+        check(counts[key] > 0, f"{key} was not launched on the objectives "
+              "path")
+    emit("objectives", rows=N_ROWS, trees=OBJ_TREES, **out)
+    return counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3228,6 +3700,12 @@ def main():
     counts["scan"] = scan_path(torch, lgt, hm, grow_tree_mxu, y, ds)
     del ds, reg_ds
     counts["packed"] = packed_path(torch, lgt, hm, X, y)
+    del X, y
+    torch.cuda.empty_cache()
+    counts["multiclass"] = multiclass_path(torch, lgt, hm, dev,
+                                           make_row(torch, rows))
+    counts["ranking"] = ranking_path(torch, lgt, hm, dev)
+    counts["objectives"] = objectives_path(torch, lgt, hm)
     for path, c in counts.items():
         check(path == "scan" or all(c[k] == 0 for k in SCAN_PATH),
               f"the {path} path launched K8: the booster never asks for it")

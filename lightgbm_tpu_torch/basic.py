@@ -52,7 +52,7 @@ class Dataset:
     """Lazily-constructed binned dataset (reference basic.py:1163)."""
 
     def __init__(self, data, label=None, reference: Optional["Dataset"] = None,
-                 weight=None, init_score=None,
+                 weight=None, group=None, init_score=None,
                  feature_name: Union[str, List[str]] = "auto",
                  categorical_feature: Union[str, List] = "auto",
                  params: Optional[Dict[str, Any]] = None,
@@ -61,6 +61,7 @@ class Dataset:
         self.label = label
         self.reference = reference
         self.weight = weight
+        self.group = group
         self.init_score = init_score
         self.feature_name = feature_name
         self.categorical_feature = categorical_feature
@@ -96,7 +97,8 @@ class Dataset:
             weight=None if self.weight is None else
             np.asarray(self.weight, np.float32),
             init_score=None if self.init_score is None else
-            np.asarray(self.init_score))
+            np.asarray(self.init_score),
+            group=None if self.group is None else np.asarray(self.group))
         if self.reference is not None:
             # a valid set: the training set's mappers and used features
             self._binned = BinnedDataset.from_reference(
@@ -119,13 +121,28 @@ class Dataset:
         self.construct()
         return self._binned
 
-    def create_valid(self, data, label=None, weight=None, init_score=None,
-                     params=None) -> "Dataset":
+    def create_valid(self, data, label=None, weight=None, group=None,
+                     init_score=None, params=None) -> "Dataset":
         """A validation Dataset binned with this one's mappers (reference
         basic.py Dataset.create_valid)."""
         return Dataset(data, label=label, reference=self, weight=weight,
-                       init_score=init_score, params=params or self.params,
+                       group=group, init_score=init_score,
+                       params=params or self.params,
                        free_raw_data=self.free_raw_data)
+
+    def get_group(self):
+        return self.group
+
+    def set_group(self, group) -> "Dataset":
+        """The query sizes (or boundaries) of a ranking dataset; a binned
+        dataset takes them at once."""
+        self.group = group
+        if self._binned is not None and group is not None:
+            md = self._binned.metadata
+            self._binned.metadata = Metadata(
+                self._binned.num_data, label=md.label, weight=md.weight,
+                init_score=md.init_score, group=np.asarray(group))
+        return self
 
 
 class Booster:
@@ -216,12 +233,16 @@ class Booster:
             gb = self.gbdt
             gb.set_custom_objective()
             score = gb.train_score
-            grad, hess = fobj(score.cpu().numpy(), self.train_set)
+            grad, hess = fobj(gb.train_score_host(), self.train_set)
 
             def dev(a):
-                return torch.as_tensor(np.asarray(a, np.float32),
-                                       device=score.device).reshape(
-                                           score.shape)
+                # [N], or [N, k] (the host score's layout) made class-major
+                a = np.asarray(a, np.float32)
+                if score.dim() == 2:
+                    a = np.ascontiguousarray(
+                        a.reshape(score.shape[1], score.shape[0]).T)
+                return torch.as_tensor(a, device=score.device).reshape(
+                    score.shape)
             return gb.train_one_iter(dev(grad), dev(hess))
         return self.gbdt.train_one_iter()
 
@@ -259,6 +280,13 @@ class Booster:
             return n
         return self._model.num_iterations if self._model else 0
 
+    @property
+    def num_trees_per_iteration(self) -> int:
+        """Trees an iteration: num_class for the multiclass objectives."""
+        if self.gbdt is not None:
+            return self.gbdt.num_tree_per_iteration
+        return self._model.num_tree_per_iteration if self._model else 1
+
     def num_trees(self) -> int:
         if self.gbdt is not None:
             n = len(self.gbdt.trees)
@@ -292,7 +320,7 @@ class Booster:
             return []
         funcs = feval if isinstance(feval, (list, tuple)) else [feval]
         if valid_idx is None:
-            score = self.gbdt.train_score.cpu().numpy()
+            score = self.gbdt.train_score_host()
             data = self.train_set
         else:
             score = self.gbdt._valid_score_host(valid_idx)

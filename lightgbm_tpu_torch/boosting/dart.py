@@ -12,9 +12,11 @@ scale by k / (k + learning_rate)) and puts them back. Tree outputs are
 re-predicted over the training bins and each valid set by
 learner/predict.predict_binned_tree (on the card kernel V at one tree);
 every score move is the tree's values times the factor, then one f32 add,
-the JAX package's order. The trees carry their weights in their leaf
-values, so the model text and predict need nothing else. DART runs one
-iteration a dispatch (GBDT._fused_eligible).
+the JAX package's order; with k trees an iteration an iteration is
+dropped, scaled and put back class by class, each tree on its class's
+column. The trees carry their weights in their leaf values, so the model
+text and predict need nothing else. DART runs one iteration a dispatch
+(GBDT._fused_eligible).
 """
 
 from __future__ import annotations
@@ -51,7 +53,7 @@ class DART(GBDT):
     def _select_dropping_trees(self) -> None:
         """reference dart.hpp:95-125 DroppingTrees."""
         cfg = self.config
-        num_iters_done = len(self.trees)
+        num_iters_done = len(self.trees) // self.num_tree_per_iteration
         self.drop_indices = []
         if num_iters_done == 0:
             return
@@ -76,23 +78,35 @@ class DART(GBDT):
 
     def _apply_tree_to_scores(self, idx: int, factor: float,
                               bins_u=None) -> None:
-        """Tree idx's outputs times factor onto the training and valid
-        scores."""
+        """Tree idx's outputs times factor onto its class's training and
+        valid scores."""
         tree = self.trees[idx]
+        cls = self.tree_class[idx]
         if bins_u is None:
             bins_u = self._train_bins_unpacked()
-        self.train_score = self.train_score + predict_binned_tree(
-            tree, bins_u, self.num_bins_d, self.missing_is_nan_d) * factor
+        self._set_class_score(cls, self._class_score(cls) +
+                              predict_binned_tree(
+                                  tree, bins_u, self.num_bins_d,
+                                  self.missing_is_nan_d) * factor)
         for i in range(len(self.valid_sets)):
-            self._set_valid(i, self.valid_scores[i] + predict_binned_tree(
-                tree, self.valid_bins[i], self.num_bins_d,
-                self.missing_is_nan_d) * factor)
+            vals = predict_binned_tree(tree, self.valid_bins[i],
+                                       self.num_bins_d,
+                                       self.missing_is_nan_d) * factor
+            score = self.valid_scores[i]
+            if self.num_tree_per_iteration > 1:
+                score = score.clone()
+                score[:, cls] = self.valid_scores[i][:, cls] + vals
+            else:
+                score = score + vals
+            self._set_valid(i, score)
 
     def _drop_trees(self) -> None:
         # one unpack of packed bins an iteration, not one a dropped tree
         bins_u = self._train_bins_unpacked() if self.drop_indices else None
+        k = self.num_tree_per_iteration
         for it in self.drop_indices:
-            self._apply_tree_to_scores(it, -1.0, bins_u)
+            for cls in range(k):
+                self._apply_tree_to_scores(it * k + cls, -1.0, bins_u)
         lr = float(self.config.learning_rate)
         self.shrinkage_rate = lr / max(1.0, 1.0 + len(self.drop_indices)) \
             if self.config.xgboost_dart_mode else lr
@@ -111,21 +125,23 @@ class DART(GBDT):
         bins_u = self._train_bins_unpacked() \
             if (new_factor != 1.0 or
                 (self.drop_indices and old_factor != 1.0)) else None
-        idx = len(self.trees) - 1
+        k = self.num_tree_per_iteration
         if new_factor != 1.0:
-            # the new tree went onto the scores whole: take off the part
-            # its weight removes
-            self._apply_tree_to_scores(idx, new_factor - 1.0, bins_u)
-            tree = self.trees[idx]
-            self.trees[idx] = tree._replace(
-                leaf_value=tree.leaf_value * new_factor)
+            # the new trees went onto the scores whole: take off the part
+            # their weight removes
+            for idx in range(len(self.trees) - k, len(self.trees)):
+                self._apply_tree_to_scores(idx, new_factor - 1.0, bins_u)
+                tree = self.trees[idx]
+                self.trees[idx] = tree._replace(
+                    leaf_value=tree.leaf_value * new_factor)
         self.tree_weights.append(new_factor)
-        # the dropped trees back in at old_factor
+        # the dropped iterations back in at old_factor
         for it in self.drop_indices:
-            self._apply_tree_to_scores(it, old_factor, bins_u)
-            tree = self.trees[it]
-            self.trees[it] = tree._replace(
-                leaf_value=tree.leaf_value * old_factor)
+            for idx in range(it * k, it * k + k):
+                self._apply_tree_to_scores(idx, old_factor, bins_u)
+                tree = self.trees[idx]
+                self.trees[idx] = tree._replace(
+                    leaf_value=tree.leaf_value * old_factor)
             self.tree_weights[it] *= old_factor
         if self.drop_indices:
             Log.debug("DART: dropped %d trees", len(self.drop_indices))

@@ -36,6 +36,16 @@ written into the buffer the fix-up graph reads. A capture or replay that
 fails raises; nothing falls back to another path. On the CPU the same
 programs run eagerly, in the same order.
 
+With k trees an iteration (num_class > 1, the JAX package's fused.py:
+140-160) one set of programs grows every class's tree: a "gradients"
+program computes the iteration's class-major [k, N] gradients and row
+sample once, into buffers; the prologue copies the current class's row
+of them (a device class index) into the grower's inputs, and the
+epilogue adds the tree into that class's score row, writes it into the
+stack at [iteration, class] and advances the class (and, after the last
+class, the iteration). The graphs are captured once, as for one class,
+so the pool and the capture do not grow with k.
+
 The JAX package's stacked_score_traj (:54-79) is
 learner/predict.stacked_score_traj here: GBDT.train_many scores each
 block's stacked trees over the validation sets with it after the block,
@@ -54,6 +64,7 @@ from ..learner.grower import TreeArrays
 from ..learner.grower_mxu import Grower, _select
 from ..learner.histogram_mxu import (add_launches, node_values,
                                      recording_launches, scratch_buffers)
+from ..objectives import gradients_at
 
 __all__ = ["FusedTrainer", "build_fused_train"]
 
@@ -95,8 +106,9 @@ def _capture_stream(dev: torch.device) -> "torch.cuda.Stream":
 
 
 class FusedTrainer:
-    """run(score, it0, k) -> (score', stacked TreeArrays [k, ...]): k
-    boosting iterations from iteration it0, bit for bit what k calls of the
+    """run(score, it0, k) -> (score', stacked TreeArrays [k, ...], or [k,
+    num_class, ...] with num_class trees an iteration): k boosting
+    iterations from iteration it0, bit for bit what k calls of the
     per-iteration path (GBDT.train_one_iter) give. Built by
     build_fused_train."""
 
@@ -105,8 +117,9 @@ class FusedTrainer:
                  feature_mask_fn: Callable, key_fn: Optional[Callable],
                  shrinkage: float, const_tree: TreeArrays, block: int,
                  sample_fn: Optional[Callable] = None,
-                 sample_keys: bool = False):
+                 sample_keys: bool = False, num_class: int = 1):
         self.objective = objective
+        self.num_class = max(1, int(num_class))
         self.grower = grower
         self.cnt = cnt_weight
         self.sample_fn = sample_fn
@@ -124,20 +137,27 @@ class FusedTrainer:
         self.it = torch.zeros((), dtype=torch.int32, device=dev)
         self.pos = torch.zeros(1, dtype=torch.int64, device=dev)
         self.fix_no = torch.zeros((), dtype=torch.int32, device=dev)
+        # the class whose tree grows (num_class > 1), and the iteration's
+        # gradients, hessians and count, which its prologue reads
+        self.cls = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.gh = None
+        self._classes_done = 0
         # the sampler's keys, a row a tree of the chunk
         self.keys = torch.zeros((self.block, 2), dtype=torch.int64,
                                 device=dev) if sample_keys else None
         self.inputs = None
         self.state = None
         self.stacked = TreeArrays(*[
-            torch.empty((self.block,) + tuple(t.shape), dtype=t.dtype,
-                        device=dev) for t in const_tree])
+            torch.empty((self.block * self.num_class,) + tuple(t.shape),
+                        dtype=t.dtype, device=dev) for t in const_tree])
         # the programs by name, in order: the scheduled passes run
         # through _step, the others are methods _<name> (names, not bound
         # methods, so the trainer holds no reference to itself and goes,
         # graphs and all, when its owner drops it)
         self._passes = dict(grower.scheduled())
         self.programs = ["prologue", *self._passes, "fixup", "epilogue"]
+        if self.num_class > 1:
+            self.programs.insert(0, "gradients")
         self.graphs: Dict[str, tuple] = {}
         self._held = []     # the scratch buffers the graphs use
         self._stream = _capture_stream(dev) if self.use_graphs else None
@@ -151,13 +171,32 @@ class FusedTrainer:
                       "fixup_reads": [], "noop_fixups": 0}
 
     # ---- the programs: each reads and writes only the buffers
-    def _prologue(self) -> None:
-        grad, hess = self.objective.get_gradients(self.score)
+    def _sampled_gradients(self):
+        """The iteration's (grad, hess, cnt): the objective's gradients at
+        the score, row-sampled."""
+        grad, hess = gradients_at(self.objective, self.score, self.it)
         cnt = self.cnt
         if self.sample_fn is not None:
             skey = None if self.keys is None else \
                 self.keys.index_select(0, self.pos).reshape(2)
             grad, hess, cnt = self.sample_fn(grad, hess, self.it, skey)
+        return grad, hess, cnt
+
+    def _gradients(self) -> None:
+        gh = self._sampled_gradients()
+        if self.gh is None:   # the first iteration allocates the buffers
+            self.gh = tuple(t.clone() for t in gh)
+        else:
+            _write(self.gh, gh)
+
+    def _prologue(self) -> None:
+        if self.num_class == 1:
+            grad, hess, cnt = self._sampled_gradients()
+        else:
+            # the current class's row of the iteration's gradients
+            grad, hess = (t.index_select(0, self.cls).reshape(-1)
+                          for t in self.gh[:2])
+            cnt = self.gh[2]
         key = None if self.key_fn is None else self.key_fn(self.it)
         # the sampled count lands in self.inputs.cnt, which the passes read
         inputs, state = self.grower.start(grad, hess, cnt,
@@ -179,13 +218,29 @@ class FusedTrainer:
         tree, row_node = self.grower.finish(self.inputs, self.state)
         ok = tree.num_leaves > 1
         tree = tree._replace(leaf_value=tree.leaf_value * self.shrinkage)
-        score = self.score + node_values(row_node, tree.leaf_value)
-        self.score.copy_(torch.where(ok, score, self.score))
+        if self.num_class == 1:
+            score = self.score + node_values(row_node, tree.leaf_value)
+            self.score.copy_(torch.where(ok, score, self.score))
+            tree = _select(ok, tree, self.const_tree)
+            for buf, t in zip(self.stacked, tree):
+                buf.index_copy_(0, self.pos, t.unsqueeze(0))
+            self.it += 1
+            self.pos += 1
+            return
+        row = self.score.index_select(0, self.cls).reshape(-1)
+        score = row + node_values(row_node, tree.leaf_value)
+        self.score.index_copy_(0, self.cls,
+                               torch.where(ok, score, row).unsqueeze(0))
         tree = _select(ok, tree, self.const_tree)
+        slot = self.pos * self.num_class + self.cls
         for buf, t in zip(self.stacked, tree):
-            buf.index_copy_(0, self.pos, t.unsqueeze(0))
-        self.it += 1
-        self.pos += 1
+            buf.index_copy_(0, slot, t.unsqueeze(0))
+        # the next class; after the last, class 0 of the next iteration
+        self.cls += 1
+        wrap = self.cls == self.num_class
+        self.it += wrap.to(torch.int32).reshape(())
+        self.pos += wrap.to(torch.int64)
+        self.cls.masked_fill_(wrap, 0)
 
     # ---- running them
     def _program(self, name: str) -> None:
@@ -233,13 +288,13 @@ class FusedTrainer:
             graphs=len(self.graphs), capture_s=time.perf_counter() - t0,
             graph_pool_bytes=torch.cuda.memory_reserved(self.dev) - before,
             buffer_bytes=_nbytes((self.score, self.inputs, self.state,
-                                  self.stacked)))
+                                  self.stacked, self.gh)))
 
     def _tree(self, warm: bool) -> None:
         """One tree: the scheduled programs, the fix-up loop, the
         epilogue. warm: the fix-up runs once even on a done tree."""
         for name in self.programs:
-            if name in ("fixup", "epilogue"):
+            if name in ("gradients", "fixup", "epilogue"):
                 continue
             self._run(name)
 
@@ -255,6 +310,15 @@ class FusedTrainer:
         self.stats["noop_fixups"] += noop
         self.stats["trees"] += 1
 
+    def _class_tree(self, warm: bool) -> None:
+        """The next class's tree; the iteration's gradients first when it
+        is class 0's (the host counts the trees: _classes_done)."""
+        if self.num_class > 1:
+            if self._classes_done % self.num_class == 0:
+                self._run("gradients")
+            self._classes_done += 1
+        self._tree(warm)
+
     def __call__(self, score: torch.Tensor, it0: int, k: int,
                  keys: Optional[torch.Tensor] = None):
         """keys: [k, 2] the sampler's key of each iteration (sample_keys)."""
@@ -264,24 +328,30 @@ class FusedTrainer:
             self.score = torch.empty_like(score)
         self.score.copy_(score)
         self.it.fill_(int(it0))
+        self.cls.zero_()
+        self._classes_done = 0
+        nc = self.num_class
         chunks = []
         for c0 in range(0, k, self.block):
             c = min(self.block, k - c0)
             self.pos.zero_()
             if self.keys is not None:
                 self.keys[:c].copy_(keys[c0:c0 + c])
-            for _ in range(c):
+            for _ in range(c * nc):
                 if self.use_graphs and not self.graphs:
                     side, cur = self._stream, torch.cuda.current_stream(
                         self.dev)
                     side.wait_stream(cur)
                     with torch.cuda.stream(side):
-                        self._tree(warm=True)
+                        self._class_tree(warm=True)
                     cur.wait_stream(side)
                     self._capture()
                 else:
-                    self._tree(warm=False)
-            chunks.append([t[:c].clone() for t in self.stacked])
+                    self._class_tree(warm=False)
+            chunks.append([
+                t[:c].clone() if nc == 1 else
+                t[:c * nc].reshape((c, nc) + tuple(t.shape[1:])).clone()
+                for t in self.stacked])
         stacked = TreeArrays(*[torch.cat(ts) if len(ts) > 1 else ts[0]
                                for ts in zip(*chunks)])
         return self.score.clone(), stacked
@@ -299,5 +369,6 @@ def build_fused_train(**settings) -> FusedTrainer:
     (fused_block_size); sample_fn(grad, hess, it, key) -> (grad, hess,
     cnt), the row sampler in place of cnt_weight (GBDT._sample_fn: None,
     bagging, GOSS), and sample_keys, whether it takes the [k, 2] keys the
-    run is then given."""
+    run is then given; num_class, the trees an iteration (the score and
+    gradients class-major [num_class, N] when above 1)."""
     return FusedTrainer(**settings)

@@ -66,6 +66,20 @@ GOSS reads keys the host draws from the same stream before each block.
 create_boosting picks GBDT, RF (boosting/rf.py) or DART (boosting/dart.py),
 which run one iteration a dispatch, as in the JAX package.
 
+Multiclass objectives (num_model_per_iteration = num_class = k > 1) grow k
+trees an iteration on the gradients of one objective call, each tree's
+values added into its class's score (the JAX package's gbdt.py:1018-1024,
+reference gbdt.cpp:371): the training score and the gradients are
+class-major, [k, N], so each class's row is the contiguous [N] the growth
+kernels take; validation scores are [N, k], the layout of kernel V's
+class mode (a thread a row holds its k scores). Boost-from-average, the
+constant first trees, rollback and the stall poll work per class; the
+trees are kept in the model text's order, iteration-major, class-minor
+(tree_class). Objectives that renew their leaves (L1, Huber, Fair,
+quantile, MAPE) set each leaf to a weighted percentile of its rows'
+residuals after growth (learner/renew.py), before shrinkage, and run one
+iteration a dispatch, as in the JAX package.
+
 `check_supported` refuses every parameter value whose code is not ported,
 naming the ROADMAP.md port-queue item that will bring it.
 """
@@ -88,9 +102,11 @@ from ..learner.grower_mxu import (Grower, _kernel_cap,
                                   autotune_hist_backend)
 from ..learner.histogram_mxu import (fits_v2, node_values, pack_bins_4bit,
                                      unpack_bins_4bit)
-from ..learner.predict import predict_binned_tree, stacked_score_traj
+from ..learner.predict import (class_score_add, predict_binned_tree,
+                               stacked_score_traj)
+from ..learner.renew import renew_tree_output
 from ..learner.split import SplitHyperParams
-from ..objectives import ObjectiveFunction
+from ..objectives import ObjectiveFunction, gradients_at
 from ..utils.log import Log
 
 __all__ = ["GBDT", "check_supported", "create_boosting", "resolve_device"]
@@ -164,8 +180,15 @@ def _goss_sample(grad, hess, it=None, key=None, *, top_k: int,
     (grad x w, hess x w, cnt), cnt 1 on every kept row. The threshold is
     lax.top_k's k-th value: its total order puts +NaN above inf and -0.0
     below 0.0, so the scores are ranked as order-preserving int32 keys;
-    the comparison with it is IEEE's, as in the JAX package."""
+    the comparison with it is IEEE's, as in the JAX package. Class-major
+    [k, N] gradients score a row by the sum of its classes' |g| x h,
+    class after class."""
     score = grad.abs() * hess
+    if score.dim() == 2:
+        total = score[0]
+        for c in range(1, score.shape[0]):
+            total = total + score[c]
+        score = total
     bits = score.view(torch.int32)
     order = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
     t = torch.topk(order, top_k, sorted=False).values.min()
@@ -197,7 +220,6 @@ def _unsupported(cfg: Config) -> List[tuple]:
     """(param, ROADMAP.md port-queue item) for every non-default value
     whose code this port does not have yet."""
     return [(name, item) for name, item, hit in [
-        ("num_class", "P7", cfg.num_class > 1),
         ("level_pipeline", "P9", cfg.level_pipeline),
         # the JAX package grows these on its portable grower
         ("monotone_constraints_method=" +
@@ -262,7 +284,10 @@ class GBDT:
         self._custom_objective = False
         self.device = device
         self.shrinkage_rate = float(config.learning_rate)
-        self.num_tree_per_iteration = 1
+        self.num_class = max(int(config.num_class), 1)
+        self.num_tree_per_iteration = (
+            objective.num_model_per_iteration if objective is not None
+            else self.num_class)
         self.iter_ = 0
         self.trees: List[TreeArrays] = []
         self.tree_class: List[int] = []
@@ -316,13 +341,19 @@ class GBDT:
         self.missing_is_nan_d = torch.as_tensor(ds.missing_types == 2,
                                                 device=dev)
         self.is_cat_d = torch.as_tensor(ds.is_categorical, device=dev)
-        self.train_score = torch.zeros(self.num_data, dtype=torch.float32,
-                                       device=dev)
+        # [N], or class-major [k, N] (an init score comes as the JAX
+        # package reads it, [N, k] row-major)
+        k = self.num_tree_per_iteration
+        self.train_score = torch.zeros(
+            (self.num_data,) if k == 1 else (k, self.num_data),
+            dtype=torch.float32, device=dev)
         self._has_init_score = ds.metadata.init_score is not None
         if self._has_init_score:
+            init = np.asarray(ds.metadata.init_score, np.float32)
+            init = init.reshape(-1) if k == 1 else \
+                init.reshape(self.num_data, k).T
             self.train_score = torch.as_tensor(
-                ds.metadata.init_score.reshape(-1), dtype=torch.float32,
-                device=dev)
+                np.ascontiguousarray(init), device=dev)
         # unsampled, every row counts once in the count channel
         self._cnt = torch.ones(self.num_data, dtype=torch.float32,
                                device=dev)
@@ -364,7 +395,7 @@ class GBDT:
             monotone_penalty=cfg.monotone_penalty,
             extra_trees=cfg.extra_trees,
             has_categorical=bool(ds.is_categorical.any()))
-        self._boosted_from_average = False
+        self._boosted_from_average = [False] * k
         if self.objective is not None:
             self.objective.init(ds.metadata, ds.num_data, dev)
 
@@ -486,10 +517,13 @@ class GBDT:
                 self.is_cat_d, **self._mxu_grow_kwargs())
         return self._grower_obj
 
-    def _grow(self, grad, hess):
-        """This iteration's tree, grown on its row sample of (grad, hess)
-        (_sample)."""
-        grad, hess, cnt = self._sample(grad, hess)
+    def _grow(self, grad, hess, cnt=None):
+        """This iteration's tree, grown on its row sample of (grad, hess):
+        drawn here (_sample), or given as its count cnt with the sampled
+        gradients of one class (the classes of an iteration share one
+        sample)."""
+        if cnt is None:
+            grad, hess, cnt = self._sample(grad, hess)
         return self._grower().grow(grad, hess, cnt,
                                    self._feature_mask_at(self.iter_),
                                    self._tree_key())
@@ -543,56 +577,95 @@ class GBDT:
         return fn(grad, hess, self.iter_,
                   self._next_key() if keyed else None)
 
+    def _gradients(self, score: torch.Tensor):
+        """The objective's gradients at `score`, this iteration's."""
+        return gradients_at(self.objective, score, self.iter_)
+
     def train_one_iter(self, gradients: Optional[torch.Tensor] = None,
                        hessians: Optional[torch.Tensor] = None) -> bool:
         """One boosting iteration (reference TrainOneIter gbdt.cpp:371-449),
-        on the objective's gradients or, where given, the caller's ([N] f32
-        on the training device). Returns True if training cannot continue
-        (no split made)."""
+        on the objective's gradients or, where given, the caller's ([N] f32,
+        or [k, N] with k trees an iteration, on the training device): one
+        tree a class. Returns True if training cannot continue (no tree of
+        the iteration made a split)."""
         cfg = self.config
-        init_score = 0.0
+        k = self.num_tree_per_iteration
+        init_scores = [0.0] * k
         if gradients is None or hessians is None:
             if self.objective is None:
                 raise ValueError("objective 'none' trains on the caller's "
                                  "gradients: pass them (fobj)")
-            init_score = self._boost_from_average()
-            gradients, hessians = self.objective.get_gradients(
-                self.train_score)
-        tree, row_node = self._grow(gradients, hessians)
-        if int(tree.num_leaves) > 1:
-            # shrinkage (tree.cpp Shrinkage), then the learner-side score
-            # update (score_updater.hpp:21-110) through node_values
-            tree = tree._replace(
-                leaf_value=tree.leaf_value * self.shrinkage_rate)
-            self.train_score = self.train_score + \
-                node_values(row_node, tree.leaf_value)
-            self._update_valid(tree)
-            if abs(init_score) > 1e-35:
-                # AddBias (gbdt.cpp:416-417): fold the init score into
-                # the first tree's leaves
-                tree = tree._replace(leaf_value=torch.where(
-                    tree.split_feature < 0, tree.leaf_value + init_score,
-                    tree.leaf_value))
-            finished = False
-        else:
-            value = 0.0
-            if not self.trees:
-                value = init_score
-                if (self.objective is not None and
-                        not cfg.boost_from_average and
-                        not self._has_init_score):
-                    value = self.objective.boost_from_score(0)
-                    self._add_const_score(value)
-            tree = self._constant_tree(value)
-            if self.trees:
-                # the valid scores take the constant tree's zeros, as the
-                # fused trainer's trajectory does
-                self._update_valid(tree)
-            finished = True
-        self.trees.append(tree)
-        self.tree_class.append(0)
+            for cls in range(k):
+                init_scores[cls] = self._boost_from_average(cls)
+            gradients, hessians = self._gradients(self.train_score)
+        renew = self.objective is not None and \
+            self.objective.need_renew_tree_output
+        cnt = None
+        if k > 1 or renew:
+            # one row sample an iteration, shared by its classes
+            gradients, hessians, cnt = self._sample(gradients, hessians)
+        first = self.iter_ == 0
+        finished = True
+        for cls in range(k):
+            g = gradients if k == 1 else gradients[cls]
+            h = hessians if k == 1 else hessians[cls]
+            tree, row_node = self._grow(g, h) if cnt is None \
+                else self._grow(g, h, cnt)
+            if int(tree.num_leaves) > 1:
+                finished = False
+                score = self._class_score(cls)
+                if renew:
+                    obj = self.objective
+                    rw = cnt if obj.weight is None else cnt * obj.weight
+                    tree = renew_tree_output(tree, row_node, score,
+                                             obj.label, rw,
+                                             obj.renew_percentile)
+                # shrinkage (tree.cpp Shrinkage), then the learner-side
+                # score update (score_updater.hpp:21-110) through
+                # node_values
+                tree = tree._replace(
+                    leaf_value=tree.leaf_value * self.shrinkage_rate)
+                self._set_class_score(
+                    cls, score + node_values(row_node, tree.leaf_value))
+                self._update_valid(tree, cls)
+                if abs(init_scores[cls]) > 1e-35:
+                    # AddBias (gbdt.cpp:416-417): fold the init score into
+                    # the first tree's leaves
+                    tree = tree._replace(leaf_value=torch.where(
+                        tree.split_feature < 0,
+                        tree.leaf_value + init_scores[cls],
+                        tree.leaf_value))
+            else:
+                value = 0.0
+                if first:
+                    value = init_scores[cls]
+                    if (self.objective is not None and
+                            not cfg.boost_from_average and
+                            not self._has_init_score):
+                        value = self.objective.boost_from_score(cls)
+                        self._add_const_score(value, cls)
+                tree = self._constant_tree(value)
+                if not first:
+                    # the valid scores take the constant tree's zeros, as
+                    # the fused trainer's trajectory does
+                    self._update_valid(tree, cls)
+            self.trees.append(tree)
+            self.tree_class.append(cls)
         self.iter_ += 1
         return finished
+
+    def _class_score(self, cls: int) -> torch.Tensor:
+        """The training score of class cls ([N])."""
+        return self.train_score if self.num_tree_per_iteration == 1 \
+            else self.train_score[cls]
+
+    def _set_class_score(self, cls: int, score: torch.Tensor) -> None:
+        if self.num_tree_per_iteration == 1:
+            self.train_score = score
+            return
+        new = self.train_score.clone()
+        new[cls] = score
+        self.train_score = new
 
     # ------------------------------------------------------------------
     # K iterations per dispatch (boosting/fused.py)
@@ -600,12 +673,14 @@ class GBDT:
         """Whether engine.train may dispatch K iterations at a time
         through the fused trainer, with the trees of K train_one_iter
         calls: the JAX package's rule (gbdt or GOSS on the serial grower,
-        bagging included; not RF or DART; no guard rails, no linear trees,
-        no leaf renewal, no CEGB, no custom objective)."""
+        bagging and k trees an iteration included; not RF or DART; no
+        guard rails, no linear trees, no leaf renewal, no CEGB, no custom
+        objective)."""
         cfg = self.config
         return (type(self) is GBDT and cfg.boosting in ("gbdt", "goss")
                 and cfg.guard_nonfinite == "off" and not cfg.linear_tree
                 and self.objective is not None
+                and not self.objective.need_renew_tree_output
                 and not self._custom_objective)
 
     def _build_fused(self):
@@ -627,7 +702,8 @@ class GBDT:
                                               **self._mask_settings()),
             key_fn=key_fn, shrinkage=self.shrinkage_rate,
             const_tree=self._constant_tree(0.0),
-            block=self.config.fused_block_size)
+            block=self.config.fused_block_size,
+            num_class=self.num_tree_per_iteration)
 
     def release_fused(self) -> None:
         """Free the fused trainer: its CUDA graphs, their memory pool and
@@ -690,12 +766,14 @@ class GBDT:
         score, stacked = self._fused_run(self.train_score, self.iter_, k,
                                          keys)
         self.train_score = score
+        kcls = self.num_tree_per_iteration
         if self.valid_sets:
             trajs = []
             for i, pts in enumerate(lead):
                 fin, traj = stacked_score_traj(
                     stacked, self.valid_scores[i], self.valid_bins[i],
-                    self.num_bins_d, self.missing_is_nan_d)
+                    self.num_bins_d, self.missing_is_nan_d,
+                    num_class=kcls)
                 if pts:
                     traj = torch.cat([torch.stack(pts), traj])
                 self._set_valid(i, fin)
@@ -708,18 +786,27 @@ class GBDT:
                    (self.iter_ - k) // _STOP_POLL_EVERY)
         stop_hint = crossed and self._pending_nleaves is not None and \
             self._read_pending() <= 1
-        self._pending_nleaves = self._start_copy(stacked.num_leaves[k - 1])
+        last = stacked.num_leaves[k - 1]
+        # stalled only if every class's tree is
+        self._pending_nleaves = self._start_copy(
+            last if kcls == 1 else last.amax())
         return {"mode": "fused", "stacked": stacked, "k": k,
-                "stop": stop_hint}
+                "kcls": kcls, "stop": stop_hint}
 
     def finalize_block(self, handle: dict) -> bool:
         """Second half of train_many: the block's trees, views of its
         stack, onto self.trees (no device work)."""
         if handle["mode"] == "fused":
-            stacked = handle["stacked"]
+            stacked, kcls = handle["stacked"], handle["kcls"]
             for i in range(handle["k"]):
-                self.trees.append(TreeArrays(*[t[i] for t in stacked]))
-                self.tree_class.append(0)
+                if kcls == 1:
+                    self.trees.append(TreeArrays(*[t[i] for t in stacked]))
+                    self.tree_class.append(0)
+                    continue
+                for c in range(kcls):
+                    self.trees.append(TreeArrays(*[t[i, c]
+                                                   for t in stacked]))
+                    self.tree_class.append(c)
         return handle["stop"]
 
     def _start_copy(self, count: torch.Tensor):
@@ -761,26 +848,32 @@ class GBDT:
             num_nodes=torch.tensor(1, dtype=torch.int32, device=dev),
             num_leaves=torch.tensor(1, dtype=torch.int32, device=dev))
 
-    def _boost_from_average(self) -> float:
+    def _boost_from_average(self, cls: int) -> float:
         """BoostFromAverage (gbdt.cpp:335-344): the first iteration starts
-        every score from the objective's average."""
-        if (self.trees or self._boosted_from_average or
+        class cls's scores from the objective's average."""
+        if (self.trees or self._boosted_from_average[cls] or
                 self._has_init_score or self.objective is None or
                 not self.config.boost_from_average):
             return 0.0
-        init = self.objective.boost_from_score(0)
+        init = self.objective.boost_from_score(cls)
         if abs(init) > 1e-35:
-            self._add_const_score(init)
+            self._add_const_score(init, cls)
             Log.info("Start training from score %f", init)
-            self._boosted_from_average = True
+            self._boosted_from_average[cls] = True
             return init
         return 0.0
 
-    def _add_const_score(self, value: float) -> None:
-        """A constant onto the training and every valid score."""
-        self.train_score = self.train_score + value
+    def _add_const_score(self, value: float, cls: int = 0) -> None:
+        """A constant onto class cls's training and valid scores."""
+        self._set_class_score(cls, self._class_score(cls) + value)
         for i in range(len(self.valid_sets)):
-            self._set_valid(i, self.valid_scores[i] + value)
+            score = self.valid_scores[i]
+            if self.num_tree_per_iteration > 1:
+                score = score.clone()
+                score[:, cls] = self.valid_scores[i][:, cls] + value
+            else:
+                score = score + value
+            self._set_valid(i, score)
 
     # ------------------------------------------------------------------
     # validation sets
@@ -797,16 +890,22 @@ class GBDT:
         self.valid_metrics.append(list(metrics))
         self.valid_bins.append(torch.as_tensor(ds.bins,
                                                device=self.device))
-        score = torch.zeros(ds.num_data, dtype=torch.float32,
-                            device=self.device)
+        k = self.num_tree_per_iteration
+        shape = (ds.num_data,) if k == 1 else (ds.num_data, k)
+        score = torch.zeros(shape, dtype=torch.float32, device=self.device)
         if ds.metadata.init_score is not None:
             score = torch.as_tensor(np.asarray(
-                ds.metadata.init_score, np.float32).reshape(-1),
+                ds.metadata.init_score, np.float32).reshape(shape),
                 device=self.device)
         self.valid_scores.append(score)
         self._valid_host.append(None)
         i = len(self.valid_sets) - 1
-        for tree in self.trees:
+        for tree, cls in zip(self.trees, self.tree_class):
+            if k > 1:
+                self._set_valid(i, class_score_add(
+                    tree, self.valid_scores[i], cls, self.valid_bins[i],
+                    self.num_bins_d, self.missing_is_nan_d))
+                continue
             self._set_valid(i, self.valid_scores[i] + predict_binned_tree(
                 tree, self.valid_bins[i], self.num_bins_d,
                 self.missing_is_nan_d))
@@ -816,10 +915,16 @@ class GBDT:
         self.valid_scores[i] = score
         self._valid_host[i] = host
 
-    def _update_valid(self, tree: TreeArrays) -> None:
-        """Each valid score plus the tree's leaf values: one f32 add, the
-        trajectory step the fused block's stacked_score_traj takes."""
+    def _update_valid(self, tree: TreeArrays, cls: int = 0) -> None:
+        """Each valid score plus the tree's leaf values (into column cls
+        with k trees an iteration): one f32 add, the trajectory step the
+        fused block's stacked_score_traj takes."""
         for i in range(len(self.valid_sets)):
+            if self.num_tree_per_iteration > 1:
+                self._set_valid(i, class_score_add(
+                    tree, self.valid_scores[i], cls, self.valid_bins[i],
+                    self.num_bins_d, self.missing_is_nan_d))
+                continue
             fin, _ = stacked_score_traj(
                 TreeArrays(*[t.unsqueeze(0) for t in tree]),
                 self.valid_scores[i], self.valid_bins[i], self.num_bins_d,
@@ -854,22 +959,39 @@ class GBDT:
         """Drop the last iteration (gbdt.cpp:451-467): its tree comes off
         the trees and off the training and valid scores (subtracted: the
         add-then-subtract can leave a last-bit residue, as in the JAX
-        package)."""
+        package); with k trees an iteration, each class's tree off its
+        class's scores."""
         if self.iter_ <= 0:
             return
-        tree = self.trees.pop()
-        self.tree_class.pop()
-        self.train_score = self.train_score - predict_binned_tree(
-            tree, self._train_bins_unpacked(), self.num_bins_d,
-            self.missing_is_nan_d)
-        for i in range(len(self.valid_sets)):
-            self._set_valid(i, self.valid_scores[i] - predict_binned_tree(
-                tree, self.valid_bins[i], self.num_bins_d,
-                self.missing_is_nan_d))
+        k = self.num_tree_per_iteration
+        bins = self._train_bins_unpacked()
+        for _ in range(k):
+            tree = self.trees.pop()
+            cls = self.tree_class.pop()
+            self._set_class_score(cls, self._class_score(cls) -
+                                  predict_binned_tree(
+                                      tree, bins, self.num_bins_d,
+                                      self.missing_is_nan_d))
+            for i in range(len(self.valid_sets)):
+                vals = predict_binned_tree(tree, self.valid_bins[i],
+                                           self.num_bins_d,
+                                           self.missing_is_nan_d)
+                score = self.valid_scores[i]
+                if k > 1:
+                    score = score.clone()
+                    score[:, cls] = self.valid_scores[i][:, cls] - vals
+                else:
+                    score = score - vals
+                self._set_valid(i, score)
         self.iter_ -= 1
 
+    def train_score_host(self) -> np.ndarray:
+        """The training score on the host, [N] or [N, k]."""
+        score = self.train_score.cpu().numpy()
+        return score if score.ndim == 1 else score.T
+
     def eval_train(self) -> dict:
-        return self._eval(self.train_score.cpu().numpy(), self.train_metrics)
+        return self._eval(self.train_score_host(), self.train_metrics)
 
     def eval_valid(self, i: int) -> dict:
         return self._eval(self._valid_score_host(i), self.valid_metrics[i])
@@ -879,7 +1001,10 @@ class GBDT:
         convert = None if self.objective is None \
             else self.objective.convert_output
         for m in metrics:
-            out[m.name] = m.evaluate(score, convert)
+            if hasattr(m, "evaluate_multi"):
+                out.update(m.evaluate_multi(score))
+            else:
+                out[m.name] = m.evaluate(score, convert)
         return out
 
     def current_iteration(self) -> int:

@@ -60,11 +60,13 @@ def binned_from_numpy(bins: np.ndarray, num_bins: np.ndarray,
                       used_features: Optional[np.ndarray] = None,
                       num_total_features: Optional[int] = None,
                       label: Optional[np.ndarray] = None,
-                      feature_names: Optional[List[str]] = None
+                      feature_names: Optional[List[str]] = None,
+                      group: Optional[np.ndarray] = None
                       ) -> BinnedDataset:
     """BinnedDataset from a binned matrix and its mappers' state
     (BinMapper.to_dict of each used feature). The per-feature arrays must
-    agree with the mappers."""
+    agree with the mappers; group: the query sizes or boundaries of a
+    ranking dataset."""
     mappers = [BinMapper.from_dict(d) for d in bin_mappers_state]
     f = len(mappers)
     used = np.arange(f, dtype=np.int32) if used_features is None \
@@ -72,7 +74,8 @@ def binned_from_numpy(bins: np.ndarray, num_bins: np.ndarray,
     n = bins.shape[0]
     ds = BinnedDataset(np.ascontiguousarray(bins), mappers, used,
                        num_total_features or f,
-                       Metadata(n, label=label), feature_names)
+                       Metadata(n, label=label, group=group),
+                       feature_names)
     for name, given in (("num_bins", num_bins),
                         ("missing_types", missing_types),
                         ("is_categorical", is_categorical)):

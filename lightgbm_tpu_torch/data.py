@@ -25,12 +25,13 @@ __all__ = ["Metadata", "BinnedDataset"]
 
 
 class Metadata:
-    """Labels, weights, init scores (dataset.h:45)."""
+    """Labels, weights, query boundaries, init scores (dataset.h:45)."""
 
     def __init__(self, num_data: int,
                  label: Optional[np.ndarray] = None,
                  weight: Optional[np.ndarray] = None,
-                 init_score: Optional[np.ndarray] = None):
+                 init_score: Optional[np.ndarray] = None,
+                 group: Optional[np.ndarray] = None):
         self.num_data = num_data
         self.label = None if label is None else \
             np.ascontiguousarray(label, dtype=np.float32).reshape(-1)
@@ -38,12 +39,26 @@ class Metadata:
             np.ascontiguousarray(weight, dtype=np.float32).reshape(-1)
         self.init_score = None if init_score is None else \
             np.ascontiguousarray(init_score, dtype=np.float64)
+        # group: the sizes of the queries, or their boundaries (starting
+        # at 0, non-decreasing); kept as boundaries [Q + 1]
+        self.query_boundaries: Optional[np.ndarray] = None
+        if group is not None:
+            group = np.asarray(group)
+            if len(group) and group[0] == 0 and np.all(np.diff(group) >= 0):
+                self.query_boundaries = group.astype(np.int64)
+            else:
+                self.query_boundaries = np.concatenate(
+                    [[0], np.cumsum(group)]).astype(np.int64)
         if self.label is not None and len(self.label) != num_data:
             Log.fatal("Length of label (%d) != num_data (%d)",
                       len(self.label), num_data)
         if self.weight is not None and len(self.weight) != num_data:
             Log.fatal("Length of weight (%d) != num_data (%d)",
                       len(self.weight), num_data)
+        if self.query_boundaries is not None and \
+                self.query_boundaries[-1] != num_data:
+            Log.fatal("Sum of query counts (%d) != num_data (%d)",
+                      int(self.query_boundaries[-1]), num_data)
 
 
 def _select_used_features(all_mappers, pre_filter: bool):

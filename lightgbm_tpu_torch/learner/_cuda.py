@@ -55,7 +55,7 @@ KERNELS: Dict[str, tuple] = {
     "find_best_splits": ("lgbt_find_best_splits",
                          [_P] * 6 + [_I] * 4 + [_F] * 7 + [_P]),
     "prune_best_first": ("lgbt_prune_best_first", [_P] * 8 + [_I] * 3 + [_P]),
-    "predict_binned": ("lgbt_predict_binned", [_P] * 14 + [_I] * 5 + [_P]),
+    "predict_binned": ("lgbt_predict_binned", [_P] * 14 + [_I] * 8 + [_P]),
 }
 
 _lock = threading.Lock()

@@ -805,8 +805,10 @@ _MODES = {"fused_route_hist": ("_int", "_packed"),
           "find_best_splits": (), "find_best_splits_mono": (),
           # prune.prune_best_first
           "prune_best_first": (),
-          # predict.stacked_score_traj / predict_binned_tree
-          "predict_binned": ()}
+          # predict.stacked_score_traj / predict_binned_tree, and its
+          # class mode (k trees an iteration: class_score_add, a
+          # multiclass block's stacked_score_traj)
+          "predict_binned": (), "predict_binned_class": ()}
 _LAUNCHES: Dict[str, int] = {}
 # tallies of launches recorded into CUDA graphs being captured (innermost
 # last): a captured launch does not run then, it runs at each replay

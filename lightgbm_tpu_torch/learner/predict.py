@@ -8,12 +8,21 @@ trajectory of a block of stacked trees. Inputs are BINNED values (a valid
 set is quantized with the training set's mappers), so every decision is
 an integer compare.
 
+With k trees an iteration (num_class > 1) a block's stacked trees are [K,
+num_class, ...] and the scores [N, num_class]: stacked_score_traj adds
+each class's tree into its own column, the trajectory [K, N, num_class]
+(the JAX package's stacked_score_traj(num_class=...)), and
+class_score_add adds one tree into one class's column (the per-iteration
+valid update, the JAX package's score.at[:, cls].add(...)).
+
 On CUDA tensors each function is one launch of the hand-written kernel
 csrc/predict_binned.cu (a thread walks its row through the K trees in
-turn, no host sync); on CPU tensors the plain versions run, the JAX
-formulation in torch (`_traverse_ref`: every row one level a step until
-all sit on a leaf). Leaf ids are integers and each score is the same
-sequence of f32 adds, so kernel and plain version agree bit for bit.
+turn, no host sync; in class mode the thread carries its row's
+num_class scores from point to point); on CPU tensors the plain versions
+run, the JAX formulation in torch (`_traverse_ref`: every row one level a
+step until all sit on a leaf). Leaf ids are integers and each score is
+the same sequence of f32 adds, so kernel and plain version agree bit for
+bit.
 """
 
 from __future__ import annotations
@@ -27,8 +36,9 @@ from .grower import TreeArrays
 from .histogram_mxu import _check, _on_cpu, count_launch
 
 __all__ = ["predict_binned_tree", "leaf_index_tree", "stacked_score_traj",
-           "predict_binned_tree_ref", "leaf_index_tree_ref",
-           "stacked_score_traj_ref", "stacked_leaf_nodes"]
+           "class_score_add", "predict_binned_tree_ref",
+           "leaf_index_tree_ref", "stacked_score_traj_ref",
+           "class_score_add_ref", "stacked_leaf_nodes"]
 
 
 def _traverse_ref(tree: TreeArrays, bins: torch.Tensor,
@@ -66,10 +76,33 @@ def _tree_at(stacked: TreeArrays, i: int) -> TreeArrays:
     return TreeArrays(*[t[i] for t in stacked])
 
 
+def _class_steps_ref(stacked: TreeArrays, score0, bins, num_bins,
+                     missing_is_nan, cls0: int):
+    """[K, N, C] trajectory of K steps of G trees ([K, G, ...] stacked):
+    tree g of a step adds into column cls0 + g, one f32 add."""
+    k, g = stacked.leaf_value.shape[:2]
+    score = score0
+    traj = []
+    for i in range(k):
+        score = score.clone()
+        for j in range(g):
+            tree = TreeArrays(*[t[i, j] for t in stacked])
+            vals = tree.leaf_value[_traverse_ref(tree, bins, num_bins,
+                                                 missing_is_nan)]
+            score[:, cls0 + j] = score[:, cls0 + j] + vals
+        traj.append(score)
+    return torch.stack(traj)
+
+
 def stacked_score_traj_ref(stacked: TreeArrays, score0, bins, num_bins,
-                           missing_is_nan, *, leaves: bool = False):
+                           missing_is_nan, *, leaves: bool = False,
+                           num_class: int = 1):
     """Plain version of stacked_score_traj (and, with leaves=True, also
     the [K, N] int32 leaf node ids)."""
+    if num_class > 1:
+        traj = _class_steps_ref(stacked, score0, bins, num_bins,
+                                missing_is_nan, 0)
+        return traj[-1], traj
     k = stacked.leaf_value.shape[0]
     score = score0
     traj, nodes = [], []
@@ -87,57 +120,98 @@ def stacked_score_traj_ref(stacked: TreeArrays, score0, bins, num_bins,
 
 
 def _launch(stacked: TreeArrays, score0, bins, num_bins, missing_is_nan,
-            leaves: bool):
-    k, m1 = stacked.split_feature.shape
+            leaves: bool, num_class: int = 1, cls0: int = 0):
+    """One launch over the stacked trees: [K, ...] (num_class 1), or in
+    class mode [K, G, ...] (G trees a step into columns cls0.. of the
+    [N, num_class] score0)."""
+    lead = tuple(stacked.split_feature.shape[:-1])
+    m1 = stacked.split_feature.shape[-1]
+    k = lead[0]
+    group = lead[1] if num_class > 1 else 1
     n, f = bins.shape
     words = stacked.cat_bitset.shape[-1]
     dev = bins.device
     _check(bins, "bins", torch.uint8, (n, f))
     _check(num_bins, "num_bins", torch.int32, (f,))
     _check(missing_is_nan, "missing_is_nan", torch.bool, (f,))
-    if score0 is not None:
+    if num_class > 1:
+        if score0 is None or leaves or len(lead) != 2 or \
+                not 0 <= cls0 <= num_class - group:
+            raise ValueError("class mode: score0 [N, C], no leaf ids, "
+                             "[K, G, ...] trees into columns cls0..")
+        _check(score0, "score0", torch.float32, (n, num_class))
+    elif score0 is not None:
         _check(score0, "score0", torch.float32, (n,))
     fields = {}
     for name, dtype, shape in (
-            ("split_feature", torch.int32, (k, m1)),
-            ("threshold_bin", torch.int32, (k, m1)),
-            ("default_left", torch.bool, (k, m1)),
-            ("is_cat", torch.bool, (k, m1)),
-            ("cat_bitset", torch.int64, (k, m1, words)),
-            ("left", torch.int32, (k, m1)), ("right", torch.int32, (k, m1)),
-            ("leaf_value", torch.float32, (k, m1))):
+            ("split_feature", torch.int32, lead + (m1,)),
+            ("threshold_bin", torch.int32, lead + (m1,)),
+            ("default_left", torch.bool, lead + (m1,)),
+            ("is_cat", torch.bool, lead + (m1,)),
+            ("cat_bitset", torch.int64, lead + (m1, words)),
+            ("left", torch.int32, lead + (m1,)),
+            ("right", torch.int32, lead + (m1,)),
+            ("leaf_value", torch.float32, lead + (m1,))):
         t = getattr(stacked, name).contiguous()
         _check(t, name, dtype, shape)
         fields[name] = t
     if not 0 < words:
         raise ValueError("cat_bitset: no words")
-    traj = torch.empty((k, n), dtype=torch.float32, device=dev)
+    traj = torch.empty((k, n) if num_class == 1 else (k, n, num_class),
+                       dtype=torch.float32, device=dev)
     leaf = torch.empty((k, n), dtype=torch.int32, device=dev) \
         if leaves else None
     _cuda.call("predict_binned", dev, bins, fields["split_feature"],
                fields["threshold_bin"], fields["default_left"],
                fields["is_cat"], fields["cat_bitset"], fields["left"],
                fields["right"], fields["leaf_value"], num_bins,
-               missing_is_nan, score0, traj, leaf, n, f, k, m1, words)
-    count_launch("predict_binned")
+               missing_is_nan, score0, traj, leaf, n, f, k, m1, words,
+               num_class, group, cls0)
+    count_launch("predict_binned_class" if num_class > 1
+                 else "predict_binned")
     return traj, leaf
 
 
 def stacked_score_traj(stacked: TreeArrays, score0: torch.Tensor, bins,
-                       num_bins, missing_is_nan
+                       num_bins, missing_is_nan, *, num_class: int = 1
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(final score [N], trajectory [K, N] f32): the K stacked trees
     ([K, ...] TreeArrays, leaf values already shrunk) scored over the [N,
     F] uint8 bins in turn from score0, one f32 add a tree; point j is the
     score after tree j, what j + 1 per-iteration valid updates leave (the
-    JAX package's stacked_score_traj). One kernel launch on the card."""
+    JAX package's stacked_score_traj). With num_class > 1 the trees are
+    [K, num_class, ...], score0 [N, num_class] and the trajectory [K, N,
+    num_class]: iteration j's class-c tree adds into column c. One kernel
+    launch on the card."""
     if _on_cpu(bins, score0, num_bins, missing_is_nan,
                stacked.split_feature):
         return stacked_score_traj_ref(stacked, score0, bins, num_bins,
-                                      missing_is_nan)
+                                      missing_is_nan, num_class=num_class)
     traj, _ = _launch(stacked, score0, bins, num_bins, missing_is_nan,
-                      leaves=False)
+                      leaves=False, num_class=num_class)
     return traj[-1], traj
+
+
+def class_score_add_ref(tree: TreeArrays, score: torch.Tensor, cls: int,
+                        bins, num_bins, missing_is_nan) -> torch.Tensor:
+    """Plain version of class_score_add."""
+    stacked = TreeArrays(*[t[None, None] for t in tree])
+    return _class_steps_ref(stacked, score, bins, num_bins,
+                            missing_is_nan, cls)[0]
+
+
+def class_score_add(tree: TreeArrays, score: torch.Tensor, cls: int, bins,
+                    num_bins, missing_is_nan) -> torch.Tensor:
+    """A new [N, C] score: `score` with one tree's leaf values added into
+    column cls, one f32 add (the per-iteration path's valid update with k
+    trees an iteration). One launch of V's class mode on the card."""
+    if _on_cpu(bins, score, num_bins, missing_is_nan, tree.split_feature):
+        return class_score_add_ref(tree, score, cls, bins, num_bins,
+                                   missing_is_nan)
+    traj, _ = _launch(TreeArrays(*[t[None, None] for t in tree]), score,
+                      bins, num_bins, missing_is_nan, leaves=False,
+                      num_class=score.shape[1], cls0=cls)
+    return traj[0]
 
 
 def stacked_leaf_nodes(stacked: TreeArrays, bins, num_bins, missing_is_nan,

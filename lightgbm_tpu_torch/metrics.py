@@ -4,17 +4,19 @@ Copy of lightgbm_tpu/metrics.py for the PyTorch/CUDA port: numpy on the
 host, once per evaluated iteration, off the device path (the reference
 likewise evaluates on the CPU between boosting iterations,
 gbdt.cpp:469-572). Scores come back from the device once a block per
-valid set (engine.train). Ported: every metric whose objective or inputs
-the port has: the pointwise regression metrics, binary_logloss,
-binary_error, auc, average_precision, cross_entropy, cross_entropy_lambda
-and kullback_leibler. The multiclass metrics (multi_logloss, multi_error,
-auc_mu) and the ranking metrics (ndcg, map: query groups) are refused by
-create_metric, naming ROADMAP.md A6.
+valid set (engine.train). Every metric of the JAX package: the pointwise
+regression metrics, binary_logloss, binary_error, auc,
+average_precision, cross_entropy, cross_entropy_lambda,
+kullback_leibler, the multiclass metrics (multi_logloss, multi_error with
+multi_error_top_k, auc_mu) on [N, k] scores, and the ranking metrics
+(ndcg and map at each of eval_at, named ndcg@k and map@k, with
+label_gain) over the dataset's query groups. As in the JAX package,
+auc_mu averages the pairwise class AUCs without auc_mu_weights.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 
@@ -233,6 +235,31 @@ class AveragePrecisionMetric(Metric):
         return float((precision * recall_delta).sum())
 
 
+class MultiLoglossMetric(Metric):
+    name = "multi_logloss"
+
+    def evaluate(self, score, convert=None):
+        p = convert(score) if convert is not None else score
+        p = np.asarray(p, np.float64)
+        idx = self.label.astype(np.int64)
+        pt = np.clip(p[np.arange(len(idx)), idx], _EPS, None)
+        return self._avg(-np.log(pt))
+
+
+class MultiErrorMetric(Metric):
+    name = "multi_error"
+
+    def evaluate(self, score, convert=None):
+        p = np.asarray(score, np.float64)
+        k = self.config.multi_error_top_k
+        idx = self.label.astype(np.int64)
+        true_p = p[np.arange(len(idx)), idx]
+        # an error unless the true class ranks in the top k (ties count as
+        # correct)
+        rank = (p > true_p[:, None]).sum(axis=1)
+        return self._avg((rank >= k).astype(np.float64))
+
+
 class CrossEntropyMetric(_PointwiseMetric):
     name = "cross_entropy"
 
@@ -272,6 +299,90 @@ class KLDivMetric(_PointwiseMetric):
                 (1.0 - yy) * np.log((1.0 - yy) / (1.0 - p)))
 
 
+class _QueryMetric(Metric):
+    """A ranking metric at each of eval_at, averaged over the queries."""
+    is_higher_better = True
+
+    def init(self, metadata, num_data):
+        super().init(metadata, num_data)
+        if metadata.query_boundaries is None:
+            Log.fatal("%s metric requires query information",
+                      self.name.upper())
+        self.eval_at = [int(k) for k in
+                        (self.config.eval_at or [1, 2, 3, 4, 5])]
+
+    def query_value(self, lbl, order, k) -> float:
+        raise NotImplementedError
+
+    def evaluate_multi(self, score) -> Dict[str, float]:
+        qb = self.metadata.query_boundaries
+        out = {}
+        for k in self.eval_at:
+            vals = []
+            for qi in range(len(qb) - 1):
+                s, e = qb[qi], qb[qi + 1]
+                order = np.argsort(-np.asarray(score[s:e]), kind="stable")
+                vals.append(self.query_value(self.label[s:e], order, k))
+            out[f"{self.name}@{k}"] = float(np.mean(vals))
+        return out
+
+    def evaluate(self, score, convert=None):
+        return list(self.evaluate_multi(score).values())[0]
+
+
+class NDCGMetric(_QueryMetric):
+    name = "ndcg"
+
+    def init(self, metadata, num_data):
+        super().init(metadata, num_data)
+        gains = self.config.label_gain
+        self.label_gain = np.asarray(gains, np.float64) if gains \
+            else (2.0 ** np.arange(32)) - 1.0
+
+    def query_value(self, lbl, order, k):
+        lbl = lbl.astype(np.int64)
+        gains = self.label_gain[lbl[order][:k]]
+        disc = 1.0 / np.log2(np.arange(len(gains)) + 2.0)
+        dcg = (gains * disc).sum()
+        ideal = np.sort(self.label_gain[lbl])[::-1][:k]
+        idcg = (ideal * disc[:len(ideal)]).sum()
+        return dcg / idcg if idcg > 0 else 1.0
+
+
+class MapMetric(_QueryMetric):
+    name = "map"
+
+    def query_value(self, lbl, order, k):
+        rel = (lbl > 0).astype(np.float64)
+        rel_sorted = rel[order][:k]
+        prec = np.cumsum(rel_sorted) / (np.arange(len(rel_sorted)) + 1.0)
+        npos = min(rel.sum(), k)
+        return float((prec * rel_sorted).sum() / npos) if npos > 0 else 1.0
+
+
+class AucMuMetric(Metric):
+    name = "auc_mu"
+    is_higher_better = True
+
+    def evaluate(self, score, convert=None):
+        # multiclass AUC-mu (Kleiman & Page): the average of the pairwise
+        # class AUCs on score differences (metric/multiclass_metric.hpp)
+        p = np.asarray(score, np.float64)
+        num_class = p.shape[1]
+        y = self.label.astype(np.int64)
+        w = self.weight if self.weight is not None else np.ones(len(y))
+        total, cnt = 0.0, 0
+        for a in range(num_class):
+            for b in range(a + 1, num_class):
+                mask = (y == a) | (y == b)
+                if mask.sum() == 0:
+                    continue
+                total += AUCMetric._auc_fast(p[mask, a] - p[mask, b],
+                                             y[mask] == a, w[mask])
+                cnt += 1
+        return total / max(cnt, 1)
+
+
 METRIC_ALIASES = {
     "l2": "l2", "mean_squared_error": "l2", "mse": "l2",
     "regression": "l2", "regression_l2": "l2",
@@ -305,17 +416,12 @@ _CLASSES = {
     "gamma_deviance": GammaDevianceMetric, "tweedie": TweedieMetric,
     "binary_logloss": BinaryLoglossMetric, "binary_error": BinaryErrorMetric,
     "auc": AUCMetric, "average_precision": AveragePrecisionMetric,
+    "auc_mu": AucMuMetric, "ndcg": NDCGMetric, "map": MapMetric,
+    "multi_logloss": MultiLoglossMetric, "multi_error": MultiErrorMetric,
     "cross_entropy": CrossEntropyMetric,
     "cross_entropy_lambda": CrossEntropyLambdaMetric,
     "kullback_leibler": KLDivMetric,
 }
-
-
-# metrics whose objectives or inputs the port does not have yet
-_UNPORTED = {"multi_logloss": "multiclass", "multi_error": "multiclass",
-             "auc_mu": "multiclass",
-             "ndcg": "ranking (query groups)",
-             "map": "ranking (query groups)"}
 
 
 def create_metric(name: str, config: Config) -> Optional[Metric]:
@@ -324,11 +430,6 @@ def create_metric(name: str, config: Config) -> Optional[Metric]:
         if name in ("", "none", "null", "na", "custom"):
             return None
         Log.fatal("Unknown metric %s", name)
-    if canonical in _UNPORTED:
-        raise NotImplementedError(
-            f"metric {name!r} ({canonical}) is not ported to "
-            f"lightgbm_tpu_torch yet: {_UNPORTED[canonical]} "
-            "(ROADMAP.md port queue A6)")
     m = _CLASSES[canonical](config)
     m.name = canonical
     return m

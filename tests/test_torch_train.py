@@ -179,8 +179,6 @@ def test_train_without_cuda_raises(monkeypatch):
     {"gpu_use_dp": False},
     {"level_pipeline": True},
     {"tree_learner": "data"},
-    {"objective": "multiclass", "num_class": 3},
-    {"objective": "huber"},
 ])
 def test_unsupported_params_raise(extra):
     X, y = make_binary(n=200, f=4)
@@ -194,7 +192,7 @@ def test_valid_sets_and_callbacks_raise():
     """Valid sets and callbacks train (tests/test_torch_valid.py); what
     stays unported around them refuses, naming its queue item: the
     checkpoint callback and checkpoint_period with checkpoint_dir (A9),
-    resume_from (A9), multiclass and ranking metrics (A6)."""
+    resume_from (A9)."""
     X, y = make_binary(n=200, f=4)
     ds = lgt.Dataset(X, label=y)
     params = {"objective": "binary", "device_type": "cpu", "verbosity": -1}
@@ -205,7 +203,3 @@ def test_valid_sets_and_callbacks_raise():
     with pytest.raises(NotImplementedError, match="A9"):
         lgt.train(dict(params, checkpoint_period=5, checkpoint_dir="ckpt"),
                   ds, 1)
-    for metric in ("multi_logloss", "multi_error", "auc_mu", "ndcg", "map"):
-        with pytest.raises(NotImplementedError, match="A6"):
-            lgt.train(dict(params, metric=metric), ds, 1,
-                      valid_sets=[ds.create_valid(X, label=y)])

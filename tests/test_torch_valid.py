@@ -86,26 +86,43 @@ _REGRESSION = ("l2", "rmse", "l1", "quantile", "huber", "fair", "poisson",
                "cross_entropy_lambda")
 
 
+_MULTICLASS = ("multi_logloss", "multi_error", "auc_mu")
+_RANKING = ("ndcg", "map")
+
+
 @pytest.mark.parametrize("weighted", [False, True])
-@pytest.mark.parametrize("name", _BINARY + _REGRESSION)
+@pytest.mark.parametrize("name", _BINARY + _REGRESSION + _MULTICLASS +
+                         _RANKING)
 def test_metric_equals_jax(name, weighted):
     rng = np.random.RandomState(1)
     n = 500
     score = rng.randn(n).astype(np.float32)
+    group = None
+    params = {"alpha": 0.7}
     if name in _BINARY:
         label = (rng.rand(n) < 0.4).astype(np.float32)
         objective = "binary"
+    elif name in _MULTICLASS:
+        label = rng.randint(0, 3, n).astype(np.float32)
+        score = rng.randn(n, 3).astype(np.float32)
+        objective = "multiclass"
+        params.update(num_class=3, multi_error_top_k=2)
+    elif name in _RANKING:
+        label = rng.randint(0, 4, n).astype(np.float32)
+        objective = "lambdarank"
+        group = [20] * (n // 20)
+        params.update(eval_at=[1, 3, 10])
     else:
         label = np.abs(rng.randn(n)).astype(np.float32) + 0.1
         score = np.abs(score) + 0.05
         objective = "regression"
     weight = rng.rand(n).astype(np.float32) + 0.5 if weighted else None
-    params = {"objective": objective, "alpha": 0.7}
+    params["objective"] = objective
     cfg, jcfg = Config(params), JConfig(params)
     m = metrics.create_metric(name, cfg)
     jm = jmetrics.create_metric(name, jcfg)
-    m.init(Metadata(n, label=label, weight=weight), n)
-    jm.init(JMetadata(n, label=label, weight=weight), n)
+    m.init(Metadata(n, label=label, weight=weight, group=group), n)
+    jm.init(JMetadata(n, label=label, weight=weight, group=group), n)
     obj, jobj = create_objective(objective, cfg), jcreate_objective(
         objective, jcfg)
     got = m.evaluate(score, obj.convert_output)
@@ -113,14 +130,11 @@ def test_metric_equals_jax(name, weighted):
         jobj.convert_output(jnp.asarray(s))))
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-12)
     assert m.name == jm.name
-
-
-@pytest.mark.parametrize("name", ["multi_logloss", "multiclass",
-                                  "multi_error", "auc_mu", "ndcg", "map",
-                                  "lambdarank"])
-def test_unported_metrics_refuse(name):
-    with pytest.raises(NotImplementedError, match="A6"):
-        metrics.create_metric(name, Config({}))
+    if name in _RANKING:
+        got, want = m.evaluate_multi(score), jm.evaluate_multi(score)
+        assert list(got) == list(want) == [f"{name}@{k}" for k in (1, 3, 10)]
+        np.testing.assert_allclose(list(got.values()), list(want.values()),
+                                   rtol=1e-12)
 
 
 # ---------------------------------------------------------------------------
