@@ -3,6 +3,7 @@
 
     python3 chip_profile.py [--trees 5] [--trace train_trace.json]
                             [--root CHECKOUT] [--fused]
+                            [--efb [CARD]] [--param k=v ...]
 
 Trains the Higgs-like 1M x 28 binary configuration of chip_smoke.py
 (num_leaves 255, max_bin 255) through lightgbm_tpu_torch: two warm-up
@@ -19,7 +20,12 @@ another checkout's lightgbm_tpu_torch on this script's data. --fused
 trains through Booster.update_batch instead (the fused trainer's CUDA
 graphs): iteration 0 and two trees that capture the graphs as the
 warm-up, then blocks of --trees trees, each replayed; the host layers
-then read only what runs outside the graphs.
+then read only what runs outside the graphs. --efb trains chip_smoke.py's
+`efb` phase data instead (200,000 x 1,000 sparse, exclusive groups of 20,
+as CSR; 63 leaves, 63 bins), bundled; --efb 6 that data at its card=6
+density (each nonzero one of 6 values). --param k=v (repeatable) adds a
+training parameter, e.g. efb_segmented_scan=false, or enable_bundle=false
+for the same data unbundled (values as the port's Config parses them).
 """
 
 import argparse
@@ -44,6 +50,11 @@ def main():
     ap.add_argument("--trace", default="")
     ap.add_argument("--fused", action="store_true",
                     help="train through Booster.update_batch")
+    ap.add_argument("--efb", type=int, nargs="?", const=0, default=None,
+                    metavar="CARD", help="chip_smoke.py's efb data (card: "
+                    "0 continuous, or the values a nonzero takes)")
+    ap.add_argument("--param", action="append", default=[],
+                    help="k=v: an extra training parameter")
     ap.add_argument("--root", default=os.path.dirname(
         os.path.abspath(__file__)), help="checkout whose lightgbm_tpu_torch "
         "trains (default: this one)")
@@ -71,10 +82,17 @@ def main():
                 return _inner(*a, **k)
         setattr(grower_mxu, fn_name, wrapped)
 
-    X, y = chip_smoke.make_higgs_like(chip_smoke.N_ROWS,
-                                      chip_smoke.N_FEATURES)
-    ds = lgt.Dataset(X, label=y, params=chip_smoke.TRAIN_PARAMS)
-    booster = lgt.Booster(chip_smoke.TRAIN_PARAMS, ds)
+    if args.efb is not None:
+        X, y = chip_smoke.make_sparse(chip_smoke.EFB_ROWS, seed=11,
+                                      card=args.efb)
+        params = dict(chip_smoke.EFB_PARAMS)
+    else:
+        X, y = chip_smoke.make_higgs_like(chip_smoke.N_ROWS,
+                                          chip_smoke.N_FEATURES)
+        params = dict(chip_smoke.TRAIN_PARAMS)
+    params.update(kv.split("=", 1) for kv in args.param)
+    ds = lgt.Dataset(X, label=y, params=params)
+    booster = lgt.Booster(params, ds)
 
     def trees(k):
         if args.fused:
@@ -118,7 +136,9 @@ def main():
     # slow down, so the idle share is taken against the unprofiled wall
     print(json.dumps({"phase": "profile", "device": name,
                       "path": "fused" if args.fused else "per_iteration",
-                      "trees": args.trees,
+                      "trees": args.trees, "params": args.param,
+                      "efb_card": args.efb, "bins_shape":
+                      list(booster.gbdt.bins.shape),
                       "d2h_copies_per_tree": d2h / args.trees,
                       "wall_s_per_tree": plain_wall / args.trees,
                       "profiled_wall_s_per_tree": wall / args.trees,

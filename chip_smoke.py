@@ -28,7 +28,8 @@ categorical and NaN nodes; K1 (f32 and integer), K3, K7 (integer) and
 K5 again on sampled rows, a bagging mask and GOSS's weights and count,
 bit for bit, with GOSS's sampler and threshold timed — then trains through
 lightgbm_tpu_torch's entry points along twelve paths, each with the launch
-counts reset before it and read after it:
+counts reset before it and read after it (thirteen with the EFB phase
+below):
 
 - exact histograms: the Higgs-like binary configuration (num_leaves 255,
   max_bin 255), the same with min_data_in_leaf 1000 (which runs the
@@ -118,7 +119,22 @@ counts reset before it and read after it:
   leaf renewal, poisson, gamma, tweedie, cross_entropy and
   cross_entropy_lambda fused against update(), 5 iterations each, host
   predictions within 1e-4 of the device scores and the training metric
-  below iteration 0's.
+  below iteration 0's;
+- exclusive feature bundling and sparse input (phase `efb`): the JAX
+  package's EFB shape (helpers/bench_efb.py make_sparse: 200,000 rows x
+  1,000 features in exclusive groups of 20, binary, 63 leaves, 63 bins)
+  built as a CSR matrix, its Dataset's bins byte-equal to the dense
+  matrix's (seconds of each); four turns, exact and quantized with the
+  segmented scan (bundle-range routing) and the expansion (loc-table
+  routing), each through engine.train at fused_block_size 10 for 30
+  trees twice and against 30 update() calls, byte-equal; DART with EFB
+  (3 iterations) re-predicting its dropped trees through kernel V's
+  bundled mode; K1 and K2 in both EFB modes (K1 also in integer mode)
+  and V's bundled mode bit-equal to their plain versions at the phase's
+  shapes, each launched on the path; host predictions from the CSR input
+  within 1e-4 of the device scores and equal to the dense array's;
+  replayed trees/s and held-out AUC bundled against enable_bundle=false
+  on the same data.
 
 Beside the main path (`native_host`), the native host runtime
 (lightgbm_tpu_torch/cext, C++ built with g++ at first use) bins the 1M x
@@ -914,11 +930,21 @@ def backend_rows(torch, hm, hp, rng_mod, d, row, dev):
     def part_ref():
         return hp.partition_rows_ref(slot, num_slots=S_TUNE, row_block=1024,
                                      tallies=tallies)
+    # the library yardstick: a stable torch.sort of the rows' slots (the
+    # out-of-range ones as the trash slot) orders the rows as the
+    # partition lays them out
+    key = torch.where((slot >= 0) & (slot < S_TUNE), slot, S_TUNE)
+    src = part_ref()[1]
+    laid = src[src < n].long()
+    check(torch.equal(laid, torch.sort(key, stable=True)
+                      .indices[:laid.numel()]),
+          "a stable sort of the slots orders the rows otherwise than the "
+          "partition")
     # row_slot and the tallies read; block_slot, src and bounds written
     row("partition_rows", "lightgbm_tpu/learner/histogram_pallas.py:106",
         0.0, part, part_ref, 5,
         4 * n + 4 * tallies.numel() + 4 * tb * 1025 + 4 * (S_TUNE + 2), 0,
-        None)
+        lambda: torch.sort(key, stable=True))
     emit("kernel_detail", name="partition_rows",
          torch_partition_rows_ms=time_ms(torch, part_ref, 20),
          # None: the torch partition waits for the device
@@ -3647,6 +3673,382 @@ def objectives_path(torch, lgt, hm):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# EFB and sparse input (phase `efb`): the JAX package's own EFB shape
+# (helpers/bench_efb.py make_sparse, copied below), 200,000 rows x 1,000
+# features in exclusive groups of 20 (~95% sparse), binary, 63 leaves,
+# 63 bins; its plan bundles them into about 250 columns of up to 256 bins
+EFB_ROWS = 200_000
+EFB_FEATURES = 1000
+EFB_GROUP = 20
+EFB_VALID_ROWS = 50_000
+EFB_PARAMS = {"objective": "binary", "num_leaves": 63, "max_bin": 63,
+              "learning_rate": 0.1, "min_data_in_leaf": 20,
+              "verbosity": -1}
+EFB_TREES = 30
+EFB_BLOCK = 10
+EFB_TURNS = (("efb_exact", {}),
+             ("efb_exact_expansion", {"efb_segmented_scan": False}),
+             ("efb_quantized", {"use_quantized_grad": True}),
+             ("efb_quantized_expansion", {"use_quantized_grad": True,
+                                          "efb_segmented_scan": False}))
+EFB_DART = dict(EFB_PARAMS, boosting="dart", drop_rate=0.5, skip_drop=0.0)
+EFB_DART_TREES = 3
+# K1's widest kernel width in both modes (the grower's fit at row block
+# 1024: the loc-table mode's route side is as wide as the 1,000 features)
+S_EFB = 24
+M_EFB = 256           # route-table rows at 63 leaves, overshoot 2
+EFB_KERNELS = {
+    "route_rows_efbr": "lightgbm_tpu/learner/histogram_mxu.py:1065 "
+                       "(route_rows_mxu, efb_range)",
+    "route_rows_efb": "lightgbm_tpu/learner/histogram_mxu.py:1065 "
+                      "(route_rows_mxu, loc_table)",
+    "fused_route_hist_efbr": "lightgbm_tpu/learner/histogram_mxu.py:785 "
+                             "(fused_route_hist_mxu, efb_range)",
+    "fused_route_hist_efb": "lightgbm_tpu/learner/histogram_mxu.py:785 "
+                            "(fused_route_hist_mxu, loc_table)",
+    "predict_binned_efb": "lightgbm_tpu/learner/predict.py:25 (_traverse"
+                          "(efb=), predict_binned_tree; XLA, no Pallas)"}
+ROW_PATH.update(dict.fromkeys(EFB_KERNELS, "efb"))
+EFB_PATH = tuple(EFB_KERNELS) + ("fused_route_hist_efbr_int",
+                                 "fused_route_hist_efb_int",
+                                 "route_rows_efbr_counts",
+                                 "route_rows_efb_counts")
+
+
+def make_sparse(n, seed, f=EFB_FEATURES, group=EFB_GROUP, card=0):
+    """The JAX package's helpers/bench_efb.py make_sparse (the same draws,
+    the same values), built as a scipy CSR matrix: in each group of
+    `group` features one nonzero a row, rand + 0.5 (card=0) or one of
+    `card` values; the label from feature 0 and feature 500."""
+    import scipy.sparse as sp
+    rng = np.random.RandomState(seed)
+    cols, vals = [], []
+    logit = np.zeros(n, np.float32)
+    for g in range(0, f, group):
+        which = rng.randint(g, g + group, size=n)
+        if card:
+            v = (rng.randint(1, card + 1, size=n) /
+                 np.float32(card) + 0.5).astype(np.float32)
+        else:
+            v = rng.rand(n).astype(np.float32) + 0.5
+        cols.append(which)
+        vals.append(v)
+        if g == 0:
+            logit += np.where(which == 0, v * 2.0, 0.0)
+    g500 = 500 // group
+    x500 = np.where(cols[g500] == 500, vals[g500], np.float32(0.0))
+    logit += 0.5 * x500 + 0.3 * rng.randn(n).astype(np.float32)
+    y = (logit > np.median(logit)).astype(np.float32)
+    k = len(cols)
+    csr = sp.csr_matrix((np.stack(vals, 1).ravel(),
+                         np.stack(cols, 1).ravel(),
+                         np.arange(0, n * k + 1, k)), shape=(n, f))
+    return csr, y
+
+
+def efb_tables(torch, hm, gbdt, seed):
+    """A random pass's node tables over the booster's original features
+    (bundled, identity and every threshold of each), packed with the
+    plan's EFB columns, and rows spread over the nodes."""
+    rng = np.random.RandomState(seed)
+    dev = gbdt.bins.device
+    nb = gbdt.num_bins_d.cpu().numpy()
+    f = nb.shape[0]
+    m1 = M_EFB - 2
+    split = rng.rand(m1) < 0.7
+    feat = rng.randint(0, f, m1).astype(np.int32)
+    thr = (rng.rand(m1) * np.maximum(nb[feat] - 1, 1)).astype(np.int32)
+    words = (gbdt.bmax + 31) // 32
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+    efb = gbdt._efb
+    tbl, member = hm.pack_route_tables(
+        t(split), t(feat), t(thr), t(rng.rand(m1) < 0.5),
+        t(np.zeros(m1, bool)), t(rng.randint(0, m1, m1).astype(np.int32)),
+        t(rng.randint(0, m1, m1).astype(np.int32)),
+        t(rng.randint(-1, S_EFB + 4, m1).astype(np.int32)),
+        torch.zeros((m1, words), dtype=torch.int64, device=dev), M_EFB,
+        bcol=efb.col_of_feat[t(feat).long()], efb=efb)
+    feat_tbl = torch.stack([gbdt.num_bins_d,
+                            gbdt.missing_is_nan_d.to(torch.int32)],
+                           1).contiguous()
+    row_node = t(rng.randint(0, m1, gbdt.num_data).astype(np.int32))
+    return (tbl, member, feat_tbl), row_node, t(split)
+
+
+def efb_rows(torch, hm, row, boosters):
+    """K2 and K1 in both EFB modes at the phase's shapes, on the bundled
+    training matrix and random node tables (efb_tables), bit for bit
+    against their plain versions and across two calls; K1 also in its
+    integer mode. Bound: as the unbundled rows' (route: 12 bytes a row,
+    a bin a routed row, the node tables, and in loc mode 4 bytes for each
+    distinct (split feature, bundle bin) pair a routed row decodes
+    through the [F, Bb] loc table; K1: its routing, then the bundle
+    columns and channels of every slotted row and the histogram out)."""
+    for mode, gbdt in boosters.items():
+        suffix = "_efbr" if mode == "range" else "_efb"
+        kw = {"efb_range": True} if mode == "range" else \
+            {"loc_table": gbdt._efb.loc_table}
+        bins = gbdt.bins
+        n, fb = bins.shape
+        bb = gbdt._efb.bundle_bmax
+        route, row_node, split = efb_tables(torch, hm, gbdt, 23)
+        routed = split[row_node.long()]
+        n_routed = int(routed.sum())
+        table_bytes = sum(x.numel() * 4 for x in route)
+        if mode == "loc":
+            feat = route[0][row_node.long(), hm.TBL_FEAT].long()[routed]
+            pos = bins[routed, gbdt._efb.col_of_feat.long()[feat]].long()
+            table_bytes += 4 * int(torch.unique(feat * bb + pos).numel())
+        rn, rs = hm.route_rows(bins, row_node, *route, **kw)
+        rn_ref, rs_ref = hm.route_rows_ref(bins, row_node, *route, **kw)
+        check(torch.equal(rn, rn_ref) and torch.equal(rs, rs_ref),
+              f"route_rows{suffix} differs from its plain version")
+        row("route_rows" + suffix, EFB_KERNELS["route_rows" + suffix], 0.0,
+            lambda: hm.route_rows(bins, row_node, *route, **kw),
+            lambda: hm.route_rows_ref(bins, row_node, *route, **kw), 5,
+            12 * n + n_routed + table_bytes, 0, None, source="route_rows")
+        rng = np.random.RandomState(5)
+        grad = torch.as_tensor(rng.randn(n).astype(np.float32),
+                               device=bins.device)
+        hess = torch.as_tensor(rng.uniform(0.1, 1.0, n).astype(np.float32),
+                               device=bins.device)
+        cnt = torch.ones(n, device=bins.device)
+        scale = hm.exact_scale(grad, hess, cnt)
+
+        def k1(g=grad, h=hess, quantized=False):
+            return hm.fused_route_hist(
+                bins, g, h, cnt, row_node, *route, num_slots=S_EFB,
+                bmax=bb, quantized=quantized,
+                scale=None if quantized else scale, **kw)
+
+        def k1_ref(g=grad, h=hess, quantized=False):
+            return hm.fused_route_hist_ref(
+                bins, g, h, cnt, row_node, *route, num_slots=S_EFB,
+                bmax=bb, quantized=quantized,
+                scale=None if quantized else scale, **kw)
+        h_ref, rn_ref = k1_ref()
+        check(torch.equal(k1()[1], rn_ref),
+              f"fused_route_hist{suffix} routing differs")
+        err = check_hist(torch, "fused_route_hist" + suffix, k1, h_ref)
+        g_q = torch.round(grad * 40).clamp(-127, 127).to(torch.int8)
+        h_q = torch.round(hess * 100).to(torch.int8)
+        hq, rq = k1(g_q, h_q, True)
+        hq_ref, rq_ref = k1_ref(g_q, h_q, True)
+        check(torch.equal(rq, rq_ref) and torch.equal(hq, hq_ref),
+              f"fused_route_hist{suffix} integer mode differs from its "
+              "plain version")
+        n_slot = int(((rs_ref >= 0) & (rs_ref < S_EFB)).sum())
+        row("fused_route_hist" + suffix,
+            EFB_KERNELS["fused_route_hist" + suffix], err, k1, k1_ref, 3,
+            8 * n + n_routed + n_slot * (fb + 12) + h_ref.numel() * 4 +
+            table_bytes, n_slot * fb * 3, None,
+            source="build_histograms_scatter")
+        del h_ref, hq, hq_ref
+
+
+def efb_traversal_row(torch, row, gbdt, tree):
+    """Kernel V's bundled mode at one tree of the DART run over the
+    200,000 bundled training rows against its plain version, bit for
+    bit. Bound: each row's bundle bytes on its path once (distinct
+    columns), the tree's nodes (22 bytes each), the [N] output and 4
+    bytes for each distinct (split feature, bundle bin) pair a node visit
+    decodes through the loc table; or its node visits at the f32 rate. Library: the PyTorch
+    indexing walk with the loc table's decode, to the tree's depth (its
+    device ms timed as one CUDA graph)."""
+    from lightgbm_tpu_torch.learner import predict as pr
+    bins, efb = gbdt.bins, gbdt._efb
+    num_bins, nan = gbdt.num_bins_d, gbdt.missing_is_nan_d
+    n = bins.shape[0]
+    got = pr.predict_binned_tree(tree, bins, num_bins, nan, efb=efb)
+    want = pr.predict_binned_tree_ref(tree, bins, num_bins, nan, efb=efb)
+    check(same_bits(torch, got, want), "predict_binned's bundled mode "
+          "differs from its plain version")
+    rows_ = torch.arange(n, device=bins.device)
+    sf = tree.split_feature.long()
+    col = efb.col_of_feat.long()
+    left, right = tree.left.cpu().numpy(), tree.right.cpu().numpy()
+    parent = np.full(left.shape[0], -1, np.int64)
+    inner = np.nonzero(left >= 0)[0]
+    parent[left[inner]] = inner
+    parent[right[inner]] = inner
+    parent = torch.as_tensor(parent, device=bins.device)
+    cur = pr._traverse_ref(tree, bins, num_bins, nan, efb).long()
+    seen = torch.zeros(bins.shape, dtype=torch.bool, device=bins.device)
+    bb = efb.bundle_bmax
+    decoded = torch.zeros(efb.loc_table.numel(), dtype=torch.bool,
+                          device=bins.device)
+    visits, depth = 0, 0
+    while True:
+        up = parent[cur]
+        active = up >= 0
+        m = int(active.sum())
+        if m == 0:
+            break
+        up = up.clamp(min=0)
+        visits += m
+        feat = sf[up].clamp(min=0)
+        seen[rows_[active], col[feat][active]] = True
+        decoded[(feat * bb + bins[rows_, col[feat]].long())[active]] = True
+        cur = torch.where(active, up, cur)
+        depth += 1
+    nbytes = int(seen.sum()) + 22 * int(tree.num_nodes) + 4 * n + \
+        4 * int(decoded.sum())
+    loc = efb.loc_table.reshape(-1).long()
+
+    def library():
+        nd = torch.zeros(n, dtype=torch.int64, device=bins.device)
+        for _ in range(depth):
+            feat = sf[nd].clamp(min=0)
+            b = loc[feat * bb + bins[rows_, col[feat]].long()]
+            go = torch.where(nan[feat] & (b == num_bins[feat] - 1),
+                             tree.default_left[nd],
+                             b <= tree.threshold_bin[nd])
+            nxt = torch.where(go, tree.left[nd], tree.right[nd]).long()
+            nd = torch.where(sf[nd] >= 0, nxt, nd)
+        return tree.leaf_value[nd]
+    row("predict_binned_efb", EFB_KERNELS["predict_binned_efb"], 0.0,
+        lambda: pr.predict_binned_tree(tree, bins, num_bins, nan, efb=efb),
+        lambda: pr.predict_binned_tree_ref(tree, bins, num_bins, nan,
+                                           efb=efb), 3,
+        nbytes, visits, library, source="predict_binned",
+        library_graph=True)
+
+
+def efb_turn(torch, lgt, ds, name, params):
+    """One EFB configuration: engine.train at fused_block_size 10 for 30
+    trees, twice, against 30 update() calls: the model text byte-equal.
+    Returns (train s, the first train's booster, its fused stats and
+    stall polls, update() s)."""
+    p = dict(EFB_PARAMS, fused_block_size=EFB_BLOCK, **params)
+    shas, secs = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        booster = lgt.train(p, ds, EFB_TREES)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        shas.append(_sha(booster.model_to_string()))
+        if len(shas) == 1:
+            first = booster
+    check(first.gbdt._efb is not None and first.gbdt.fused_stats,
+          f"{name}: the booster did not bundle or the fused trainer did "
+          "not run")
+    stepped = lgt.Booster(p, ds)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(EFB_TREES):
+        stepped.update()
+    torch.cuda.synchronize()
+    update_s = time.perf_counter() - t0
+    check(shas[0] == shas[1] == _sha(stepped.model_to_string()),
+          f"{name}: train's model text differs across runs or from "
+          "update()'s")
+    g = first.gbdt
+    st = g.fused_stats
+    trees = sum(s_["trees"] for s_ in st)
+    reads = sum(sum(s_["fixup_reads"]) for s_ in st)
+    emit(name, params=params, trees=EFB_TREES,
+         fused_block_size=EFB_BLOCK, byte_equal=True,
+         model_sha256=shas[0][:16], train_s=secs, update_s=update_s,
+         update_trees_per_s=EFB_TREES / update_s,
+         host_syncs_per_tree=(reads + g.stall_polls) / trees,
+         graph_pool_bytes=[s_["graph_pool_bytes"] for s_ in st],
+         capture_s=[s_["capture_s"] for s_ in st],
+         leaves=[int(t.num_leaves) for t in g.trees])
+    return first
+
+
+def replay_rate(torch, lgt, ds, params):
+    """(replayed trees/s, booster): update_batch(10) (iteration 0, the
+    capture and nine trees), then update_batch(10) timed, the graphs'
+    replays alone."""
+    booster = lgt.Booster(dict(EFB_PARAMS, **params), ds)
+    booster.update_batch(EFB_BLOCK)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    booster.update_batch(EFB_BLOCK)
+    torch.cuda.synchronize()
+    return EFB_BLOCK / (time.perf_counter() - t0), booster
+
+
+def efb_path(torch, lgt, hm, row):
+    """Phase `efb`: the CSR matrix binned against the dense one (bin
+    matrix byte-equal, seconds of each); the launch counts reset, then the
+    four turns (efb_turn: exact and quantized, segmented scan and
+    expansion) and DART with EFB (3 iterations, kernel V's bundled mode
+    re-predicting dropped trees), the counts read; every EFB kernel
+    launched; host predictions from the CSR input within 1e-4 of the
+    device scores and equal to the dense array's; then kernel rows for K2
+    and K1 in both modes and V's bundled mode, and replayed trees/s and
+    held-out AUC bundled against enable_bundle=false on the same data,
+    in one call. Returns the launch counts."""
+    csr, y = make_sparse(EFB_ROWS, seed=11)
+    csr_v, y_v = make_sparse(EFB_VALID_ROWS, seed=99)
+    bin_params = {"max_bin": EFB_PARAMS["max_bin"], "verbosity": -1}
+    t0 = time.perf_counter()
+    ds = lgt.Dataset(csr, label=y, params=bin_params).construct()
+    csr_s = time.perf_counter() - t0
+    dense = csr.toarray()
+    t0 = time.perf_counter()
+    ds_dense = lgt.Dataset(dense, label=y, params=bin_params).construct()
+    dense_s = time.perf_counter() - t0
+    check(np.array_equal(ds.binned.bins, ds_dense.binned.bins),
+          "efb: the CSR Dataset's bins differ from the dense one's")
+    del ds_dense
+
+    hm.reset_launch_counts()
+    t_path = time.perf_counter()
+    turns = {name: efb_turn(torch, lgt, ds, name, params)
+             for name, params in EFB_TURNS}
+    dart = lgt.Booster(EFB_DART, ds)
+    for _ in range(EFB_DART_TREES):
+        dart.update()
+    path_s = time.perf_counter() - t_path
+    counts = hm.launch_counts()
+    for key in EFB_PATH:
+        check(counts[key] > 0, f"{key} was not launched on the efb path")
+    booster = turns["efb_exact"]
+    g = booster.gbdt
+    score = g.train_score_host()
+    host_csr = booster.predict(csr, raw_score=True)
+    host_dense = booster.predict(dense, raw_score=True)
+    host_err = float(np.abs(host_csr - score).max())
+    check(host_err <= 1e-4, f"efb: host predictions from CSR are "
+          f"{host_err} off the device scores")
+    check(np.array_equal(host_csr, host_dense),
+          "efb: CSR and dense predictions differ")
+    del dense, host_dense
+
+    range_g = g
+    loc_g = turns["efb_exact_expansion"].gbdt
+    efb_rows(torch, hm, row, {"range": range_g, "loc": loc_g})
+    efb_traversal_row(torch, row, dart.gbdt, dart.gbdt.trees[-1])
+
+    rate_b, bst_b = replay_rate(torch, lgt, ds, {})
+    rate_u, bst_u = replay_rate(torch, lgt, ds, {"enable_bundle": False})
+    check(bst_u.gbdt._efb is None, "efb: enable_bundle=false bundled")
+    auc_b = auc(bst_b.predict(csr_v, raw_score=True), y_v)
+    auc_u = auc(bst_u.predict(csr_v, raw_score=True), y_v)
+    # the label lives on 2 of 1,000 features, each active in 1 row of 20:
+    # a weak target, the same for both
+    check(min(auc_b, auc_u) > 0.5 and abs(auc_b - auc_u) <= 0.005,
+          f"efb: held-out AUC bundled {auc_b}, unbundled {auc_u}")
+    efb = g._efb
+    emit("efb", rows=EFB_ROWS, features=EFB_FEATURES,
+         nnz=int(csr.nnz), Fb=efb.num_cols, Bb=efb.bundle_bmax,
+         bundled_bin_bytes=int(g.bins.numel()),
+         csr_binning_s=csr_s, dense_binning_s=dense_s, path_s=path_s,
+         replayed_trees_per_s_bundled=rate_b,
+         replayed_trees_per_s_unbundled=rate_u,
+         held_out_auc_bundled=auc_b, held_out_auc_unbundled=auc_u,
+         host_vs_device_max_abs=host_err,
+         launches={k: counts[k] for k in EFB_PATH})
+    return counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3706,6 +4108,8 @@ def main():
                                            make_row(torch, rows))
     counts["ranking"] = ranking_path(torch, lgt, hm, dev)
     counts["objectives"] = objectives_path(torch, lgt, hm)
+    torch.cuda.empty_cache()
+    counts["efb"] = efb_path(torch, lgt, hm, make_row(torch, rows))
     for path, c in counts.items():
         check(path == "scan" or all(c[k] == 0 for k in SCAN_PATH),
               f"the {path} path launched K8: the booster never asks for it")

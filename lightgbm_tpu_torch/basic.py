@@ -1,6 +1,7 @@
 """User-facing Dataset and Booster (reference python-package/lightgbm/basic.py).
 
-Port of the dense-numpy subset of lightgbm_tpu/basic.py: `Dataset(data,
+Port of the numpy and scipy-sparse subset of lightgbm_tpu/basic.py:
+`Dataset(data,
 label, ..., reference=)` with lazy construction (a validation set bins
 with its reference's mappers; `Dataset.create_valid`) and
 `Booster(params, train_set)` with update (optionally on a custom
@@ -10,7 +11,10 @@ indices) / model_to_string / save_model. A booster trained on from an
 init_model keeps the base model's trees in front of its own. Training runs
 on the device named by `device_type` ("cuda" by default, "cpu" on
 request); prediction runs on the host model (the native predictor), like
-the JAX package's Booster.predict.
+the JAX package's Booster.predict. Sparse data (a scipy CSR/CSC matrix)
+is binned without densifying its values (BinnedDataset.from_sparse; a
+validation set too) and predicted densified in row chunks, as in the JAX
+package (basic.py:366-436, 943-960).
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import torch
 from .boosting.gbdt import (GBDT, check_supported, create_boosting,
                              resolve_device)
 from .config import Config
-from .data import BinnedDataset, Metadata
+from .data import BinnedDataset, Metadata, is_sparse
 from .metrics import METRIC_ALIASES, create_metric
 from .objectives import create_objective
 from .tree import HostModel
@@ -36,10 +40,8 @@ __all__ = ["Dataset", "Booster", "LightGBMError"]
 def _to_2d_float(data) -> np.ndarray:
     if hasattr(data, "values") and not isinstance(data, np.ndarray):
         data = data.values  # pandas
-    if hasattr(data, "tocsc") and hasattr(data, "nnz"):
-        raise NotImplementedError(
-            "sparse input is not ported to lightgbm_tpu_torch yet "
-            "(ROADMAP.md port queue P8); pass a dense array")
+    if is_sparse(data):
+        data = data.toarray()
     arr = np.asarray(data)
     if arr.ndim == 1:
         arr = arr.reshape(-1, 1)
@@ -73,7 +75,9 @@ class Dataset:
         if self._binned is not None:
             return self
         cfg = Config(self.params)
-        X = _to_2d_float(self.data)
+        # sparse stays sparse through binning: only the bins are dense
+        sparse_in = is_sparse(self.data)
+        X = self.data if sparse_in else _to_2d_float(self.data)
         names: Optional[List[str]] = None
         if self.feature_name != "auto" and self.feature_name is not None:
             names = list(self.feature_name)
@@ -106,7 +110,9 @@ class Dataset:
             if self.free_raw_data:
                 self.data = None
             return self
-        self._binned = BinnedDataset.from_raw(
+        build = BinnedDataset.from_sparse if sparse_in \
+            else BinnedDataset.from_raw
+        self._binned = build(
             X, md, max_bin=cfg.max_bin, min_data_in_bin=cfg.min_data_in_bin,
             sample_cnt=cfg.bin_construct_sample_cnt,
             use_missing=cfg.use_missing, zero_as_missing=cfg.zero_as_missing,
@@ -364,10 +370,22 @@ class Booster:
                 num_iteration: Optional[int] = None,
                 raw_score: bool = False,
                 pred_leaf: bool = False) -> np.ndarray:
-        return self._host_model().predict(
-            _to_2d_float(data), start_iteration=start_iteration,
-            num_iteration=num_iteration, raw_score=raw_score,
-            pred_leaf=pred_leaf)
+        model = self._host_model()
+        kw = dict(start_iteration=start_iteration,
+                  num_iteration=num_iteration, raw_score=raw_score,
+                  pred_leaf=pred_leaf)
+        if is_sparse(data):
+            # densified in row chunks of about 32 MB, so wide sparse input
+            # never needs its whole dense matrix (the JAX package's
+            # basic.py:943-960)
+            csr = data.tocsr()
+            if csr.shape[0] == 0:
+                return model.predict(np.zeros((0, csr.shape[1])), **kw)
+            chunk = max(1, (32 << 20) // max(1, 8 * csr.shape[1]))
+            return np.concatenate([
+                model.predict(_to_2d_float(csr[i:i + chunk]), **kw)
+                for i in range(0, csr.shape[0], chunk)], axis=0)
+        return model.predict(_to_2d_float(data), **kw)
 
     def model_to_string(self, num_iteration: Optional[int] = None,
                         start_iteration: int = 0) -> str:

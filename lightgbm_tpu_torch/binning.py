@@ -32,7 +32,8 @@ import numpy as np
 
 from . import cext
 
-__all__ = ["BinMapper", "MissingType", "find_bin_mappers"]
+__all__ = ["BinMapper", "MissingType", "find_bin_mappers",
+           "find_bin_mappers_sparse"]
 
 _ZERO_THRESHOLD = 1e-35
 
@@ -484,6 +485,45 @@ def find_bin_mappers(X: np.ndarray, max_bin: int = 255,
     for f in range(num_features):
         if mappers[f] is None:
             mappers[f] = from_sample(f)
+    return mappers
+
+
+def find_bin_mappers_sparse(X_csc, max_bin: int = 255,
+                            min_data_in_bin: int = 3,
+                            sample_cnt: int = 200000,
+                            use_missing: bool = True,
+                            zero_as_missing: bool = False,
+                            categorical_features: Optional[Sequence[int]]
+                            = None, seed: int = 1) -> List[BinMapper]:
+    """find_bin_mappers over a scipy CSC matrix (sorted indices, no
+    duplicates) without densifying it (the JAX package's
+    find_bin_mappers_sparse, lightgbm_tpu/binning.py:554): each column
+    gives the stored values of the sampled rows (the dense path's sample,
+    the same RandomState draw); the absent entries are the implicit zeros
+    BinMapper.from_sample models through total_sample_cnt (reference
+    FindBin, bin.cpp:325-360). The same mappers as the dense matrix's."""
+    num_data, num_features = X_csc.shape
+    cat_set = set(categorical_features or [])
+    if num_data > sample_cnt:
+        rng = np.random.RandomState(seed)
+        idx = np.sort(rng.choice(num_data, size=sample_cnt, replace=False))
+        total = sample_cnt
+    else:
+        idx = None
+        total = num_data
+    indptr, indices, vals = X_csc.indptr, X_csc.indices, X_csc.data
+    mappers = []
+    for f in range(num_features):
+        lo, hi = int(indptr[f]), int(indptr[f + 1])
+        rows_f = indices[lo:hi]
+        v = np.asarray(vals[lo:hi], dtype=np.float64)
+        if idx is not None:
+            pos = np.minimum(np.searchsorted(idx, rows_f), len(idx) - 1)
+            v = v[idx[pos] == rows_f]
+        nonzero = v[(np.abs(v) > _ZERO_THRESHOLD) | np.isnan(v)]
+        mappers.append(BinMapper.from_sample(
+            nonzero, total, max_bin, min_data_in_bin, use_missing,
+            zero_as_missing, is_categorical=f in cat_set))
     return mappers
 
 

@@ -9,7 +9,8 @@ tree on the gradients of what is left, then scales the new tree by
 1 / (k + 1) and the dropped ones by k / (k + 1) (xgboost_dart_mode: the
 new tree's shrinkage is learning_rate / (k + 1) and the dropped trees
 scale by k / (k + learning_rate)) and puts them back. Tree outputs are
-re-predicted over the training bins and each valid set by
+re-predicted over the training bins (GBDT._train_values: the bundled
+matrix through kernel V's bundled mode under EFB) and each valid set by
 learner/predict.predict_binned_tree (on the card kernel V at one tree);
 every score move is the tree's values times the factor, then one f32 add,
 the JAX package's order; with k trees an iteration an iteration is
@@ -82,12 +83,8 @@ class DART(GBDT):
         valid scores."""
         tree = self.trees[idx]
         cls = self.tree_class[idx]
-        if bins_u is None:
-            bins_u = self._train_bins_unpacked()
         self._set_class_score(cls, self._class_score(cls) +
-                              predict_binned_tree(
-                                  tree, bins_u, self.num_bins_d,
-                                  self.missing_is_nan_d) * factor)
+                              self._train_values(tree, bins_u) * factor)
         for i in range(len(self.valid_sets)):
             vals = predict_binned_tree(tree, self.valid_bins[i],
                                        self.num_bins_d,

@@ -80,6 +80,20 @@ quantile, MAPE) set each leaf to a weighted percentile of its rows'
 residuals after growth (learner/renew.py), before shrinkage, and run one
 iteration a dispatch, as in the JAX package.
 
+Exclusive feature bundling (enable_bundle, the JAX package's
+gbdt.py:110-153): _setup_train plans over the training bins (efb.py
+build_plan, one process: every row's bins) and, where the plan bundles
+anything, the device holds the bundled [N, Fb] matrix and the plan's
+tables (self._efb); the grower builds histograms in bundle space and
+routes in the plan's mode (efb_segmented_scan: bundle ranges and the
+segmented scan, else the loc table and the expansion), the score refresh
+of rollback and DART reads the bundled matrix through kernel V's bundled
+mode (_train_values), and validation matrices stay unbundled. EFB pins the mxu
+sweep and stores no 4-bit packed bins, as in the JAX package.
+efb_use_mxu selects the JAX package's grower for bundled data; the port
+has one grower, the MXU-shaped one, so its bundled path is the JAX
+package's efb_use_mxu=true path and the parameter selects nothing.
+
 `check_supported` refuses every parameter value whose code is not ported,
 naming the ROADMAP.md port-queue item that will bring it.
 """
@@ -97,6 +111,7 @@ import torch
 from .. import rng
 from ..config import Config
 from ..data import BinnedDataset
+from ..efb import build_plan, bundle_matrix, make_device_tables
 from ..learner.grower import TreeArrays
 from ..learner.grower_mxu import (Grower, _kernel_cap,
                                   autotune_hist_backend)
@@ -245,8 +260,8 @@ def _unsupported(cfg: Config) -> List[tuple]:
 def check_supported(cfg: Config) -> None:
     """Raise NotImplementedError for parameter values the port cannot
     train yet; it never runs something else in their place. Every
-    hist_backend is ported; the JAX package's rule that EFB pins mxu has
-    no counterpart here because EFB itself is not ported (P8)."""
+    hist_backend is ported (EFB pins mxu, with the JAX package's
+    warning)."""
     bad = _unsupported(cfg)
     if bad:
         raise NotImplementedError(
@@ -313,14 +328,34 @@ class GBDT:
             raise NotImplementedError(
                 "max_bin > 256 needs the portable grower, not ported to "
                 "lightgbm_tpu_torch yet (ROADMAP.md port queue P13)")
+        # EFB (reference feature_group.h:25; efb.py): bundle mutually
+        # exclusive sparse features so the histogram work scales with the
+        # bundle columns, not the features. Only the device bin matrix
+        # changes shape; the grower translates through the plan's tables
+        bins = ds.bins
+        self._efb = None
+        if cfg.enable_bundle and not cfg.linear_tree and ds.num_features:
+            plan = build_plan(ds.bins, ds.num_bins, ds.default_bins,
+                              np.asarray(ds.is_categorical),
+                              max_bundle_bins=256)
+            if plan is not None and plan.effective:
+                # the feature metadata attaches the segmented scan's
+                # tables; without them the grower expands each pass
+                seg = cfg.efb_segmented_scan
+                self._efb = make_device_tables(
+                    plan, ds.default_bins,
+                    num_bins=ds.num_bins if seg else None,
+                    missing_is_nan=(ds.missing_types == 2) if seg else None,
+                    is_cat=np.asarray(ds.is_categorical) if seg else None,
+                    device=dev)
+                bins = bundle_matrix(ds.bins, plan)
         # 4-bit packed bin storage (reference dense_bin.hpp:42) where the
         # JAX package packs: every feature fits a nibble and every growth
         # pass fits the fused/v2 kernels (the v1 fallback would unpack the
-        # whole matrix per call); no EFB and no linear trees in the port.
-        # Packed on the host, so the matrix goes to the device once.
-        bins = ds.bins
+        # whole matrix per call); not under EFB (no linear trees in the
+        # port). Packed on the host, so the matrix goes to the device once.
         self._packed4 = False
-        if cfg.bin_pack_4bit and self.bmax <= 16:
+        if cfg.bin_pack_4bit and self.bmax <= 16 and self._efb is None:
             over = cfg.growth_overshoot if cfg.growth_overshoot >= 1.0 \
                 else 0.0
             L_g = int(math.ceil(cfg.num_leaves * over)) if over \
@@ -431,16 +466,22 @@ class GBDT:
         integer sums make the backends bit-identical, so the choice is a
         speed knob only. Exact mode (last-bit summation order), a
         hist_autotune=false run and the CPU (nothing real to time) pin
-        mxu. The outcome is kept in self._hist_autotune."""
+        mxu. EFB growth has no scatter wiring (bundle-space routing stays
+        on the mxu sweep): it pins mxu, with a warning for another explicit
+        backend. The outcome is kept in self._hist_autotune."""
         if self._hist_backend is not None:
             return self._hist_backend
         cfg = self.config
         hb = cfg.hist_backend
         timings: dict = {}
         autotuned = False
-        if hb == "auto":
-            if (self.device.type == "cpu" or not cfg.hist_autotune or
-                    not cfg.use_quantized_grad):
+        if self._efb is not None and hb not in ("auto", "mxu"):
+            Log.warning("hist_backend=%s has no EFB bundle-space "
+                        "wiring; using mxu", hb)
+            hb = "mxu"
+        elif hb == "auto":
+            if (self._efb is not None or self.device.type == "cpu" or
+                    not cfg.hist_autotune or not cfg.use_quantized_grad):
                 hb = "mxu"
             else:
                 over = cfg.growth_overshoot \
@@ -479,7 +520,7 @@ class GBDT:
             const_hessian=self._const_hessian(),
             quantized_grad=cfg.use_quantized_grad, packed4=self._packed4,
             hist_backend=self._resolved_hist_backend(),
-            partition_impl=cfg.partition_impl)
+            partition_impl=cfg.partition_impl, efb=self._efb)
 
     def _mask_settings(self) -> dict:
         cfg = self.config
@@ -950,10 +991,21 @@ class GBDT:
 
     def _train_bins_unpacked(self) -> torch.Tensor:
         """The training bins as [N, F] uint8, unpacked for the call when
-        stored 4-bit (cold paths: rollback)."""
+        stored 4-bit (cold paths: rollback); under EFB the bundled [N, Fb]
+        matrix, which _train_values reads through the plan."""
         if not self._packed4:
             return self.bins
         return unpack_bins_4bit(self.bins, int(self.num_bins_d.shape[0]))
+
+    def _train_values(self, tree: TreeArrays,
+                      bins: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """[N] leaf values of `tree` over the training rows (bins: the
+        _train_bins_unpacked matrix, fetched when None), through kernel V's
+        bundled mode under EFB (the JAX package's _tree_values(efb=))."""
+        if bins is None:
+            bins = self._train_bins_unpacked()
+        return predict_binned_tree(tree, bins, self.num_bins_d,
+                                   self.missing_is_nan_d, efb=self._efb)
 
     def rollback_one_iter(self) -> None:
         """Drop the last iteration (gbdt.cpp:451-467): its tree comes off
@@ -969,9 +1021,7 @@ class GBDT:
             tree = self.trees.pop()
             cls = self.tree_class.pop()
             self._set_class_score(cls, self._class_score(cls) -
-                                  predict_binned_tree(
-                                      tree, bins, self.num_bins_d,
-                                      self.missing_is_nan_d))
+                                  self._train_values(tree, bins))
             for i in range(len(self.valid_sets)):
                 vals = predict_binned_tree(tree, self.valid_bins[i],
                                            self.num_bins_d,

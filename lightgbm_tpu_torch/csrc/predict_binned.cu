@@ -32,6 +32,14 @@
 // then adds the step's trees into it. The scores live in the trajectory
 // itself, so any C works; the row's C floats are contiguous.
 //
+// Bundled-matrix mode (EFB; the JAX package's _traverse(efb=), which
+// decodes through efb.route_bins): the bins are the bundled [N, Fb]
+// training matrix, rs bytes a row. A node of feature f reads the byte of
+// f's bundle column col_of_feat[f] and decodes it through the [F, Bb] loc
+// table to f's original local bin (the default bin out of f's segment);
+// the decision is then the plain one. A compile-time mode: the unbundled
+// walk is unchanged.
+//
 // Bound on this card: bytes, and those are few (the rows' bins on their
 // paths, the trees, K x N f32 out); the walk is latency-bound, a chain of
 // dependent loads a level. Design: a thread a row with a grid-stride
@@ -47,7 +55,19 @@ constexpr int kThreads = 128;
 constexpr int kCtasPerSm = 16;
 constexpr int kMaxDevices = 64;
 
+// The original local bin of feature feat in row rb: its byte, or under
+// EFB its bundle column's byte decoded through the loc table.
+template <bool kEfb>
+__device__ __forceinline__ int bin_of(const uint8_t* rb, int feat,
+                                      const int* __restrict__ col_of_feat,
+                                      const int* __restrict__ loc, int bb) {
+  if (!kEfb) return rb[feat];
+  return __ldg(loc + static_cast<size_t>(feat) * bb +
+               rb[__ldg(col_of_feat + feat)]);
+}
+
 // The leaf node id of one row in tree `base` (node arrays offset by base).
+template <bool kEfb>
 __device__ __forceinline__ int walk(
     const uint8_t* rb, int f, int base, int m1,
     const int* __restrict__ split_feature,
@@ -57,7 +77,9 @@ __device__ __forceinline__ int walk(
     const long long* __restrict__ cat_bitset, int words,
     const int* __restrict__ left, const int* __restrict__ right,
     const int* __restrict__ num_bins,
-    const uint8_t* __restrict__ missing_is_nan) {
+    const uint8_t* __restrict__ missing_is_nan,
+    const int* __restrict__ col_of_feat, const int* __restrict__ loc,
+    int bb) {
   int node = 0;
   // a path visits at most m1 nodes; the cap only stops a malformed
   // (cyclic) tree
@@ -65,7 +87,7 @@ __device__ __forceinline__ int walk(
     int feat = __ldg(split_feature + base + node);
     if (feat < 0) break;
     if (feat > f - 1) feat = f - 1;
-    const int b = rb[feat];
+    const int b = bin_of<kEfb>(rb, feat, col_of_feat, loc, bb);
     bool go_left;
     if (__ldg(is_cat + base + node)) {
       int word = b >> 5;
@@ -84,9 +106,9 @@ __device__ __forceinline__ int walk(
   return node;
 }
 
-template <bool kScore0, bool kLeaf>
+template <bool kScore0, bool kLeaf, bool kEfb>
 __global__ void predict_binned_kernel(
-    const uint8_t* __restrict__ bins, int n, int f,
+    const uint8_t* __restrict__ bins, int n, int f, int rs,
     const int* __restrict__ split_feature,
     const int* __restrict__ threshold_bin,
     const uint8_t* __restrict__ default_left,
@@ -97,17 +119,19 @@ __global__ void predict_binned_kernel(
     const int* __restrict__ num_bins,
     const uint8_t* __restrict__ missing_is_nan,
     const float* __restrict__ score0, float* __restrict__ traj,
-    int* __restrict__ leaf_out) {
+    int* __restrict__ leaf_out, const int* __restrict__ col_of_feat,
+    const int* __restrict__ loc, int bb) {
   const int stride = gridDim.x * blockDim.x;
   for (int row = blockIdx.x * blockDim.x + threadIdx.x; row < n;
        row += stride) {
-    const uint8_t* rb = bins + static_cast<size_t>(row) * f;
+    const uint8_t* rb = bins + static_cast<size_t>(row) * rs;
     float s = kScore0 ? score0[row] : 0.0f;
     for (int t = 0; t < k; ++t) {
       const int base = t * m1;
-      const int node = walk(rb, f, base, m1, split_feature, threshold_bin,
-                            default_left, is_cat, cat_bitset, words, left,
-                            right, num_bins, missing_is_nan);
+      const int node = walk<kEfb>(rb, f, base, m1, split_feature,
+                                  threshold_bin, default_left, is_cat,
+                                  cat_bitset, words, left, right, num_bins,
+                                  missing_is_nan, col_of_feat, loc, bb);
       const float v = __ldg(leaf_value + base + node);
       s = (kScore0 || t > 0) ? __fadd_rn(s, v) : v;
       const size_t at = static_cast<size_t>(t) * n + row;
@@ -119,8 +143,9 @@ __global__ void predict_binned_kernel(
 
 // Class mode: k steps of g trees each (k * g stacked trees), score0 and
 // traj [N, C] a point.
+template <bool kEfb>
 __global__ void predict_binned_class_kernel(
-    const uint8_t* __restrict__ bins, int n, int f,
+    const uint8_t* __restrict__ bins, int n, int f, int rs,
     const int* __restrict__ split_feature,
     const int* __restrict__ threshold_bin,
     const uint8_t* __restrict__ default_left,
@@ -131,12 +156,13 @@ __global__ void predict_binned_class_kernel(
     const int* __restrict__ num_bins,
     const uint8_t* __restrict__ missing_is_nan,
     const float* __restrict__ score0, float* __restrict__ traj,
-    int num_class, int group, int cls0) {
+    int num_class, int group, int cls0, const int* __restrict__ col_of_feat,
+    const int* __restrict__ loc, int bb) {
   const int stride = gridDim.x * blockDim.x;
   const size_t point = static_cast<size_t>(n) * num_class;
   for (int row = blockIdx.x * blockDim.x + threadIdx.x; row < n;
        row += stride) {
-    const uint8_t* rb = bins + static_cast<size_t>(row) * f;
+    const uint8_t* rb = bins + static_cast<size_t>(row) * rs;
     const size_t at = static_cast<size_t>(row) * num_class;
     const float* prev = score0 + at;
     for (int t = 0; t < k; ++t) {
@@ -144,9 +170,10 @@ __global__ void predict_binned_class_kernel(
       for (int c = 0; c < num_class; ++c) out[c] = prev[c];
       for (int g = 0; g < group; ++g) {
         const int base = (t * group + g) * m1;
-        const int node = walk(rb, f, base, m1, split_feature, threshold_bin,
-                              default_left, is_cat, cat_bitset, words, left,
-                              right, num_bins, missing_is_nan);
+        const int node = walk<kEfb>(rb, f, base, m1, split_feature,
+                                    threshold_bin, default_left, is_cat,
+                                    cat_bitset, words, left, right, num_bins,
+                                    missing_is_nan, col_of_feat, loc, bb);
         out[cls0 + g] = __fadd_rn(out[cls0 + g],
                                   __ldg(leaf_value + base + node));
       }
@@ -155,16 +182,49 @@ __global__ void predict_binned_class_kernel(
   }
 }
 
-template <bool kScore0, bool kLeaf>
-void launch(int blocks, cudaStream_t st, const uint8_t* bins, int n, int f,
-            const int* sf, const int* thr, const uint8_t* dl,
-            const uint8_t* ic, const long long* cb, int words,
-            const int* l, const int* r, const float* lv, int k, int m1,
-            const int* nb, const uint8_t* nan, const float* s0, float* traj,
-            int* leaf) {
-  predict_binned_kernel<kScore0, kLeaf><<<blocks, kThreads, 0, st>>>(
-      bins, n, f, sf, thr, dl, ic, cb, words, l, r, lv, k, m1, nb, nan, s0,
-      traj, leaf);
+// The kernel's arguments past its template choice.
+struct Args {
+  const uint8_t* bins;
+  int n, f, rs;
+  const int *sf, *thr;
+  const uint8_t *dl, *ic;
+  const long long* cb;
+  int words;
+  const int *l, *r;
+  const float* lv;
+  int k, m1;
+  const int* nb;
+  const uint8_t* nan;
+  const float* s0;
+  float* traj;
+  int* leaf;
+  const int *col, *loc;
+  int bb;
+};
+
+template <bool kScore0, bool kLeaf, bool kEfb>
+void launch(int blocks, cudaStream_t st, const Args& a) {
+  predict_binned_kernel<kScore0, kLeaf, kEfb><<<blocks, kThreads, 0, st>>>(
+      a.bins, a.n, a.f, a.rs, a.sf, a.thr, a.dl, a.ic, a.cb, a.words, a.l,
+      a.r, a.lv, a.k, a.m1, a.nb, a.nan, a.s0, a.traj, a.leaf, a.col, a.loc,
+      a.bb);
+}
+
+template <bool kEfb>
+void launch_all(int blocks, cudaStream_t st, const Args& a, int num_class,
+                int group, int cls0) {
+  if (num_class > 1) {
+    predict_binned_class_kernel<kEfb><<<blocks, kThreads, 0, st>>>(
+        a.bins, a.n, a.f, a.rs, a.sf, a.thr, a.dl, a.ic, a.cb, a.words, a.l,
+        a.r, a.lv, a.k, a.m1, a.nb, a.nan, a.s0, a.traj, num_class, group,
+        cls0, a.col, a.loc, a.bb);
+  } else if (a.s0 != nullptr) {
+    if (a.leaf != nullptr) launch<true, true, kEfb>(blocks, st, a);
+    else launch<true, false, kEfb>(blocks, st, a);
+  } else {
+    if (a.leaf != nullptr) launch<false, true, kEfb>(blocks, st, a);
+    else launch<false, false, kEfb>(blocks, st, a);
+  }
 }
 
 }  // namespace
@@ -172,17 +232,22 @@ void launch(int blocks, cudaStream_t st, const uint8_t* bins, int n, int f,
 // score0 and leaf_out may be null: no score0 starts the score at the first
 // tree's leaf value; no leaf_out writes no leaf ids. num_class > 1 is the
 // class mode: k steps of `group` trees into columns cls0.., score0 given,
-// no leaf ids.
+// no leaf ids. col_of_feat ([f] i32) and loc ([f, bb] i32) given: the
+// bundled-matrix mode, rs bytes a row (else rs = f).
 extern "C" int lgbt_predict_binned(
     const void* bins, const void* split_feature, const void* threshold_bin,
     const void* default_left, const void* is_cat, const void* cat_bitset,
     const void* left, const void* right, const void* leaf_value,
     const void* num_bins, const void* missing_is_nan, const void* score0,
-    void* traj, void* leaf_out, int n, int f, int k, int m1, int words,
-    int num_class, int group, int cls0, void* stream) {
+    void* traj, void* leaf_out, const void* col_of_feat, const void* loc,
+    int n, int f, int rs, int bb, int k, int m1, int words, int num_class,
+    int group, int cls0, void* stream) {
   if (n == 0 || k == 0) return cudaSuccess;
   if (num_class > 1 && (score0 == nullptr || leaf_out != nullptr ||
                         group < 1 || cls0 < 0 || cls0 + group > num_class))
+    return cudaErrorInvalidValue;
+  const bool efb = col_of_feat != nullptr;
+  if (efb != (loc != nullptr) || (!efb && rs != f))
     return cudaErrorInvalidValue;
   static int sm_count[kMaxDevices] = {};
   int dev = 0;
@@ -197,40 +262,21 @@ extern "C" int lgbt_predict_binned(
   int blocks = (n + kThreads - 1) / kThreads;
   if (blocks > sm_count[dev] * kCtasPerSm) blocks = sm_count[dev] * kCtasPerSm;
   auto st = static_cast<cudaStream_t>(stream);
-  const auto* b = static_cast<const uint8_t*>(bins);
-  const auto* sf = static_cast<const int*>(split_feature);
-  const auto* thr = static_cast<const int*>(threshold_bin);
-  const auto* dl = static_cast<const uint8_t*>(default_left);
-  const auto* ic = static_cast<const uint8_t*>(is_cat);
-  const auto* cb = static_cast<const long long*>(cat_bitset);
-  const auto* l = static_cast<const int*>(left);
-  const auto* r = static_cast<const int*>(right);
-  const auto* lv = static_cast<const float*>(leaf_value);
-  const auto* nb = static_cast<const int*>(num_bins);
-  const auto* nan = static_cast<const uint8_t*>(missing_is_nan);
-  const auto* s0 = static_cast<const float*>(score0);
-  auto* tr = static_cast<float*>(traj);
-  auto* lo = static_cast<int*>(leaf_out);
-  if (num_class > 1) {
-    predict_binned_class_kernel<<<blocks, kThreads, 0, st>>>(
-        b, n, f, sf, thr, dl, ic, cb, words, l, r, lv, k, m1, nb, nan, s0,
-        tr, num_class, group, cls0);
-  } else if (s0 != nullptr) {
-    if (lo != nullptr) {
-      launch<true, true>(blocks, st, b, n, f, sf, thr, dl, ic, cb, words, l,
-                         r, lv, k, m1, nb, nan, s0, tr, lo);
-    } else {
-      launch<true, false>(blocks, st, b, n, f, sf, thr, dl, ic, cb, words,
-                          l, r, lv, k, m1, nb, nan, s0, tr, lo);
-    }
-  } else {
-    if (lo != nullptr) {
-      launch<false, true>(blocks, st, b, n, f, sf, thr, dl, ic, cb, words,
-                          l, r, lv, k, m1, nb, nan, s0, tr, lo);
-    } else {
-      launch<false, false>(blocks, st, b, n, f, sf, thr, dl, ic, cb, words,
-                           l, r, lv, k, m1, nb, nan, s0, tr, lo);
-    }
-  }
+  const Args a{static_cast<const uint8_t*>(bins), n, f, rs,
+               static_cast<const int*>(split_feature),
+               static_cast<const int*>(threshold_bin),
+               static_cast<const uint8_t*>(default_left),
+               static_cast<const uint8_t*>(is_cat),
+               static_cast<const long long*>(cat_bitset), words,
+               static_cast<const int*>(left), static_cast<const int*>(right),
+               static_cast<const float*>(leaf_value), k, m1,
+               static_cast<const int*>(num_bins),
+               static_cast<const uint8_t*>(missing_is_nan),
+               static_cast<const float*>(score0), static_cast<float*>(traj),
+               static_cast<int*>(leaf_out),
+               static_cast<const int*>(col_of_feat),
+               static_cast<const int*>(loc), bb};
+  if (efb) launch_all<true>(blocks, st, a, num_class, group, cls0);
+  else launch_all<false>(blocks, st, a, num_class, group, cls0);
   return cudaGetLastError();
 }

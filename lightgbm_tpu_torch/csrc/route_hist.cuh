@@ -24,6 +24,24 @@ constexpr int kTblSlot = 5;    // next-pass histogram slot of the node (-1)
 constexpr int kTblSlotL = 6;   // next-pass slot of the left child (-1)
 constexpr int kTblSlotR = 7;   // next-pass slot of the right child (-1)
 
+// EFB tables (exclusive feature bundling, learner/histogram_mxu.py
+// TBL_COLS_EFB): 16 columns a row, the 8 above then the split feature's
+// bundle column and, for the range mode, its segment, the threshold's last
+// left position, the default bin's side and the NaN bin's position
+constexpr int kTblColsEfb = 16;
+constexpr int kTblBcol = 8;    // bundle column of the split feature
+constexpr int kTblSegLo = 9;   // first position of the feature's segment
+constexpr int kTblSegHi = 10;  // last position of the segment
+constexpr int kTblPt = 11;     // last position that goes left
+constexpr int kTblDbLeft = 12; // rows out of the segment go left (0/1)
+constexpr int kTblPNan = 13;   // position of the NaN bin (-1: none)
+
+// Routing modes: plain bins, EFB bundle columns decoded through the
+// [F, Bb] loc table, or EFB bundle-range compares
+constexpr int kRoutePlain = 0;
+constexpr int kRouteLoc = 1;
+constexpr int kRouteRange = 2;
+
 constexpr int kFlagSplit = 1;
 constexpr int kFlagDefaultLeft = 2;
 constexpr int kFlagCat = 4;
@@ -88,6 +106,35 @@ __device__ __forceinline__ void route_decide(int node, const int4& a,
   *new_slot = left ? b.z : b.w;
 }
 
+// The EFB range decision (the JAX package's _route_decide, efb_range):
+// pos is the row's position in the split feature's bundle column, c =
+// (bundle column, seg_lo, seg_hi, threshold position), d = (default side,
+// NaN position, -, -). Categorical features sit alone in their column, so
+// the position is their bin.
+__device__ __forceinline__ void route_decide_range(
+    int node, const int4& a, const int4& b, const int4& c, const int4& d,
+    int pos, const int* __restrict__ member, int w, int* new_node,
+    int* new_slot) {
+  const int flags = a.x;
+  if (!(flags & kFlagSplit)) {
+    *new_node = node;
+    *new_slot = b.y;
+    return;
+  }
+  bool left;
+  if (flags & kFlagCat) {
+    const unsigned word = static_cast<unsigned>(
+        __ldg(member + static_cast<size_t>(node) * w + (pos >> 5)));
+    left = (word >> (pos & 31)) & 1u;
+  } else if (pos >= c.y && pos <= c.z) {
+    left = pos == d.y ? (flags & kFlagDefaultLeft) != 0 : pos <= c.w;
+  } else {
+    left = d.x != 0;
+  }
+  *new_node = left ? a.w : b.x;
+  *new_slot = left ? b.z : b.w;
+}
+
 // The node table row of `node` as (a, b) (route_decide); an id outside
 // [0, m) reads an unsplit row of slot -1.
 __device__ __forceinline__ void table_row(const int* __restrict__ tbl,
@@ -100,6 +147,27 @@ __device__ __forceinline__ void table_row(const int* __restrict__ tbl,
   } else {
     *a = make_int4(0, 0, 0, 0);
     *b = make_int4(0, -1, -1, -1);
+  }
+}
+
+// The EFB table row of `node` (kTblColsEfb columns) as (a, b) and its EFB
+// columns (c, d); an id outside [0, m) reads an unsplit row of slot -1.
+// Loc mode reads c only.
+template <bool kRange>
+__device__ __forceinline__ void table_row_efb(const int* __restrict__ tbl,
+                                              int node, int m, int4* a,
+                                              int4* b, int4* c, int4* d) {
+  if (node >= 0 && node < m) {
+    const int4* row = reinterpret_cast<const int4*>(tbl) + 4 * node;
+    *a = __ldg(row);
+    *b = __ldg(row + 1);
+    *c = __ldg(row + 2);
+    if (kRange) *d = __ldg(row + 3);
+  } else {
+    *a = make_int4(0, 0, 0, 0);
+    *b = make_int4(0, -1, -1, -1);
+    *c = make_int4(0, 0, 0, 0);
+    *d = make_int4(0, -1, 0, 0);
   }
 }
 

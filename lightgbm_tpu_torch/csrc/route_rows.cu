@@ -27,6 +27,15 @@
 // >= s, and writes the chunk's column of the slot-major [s + 1, C] tallies
 // with plain stores: no zeroed buffer, no global atomics. Counts mode
 // adds a warp per slot that sums its row of the tallies.
+//
+// EFB modes (the JAX kernels' loc_table and efb_range; bins hold bundle
+// columns, the node table is kTblColsEfb wide): a row reads its node's
+// third int4 too (and the fourth in range mode), then the byte of the split
+// feature's bundle column. Loc mode decodes the original local bin through
+// the [F, Bb] loc table (a gather the read-only cache holds: F x Bb x 4
+// bytes, about 1 MB at 1000 x 256) and runs the plain decision; range mode
+// compares the bundle position with the node's segment, threshold position
+// and NaN position. A compile-time mode: the plain kernel is unchanged.
 #include "route_hist.cuh"
 
 namespace {
@@ -39,13 +48,14 @@ __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-template <bool kPacked, bool kTally>
+template <bool kPacked, bool kTally, int kMode>
 __global__ void __launch_bounds__(kThreads) route_rows_kernel(
     const uint8_t* __restrict__ bins, const int* __restrict__ row_node_in,
     const int* __restrict__ tbl, const int* __restrict__ member,
-    const int* __restrict__ feat_tbl, int* __restrict__ row_node_out,
-    int* __restrict__ row_slot_out, int* __restrict__ tallies, int n, int f,
-    int fh, int m, int w, int s, int nchunks) {
+    const int* __restrict__ feat_tbl, const int* __restrict__ loc,
+    int* __restrict__ row_node_out, int* __restrict__ row_slot_out,
+    int* __restrict__ tallies, int n, int f, int fh, int m, int w, int s,
+    int nchunks, int bb) {
   extern __shared__ int s_cnt[];  // tally mode: [s + 1] rows of the chunk
   if (kTally) {
     for (int k = threadIdx.x; k <= s; k += kThreads) s_cnt[k] = 0;
@@ -70,23 +80,42 @@ __global__ void __launch_bounds__(kThreads) route_rows_kernel(
         node[e] = i0 + e < n ? row_node_in[i0 + e] : -1;
       }
     }
-    int4 a[4], b[4];
+    int4 a[4], b[4], c[4], d[4];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) lgbt::table_row(tbl, node[e], m, &a[e], &b[e]);
+    for (int e = 0; e < 4; ++e) {
+      if (kMode == lgbt::kRoutePlain) {
+        lgbt::table_row(tbl, node[e], m, &a[e], &b[e]);
+      } else {
+        lgbt::table_row_efb<kMode == lgbt::kRouteRange>(
+            tbl, node[e], m, &a[e], &b[e], &c[e], &d[e]);
+      }
+    }
     int binv[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      // rows past n carry node -1: unsplit, no bin read
+      // rows past n carry node -1: unsplit, no bin read. EFB: the byte of
+      // the split feature's bundle column
+      const int col = kMode == lgbt::kRoutePlain ? a[e].y : c[e].x;
       binv[e] = (a[e].x & lgbt::kFlagSplit)
                     ? lgbt::read_bin<kPacked>(
-                          bins + static_cast<size_t>(i0 + e) * rs, a[e].y, fh)
+                          bins + static_cast<size_t>(i0 + e) * rs, col, fh)
                     : 0;
     }
     int out_node[4], out_slot[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      lgbt::route_decide(node[e], a[e], b[e], binv[e], feat_tbl, member, w,
-                         &out_node[e], &out_slot[e]);
+      if (kMode == lgbt::kRouteRange) {
+        lgbt::route_decide_range(node[e], a[e], b[e], c[e], d[e], binv[e],
+                                 member, w, &out_node[e], &out_slot[e]);
+      } else {
+        // loc mode: the original local bin of the split feature
+        const int v = kMode == lgbt::kRouteLoc && (a[e].x & lgbt::kFlagSplit)
+                          ? __ldg(loc + static_cast<size_t>(a[e].y) * bb +
+                                  binv[e])
+                          : binv[e];
+        lgbt::route_decide(node[e], a[e], b[e], v, feat_tbl, member, w,
+                           &out_node[e], &out_slot[e]);
+      }
     }
     if (whole) {
       *reinterpret_cast<int4*>(row_node_out + i0) =
@@ -136,23 +165,25 @@ __global__ void __launch_bounds__(kSumWarps * 32) tally_sums_kernel(
   if (lane == 0) counts[k] = sum;
 }
 
-template <bool kPacked, bool kTally>
+template <bool kPacked, bool kTally, int kMode>
 cudaError_t launch(const void* bins, const void* row_node_in,
                    const void* tbl, const void* member, const void* feat_tbl,
-                   void* row_node_out, void* row_slot_out, void* tallies,
-                   int n, int f, int fh, int m, int w, int s, int nchunks,
-                   cudaStream_t stream) {
+                   const void* loc, void* row_node_out, void* row_slot_out,
+                   void* tallies, int n, int f, int fh, int m, int w, int s,
+                   int nchunks, int bb, cudaStream_t stream) {
   const size_t smem = kTally ? (static_cast<size_t>(s) + 1) * sizeof(int)
                              : 0;
   cudaError_t err =
-      lgbt::allow_smem(route_rows_kernel<kPacked, kTally>, smem);
+      lgbt::allow_smem(route_rows_kernel<kPacked, kTally, kMode>, smem);
   if (err != cudaSuccess) return err;
-  route_rows_kernel<kPacked, kTally><<<nchunks, kThreads, smem, stream>>>(
-      static_cast<const uint8_t*>(bins),
-      static_cast<const int*>(row_node_in), static_cast<const int*>(tbl),
-      static_cast<const int*>(member), static_cast<const int*>(feat_tbl),
-      static_cast<int*>(row_node_out), static_cast<int*>(row_slot_out),
-      static_cast<int*>(tallies), n, f, fh, m, w, s, nchunks);
+  route_rows_kernel<kPacked, kTally, kMode>
+      <<<nchunks, kThreads, smem, stream>>>(
+          static_cast<const uint8_t*>(bins),
+          static_cast<const int*>(row_node_in), static_cast<const int*>(tbl),
+          static_cast<const int*>(member), static_cast<const int*>(feat_tbl),
+          static_cast<const int*>(loc), static_cast<int*>(row_node_out),
+          static_cast<int*>(row_slot_out), static_cast<int*>(tallies), n, f,
+          fh, m, w, s, nchunks, bb);
   return cudaGetLastError();
 }
 
@@ -162,26 +193,36 @@ cudaError_t launch(const void* bins, const void* row_node_in,
 // tbl 16-byte aligned. tallies != NULL: also the rows per slot and chunk,
 // [s + 1, C] i32 slot-major, C = max(1, ceil(n / kChunkRows)) (slot s:
 // rows whose slot is < 0 or >= s); counts != NULL (with tallies): also
-// counts[k], k < s, the rows of slot k.
+// counts[k], k < s, the rows of slot k. mode: kRoutePlain, kRouteLoc (loc
+// the [F, bb] i32 loc table) or kRouteRange; both EFB modes take unpacked
+// bundle columns (f of them a row) and a kTblColsEfb-wide table.
 extern "C" int lgbt_route_rows(const void* bins, const void* row_node_in,
                                const void* tbl, const void* member,
                                const void* feat_tbl, void* row_node_out,
                                void* row_slot_out, void* tallies,
-                               void* counts, int n, int f, int fh, int m,
-                               int w, int s, void* stream) {
+                               void* counts, const void* loc, int n, int f,
+                               int fh, int m, int w, int s, int bb, int mode,
+                               void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   const int nchunks =
       n > 0 ? (n + lgbt::kChunkRows - 1) / lgbt::kChunkRows : 1;
   if (n == 0 && tallies == nullptr) return cudaSuccess;
+  if (mode != lgbt::kRoutePlain && (fh > 0 || mode > lgbt::kRouteRange ||
+                                    (mode == lgbt::kRouteLoc && !loc)))
+    return cudaErrorInvalidValue;
   cudaError_t err;
-#define LGBT_ROUTE(P, T)                                                 \
-  err = launch<P, T>(bins, row_node_in, tbl, member, feat_tbl,           \
-                     row_node_out, row_slot_out, tallies, n, f, fh, m, w, \
-                     s, nchunks, st)
+#define LGBT_ROUTE(P, T, M)                                               \
+  err = launch<P, T, M>(bins, row_node_in, tbl, member, feat_tbl, loc,    \
+                        row_node_out, row_slot_out, tallies, n, f, fh, m, \
+                        w, s, nchunks, bb, st)
   if (fh > 0) {
-    if (tallies) LGBT_ROUTE(true, true); else LGBT_ROUTE(true, false);
+    if (tallies) LGBT_ROUTE(true, true, 0); else LGBT_ROUTE(true, false, 0);
+  } else if (mode == lgbt::kRouteLoc) {
+    if (tallies) LGBT_ROUTE(false, true, 1); else LGBT_ROUTE(false, false, 1);
+  } else if (mode == lgbt::kRouteRange) {
+    if (tallies) LGBT_ROUTE(false, true, 2); else LGBT_ROUTE(false, false, 2);
   } else {
-    if (tallies) LGBT_ROUTE(false, true); else LGBT_ROUTE(false, false);
+    if (tallies) LGBT_ROUTE(false, true, 0); else LGBT_ROUTE(false, false, 0);
   }
 #undef LGBT_ROUTE
   if (err != cudaSuccess || counts == nullptr || s == 0) return err;

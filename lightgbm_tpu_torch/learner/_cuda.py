@@ -46,7 +46,7 @@ _F = ctypes.c_float
 # kernel source stem -> (C entry point, argtypes); the last argument of
 # every entry is the CUDA stream
 KERNELS: Dict[str, tuple] = {
-    "route_rows": ("lgbt_route_rows", [_P] * 9 + [_I] * 6 + [_P]),
+    "route_rows": ("lgbt_route_rows", [_P] * 10 + [_I] * 8 + [_P]),
     "partition_rows": ("lgbt_partition_rows", [_P] * 6 + [_I] * 4 + [_P]),
     "build_histograms_scatter": ("lgbt_build_histograms_scatter",
                                  [_P] * 10 + [_I] * 8 + [_F, _I, _P]),
@@ -55,7 +55,7 @@ KERNELS: Dict[str, tuple] = {
     "find_best_splits": ("lgbt_find_best_splits",
                          [_P] * 6 + [_I] * 4 + [_F] * 7 + [_P]),
     "prune_best_first": ("lgbt_prune_best_first", [_P] * 8 + [_I] * 3 + [_P]),
-    "predict_binned": ("lgbt_predict_binned", [_P] * 14 + [_I] * 8 + [_P]),
+    "predict_binned": ("lgbt_predict_binned", [_P] * 16 + [_I] * 10 + [_P]),
 }
 
 _lock = threading.Lock()

@@ -58,8 +58,22 @@ loop (the JAX package's while_loop) reads `done`, once before each fix-up
 pass. The prune's replay is one kernel (prune.prune_best_first, the JAX
 package's fori_loop). `Grower` holds these programs apart, so the fused
 trainer (boosting/fused.py) can capture each in a CUDA graph;
-grow_tree_mxu runs them eagerly. Not ported: psum (distributed), EFB,
-forced splits, CEGB; boosting/gbdt.py refuses the params that need them.
+grow_tree_mxu runs them eagerly. Not ported: psum (distributed), forced
+splits, CEGB; boosting/gbdt.py refuses the params that need them.
+
+EFB (efb=, an efb.EfbDev; the JAX package's grower_mxu.py:392-401,
+585-620, 696-753, 1025-1044, 1124-1126): `bins` is the bundled [N, Fb]
+matrix, so the histograms, the sibling subtraction and the parent rows
+live in bundle space ([S, Fb, Bb, 3]), and the split scan, the trees and
+the feature masks in original features. With the plan's scan tables the
+routing kernels run their efb_range mode and the split scan is
+split_bundled.find_best_splits_bundled (efb_segmented_scan); without them
+routing decodes each row's original bin through the loc table and every
+pass's histogram is expanded back to original features
+(efb.expand_histograms) for the unbundled scan. EFB takes the mxu sweep
+whatever the hist_backend, with the JAX package's row block of 1024 (and
+the route width of the original features in the expansion mode) in the
+fused kernel's fit.
 """
 
 from __future__ import annotations
@@ -74,6 +88,7 @@ import numpy as np
 import torch
 
 from .. import rng
+from ..efb import EfbDev, expand_histograms
 from ..utils.log import Log
 from . import histogram
 from .grower import TreeArrays, _init_tree
@@ -84,6 +99,7 @@ from .histogram_mxu import (build_histograms_auto, exact_scale, exact_sums,
 from .histogram_pallas import build_histograms_scatter
 from .prune import prune_best_first
 from .split import BestSplits, SplitHyperParams, find_best_splits, leaf_output
+from .split_bundled import find_best_splits_bundled
 from .split_kernel import find_best_splits_kernel, kernel_supports
 
 __all__ = ["Grower", "autotune_hist_backend", "grow_tree_mxu", "growth_plan"]
@@ -211,7 +227,7 @@ class _GrowState(NamedTuple):
     slot_nodes: torch.Tensor   # [s_max] i32 node id per scan slot (m = none)
     best: BestSplits           # per-NODE arrays [m1]
     done: torch.Tensor         # [] bool: growth is over, passes are no-ops
-    parent_hist: torch.Tensor  # [P, F*B*3] parent scan rows, pair-indexed
+    parent_hist: torch.Tensor  # [P, F*B*3] parent kernel-space rows, by pair
     pair_parent: torch.Tensor  # [P] i32 parent's scan slot (-1 = stale)
     pair_sleft: torch.Tensor   # [P] bool smaller child is the left one
     pair_kstart: torch.Tensor  # [P] i32 first kernel slot of the pair
@@ -341,7 +357,8 @@ class Grower:
                  const_hessian: float = 0.0, quantized_grad: bool = False,
                  packed4: bool = False, hist_backend: str = "mxu",
                  partition_impl: str = "auto",
-                 use_scan_kernel: bool = False):
+                 use_scan_kernel: bool = False,
+                 efb: Optional[EfbDev] = None):
         if hist_backend not in HIST_BACKENDS:
             raise ValueError(f"grow_tree_mxu needs a resolved hist_backend, "
                              f"one of {HIST_BACKENDS}; got {hist_backend!r} "
@@ -350,8 +367,18 @@ class Grower:
         self.missing_is_nan, self.is_cat_feat = missing_is_nan, is_cat_feat
         self.dev = dev = bins.device
         self.n = bins.shape[0]
-        self.f = f = int(num_bins.shape[0]) if packed4 else bins.shape[1]
+        self.f = f = int(num_bins.shape[0]) if (packed4 or efb is not None) \
+            else bins.shape[1]
         self.nf_packed = f if packed4 else 0
+        # kernel-space dims: bundle columns and bins under EFB
+        self.efb = efb
+        self.fk = bins.shape[1] if efb is not None else f
+        self.bk = efb.bundle_bmax if efb is not None else bmax
+        # the routing mode: bundle ranges with the segmented scan, else the
+        # loc table's decode (expansion)
+        self.efb_range = efb is not None and efb.scan is not None
+        self.loc_table = efb.loc_table \
+            if efb is not None and efb.scan is None else None
         self.plan = plan = growth_plan(
             num_leaves=num_leaves, overshoot=overshoot,
             tail_split_cap=tail_split_cap, hist_subtraction=hist_subtraction,
@@ -465,7 +492,7 @@ class Grower:
             zb, ifull(m1, 0), ifull(m1, 0), zb, zb, ifull(m1, m),
             ifull(m1, m), slot0,
             torch.zeros((m1, w_cat), dtype=torch.int64, device=dev),
-            self.plan.m_pad)
+            self.plan.m_pad, efb=self.efb)
         slot_nodes0 = ifull(self.plan.s_max, m)
         slot_nodes0[0].fill_(0)
         kstart0 = ifull(P_all, -1)
@@ -476,7 +503,7 @@ class Grower:
             member0, slot_nodes0, best0,
             torch.zeros((), dtype=torch.bool, device=dev),
             torch.zeros((P_all if sub else 1,
-                         self.f * self.bmax * 3 if sub else 1),
+                         self.fk * self.bk * 3 if sub else 1),
                         dtype=torch.float32, device=dev),
             ifull(P_all, -1),
             torch.ones(P_all, dtype=torch.bool, device=dev), kstart0,
@@ -596,14 +623,23 @@ class Grower:
         and scatter: route_rows with per-slot counts (for pallas per slot
         and partition chunk, which the partition takes as they are), then
         the scatter kernel over the slot partition, or the segment-sum
-        oracle."""
+        oracle. EFB: the mxu sweep on bundle columns in the plan's routing
+        mode, the fused kernel's fit at the JAX package's row block of
+        1024 (the expansion's route side as wide as the original
+        features)."""
         bins, f, bmax, ch = self.bins, self.f, self.bmax, self.ch
         quant, nfp, feat_tbl = self.quant, self.nf_packed, self.feat_tbl
+        fk, bk = self.fk, self.bk
         h_grad, h_hess, cnt = inputs.h_grad, inputs.h_hess, inputs.cnt
+        efb_kw = dict(loc_table=self.loc_table, efb_range=self.efb_range)
         if m_cap is not None and m_cap < self.plan.m_pad:
             tbl = tbl[:m_cap]
             member = member[:m_cap]
-        if self.hist_backend != "mxu":
+        if self.efb is not None:
+            rw, rb = (0 if self.efb_range else f), 1024
+        else:
+            rw, rb = 0, fused_row_block(nslots, f, bmax, ch, quant)
+        if self.hist_backend != "mxu" and self.efb is None:
             pallas = self.hist_backend == "pallas"
             rn, rs, cts = route_rows(bins, row_node, tbl, member, feat_tbl,
                                      num_features=nfp, emit_counts=True,
@@ -622,20 +658,19 @@ class Grower:
                 if ch:
                     # const x count, as the kernel backends' channel drop
                     h[..., 1] = h[..., 2] * ch
-        elif fits_v2(nslots, f, bmax, quant,
-                     row_block=fused_row_block(nslots, f, bmax, ch, quant),
+        elif fits_v2(nslots, fk, bk, quant, route_width=rw, row_block=rb,
                      const_hess=ch):
             h, rn = fused_route_hist(bins, h_grad, h_hess, cnt, row_node,
                                      tbl, member, feat_tbl,
-                                     num_slots=nslots, bmax=bmax,
+                                     num_slots=nslots, bmax=bk,
                                      const_hess=ch, quantized=quant,
                                      num_features=nfp,
-                                     scale=inputs.hist_fixed)
+                                     scale=inputs.hist_fixed, **efb_kw)
         else:
             rn, rs = route_rows(bins, row_node, tbl, member, feat_tbl,
-                                num_features=nfp)
+                                num_features=nfp, **efb_kw)
             h = build_histograms_auto(bins, h_grad, h_hess, cnt, rs,
-                                      num_slots=nslots, bmax=bmax,
+                                      num_slots=nslots, bmax=bk,
                                       const_hess=ch, quantized=quant,
                                       num_features=nfp,
                                       scale=inputs.hist_fixed)
@@ -698,20 +733,29 @@ class Grower:
             large = st.parent_hist[pi] - small_rows
             hist = torch.where(is_small[:, None], small_rows,
                                torch.where(st_i[:, None], stale2, large)) \
-                .reshape(s, f, bmax, 3)
+                .reshape(s, self.fk, self.bk, 3)
         else:
             hist, row_node = self.sweep(inputs, st.row_node, st.tbl,
                                         st.member, s, m_cap=m_cap)
+        efb = self.efb
+        # the expansion mode scans original features; the segmented scan
+        # takes the bundle-space histogram as it is (the subtraction and the
+        # parent rows stay in bundle space either way)
+        hist_scan = expand_histograms(hist, efb) \
+            if efb is not None and efb.scan is None else hist
 
         slot_fmask, rand_bins = self.slot_masks(inputs, s, sn, path_mask,
                                                 pass_idx)
-        args = (hist, tree.sum_grad[sn], tree.sum_hess[sn], tree.count[sn],
-                tree.leaf_value[sn], self.num_bins, self.missing_is_nan,
-                self.is_cat_feat, slot_fmask, hp)
+        args = (hist_scan, tree.sum_grad[sn], tree.sum_hess[sn],
+                tree.count[sn], tree.leaf_value[sn], self.num_bins,
+                self.missing_is_nan, self.is_cat_feat, slot_fmask, hp)
         mono_kw = dict(monotone=monotone, cons_min=cons_min[sn],
                        cons_max=cons_max[sn], depth=tree.depth[sn]) \
             if hp.has_monotone else {}
-        if self.use_kernel and rand_bins is None:
+        if self.efb_range:
+            bs = find_best_splits_bundled(*args, efb, **mono_kw,
+                                          rand_bins=rand_bins)
+        elif self.use_kernel and rand_bins is None:
             bs = find_best_splits_kernel(*args, **mono_kw)
         else:
             bs = find_best_splits(*args, **mono_kw, rand_bins=rand_bins)
@@ -878,7 +922,9 @@ class Grower:
         tbl, member = pack_route_tables(
             split_mask, fclip, best.threshold_bin, best.default_left,
             new_tree.is_cat, child_l, child_r, slot_of_node,
-            new_tree.cat_bitset, self.plan.m_pad)
+            new_tree.cat_bitset, self.plan.m_pad,
+            bcol=efb.col_of_feat[fclip] if efb is not None else None,
+            efb=efb)
 
         done = (k == 0) | (new_tree.num_leaves >= L_g)
         new = _GrowState(new_tree, row_node, tbl, member, slot_nodes, best,
@@ -894,7 +940,9 @@ class Grower:
         refit the leaves of a quantized tree exactly."""
         hp = self.hp
         row_node, _ = route_rows(self.bins, st.row_node, st.tbl, st.member,
-                                 self.feat_tbl, num_features=self.nf_packed)
+                                 self.feat_tbl, num_features=self.nf_packed,
+                                 loc_table=self.loc_table,
+                                 efb_range=self.efb_range)
         tree = st.tree
         cmin, cmax = st.cons_min, st.cons_max
         if self.plan.over and self.quant and hp.has_monotone:
@@ -955,7 +1003,9 @@ def grow_tree_mxu(bins: torch.Tensor, grad: torch.Tensor,
     (histogram_mxu.pack_bins_4bit), F taken from num_bins. hist_backend:
     "mxu", "pallas" or "scatter" (module docstring) — a resolved backend,
     never "auto", which the booster resolves first (autotune_hist_backend);
-    partition_impl: the pallas backend's partition_rows impl. The only
+    partition_impl: the pallas backend's partition_rows impl. efb: an
+    efb.EfbDev when bins is the bundled [N, Fb] matrix (module docstring;
+    num_bins and the other per-feature arrays stay original). The only
     host reads are the fix-up loop's `done` (Grower.fixup_loop)."""
     return Grower(bins, num_bins, missing_is_nan, is_cat_feat,
                   **settings).grow(grad, hess, cnt_weight, feature_mask,

@@ -45,6 +45,17 @@ Each wrapper counts its kernel launches per mode (`launch_counts`).
 
 Route tables (`pack_route_tables`) are int32 columns, one row per node id:
 the TPU layout's base-256 digit pairs existed only to stay exact in bf16.
+
+EFB (exclusive feature bundling, efb.py): the bin matrix holds bundle
+columns [N, Fb], the histograms build in bundle space ([S, Fb, Bb, 3]),
+and the routing modes of route_rows and fused_route_hist read the split
+feature's bundle column from the node table's EFB columns (TBL_BCOL..,
+a table of TBL_COLS_EFB columns): with `loc_table` ([F, Bb] i32) the
+row's original local bin is decoded through it and the decision is the
+plain one; with `efb_range` the decision is position compares against the
+node's segment, threshold position, default side and NaN position
+(pack_route_tables(efb=) fills them from the plan's scan tables).
+feat_tbl stays original-feature-indexed in both.
 """
 
 from __future__ import annotations
@@ -75,6 +86,12 @@ __all__ = ["fused_route_hist", "route_rows", "build_histograms",
 TBL_FLAGS, TBL_FEAT, TBL_THR, TBL_LEFT, TBL_RIGHT = 0, 1, 2, 3, 4
 TBL_SLOT, TBL_SLOTL, TBL_SLOTR = 5, 6, 7
 TBL_COLS = 8
+# EFB columns (csrc/route_hist.cuh): the split feature's bundle column, and
+# for efb_range its segment [seg_lo, seg_hi], the last left position of the
+# threshold, the side of the default bin, the NaN bin's position (-1 none)
+TBL_BCOL, TBL_SEG_LO, TBL_SEG_HI, TBL_PT = 8, 9, 10, 11
+TBL_DBLEFT, TBL_PNAN = 12, 13
+TBL_COLS_EFB = 16
 FLAG_SPLIT, FLAG_DEFAULT_LEFT, FLAG_CAT = 1, 2, 4
 #: rows of a routing CTA and of a partition chunk (csrc/route_hist.cuh
 #: kChunkRows): route_rows' chunk tallies are the partition's input
@@ -204,12 +221,19 @@ def quantize_gradients(grad, hess, key):
 # ---------------------------------------------------------------------------
 
 def pack_route_tables(split_mask, feat, thr, default_left, is_cat, child_l,
-                      child_r, slot_of_node, cat_bitset, m_pad: int
+                      child_r, slot_of_node, cat_bitset, m_pad: int,
+                      bcol=None, efb=None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Node tables for the routing kernels: ([m_pad, TBL_COLS] int32,
     [m_pad, W] int32 categorical left-set words). Each node row carries its
     children's next-pass slots, so routing picks the destination slot
-    without a second lookup. Rows past the tree are unsplit, slot -1."""
+    without a second lookup. Rows past the tree are unsplit, slot -1.
+
+    efb (an EfbDev): the table is [m_pad, TBL_COLS_EFB], its EFB columns
+    holding each node's split-feature bundle column (bcol, [m1] i32; the
+    feature id when None) and, where the plan has its scan tables, the
+    bundle-range constants of the node's (feature, threshold) (the JAX
+    package's pack_route_tables(efb=), histogram_mxu.py:923-930)."""
     m1 = split_mask.shape[0]
     dev = split_mask.device
     cl_i = child_l.to(torch.int64).clamp(0, m1 - 1)
@@ -222,8 +246,24 @@ def pack_route_tables(split_mask, feat, thr, default_left, is_cat, child_l,
              default_left.to(torch.int32) * FLAG_DEFAULT_LEFT +
              is_cat.to(torch.int32) * FLAG_CAT)
     cols = [flags, feat, thr, child_l, child_r, slot_of_node, slot_l, slot_r]
-    tbl = torch.zeros((m_pad, TBL_COLS), dtype=torch.int32, device=dev)
-    tbl[:, TBL_SLOT:].fill_(-1)
+    width = TBL_COLS
+    if efb is not None:
+        width = TBL_COLS_EFB
+        fr = feat.to(torch.int64).clamp(0, efb.col_of_feat.shape[0] - 1)
+        zero = torch.zeros(m1, dtype=torch.int32, device=dev)
+        er = efb.scan
+        if er is not None:
+            th = thr.to(torch.int64).clamp(0, er.pos_thresh.shape[1] - 1)
+            range_cols = [efb.seg_lo[fr], efb.seg_hi[fr],
+                          er.pos_thresh[fr, th],
+                          torch.where(er.nan_is_default[fr], default_left,
+                                      er.db_le_t[fr, th]),
+                          er.p_nan_f[fr]]
+        else:
+            range_cols = [zero, zero, zero, zero, zero - 1]
+        cols += [feat if bcol is None else bcol] + range_cols + [zero, zero]
+    tbl = torch.zeros((m_pad, width), dtype=torch.int32, device=dev)
+    tbl[:, TBL_SLOT:TBL_COLS].fill_(-1)
     tbl[:m1] = torch.stack([c.to(torch.int32) for c in cols], dim=1)
     member = torch.zeros((m_pad, cat_bitset.shape[1]), dtype=torch.int32,
                          device=dev)
@@ -326,25 +366,47 @@ def chunk_tallies_ref(row_slot, num_slots: int) -> torch.Tensor:
 
 def route_rows_ref(bins, row_node, tbl, member, feat_tbl, *,
                    num_features: int = 0, emit_counts: bool = False,
-                   num_slots: int = 0, chunk_tallies: bool = False):
+                   num_slots: int = 0, chunk_tallies: bool = False,
+                   loc_table=None, efb_range: bool = False):
     """(new row_node, new row_slot) after one level of routing; with
     emit_counts also the [num_slots] i32 count of rows whose new slot is
     in [0, num_slots), or with chunk_tallies too the rows per slot and
     chunk (chunk_tallies_ref, trash slot included). num_features > 0:
-    bins are 4-bit packed."""
+    bins are 4-bit packed. loc_table / efb_range: bins are EFB bundle
+    columns and the table has the EFB columns (module docstring; the JAX
+    package's _route_decide, histogram_mxu.py:315-430): the row's bin is
+    that of the split feature's bundle column, decoded to the original
+    local bin through loc_table, or compared as a bundle position
+    (efb_range: in-segment rows go left iff pos <= the threshold's
+    position, the NaN position by default_left, out-of-segment rows by
+    the default bin's side)."""
     bins = _unpacked(bins, num_features)
     m = tbl.shape[0]
-    f = bins.shape[1]
+    efb = loc_table is not None or efb_range
+    f = feat_tbl.shape[0] if efb else bins.shape[1]
     node = row_node.to(torch.int64)
     in_range = (node >= 0) & (node < m)
-    row = tbl[node.clamp(0, m - 1)]                              # [N, 8]
+    row = tbl[node.clamp(0, m - 1)]                              # [N, cols]
     flags = torch.where(in_range, row[:, TBL_FLAGS], 0)
+    defl = (flags & FLAG_DEFAULT_LEFT) != 0
     feat = row[:, TBL_FEAT].to(torch.int64).clamp(0, f - 1)
-    binv = torch.gather(bins, 1, feat[:, None])[:, 0].to(torch.int64)
-    nb = feat_tbl[feat, 0].to(torch.int64)
-    is_nan_bin = (feat_tbl[feat, 1] != 0) & (binv == nb - 1)
-    num_left = torch.where(is_nan_bin, (flags & FLAG_DEFAULT_LEFT) != 0,
-                           binv <= row[:, TBL_THR])
+    col = row[:, TBL_BCOL].to(torch.int64).clamp(0, bins.shape[1] - 1) \
+        if efb else feat
+    binv = torch.gather(bins, 1, col[:, None])[:, 0].to(torch.int64)
+    if efb_range:
+        in_seg = (binv >= row[:, TBL_SEG_LO]) & (binv <= row[:, TBL_SEG_HI])
+        num_left = torch.where(
+            in_seg, torch.where(binv == row[:, TBL_PNAN], defl,
+                                binv <= row[:, TBL_PT]),
+            row[:, TBL_DBLEFT] != 0)
+    else:
+        if loc_table is not None:
+            bb = loc_table.shape[1]
+            binv = loc_table.reshape(-1)[feat * bb + binv.clamp(0, bb - 1)] \
+                .to(torch.int64)
+        nb = feat_tbl[feat, 0].to(torch.int64)
+        is_nan_bin = (feat_tbl[feat, 1] != 0) & (binv == nb - 1)
+        num_left = torch.where(is_nan_bin, defl, binv <= row[:, TBL_THR])
     w = member.shape[1]
     word = member[node.clamp(0, m - 1), (binv >> 5).clamp(0, w - 1)]
     cat_left = ((word.to(torch.int64) >> (binv & 31)) & 1) != 0
@@ -412,13 +474,17 @@ def build_histograms_ref(bins, grad, hess, cnt, row_slot, *, num_slots: int,
 def fused_route_hist_ref(bins, grad, hess, cnt, row_node, tbl, member,
                          feat_tbl, *, num_slots: int, bmax: int,
                          const_hess: float = 0.0, quantized: bool = False,
-                         num_features: int = 0, scale: torch.Tensor = None
+                         num_features: int = 0, scale: torch.Tensor = None,
+                         loc_table=None, efb_range: bool = False
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(hist [num_slots, F, bmax, 3], new row_node): route one level, then
-    histogram the rows by their new slot (build_histograms_ref)."""
+    histogram the rows by their new slot (build_histograms_ref). With
+    loc_table or efb_range (route_rows_ref) the bins are EFB bundle
+    columns: F is Fb and bmax is Bb."""
     bins = _unpacked(bins, num_features)
     new_node, new_slot = route_rows_ref(bins, row_node, tbl, member,
-                                        feat_tbl)
+                                        feat_tbl, loc_table=loc_table,
+                                        efb_range=efb_range)
     hist = build_histograms_ref(bins, grad, hess, cnt, new_slot,
                                 num_slots=num_slots, bmax=bmax,
                                 const_hess=const_hess, quantized=quantized,
@@ -527,16 +593,32 @@ def _bin_dims(bins: torch.Tensor, num_features: int) -> Tuple[int, int]:
     return num_features, fcols
 
 
+def _efb_mode(loc_table, efb_range: bool) -> int:
+    """The routing kernel's mode: 0 plain, 1 loc_table, 2 efb_range."""
+    if efb_range:
+        return 2
+    return 0 if loc_table is None else 1
+
+
 def _check_route_args(bins, row_node, tbl, member, feat_tbl,
-                      num_features) -> Tuple[int, int]:
+                      num_features, loc_table=None, efb_range=False
+                      ) -> Tuple[int, int]:
     f, fh = _bin_dims(bins, num_features)
     _check(row_node, "row_node", torch.int32, (bins.shape[0],))
-    _check(tbl, "tbl", torch.int32, (tbl.shape[0], TBL_COLS))
+    mode = _efb_mode(loc_table, efb_range)
+    if mode and fh:
+        raise ValueError("EFB routing reads unpacked bundle columns")
+    _check(tbl, "tbl", torch.int32,
+           (tbl.shape[0], TBL_COLS_EFB if mode else TBL_COLS))
     if tbl.data_ptr() % 16:
         raise ValueError("tbl must start on a 16-byte boundary (the kernel "
-                         "reads a node's row as two int4)")
+                         "reads a node's row as int4)")
     _check(member, "member", torch.int32, (tbl.shape[0], member.shape[1]))
-    _check(feat_tbl, "feat_tbl", torch.int32, (f, 2))
+    nf = feat_tbl.shape[0] if mode else f
+    _check(feat_tbl, "feat_tbl", torch.int32, (nf, 2))
+    if mode == 1:
+        _check(loc_table, "loc_table", torch.int32,
+               (nf, loc_table.shape[1]))
     return f, fh
 
 
@@ -568,7 +650,8 @@ def _scale_of(scale, grad, hess, cnt, quantized):
 def fused_route_hist(bins, grad, hess, cnt, row_node, tbl, member, feat_tbl,
                      *, num_slots: int, bmax: int, const_hess: float = 0.0,
                      quantized: bool = False, num_features: int = 0,
-                     scale: torch.Tensor = None
+                     scale: torch.Tensor = None, loc_table=None,
+                     efb_range: bool = False
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Route rows through the previous pass's tables and build the new
     frontier's histograms. Returns (hist [S, F, bmax, 3], new row_node [N]
@@ -576,6 +659,9 @@ def fused_route_hist(bins, grad, hess, cnt, row_node, tbl, member, feat_tbl,
     their unscaled integer sums; else scale ([3] i32, exact_scale of grad,
     hess, cnt when None) is the fixed point of the sums. num_features > 0:
     bins are 4-bit packed (pack_bins_4bit) with that many features.
+    loc_table / efb_range: bins are EFB bundle columns (route_rows'
+    modes), F is Fb and bmax is Bb; the launches count with "_efb" (loc
+    table) or "_efbr" (range) after the wrapper's name.
 
     On the card: route_rows with chunk tallies, then the partition kernel
     fed those tallies (no count pass of its own) and the scatter kernel
@@ -589,7 +675,8 @@ def fused_route_hist(bins, grad, hess, cnt, row_node, tbl, member, feat_tbl,
     kw = dict(num_slots=num_slots, bmax=bmax, const_hess=const_hess,
               quantized=quantized, num_features=num_features, scale=scale)
     if _on_cpu(*args):
-        return fused_route_hist_ref(*args, **kw)
+        return fused_route_hist_ref(*args, loc_table=loc_table,
+                                    efb_range=efb_range, **kw)
     _check_hist_args(bins, grad, hess, cnt, bmax, quantized, num_features)
     n = bins.shape[0]
     dev = bins.device
@@ -598,10 +685,11 @@ def fused_route_hist(bins, grad, hess, cnt, row_node, tbl, member, feat_tbl,
     tallies = scratch(dev, "route_tallies",
                       (num_slots + 1) * num_chunks(n)).view(num_slots + 1, -1)
     _route(bins, row_node, tbl, member, feat_tbl, num_features, node, slot,
-           tallies, None, num_slots)
+           tallies, None, num_slots, loc_table, efb_range)
     from .histogram_pallas import scatter_histograms   # imports this module
-    hist = scatter_histograms("fused_route_hist", bins, grad, hess, cnt,
-                              slot, slot_tallies=tallies, **kw)
+    hist = scatter_histograms(
+        "fused_route_hist" + _EFB_SUFFIX[_efb_mode(loc_table, efb_range)],
+        bins, grad, hess, cnt, slot, slot_tallies=tallies, **kw)
     return hist, node
 
 
@@ -611,7 +699,8 @@ _ROUTE_MAX_SLOTS = 232448 // 4 - 1
 
 def route_rows(bins, row_node, tbl, member, feat_tbl, *,
                num_features: int = 0, emit_counts: bool = False,
-               num_slots: int = 0, chunk_tallies: bool = False):
+               num_slots: int = 0, chunk_tallies: bool = False,
+               loc_table=None, efb_range: bool = False):
     """Advance rows one level: (new row_node, new row_slot), both [N] i32.
     emit_counts (needs num_slots > 0): also the [num_slots] i32 count of
     rows whose new slot is in [0, num_slots), parked rows excluded — the
@@ -620,14 +709,18 @@ def route_rows(bins, row_node, tbl, member, feat_tbl, *,
     slot and partition chunk (chunk_tallies_ref: the trash slot last), the
     partition's own input. num_features > 0: bins are 4-bit packed. Both
     count modes launch as route_rows_counts; the counts are the tallies'
-    row sums, taken on the card by a second kernel of the same call."""
+    row sums, taken on the card by a second kernel of the same call.
+    loc_table ([F, Bb] i32) / efb_range: bins are EFB bundle columns
+    (route_rows_ref), tbl has TBL_COLS_EFB columns; the launches count
+    with "_efb" / "_efbr" after "route_rows"."""
     if emit_counts and not 0 < num_slots <= _ROUTE_MAX_SLOTS:
         raise ValueError(f"emit_counts needs num_slots in (0, "
                          f"{_ROUTE_MAX_SLOTS}], got {num_slots}")
     if chunk_tallies and not emit_counts:
         raise ValueError("chunk_tallies needs emit_counts")
     kw = dict(num_features=num_features, emit_counts=emit_counts,
-              num_slots=num_slots, chunk_tallies=chunk_tallies)
+              num_slots=num_slots, chunk_tallies=chunk_tallies,
+              loc_table=loc_table, efb_range=efb_range)
     if _on_cpu(bins, row_node, tbl, member, feat_tbl):
         return route_rows_ref(bins, row_node, tbl, member, feat_tbl, **kw)
     n = bins.shape[0]
@@ -639,7 +732,7 @@ def route_rows(bins, row_node, tbl, member, feat_tbl, *,
     node_out, slot_out = out[:n], out[n4:n4 + n]
     if not emit_counts:
         _route(bins, row_node, tbl, member, feat_tbl, num_features,
-               node_out, slot_out, None, None, 0)
+               node_out, slot_out, None, None, 0, loc_table, efb_range)
         return node_out, slot_out
     shape = (num_slots + 1, num_chunks(n))
     if chunk_tallies:
@@ -649,22 +742,31 @@ def route_rows(bins, row_node, tbl, member, feat_tbl, *,
         tallies = scratch(dev, "route_tallies", shape[0] * shape[1])
         counts = torch.empty(num_slots, dtype=torch.int32, device=dev)
     _route(bins, row_node, tbl, member, feat_tbl, num_features, node_out,
-           slot_out, tallies, counts, num_slots)
+           slot_out, tallies, counts, num_slots, loc_table, efb_range)
     return node_out, slot_out, tallies if chunk_tallies else counts
 
 
+#: launch-count suffix of each routing mode (_efb_mode)
+_EFB_SUFFIX = ("", "_efb", "_efbr")
+
+
 def _route(bins, row_node, tbl, member, feat_tbl, num_features, node_out,
-           slot_out, tallies, counts, num_slots) -> None:
+           slot_out, tallies, counts, num_slots, loc_table=None,
+           efb_range=False) -> None:
     """The routing kernel into node_out and slot_out ([N] i32) and, given
     tallies ([num_slots + 1, C] i32, or a scratch buffer that long), the
     chunk tallies; given counts ([num_slots] i32) too, their row sums. The
     one launch path of route_rows and fused_route_hist."""
     f, fh = _check_route_args(bins, row_node, tbl, member, feat_tbl,
-                              num_features)
+                              num_features, loc_table, efb_range)
+    mode = _efb_mode(loc_table, efb_range)
     _cuda.call("route_rows", bins.device, bins, row_node, tbl, member,
-               feat_tbl, node_out, slot_out, tallies, counts, bins.shape[0],
-               f, fh, tbl.shape[0], member.shape[1], num_slots)
-    count_launch("route_rows", counts=tallies is not None, packed=fh > 0)
+               feat_tbl, node_out, slot_out, tallies, counts,
+               loc_table if mode == 1 else None, bins.shape[0], f, fh,
+               tbl.shape[0], member.shape[1], num_slots,
+               loc_table.shape[1] if mode == 1 else 0, mode)
+    count_launch("route_rows" + _EFB_SUFFIX[mode],
+                 counts=tallies is not None, packed=fh > 0)
 
 
 def build_histograms(bins, grad, hess, cnt, row_slot, *, num_slots: int,
@@ -796,6 +898,10 @@ def node_sums(row_node, grad, hess, cnt, *, num_nodes: int) -> torch.Tensor:
 # wrapper's name plus the suffixes of the modes it ran in, in this order
 _MODES = {"fused_route_hist": ("_int", "_packed"),
           "route_rows": ("_counts", "_packed"),
+          # the EFB routing modes (never packed): loc table, range
+          "fused_route_hist_efb": ("_int",),
+          "fused_route_hist_efbr": ("_int",),
+          "route_rows_efb": ("_counts",), "route_rows_efbr": ("_counts",),
           "build_histograms": ("_int", "_packed"),
           "build_histograms_scatter": ("_int", "_packed"),
           # histogram_pallas: the partition inside build_histograms_scatter
@@ -808,7 +914,9 @@ _MODES = {"fused_route_hist": ("_int", "_packed"),
           # predict.stacked_score_traj / predict_binned_tree, and its
           # class mode (k trees an iteration: class_score_add, a
           # multiclass block's stacked_score_traj)
-          "predict_binned": (), "predict_binned_class": ()}
+          "predict_binned": (), "predict_binned_class": (),
+          # and their bundled-matrix mode (EFB)
+          "predict_binned_efb": (), "predict_binned_class_efb": ()}
 _LAUNCHES: Dict[str, int] = {}
 # tallies of launches recorded into CUDA graphs being captured (innermost
 # last): a captured launch does not run then, it runs at each replay

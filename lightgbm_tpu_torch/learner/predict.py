@@ -23,6 +23,14 @@ run, the JAX formulation in torch (`_traverse_ref`: every row one level a
 step until all sit on a leaf). Leaf ids are integers and each score is
 the same sequence of f32 adds, so kernel and plain version agree bit for
 bit.
+
+Bundled-matrix mode (efb=, an efb.EfbDev; the JAX package's
+_traverse(efb=)): the bins are the bundled [N, Fb] training matrix, and a
+node's feature reads its bundle column, decoded through the plan's loc
+table to the original local bin (efb.route_bins); the trees stay in
+original features. DART's and RF's re-predictions and rollback read the
+training matrix so; validation matrices stay unbundled. Its launches count
+as predict_binned_efb (predict_binned_class_efb in class mode).
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..efb import route_bins
 from . import _cuda
 from .grower import TreeArrays
 from .histogram_mxu import _check, _on_cpu, count_launch
@@ -43,13 +52,14 @@ __all__ = ["predict_binned_tree", "leaf_index_tree", "stacked_score_traj",
 
 def _traverse_ref(tree: TreeArrays, bins: torch.Tensor,
                   num_bins: torch.Tensor,
-                  missing_is_nan: torch.Tensor) -> torch.Tensor:
+                  missing_is_nan: torch.Tensor, efb=None) -> torch.Tensor:
     """[N] int64 leaf node id of each row in one tree (the JAX package's
     _traverse, lightgbm_tpu/learner/predict.py:25-58): a categorical node
     sends a row left iff its bin's bit is set (word bin // 32, clamped to
     the last word as the JAX gather clamps); a numerical node sends the
     NaN bin of a missing_is_nan feature the default_left way, any other
-    bin left iff bin <= threshold_bin."""
+    bin left iff bin <= threshold_bin. efb: bins are bundled, each bin
+    decoded by efb.route_bins."""
     n = bins.shape[0]
     f = num_bins.shape[0]
     w = tree.cat_bitset.shape[-1]
@@ -59,7 +69,8 @@ def _traverse_ref(tree: TreeArrays, bins: torch.Tensor,
         feat = tree.split_feature[node].to(torch.int64)
         internal = feat >= 0
         fc = feat.clamp(0, f - 1)
-        binv = bins[rows, fc].to(torch.int64)
+        binv = route_bins(bins, fc, efb) if efb is not None \
+            else bins[rows, fc].to(torch.int64)
         is_nan_bin = missing_is_nan[fc] & (binv == num_bins[fc] - 1)
         word = torch.clamp(binv // 32, max=w - 1)
         in_set = ((tree.cat_bitset[node, word] >> (binv % 32)) & 1) == 1
@@ -77,7 +88,7 @@ def _tree_at(stacked: TreeArrays, i: int) -> TreeArrays:
 
 
 def _class_steps_ref(stacked: TreeArrays, score0, bins, num_bins,
-                     missing_is_nan, cls0: int):
+                     missing_is_nan, cls0: int, efb=None):
     """[K, N, C] trajectory of K steps of G trees ([K, G, ...] stacked):
     tree g of a step adds into column cls0 + g, one f32 add."""
     k, g = stacked.leaf_value.shape[:2]
@@ -88,7 +99,7 @@ def _class_steps_ref(stacked: TreeArrays, score0, bins, num_bins,
         for j in range(g):
             tree = TreeArrays(*[t[i, j] for t in stacked])
             vals = tree.leaf_value[_traverse_ref(tree, bins, num_bins,
-                                                 missing_is_nan)]
+                                                 missing_is_nan, efb)]
             score[:, cls0 + j] = score[:, cls0 + j] + vals
         traj.append(score)
     return torch.stack(traj)
@@ -96,19 +107,19 @@ def _class_steps_ref(stacked: TreeArrays, score0, bins, num_bins,
 
 def stacked_score_traj_ref(stacked: TreeArrays, score0, bins, num_bins,
                            missing_is_nan, *, leaves: bool = False,
-                           num_class: int = 1):
+                           num_class: int = 1, efb=None):
     """Plain version of stacked_score_traj (and, with leaves=True, also
     the [K, N] int32 leaf node ids)."""
     if num_class > 1:
         traj = _class_steps_ref(stacked, score0, bins, num_bins,
-                                missing_is_nan, 0)
+                                missing_is_nan, 0, efb)
         return traj[-1], traj
     k = stacked.leaf_value.shape[0]
     score = score0
     traj, nodes = [], []
     for i in range(k):
         tree = _tree_at(stacked, i)
-        node = _traverse_ref(tree, bins, num_bins, missing_is_nan)
+        node = _traverse_ref(tree, bins, num_bins, missing_is_nan, efb)
         vals = tree.leaf_value[node]
         score = vals if score is None else score + vals
         traj.append(score)
@@ -120,18 +131,28 @@ def stacked_score_traj_ref(stacked: TreeArrays, score0, bins, num_bins,
 
 
 def _launch(stacked: TreeArrays, score0, bins, num_bins, missing_is_nan,
-            leaves: bool, num_class: int = 1, cls0: int = 0):
+            leaves: bool, num_class: int = 1, cls0: int = 0, efb=None):
     """One launch over the stacked trees: [K, ...] (num_class 1), or in
     class mode [K, G, ...] (G trees a step into columns cls0.. of the
-    [N, num_class] score0)."""
+    [N, num_class] score0); efb: the bundled-matrix mode."""
     lead = tuple(stacked.split_feature.shape[:-1])
     m1 = stacked.split_feature.shape[-1]
     k = lead[0]
     group = lead[1] if num_class > 1 else 1
-    n, f = bins.shape
+    n, rs = bins.shape
+    f = num_bins.shape[0]
     words = stacked.cat_bitset.shape[-1]
     dev = bins.device
-    _check(bins, "bins", torch.uint8, (n, f))
+    _check(bins, "bins", torch.uint8, (n, rs))
+    col = loc = None
+    bb = 0
+    if efb is not None:
+        col, loc = efb.col_of_feat, efb.loc_table
+        bb = loc.shape[1]
+        _check(col, "col_of_feat", torch.int32, (f,))
+        _check(loc, "loc_table", torch.int32, (f, bb))
+    elif rs != f:
+        raise ValueError(f"bins: {rs} columns for {f} features")
     _check(num_bins, "num_bins", torch.int32, (f,))
     _check(missing_is_nan, "missing_is_nan", torch.bool, (f,))
     if num_class > 1:
@@ -165,52 +186,55 @@ def _launch(stacked: TreeArrays, score0, bins, num_bins, missing_is_nan,
                fields["threshold_bin"], fields["default_left"],
                fields["is_cat"], fields["cat_bitset"], fields["left"],
                fields["right"], fields["leaf_value"], num_bins,
-               missing_is_nan, score0, traj, leaf, n, f, k, m1, words,
-               num_class, group, cls0)
-    count_launch("predict_binned_class" if num_class > 1
-                 else "predict_binned")
+               missing_is_nan, score0, traj, leaf, col, loc, n, f, rs, bb, k,
+               m1, words, num_class, group, cls0)
+    count_launch(("predict_binned_class" if num_class > 1
+                  else "predict_binned") + ("_efb" if efb is not None else ""))
     return traj, leaf
 
 
 def stacked_score_traj(stacked: TreeArrays, score0: torch.Tensor, bins,
-                       num_bins, missing_is_nan, *, num_class: int = 1
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+                       num_bins, missing_is_nan, *, num_class: int = 1,
+                       efb=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(final score [N], trajectory [K, N] f32): the K stacked trees
     ([K, ...] TreeArrays, leaf values already shrunk) scored over the [N,
     F] uint8 bins in turn from score0, one f32 add a tree; point j is the
     score after tree j, what j + 1 per-iteration valid updates leave (the
     JAX package's stacked_score_traj). With num_class > 1 the trees are
     [K, num_class, ...], score0 [N, num_class] and the trajectory [K, N,
-    num_class]: iteration j's class-c tree adds into column c. One kernel
+    num_class]: iteration j's class-c tree adds into column c. efb: the
+    bins are the bundled training matrix (module docstring). One kernel
     launch on the card."""
     if _on_cpu(bins, score0, num_bins, missing_is_nan,
                stacked.split_feature):
         return stacked_score_traj_ref(stacked, score0, bins, num_bins,
-                                      missing_is_nan, num_class=num_class)
+                                      missing_is_nan, num_class=num_class,
+                                      efb=efb)
     traj, _ = _launch(stacked, score0, bins, num_bins, missing_is_nan,
-                      leaves=False, num_class=num_class)
+                      leaves=False, num_class=num_class, efb=efb)
     return traj[-1], traj
 
 
 def class_score_add_ref(tree: TreeArrays, score: torch.Tensor, cls: int,
-                        bins, num_bins, missing_is_nan) -> torch.Tensor:
+                        bins, num_bins, missing_is_nan,
+                        efb=None) -> torch.Tensor:
     """Plain version of class_score_add."""
     stacked = TreeArrays(*[t[None, None] for t in tree])
     return _class_steps_ref(stacked, score, bins, num_bins,
-                            missing_is_nan, cls)[0]
+                            missing_is_nan, cls, efb)[0]
 
 
 def class_score_add(tree: TreeArrays, score: torch.Tensor, cls: int, bins,
-                    num_bins, missing_is_nan) -> torch.Tensor:
+                    num_bins, missing_is_nan, efb=None) -> torch.Tensor:
     """A new [N, C] score: `score` with one tree's leaf values added into
     column cls, one f32 add (the per-iteration path's valid update with k
     trees an iteration). One launch of V's class mode on the card."""
     if _on_cpu(bins, score, num_bins, missing_is_nan, tree.split_feature):
         return class_score_add_ref(tree, score, cls, bins, num_bins,
-                                   missing_is_nan)
+                                   missing_is_nan, efb)
     traj, _ = _launch(TreeArrays(*[t[None, None] for t in tree]), score,
                       bins, num_bins, missing_is_nan, leaves=False,
-                      num_class=score.shape[1], cls0=cls)
+                      num_class=score.shape[1], cls0=cls, efb=efb)
     return traj[0]
 
 
@@ -232,18 +256,20 @@ def _stack1(tree: TreeArrays) -> TreeArrays:
 
 
 def predict_binned_tree_ref(tree: TreeArrays, bins, num_bins,
-                            missing_is_nan) -> torch.Tensor:
+                            missing_is_nan, efb=None) -> torch.Tensor:
     return tree.leaf_value[_traverse_ref(tree, bins, num_bins,
-                                         missing_is_nan)]
+                                         missing_is_nan, efb)]
 
 
 def predict_binned_tree(tree: TreeArrays, bins, num_bins,
-                        missing_is_nan) -> torch.Tensor:
-    """[N] leaf values of one tree over [N, F] uint8 bins."""
+                        missing_is_nan, efb=None) -> torch.Tensor:
+    """[N] leaf values of one tree over [N, F] uint8 bins (efb: the
+    bundled [N, Fb] training matrix)."""
     if _on_cpu(bins, num_bins, missing_is_nan, tree.split_feature):
-        return predict_binned_tree_ref(tree, bins, num_bins, missing_is_nan)
+        return predict_binned_tree_ref(tree, bins, num_bins, missing_is_nan,
+                                       efb)
     traj, _ = _launch(_stack1(tree), None, bins, num_bins, missing_is_nan,
-                      leaves=False)
+                      leaves=False, efb=efb)
     return traj[0]
 
 

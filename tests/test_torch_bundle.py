@@ -1,12 +1,10 @@
-"""enable_bundle (default true) on sparse, mutually exclusive features: the
-JAX package bundles them (exclusive feature bundling, lightgbm_tpu/efb.py)
-while the port, which has no EFB yet (ROADMAP A7), trains them unbundled.
-The two must still give the same model at the exact-mode bars of
-tests/test_torch_train.py (structure identical, values within 1e-4): the
-bundle's histogram expands to the unbundled one at conflict rate 0, with
-the default bin's mass from a subtraction, so only the sums' rounding
-differs. Data: numpy seeds 0 and 1; the JAX booster on its MXU growth
-path in Pallas interpret mode.
+"""enable_bundle (default true) on sparse, mutually exclusive features:
+the JAX package and the port both bundle them (exclusive feature bundling,
+lightgbm_tpu/efb.py and lightgbm_tpu_torch/efb.py) and must give the same
+model at the exact-mode bars of tests/test_torch_train.py (structure
+identical, values within 1e-4); with enable_bundle=false both train
+unbundled and must agree so too. Data: numpy seeds 0 and 1; the JAX
+booster on its MXU growth path in Pallas interpret mode.
 """
 
 import numpy as np
@@ -51,9 +49,11 @@ def _jax_booster(X, y, params, enable_bundle):
     return jbst
 
 
-def _port_booster(X, y, params):
-    p = dict(params, device_type="cpu")
-    return lgt.train(p, lgt.Dataset(X, label=y, params=p), 5)
+def _port_booster(X, y, params, enable_bundle=True):
+    p = dict(params, device_type="cpu", enable_bundle=enable_bundle)
+    bst = lgt.train(p, lgt.Dataset(X, label=y, params=p), 5)
+    assert (bst.gbdt._efb is not None) == enable_bundle
+    return bst
 
 
 _PARAMS = {"num_leaves": 15, "max_bin": 31, "min_data_in_leaf": 20,
@@ -72,38 +72,32 @@ def test_port_unbundled_matches_jax_bundled():
 
 
 def test_bundled_threshold_tie_fault():
-    """ROADMAP C8: on this regression target the JAX package's bundled
-    split scan and its unbundled one part at equal-gain ties between
-    empty bins: feature 0 split at 0.531521797965782 (bundled) or 0.0
-    (unbundled: the top of its zero bin) in tree 0 internal node 13
-    (gain 50.011962890625 both) and trees 2 and 3 node 3; no training
-    row of those nodes lies between, so the leaves hold the same rows.
-    The port equals the unbundled JAX model at the exact-mode bars, and
-    the bundled one in every line but those thresholds."""
+    """ROADMAP C8, closed: on this regression target the bundled split scan
+    and the unbundled one part at equal-gain ties between empty bins:
+    feature 0 splits at 0.531521797965782 (bundled: the segmented scan
+    ranks ties by bundle position, and the default bin's threshold sits
+    at the segment's last position) or 0.0 (unbundled: the top of its
+    zero bin) in tree 0 internal node 13 (gain 50.011962890625 both) and
+    trees 2 and 3 node 3; no training row of those nodes lies between, so
+    the leaves hold the same rows. The port keeps the JAX package's tie
+    order: its bundled model equals the JAX bundled model, those
+    thresholds included, and with enable_bundle=false it equals the JAX
+    unbundled model, both at the exact-mode bars."""
     X, y = _exclusive(1)
     y = (X[:, 0] - X[:, 7] + X[:, -2]).astype(np.float32)
     params = dict(_PARAMS, objective="regression")
-    bst = _port_booster(X, y, params)
-    unbundled = _jax_booster(X, y, params, False)
-    _assert_same_model(unbundled.model_to_string(), bst.model_to_string())
     bundled = _jax_booster(X, y, params, True)
-    differ = []
-    for i, (a, b) in enumerate(zip(_trees(bundled.model_to_string()),
-                                   _trees(bst.model_to_string()))):
-        for key in _STRUCT_KEYS:
-            if key in a and a[key] != b[key]:
-                assert key == "threshold", (i, key)
-                ta, tb = a[key].split(" "), b[key].split(" ")
-                differ += [(i, j, ta[j], tb[j]) for j in range(len(ta))
-                           if ta[j] != tb[j]]
-    # every parting is that tie: feature 0 between its zero bin and the
-    # bin above, at equal gain
-    assert differ == [(0, 13, "0.531521797965782", "0.0"),
-                      (2, 3, "0.531521797965782", "0.0"),
-                      (3, 3, "0.531521797965782", "0.0")]
-    text = bst.model_to_string()
-    for tree_jax, tree_port in zip(_trees(bundled.model_to_string()),
-                                   _trees(text)):
-        text = text.replace("threshold=" + tree_port["threshold"] + "\n",
-                            "threshold=" + tree_jax["threshold"] + "\n", 1)
-    _assert_same_model(bundled.model_to_string(), text)
+    bst = _port_booster(X, y, params)
+    _assert_same_model(bundled.model_to_string(), bst.model_to_string())
+    thresholds = [t["threshold"].split(" ")
+                  for t in _trees(bst.model_to_string())]
+    assert [thresholds[i][j] for i, j in ((0, 13), (2, 3), (3, 3))] == \
+        ["0.531521797965782"] * 3
+    unbundled = _jax_booster(X, y, params, False)
+    bst_u = _port_booster(X, y, params, enable_bundle=False)
+    _assert_same_model(unbundled.model_to_string(),
+                       bst_u.model_to_string())
+    thresholds = [t["threshold"].split(" ")
+                  for t in _trees(bst_u.model_to_string())]
+    assert [thresholds[i][j] for i, j in ((0, 13), (2, 3), (3, 3))] == \
+        ["0.0"] * 3

@@ -14,7 +14,10 @@ Expected: none inside a pass, the prologue or the epilogue; around them
 exactly the fix-up loop's reads of `done` (Grower.fixup_loop), one before
 each fix-up pass, which the runs below need. The fused trainer's programs
 (boosting/fused.py, what its CUDA graphs capture) are watched the same
-way over a block of trees: none inside any program.
+way over a block of trees: none inside any program. The efb* configurations
+train on sparse, mutually exclusive features that the booster bundles
+(exclusive feature bundling): the bundle-range routing and the segmented
+scan, or the loc-table routing and the per-pass expansion.
 """
 
 import collections
@@ -98,12 +101,21 @@ _CONFIGS = {
                     "feature_fraction_bynode": 0.8, "extra_trees": True},
     "quantized_pallas": {"use_quantized_grad": True,
                          "hist_backend": "pallas", "max_bin": 15},
+    "efb": {"max_bin": 15},
+    "efb_expansion": {"max_bin": 15, "efb_segmented_scan": False},
 }
 
 
 def _booster(name):
     rng = np.random.RandomState(9)
     X = rng.randn(2000, 6).astype(np.float32)
+    if name.startswith("efb"):
+        # 24 sparse features, one nonzero in each group of 8 a row
+        sparse = np.zeros((2000, 24), np.float32)
+        for g in range(0, 24, 8):
+            sparse[np.arange(2000), rng.randint(g, g + 8, 2000)] = \
+                rng.rand(2000) + 0.5
+        X = np.concatenate([X[:, :2], sparse], axis=1)
     y = ((X[:, 0] + X[:, 1] + 0.3 * rng.randn(2000)) > 0.5) \
         .astype(np.float32)
     # 15 leaves of >= 40 rows: trees that need fix-up passes after the
@@ -112,6 +124,7 @@ def _booster(name):
                    "min_data_in_leaf": 40, "max_bin": 31, "verbosity": -1,
                    "device_type": "cpu"}, **_CONFIGS[name])
     bst = lgt.Booster(params, lgt.Dataset(X, label=y, params=params))
+    assert (bst.gbdt._efb is not None) == name.startswith("efb")
     bst.update()
     return bst
 
