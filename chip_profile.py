@@ -13,8 +13,9 @@ profiled), device time summed over kernels and the device's idle share of
 the unprofiled wall time, device time per kernel name (top 15), the
 device time and launches per tree of each of the port's own kernels (the
 `__global__` functions of lightgbm_tpu_torch/csrc), and host time inside
-the growth layers (split search, route tables, the prune replay),
-bracketed with record_function around the grower's functions, and the
+the growth layers (split search, route tables, the prune replay; on the
+portable grower its split search and the monotone bounds), bracketed
+with record_function around the grower's functions, and the
 device-to-host copies a tree (each one a host sync). --root profiles
 another checkout's lightgbm_tpu_torch on this script's data. --fused
 trains through Booster.update_batch instead (the fused trainer's CUDA
@@ -25,7 +26,10 @@ then read only what runs outside the graphs. --efb trains chip_smoke.py's
 as CSR; 63 leaves, 63 bins), bundled; --efb 6 that data at its card=6
 density (each nonzero one of 6 values). --param k=v (repeatable) adds a
 training parameter, e.g. efb_segmented_scan=false, or enable_bundle=false
-for the same data unbundled (values as the port's Config parses them).
+for the same data unbundled, max_bin=1023 (the portable grower over
+uint16 bins), or monotone_constraints=1,-1 with
+monotone_constraints_method=advanced (values as the port's Config parses
+them).
 """
 
 import argparse
@@ -62,7 +66,7 @@ def main():
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     import lightgbm_tpu_torch as lgt
-    from lightgbm_tpu_torch.learner import _cuda, grower_mxu
+    from lightgbm_tpu_torch.learner import _cuda, grower, grower_mxu
     if not os.path.abspath(lgt.__file__).startswith(root + os.sep):
         print(f"chip_profile: imported {lgt.__file__}, not from {root}",
               file=sys.stderr)
@@ -81,6 +85,15 @@ def main():
             with record_function("grower." + _name):
                 return _inner(*a, **k)
         setattr(grower_mxu, fn_name, wrapped)
+    # and the portable grower's (max_bin > 256, the rescanning monotone
+    # methods, use_pallas=false)
+    for fn_name in ("find_best_splits", "recompute_bounds"):
+        inner = getattr(grower, fn_name)
+
+        def wrapped(*a, _inner=inner, _name=fn_name, **k):
+            with record_function("portable." + _name):
+                return _inner(*a, **k)
+        setattr(grower, fn_name, wrapped)
 
     if args.efb is not None:
         X, y = chip_smoke.make_sparse(chip_smoke.EFB_ROWS, seed=11,
@@ -115,7 +128,7 @@ def main():
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     from torch.autograd import DeviceType
-    marks = ("train_one_iter", "train_many", "grower.")
+    marks = ("train_one_iter", "train_many", "grower.", "portable.")
     kernels = {}
     host = {}
     d2h = 0
@@ -149,8 +162,10 @@ def main():
          "calls_per_tree": c / args.trees} for k, (us, c) in top]}))
     mine = {}
     for k, (us, c) in kernels.items():
+        # the port's kernels sit in anonymous namespaces of csrc/*.cu;
+        # torch's carry at::native (its reduce_kernel has the name of K7's)
         name = chip_smoke.kernel_name(k)
-        if name in own:
+        if name in own and "(anonymous namespace)" in k and "at::" not in k:
             ms, calls = mine.get(name, (0.0, 0))
             mine[name] = (ms + us / 1e3 / args.trees, calls + c / args.trees)
     print(json.dumps({"phase": "port_kernels_per_tree", "package": root,

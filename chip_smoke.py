@@ -28,8 +28,9 @@ categorical and NaN nodes; K1 (f32 and integer), K3, K7 (integer) and
 K5 again on sampled rows, a bagging mask and GOSS's weights and count,
 bit for bit, with GOSS's sampler and threshold timed — then trains through
 lightgbm_tpu_torch's entry points along twelve paths, each with the launch
-counts reset before it and read after it (thirteen with the EFB phase
-below):
+counts reset before it and read after it (sixteen with the last four
+below: EFB, single-precision hessians, wide bins and the rescanning
+monotone methods):
 
 - exact histograms: the Higgs-like binary configuration (num_leaves 255,
   max_bin 255), the same with min_data_in_leaf 1000 (which runs the
@@ -126,15 +127,36 @@ below):
   built as a CSR matrix, its Dataset's bins byte-equal to the dense
   matrix's (seconds of each); four turns, exact and quantized with the
   segmented scan (bundle-range routing) and the expansion (loc-table
-  routing), each through engine.train at fused_block_size 10 for 30
-  trees twice and against 30 update() calls, byte-equal; DART with EFB
+  routing), each through engine.train at fused_block_size 10 for 20
+  trees twice and against 20 update() calls, byte-equal; DART with EFB
   (3 iterations) re-predicting its dropped trees through kernel V's
   bundled mode; K1 and K2 in both EFB modes (K1 also in integer mode)
   and V's bundled mode bit-equal to their plain versions at the phase's
   shapes, each launched on the path; host predictions from the CSR input
   within 1e-4 of the device scores and equal to the dense array's;
   replayed trees/s and held-out AUC bundled against enable_bundle=false
-  on the same data.
+  on the same data;
+- gpu_use_dp=false (phase `single_prec`): the binary configuration
+  through the fused phases' turns (byte-equal to update()), 10 update()
+  trees under leaf_check, the pallas backend (K7) through train against
+  update() and the 100k x 200 data (K3), K1, K3 and K7 only in their
+  single-precision mode; replayed trees/s of gpu_use_dp false against
+  true, alternating in one call; K1, K3 and K7 in that mode bit-equal to
+  their plain versions at the main path's shapes, the hessian cells
+  apart from the full-precision mode's;
+- the rescanning monotone methods (phase `monotone_methods`):
+  intermediate and advanced (+1 on feature 0, -1 on feature 1) on the
+  portable grower, leaf-wise (254 passes a tree, every node rescanned
+  from a [510, 28, 256, 3] histogram cache), 2 trees by update() against
+  engine.train, byte-equal; every leaf -G/H of its rows or clamped to
+  another node's value; held-out sweeps monotone; tree 0 equal to the
+  CPU's at 100,000 rows and 63 leaves;
+- max_bin 1023 (phase `wide_bins`): the 1M x 28 matrix binned to uint16,
+  the portable grower with K7's uint16 mode and with the segment sums
+  (use_pallas=false), 10 trees by update() (leaf_check) against
+  engine.train with a 40,000-row held-out set (kernel V's wide mode),
+  byte-equal; K7's uint16 mode at 1 and 256 slots and V's wide mode
+  bit-equal to their plain versions.
 
 Beside the main path (`native_host`), the native host runtime
 (lightgbm_tpu_torch/cext, C++ built with g++ at first use) bins the 1M x
@@ -225,13 +247,19 @@ BACKEND_PATH = ("route_rows_counts", "partition_rows",
                 "build_histograms_int")
 K7_KEYS = ("build_histograms_scatter", "build_histograms_scatter_int",
            "build_histograms_scatter_packed",
-           "build_histograms_scatter_int_packed")
+           "build_histograms_scatter_int_packed",
+           "build_histograms_scatter_sp", "build_histograms_scatter_wide",
+           "build_histograms_scatter_sp_wide",
+           "build_histograms_scatter_int_wide",
+           "build_histograms_scatter_packed_sp")
 # K1 on the card: route_rows with counts, the partition, the scatter kernel
 K1_KEYS = ("fused_route_hist", "fused_route_hist_int",
-           "fused_route_hist_packed", "fused_route_hist_int_packed")
+           "fused_route_hist_packed", "fused_route_hist_int_packed",
+           "fused_route_hist_sp", "fused_route_hist_packed_sp")
 # K3/K4 on the card: the partition kernel, then the scatter kernel
 K3_KEYS = ("build_histograms", "build_histograms_int",
-           "build_histograms_packed", "build_histograms_int_packed")
+           "build_histograms_packed", "build_histograms_int_packed",
+           "build_histograms_sp", "build_histograms_packed_sp")
 PACKED_PATH = ("fused_route_hist_packed", "fused_route_hist_int_packed",
                "route_rows_packed", "route_rows_counts_packed",
                "build_histograms_int_packed",
@@ -353,7 +381,11 @@ ROW_PATH = {"prune_best_first": "fused",
                              "node_sums"), "quantized"),
             **dict.fromkeys(BACKEND_PATH[:4], "backends"),
             **dict.fromkeys(PACKED_PATH, "packed"),
-            **dict.fromkeys(SCAN_PATH, "scan")}
+            **dict.fromkeys(SCAN_PATH, "scan"),
+            **dict.fromkeys(("fused_route_hist_sp", "build_histograms_sp",
+                             "build_histograms_scatter_sp"), "single_prec"),
+            **dict.fromkeys(("build_histograms_scatter_wide",
+                             "predict_binned_wide"), "wide_bins")}
 
 
 def make_higgs_like(n, f, seed=17):
@@ -3003,15 +3035,7 @@ def check_constraints(booster, ds, name):
                   "interaction groups")
     Xva, yva = make_higgs_like(40_000, N_FEATURES, seed=99)
     held = auc(booster.predict(Xva, raw_score=True), yva)
-    worst = -np.inf
-    for j, sign in ((0, 1.0), (1, -1.0)):
-        ub = np.asarray(ds.binned.mappers[j].bin_upper_bound, np.float64)
-        grid = ub[np.isfinite(ub)].astype(np.float32)
-        sweep = np.repeat(Xva[:MONO_ROWS], len(grid), axis=0)
-        sweep[:, j] = np.tile(grid, MONO_ROWS)
-        pred = booster.predict(sweep, raw_score=True).reshape(MONO_ROWS, -1)
-        worst = max(worst, float(np.max(-sign * np.diff(pred, axis=1))))
-    return held, worst
+    return held, monotone_sweep(booster, ds, Xva)
 
 
 def constraints_path(torch, lgt, hm, y, ds, exact):
@@ -3685,7 +3709,8 @@ EFB_VALID_ROWS = 50_000
 EFB_PARAMS = {"objective": "binary", "num_leaves": 63, "max_bin": 63,
               "learning_rate": 0.1, "min_data_in_leaf": 20,
               "verbosity": -1}
-EFB_TREES = 30
+# two blocks: the smoke stays near half its time limit
+EFB_TREES = 20
 EFB_BLOCK = 10
 EFB_TURNS = (("efb_exact", {}),
              ("efb_exact_expansion", {"efb_segmented_scan": False}),
@@ -3918,8 +3943,9 @@ def efb_traversal_row(torch, row, gbdt, tree):
 
 
 def efb_turn(torch, lgt, ds, name, params):
-    """One EFB configuration: engine.train at fused_block_size 10 for 30
-    trees, twice, against 30 update() calls: the model text byte-equal.
+    """One EFB configuration: engine.train at fused_block_size 10 for
+    EFB_TREES trees, twice, against EFB_TREES update() calls: the model
+    text byte-equal.
     Returns (train s, the first train's booster, its fused stats and
     stall polls, update() s)."""
     p = dict(EFB_PARAMS, fused_block_size=EFB_BLOCK, **params)
@@ -3962,16 +3988,8 @@ def efb_turn(torch, lgt, ds, name, params):
 
 
 def replay_rate(torch, lgt, ds, params):
-    """(replayed trees/s, booster): update_batch(10) (iteration 0, the
-    capture and nine trees), then update_batch(10) timed, the graphs'
-    replays alone."""
-    booster = lgt.Booster(dict(EFB_PARAMS, **params), ds)
-    booster.update_batch(EFB_BLOCK)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    booster.update_batch(EFB_BLOCK)
-    torch.cuda.synchronize()
-    return EFB_BLOCK / (time.perf_counter() - t0), booster
+    """replayed_rate of EFB_PARAMS with `params` on top."""
+    return replayed_rate(torch, lgt, ds, dict(EFB_PARAMS, **params))
 
 
 def efb_path(torch, lgt, hm, row):
@@ -4049,6 +4067,549 @@ def efb_path(torch, lgt, hm, row):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# gpu_use_dp=false, max_bin > 256 and the rescanning monotone methods: the
+# single-precision mode of K1, K3 and K7 on the MXU grower, and the
+# portable grower (learner/grower.py) with K7 over uint16 bins and kernel
+# V's wide mode
+# ---------------------------------------------------------------------------
+
+# gpu_use_dp=false on the main configuration: the fused path's turns; the
+# pallas backend (K7) and the wide data (K3: 200 features x 256 bins at 4
+# channels leave the fused kernel's fit from ~100 slots up) checked with
+# a few trees each
+SP_PARAMS = dict(TRAIN_PARAMS, gpu_use_dp=False)
+SP_CHECK_TREES = 3
+SP_PATH = ("fused_route_hist_sp", "build_histograms_sp",
+           "build_histograms_scatter_sp", "route_rows_counts",
+           "partition_rows")
+# max_bin 1023 on the portable grower: uint16 bins, K7's wide mode with
+# the scatter kernel (use_pallas true) or the segment sums (false), a
+# 40,000-row valid set through kernel V's wide mode
+WIDE_BIN_PARAMS = dict(TRAIN_PARAMS, max_bin=1023, metric="auc")
+WIDE_BIN_TREES = 10
+S_PORTABLE = TRAIN_PARAMS["num_leaves"] + 1   # the portable grower's slots
+WIDE_BIN_PATH = ("build_histograms_scatter_wide", "partition_rows",
+                 "predict_binned_wide")
+# the rescanning monotone methods on the portable grower, leaf-wise: 254
+# passes a tree, each rescanning every node from a [510, 28, 256, 3]
+# histogram cache; tree 0 against the CPU's at the cross_device shape's
+# scale (100,000 rows, 63 leaves)
+MONO_METHOD_PARAMS = dict(
+    TRAIN_PARAMS, monotone_constraints=[1, -1] + [0] * (N_FEATURES - 2))
+MONO_METHOD_TREES = 2
+MONO_CPU_ROWS, MONO_CPU_LEAVES = 100_000, 63
+MONO_METHOD_PATH = ("build_histograms_scatter", "partition_rows")
+# the MXU grower's kernels: the portable paths launch none of them
+MXU_ONLY = ("fused_route_hist", "route_rows", "route_rows_counts",
+            "build_histograms", "node_values", "prune_best_first")
+
+
+def single_prec_rows(torch, hm, hp, rng_mod, dev, row):
+    """K1, K3 and K7 in the single-precision mode (double_prec=False: each
+    hessian rounded to bf16 before its fixed point) at the main path's
+    shapes (1M x 28, 256 bins; K1 at the bridge pass's 263 slots, K3 at
+    the fix-up passes' 511, K7 at 263 slots with route tallies), bit for
+    bit against their plain versions and across two calls; the mode is
+    live: the hessian cells differ from the full-precision mode's, the
+    gradient and count cells do not. Bounds as the f32 rows'. Then K1 and
+    K4 (build_histograms_auto, v2's fit) on the max_bin 15 path's 4-bit
+    packed bins in that mode, checked bit for bit (the gpu_use_dp=false
+    path on packed bins; no row)."""
+    d = kernel_inputs(torch, hm, rng_mod, dev)
+    bins, grad, hess, cnt = d["bins"], d["grad"], d["hess"], d["cnt"]
+    route = (d["tbl"], d["member"], d["feat_tbl"])
+    n, f = bins.shape
+    n_routed = int(d["split"][d["row_node"].long()].sum())
+    table_bytes = d["tbl"].numel() * 4 + d["member"].numel() * 4
+    # the grower's fixed point of the single-precision mode: that of the
+    # rounded hessians it sums
+    scale = hm.exact_scale(grad, hm.single_prec_hess(hess), cnt)
+
+    def live(h_sp, h_dp, name):
+        check(same_bits(torch, h_sp[..., 0::2], h_dp[..., 0::2]) and
+              not torch.equal(h_sp[..., 1], h_dp[..., 1]),
+              f"{name}: the single-precision mode is not what it should be")
+
+    def k1(dp=False):
+        return hm.fused_route_hist(bins, grad, hess, cnt, d["row_node"],
+                                   *route, num_slots=S_FUSED, bmax=BMAX,
+                                   scale=scale, double_prec=dp)
+
+    def k1_ref():
+        return hm.fused_route_hist_ref(bins, grad, hess, cnt, d["row_node"],
+                                       *route, num_slots=S_FUSED, bmax=BMAX,
+                                       scale=scale, double_prec=False)
+    h_ref, rn_ref = k1_ref()
+    check(torch.equal(k1()[1], rn_ref), "fused_route_hist_sp routing differs")
+    err = check_hist(torch, "fused_route_hist_sp", k1, h_ref)
+    live(h_ref, k1(True)[0], "fused_route_hist")
+    _, rs_ref = hm.route_rows_ref(bins, d["row_node"], *route)
+    n_slot = int(((rs_ref >= 0) & (rs_ref < S_FUSED)).sum())
+    row("fused_route_hist_sp", "lightgbm_tpu/learner/histogram_mxu.py:785",
+        err, k1, k1_ref, 3,
+        8 * n + n_routed + n_slot * (f + 12) + h_ref.numel() * 4 +
+        table_bytes, n_slot * f * 3, None, source="build_histograms_scatter")
+
+    rslot = d["row_slot"]
+
+    def k3(dp=False):
+        return hm.build_histograms(bins, grad, hess, cnt, rslot,
+                                   num_slots=S_HIST, bmax=BMAX, scale=scale,
+                                   double_prec=dp)
+
+    def k3_ref():
+        return hm.build_histograms_ref(bins, grad, hess, cnt, rslot,
+                                       num_slots=S_HIST, bmax=BMAX,
+                                       scale=scale, double_prec=False)
+    h_ref = k3_ref()
+    err = check_hist(torch, "build_histograms_sp", k3, h_ref)
+    live(h_ref, k3(True), "build_histograms")
+    n_slot = int((rslot >= 0).sum())
+    row("build_histograms_sp", "lightgbm_tpu/learner/histogram_mxu.py:472",
+        err, k3, k3_ref, 3,
+        4 * n + n_slot * (f + 12) + h_ref.numel() * 4, n_slot * f * 3,
+        index_add_fn(torch, bins, rslot, torch.stack(
+            [grad, hm.single_prec_hess(hess), cnt], 1), S_HIST, BMAX),
+        source="build_histograms_scatter")
+    del h_ref
+
+    _, slot, tallies = hm.route_rows(bins, d["row_node"], *route,
+                                     emit_counts=True, num_slots=S_TUNE,
+                                     chunk_tallies=True)
+
+    def k7(dp=False):
+        return hp.build_histograms_scatter(
+            bins, grad, hess, cnt, slot, num_slots=S_TUNE, bmax=BMAX,
+            scale=scale, slot_tallies=tallies, double_prec=dp)
+
+    def k7_ref():
+        return hp.build_histograms_scatter_ref(
+            bins, grad, hess, cnt, slot, num_slots=S_TUNE, bmax=BMAX,
+            scale=scale, slot_tallies=tallies, double_prec=False)
+    h_ref = k7_ref()
+    err = check_hist(torch, "build_histograms_scatter_sp", k7, h_ref)
+    live(h_ref, k7(True), "build_histograms_scatter")
+    n_slot = int(((slot >= 0) & (slot < S_TUNE)).sum())
+    row("build_histograms_scatter_sp",
+        "lightgbm_tpu/learner/histogram_pallas.py:211", err, k7, k7_ref, 3,
+        4 * n + n_slot * (f + 12) + S_TUNE * f * BMAX * 12, n_slot * f * 3,
+        index_add_fn(torch, bins, slot, torch.stack(
+            [grad, hm.single_prec_hess(hess), cnt], 1), S_TUNE, BMAX),
+        source="build_histograms_scatter")
+    del h_ref, d
+
+    dp = kernel_inputs(torch, hm, rng_mod, dev, bmax=BMAX_PACKED)
+    pk = torch.as_tensor(hm.pack_bins_4bit(dp["bins"].cpu().numpy()),
+                         device=dev)
+    g, h, c = dp["grad"], dp["hess"], dp["cnt"]
+    kw = dict(bmax=BMAX_PACKED, num_features=f, double_prec=False,
+              scale=hm.exact_scale(g, hm.single_prec_hess(h), c))
+    route = (dp["tbl"], dp["member"], dp["feat_tbl"])
+    check_hist(torch, "fused_route_hist_packed_sp",
+               lambda: hm.fused_route_hist(pk, g, h, c, dp["row_node"],
+                                           *route, num_slots=S_FUSED, **kw),
+               hm.fused_route_hist_ref(pk, g, h, c, dp["row_node"], *route,
+                                       num_slots=S_FUSED, **kw)[0])
+    check_hist(torch, "build_histograms_packed_sp",
+               lambda: hm.build_histograms_auto(pk, g, h, c, dp["row_slot"],
+                                                num_slots=S_TUNE, **kw),
+               hm.build_histograms_ref(pk, g, h, c, dp["row_slot"],
+                                       num_slots=S_TUNE, **kw))
+    emit("kernel_check", name="single_prec_packed",
+         kernels=["fused_route_hist_packed_sp", "build_histograms_packed_sp"],
+         rows=n, features=f, bins=BMAX_PACKED, equal=True)
+    del dp, pk
+
+
+def replayed_rate(torch, lgt, ds, params):
+    """(replayed trees/s, booster): update_batch(10) (iteration 0, the
+    capture and nine trees), then update_batch(10) timed, the graphs'
+    replays alone."""
+    booster = lgt.Booster(params, ds)
+    booster.update_batch(EFB_BLOCK)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    booster.update_batch(EFB_BLOCK)
+    torch.cuda.synchronize()
+    return EFB_BLOCK / (time.perf_counter() - t0), booster
+
+
+def _model_sha(booster):
+    return _sha(booster.model_to_string())
+
+
+def single_prec_path(torch, lgt, hm, X, y, ds, exact_auc):
+    """Phase `single_prec`: gpu_use_dp=false on the MXU grower. Launch
+    counts reset, then the fused phases' turns on SP_PARAMS (train at
+    fused_block_size 10, update_batch twice, against 30 update() calls,
+    byte-equal), 10 update() trees held by leaf_check with host
+    predictions against the device scores, the pallas backend (K7) through
+    train against update() (3 trees, byte-equal) and the wide data (100k
+    x 200: K3) through train_booster; counts read: every single-precision kernel
+    launched, no full-precision histogram. Then replayed trees/s of
+    gpu_use_dp false against true (alternating, in one call) and the
+    held-out AUC beside the main path's. Returns the counts."""
+    logloss = logloss_of(torch, y)
+    hm.reset_launch_counts()
+    t0 = time.perf_counter()
+    turns = fused_turns(torch, lgt, hm, ds, logloss, "single_prec_fused",
+                        SP_PARAMS)
+    booster, _, losses, _ = train_booster(
+        "single_prec", torch, lgt, hm, ds, SP_PARAMS, TRAIN_TREES, logloss)
+    host_err = host_vs_device(booster, X)
+    check(host_err <= 1e-4, f"single_prec: host predictions {host_err} off "
+          "the device scores")
+    sp_auc = held_out_auc(booster)
+    pallas = dict(SP_PARAMS, hist_backend="pallas")
+    trained = lgt.train(pallas, ds, SP_CHECK_TREES)
+    stepped = lgt.Booster(pallas, ds)
+    for _ in range(SP_CHECK_TREES):
+        stepped.update()
+    check(_model_sha(trained) == _model_sha(stepped),
+          "single_prec: train differs from update() under hist_backend "
+          "pallas")
+    del trained, stepped
+    Xw, yw = make_higgs_like(WIDE_ROWS, WIDE_FEATURES, seed=23)
+    ds_w = lgt.Dataset(Xw, label=yw, params=SP_PARAMS)
+    train_booster("single_prec_wide", torch, lgt, hm, ds_w, SP_PARAMS,
+                  WIDE_TREES, logloss_of(torch, yw))
+    del ds_w, Xw
+    path_s = time.perf_counter() - t0
+    counts = hm.launch_counts()
+    for key in SP_PATH:
+        check(counts[key] > 0, f"{key} was not launched on the single_prec "
+              "path")
+    for key in ("fused_route_hist", "build_histograms",
+                "build_histograms_scatter"):
+        check(counts[key] == 0, f"the single_prec path launched {key} in "
+              "full precision")
+    check_partition_launches(counts, "single_prec")
+    rates = {"true": [], "false": []}
+    for dp in ("true", "false", "false", "true"):
+        rate, b = replayed_rate(torch, lgt, ds, dict(
+            TRAIN_PARAMS, gpu_use_dp=dp == "true"))
+        rates[dp].append(rate)
+        del b
+    emit("single_prec", trees_per_s_last10=turns,
+         replayed_trees_per_s={"gpu_use_dp=true": rates["true"],
+                               "gpu_use_dp=false": rates["false"]},
+         held_out_auc=sp_auc, held_out_auc_gpu_use_dp_true=exact_auc,
+         host_vs_device_max_abs=host_err, logloss=losses, path_s=path_s,
+         launches={k: counts[k] for k in SP_PATH})
+    check(sp_auc > 0.75 and abs(sp_auc - exact_auc) <= 0.005,
+          f"single_prec: held-out AUC {sp_auc} against {exact_auc}")
+    return counts
+
+
+def stack_trees(torch, trees):
+    from lightgbm_tpu_torch.learner.grower import TreeArrays
+    return TreeArrays(*[torch.stack(list(f)) for f in zip(*trees)])
+
+
+def wide_bin_rows(torch, hm, hp, row, gbdt, valid_bins):
+    """K7's uint16 mode at the portable grower's shapes (the booster's
+    1M x 28 bins at max_bin 1023, its 256 slots, 3% of rows parked), exact,
+    bit for bit against its plain version and across two calls, also at
+    the root pass's one slot (split runs, partials); its integer mode
+    checked. Bound: src, each slotted row's 2-byte bins and channels once,
+    the [256, 28, bmax, 3] output once; library: one index_add_ of the same
+    cells. Then kernel V's wide mode: the booster's trees stacked over the
+    40,000 held-out rows' uint16 bins from a score, trajectory bit for
+    bit; bound: the bins on each row's paths, the nodes, the score in and
+    the trajectory out; library: the indexing walk (one CUDA graph)."""
+    from lightgbm_tpu_torch.learner import predict as pr
+    dev = gbdt.bins.device
+    bins, bmax = gbdt.bins, gbdt.bmax
+    n, f = bins.shape
+    rng = np.random.RandomState(43)
+    slot = rng.randint(0, S_PORTABLE, n)
+    slot[rng.rand(n) < 0.03] = -1
+    slot = torch.as_tensor(slot.astype(np.int32), device=dev)
+    grad = torch.as_tensor(rng.randn(n).astype(np.float32), device=dev)
+    hess = torch.as_tensor(rng.uniform(0.05, 0.25, n).astype(np.float32),
+                           device=dev)
+    cnt = torch.ones(n, device=dev)
+    scale = hm.exact_scale(grad, hess, cnt)
+    for s in (1, S_PORTABLE):
+        sl = slot if s > 1 else torch.where(slot >= 0, 0, -1).to(torch.int32)
+
+        def k7(sl=sl, s=s):
+            return hp.build_histograms_scatter(bins, grad, hess, cnt, sl,
+                                               num_slots=s, bmax=bmax,
+                                               scale=scale)
+
+        def k7_ref(sl=sl, s=s):
+            return hp.build_histograms_scatter_ref(bins, grad, hess, cnt, sl,
+                                                   num_slots=s, bmax=bmax,
+                                                   scale=scale)
+        err = check_hist(torch, f"build_histograms_scatter_wide at {s} "
+                         "slots", k7, k7_ref())
+    g_q = torch.round(grad * 40).clamp(-127, 127).to(torch.int8)
+    h_q = torch.round(hess * 400).to(torch.int8)
+    check(torch.equal(*[fn(bins, g_q, h_q, cnt, slot, num_slots=S_PORTABLE,
+                           bmax=bmax, quantized=True) for fn in (
+        hp.build_histograms_scatter, hp.build_histograms_scatter_ref)]),
+        "build_histograms_scatter's uint16 integer mode differs from its "
+        "plain version")
+    n_slot = int((slot >= 0).sum())
+    wide64 = hm.bins_int64(bins)
+    row("build_histograms_scatter_wide",
+        "lightgbm_tpu/learner/histogram_pallas.py:211 (via "
+        "build_histograms_pallas, :276)", err, k7, k7_ref, 3,
+        4 * n + n_slot * (2 * f + 12) + S_PORTABLE * f * bmax * 12,
+        n_slot * f * 3,
+        index_add_fn(torch, wide64, slot, torch.stack([grad, hess, cnt], 1),
+                     S_PORTABLE, bmax), source="build_histograms_scatter")
+    del wide64
+
+    trees = stack_trees(torch, gbdt.trees)
+    k = trees.leaf_value.shape[0]
+    nv = valid_bins.shape[0]
+    score0 = torch.as_tensor(rng.randn(nv).astype(np.float32), device=dev)
+    nb, nan = gbdt.num_bins_d, gbdt.missing_is_nan_d
+    traj, leaf = pr.stacked_leaf_nodes(trees, valid_bins, nb, nan, score0)
+    _, want, want_leaf = pr.stacked_score_traj_ref(trees, score0, valid_bins,
+                                                   nb, nan, leaves=True)
+    check(same_bits(torch, traj, want) and torch.equal(leaf, want_leaf),
+          "predict_binned's wide mode differs from its plain version")
+    vb64 = hm.bins_int64(valid_bins)
+    rows_ = torch.arange(nv, device=dev)
+    seen = torch.zeros((nv, f), dtype=torch.bool, device=dev)
+    sf = trees.split_feature.long()
+    visits, depth = 0, []
+    for t in range(k):
+        par = trees.parent[t].long()
+        cur, dd = leaf[t].long(), 0
+        while True:
+            up = par[cur]
+            active = up >= 0
+            m = int(active.sum())
+            if m == 0:
+                break
+            up = up.clamp(min=0)
+            visits += m
+            seen[rows_[active], sf[t][up][active]] = True
+            cur = torch.where(active, up, cur)
+            dd += 1
+        depth.append(dd)
+    nodes = int(trees.num_nodes.sum())
+    nbytes = 2 * int(seen.sum()) + 22 * nodes + 4 * nv + 4 * k * nv
+
+    def library():
+        s_ = score0
+        for t in range(k):
+            node = torch.zeros(nv, dtype=torch.int64, device=dev)
+            for _ in range(depth[t]):
+                feat = sf[t][node].clamp(min=0)
+                b = vb64[rows_, feat]
+                go = torch.where(nan[feat] & (b == nb[feat] - 1),
+                                 trees.default_left[t][node],
+                                 b <= trees.threshold_bin[t][node])
+                nxt = torch.where(go, trees.left[t][node],
+                                  trees.right[t][node]).long()
+                node = torch.where(sf[t][node] >= 0, nxt, node)
+            s_ = s_ + trees.leaf_value[t][node]
+        return s_
+    row("predict_binned_wide", "lightgbm_tpu/learner/predict.py:25 "
+        "(_traverse, predict_binned_tree; lightgbm_tpu/boosting/fused.py:54 "
+        "stacked_score_traj; XLA, no Pallas), uint16 bins", 0.0,
+        lambda: pr.stacked_score_traj(trees, score0, valid_bins, nb, nan),
+        lambda: pr.stacked_score_traj_ref(trees, score0, valid_bins, nb,
+                                          nan), 3, nbytes, visits, library,
+        source="predict_binned", library_graph=True)
+
+
+def wide_bins_path(torch, lgt, hm, hp, X, y, row, exact_auc):
+    """Phase `wide_bins`: max_bin 1023 on the portable grower. The 1M x 28
+    matrix binned to uint16 (seconds), a 40,000-row held-out set binned
+    with its mappers; launch counts reset, then for use_pallas true (K7's
+    wide mode) and false (the segment sums): train_booster (update(),
+    leaf_check, host predictions against the device scores) and
+    engine.train with the held-out set on auc (kernel V's wide mode every
+    iteration), the two model texts byte-equal (10 trees each); counts
+    read: K7 wide, the
+    partition and V wide launched, no kernel of the MXU grower. Then the
+    kernel rows (wide_bin_rows) and the held-out AUC beside the main
+    path's. Returns the counts."""
+    t0 = time.perf_counter()
+    ds = lgt.Dataset(X, label=y, params=WIDE_BIN_PARAMS).construct()
+    binning_s = time.perf_counter() - t0
+    Xva, yva = make_higgs_like(VALID_ROWS, N_FEATURES, seed=99)
+    dv = lgt.Dataset(Xva, label=yva, reference=ds)
+    logloss = logloss_of(torch, y)
+    hm.reset_launch_counts()
+    runs = {}
+    for impl in ("pallas", "scatter"):
+        params = dict(WIDE_BIN_PARAMS, use_pallas=impl == "pallas")
+        booster, secs, losses, _ = train_booster(
+            "wide_bins_" + impl, torch, lgt, hm, ds, params, WIDE_BIN_TREES,
+            logloss)
+        g = booster.gbdt
+        check(g._hist_impl == impl and g.bins.dtype == torch.uint16 and
+              g.bmax > 256, f"wide_bins: {g._hist_impl} grower over "
+              f"{g.bins.dtype} bins, bmax {g.bmax}")
+        host_err = host_vs_device(booster, X)
+        check(host_err <= 1e-4, f"wide_bins_{impl}: host predictions "
+              f"{host_err} off the device scores")
+        ev = {}
+        trained = lgt.train(params, ds, WIDE_BIN_TREES, valid_sets=[dv],
+                            valid_names=["held_out"],
+                            callbacks=[lgt.record_evaluation(ev)])
+        check(_model_sha(trained) == _model_sha(booster),
+              f"wide_bins_{impl}: two runs wrote different model text")
+        held = auc(trained.predict(Xva, raw_score=True), yva)
+        recorded = ev["held_out"]["auc"][-1]
+        check(abs(recorded - held) <= 1e-6, f"wide_bins_{impl}: recorded "
+              f"AUC {recorded} against the host model's {held}")
+        runs[impl] = dict(train_s=secs, trees_per_s=WIDE_BIN_TREES / secs,
+                          logloss=losses, held_out_auc=held,
+                          host_vs_device_max_abs=host_err,
+                          stats=dict(g.grow_stats),
+                          leaves=[int(t.num_leaves) for t in g.trees],
+                          model_sha256=_model_sha(booster)[:16])
+    counts = hm.launch_counts()
+    for key in WIDE_BIN_PATH:
+        check(counts[key] > 0, f"{key} was not launched on the wide_bins "
+              "path")
+    for key in MXU_ONLY:
+        check(counts[key] == 0, f"the wide_bins path launched {key}")
+    check_partition_launches(counts, "wide_bins")
+    wide_bin_rows(torch, hm, hp, row, booster.gbdt,
+                  trained.gbdt.valid_bins[0])
+    aucs = [r["held_out_auc"] for r in runs.values()]
+    emit("wide_bins", rows=N_ROWS, features=N_FEATURES,
+         bmax=int(booster.gbdt.bmax), binning_s=binning_s,
+         bin_bytes=int(booster.gbdt.bins.numel() * 2), runs=runs,
+         held_out_auc_max_bin_255=exact_auc,
+         launches={k: counts[k] for k in WIDE_BIN_PATH})
+    check(min(aucs) > 0.75, f"wide_bins: held-out AUC {aucs}")
+    return counts
+
+
+def monotone_sweep(booster, ds, Xva):
+    """The largest step against the constraint when feature 0 (+1) and
+    feature 1 (-1) sweep their bin upper bounds on MONO_ROWS held-out rows
+    with the other features held (<= 0 when monotone)."""
+    worst = -np.inf
+    for j, sign in ((0, 1.0), (1, -1.0)):
+        ub = np.asarray(ds.binned.mappers[j].bin_upper_bound, np.float64)
+        grid = ub[np.isfinite(ub)].astype(np.float32)
+        sweep = np.repeat(Xva[:MONO_ROWS], len(grid), axis=0)
+        sweep[:, j] = np.tile(grid, MONO_ROWS)
+        pred = booster.predict(sweep, raw_score=True).reshape(MONO_ROWS, -1)
+        worst = max(worst, float(np.max(-sign * np.diff(pred, axis=1))))
+    return worst
+
+
+def clamped_leaf_check(torch, name, grown):
+    """leaf_check for monotone-constrained trees: every leaf holds -G/H of
+    its rows (float64 sums) clamped into the bounds its parent's scan used
+    (the grower's node_bounds), within LEAF_TOL, so a wrong histogram shows
+    in a clamped leaf too unless -G/H lies beyond its bound. Prints the
+    largest difference and the share the bounds clamped."""
+    errs, clamped, leaves = [], 0, 0
+    for tree, row_node, grad, hess, bounds in grown:
+        nn = int(tree.num_nodes)
+        value = tree.leaf_value[:nn].double()
+        node = row_node.long()
+        rows = torch.stack([grad, hess, torch.ones_like(grad)], 1).double()
+        sums = torch.zeros((nn, 3), dtype=torch.float64,
+                           device=node.device).index_add_(0, node, rows)
+        leaf = (sums[:, 2] > 0) & tree.is_leaf[:nn]
+        free = -sums[:, 0] / torch.where(leaf, sums[:, 1], 1.0)
+        lo, hi = bounds[:nn].double().unbind(1)
+        want = torch.clamp(free, lo, hi)
+        err = torch.where(leaf, (value - want).abs(), 0.0)
+        errs.append(float(err.max()))
+        check(errs[-1] <= LEAF_TOL, f"{name}: a leaf is {errs[-1]} off -G/H "
+              "of its rows clamped into its bounds")
+        clamped += int((leaf & ((free - want).abs() > LEAF_TOL)).sum())
+        leaves += int(leaf.sum())
+    emit("leaf_check", run=name, max_leaf_err=max(errs),
+         max_leaf_err_per_tree=errs, clamped_leaves=clamped, leaves=leaves)
+
+
+def monotone_methods_path(torch, lgt, hm, X, y, ds, exact_auc):
+    """Phase `monotone_methods`: monotone_constraints_method intermediate
+    and advanced (+1 on feature 0, -1 on feature 1) on the portable
+    grower, leaf-wise. Launch counts reset, then per method: update() for
+    MONO_METHOD_TREES trees (every leaf -G/H of its rows clamped into its
+    bounds) and engine.train, byte-equal; held-out AUC, the monotone sweep
+    (no step against a constraint), host predictions against the device
+    scores, seconds a tree, passes a tree; counts read: K7 and the
+    partition launched, no kernel of the MXU grower. Then tree 0 of each method on the card against the CPU's
+    at MONO_CPU_ROWS rows and MONO_CPU_LEAVES leaves (the cross_device
+    check's scale); the held-out AUC beside the unconstrained main path's.
+    Returns the counts."""
+    logloss = logloss_of(torch, y)
+    Xva, _ = make_higgs_like(40_000, N_FEATURES, seed=99)
+    hm.reset_launch_counts()
+    runs = {}
+    for method in ("intermediate", "advanced"):
+        params = dict(MONO_METHOD_PARAMS, monotone_constraints_method=method)
+        grown = []
+
+        def keep(gbdt, grad, hess, tree, row_node):
+            grown.append((tree, row_node, grad, hess,
+                          gbdt.grow_stats["node_bounds"]))
+        booster, secs, losses, _ = train_booster(
+            "monotone_" + method, torch, lgt, hm, ds, params,
+            MONO_METHOD_TREES, logloss, leaf_check=False, on_grow=keep)
+        clamped_leaf_check(torch, "monotone_" + method, grown)
+        del grown
+        g = booster.gbdt
+        check(g._hist_impl == "pallas" and g._mono_method == method,
+              f"monotone_{method}: {g._hist_impl} grower, method "
+              f"{g._mono_method}")
+        trained = lgt.train(params, ds, MONO_METHOD_TREES)
+        check(_model_sha(trained) == _model_sha(booster),
+              f"monotone_{method}: two runs wrote different model text")
+        del trained
+        worst = monotone_sweep(booster, ds, Xva)
+        check(worst <= 0.0, f"monotone_{method}: a held-out sweep steps "
+              f"{worst} against its constraint")
+        host_err = host_vs_device(booster, X)
+        check(host_err <= 1e-4, f"monotone_{method}: host predictions "
+              f"{host_err} off the device scores")
+        st = g.grow_stats
+        runs[method] = dict(
+            s_per_tree=secs / MONO_METHOD_TREES, logloss=losses,
+            held_out_auc=held_out_auc(booster), worst_step=worst,
+            host_vs_device_max_abs=host_err,
+            passes_per_tree=st["passes"] / st["trees"],
+            leaves=[int(t.num_leaves) for t in g.trees],
+            model_sha256=_model_sha(booster)[:16])
+        del booster
+    counts = hm.launch_counts()
+    for key in MONO_METHOD_PATH:
+        check(counts[key] > 0, f"{key} was not launched on the "
+              "monotone_methods path")
+    for key in MXU_ONLY:
+        check(counts[key] == 0, f"the monotone_methods path launched {key}")
+    check_partition_launches(counts, "monotone_methods")
+    # tree 0 on the card against the CPU's: fixed-point histograms and root
+    # sums, float64 scans and exact bounds give the same bits on both
+    Xs, ys = X[:MONO_CPU_ROWS], y[:MONO_CPU_ROWS]
+    tree0 = {}
+    for method in ("intermediate", "advanced"):
+        texts = {}
+        for device in ("cuda", "cpu"):
+            p = dict(MONO_METHOD_PARAMS, num_leaves=MONO_CPU_LEAVES,
+                     monotone_constraints_method=method, device_type=device)
+            b = lgt.train(p, lgt.Dataset(Xs, label=ys, params=p), 1)
+            texts[device] = tree_blocks(b.model_to_string())
+        tree0[method] = texts["cuda"] == texts["cpu"]
+        check(tree0[method], f"monotone_{method}: tree 0 on the card differs "
+              "from the CPU's")
+    emit("monotone_methods", rows=N_ROWS, features=N_FEATURES,
+         trees=MONO_METHOD_TREES, runs=runs, tree0_equals_cpu=tree0,
+         held_out_auc_unconstrained_10_trees=exact_auc,
+         cpu_rows=MONO_CPU_ROWS, cpu_leaves=MONO_CPU_LEAVES,
+         launches={k: counts[k] for k in MONO_METHOD_PATH})
+    return counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4100,8 +4661,16 @@ def main():
                                        booster)
     counts["constraints"] = constraints_path(torch, lgt, hm, y, ds, booster)
     counts["scan"] = scan_path(torch, lgt, hm, grow_tree_mxu, y, ds)
+    counts["single_prec"] = single_prec_path(torch, lgt, hm, X, y, ds,
+                                             exact_auc)
+    single_prec_rows(torch, hm, hp, rng, dev, make_row(torch, rows))
+    counts["monotone_methods"] = monotone_methods_path(torch, lgt, hm, X, y,
+                                                       ds, exact_auc)
     del ds, reg_ds
+    torch.cuda.empty_cache()
     counts["packed"] = packed_path(torch, lgt, hm, X, y)
+    counts["wide_bins"] = wide_bins_path(torch, lgt, hm, hp, X, y,
+                                         make_row(torch, rows), exact_auc)
     del X, y
     torch.cuda.empty_cache()
     counts["multiclass"] = multiclass_path(torch, lgt, hm, dev,

@@ -45,7 +45,19 @@
 // Integer mode: int8 gradients into int32 cells and the count's f32 bits
 // in the same cell word, the count added with float atomics (whole-number
 // counts below 2^24 are exact). const_hess != 0: the hessian channel is
-// skipped and written as const x count. Unpacked or 4-bit packed bins.
+// skipped and written as const x count. Unpacked or 4-bit packed uint8
+// bins, or (a compile-time mode) unpacked uint16 bins: max_bin > 256, the
+// portable grower's histograms (lightgbm_tpu/learner/histogram_pallas.py
+// build_histograms_pallas, :276-290), whose TPU kernel pads the bin axis
+// to 128 lanes; here the bin axis goes up to the widest at which one
+// feature's cells fit kGroupSmemBytes (4266 exact, 8533 integer), which
+// the wrapper checks. Single-precision mode (another compile-time mode;
+// the JAX kernels' double_prec=False, gpu_use_dp=false): each row's
+// hessian is rounded to bf16, to nearest even as the TPU kernel's bf16
+// operand cast, before it becomes a fixed-point value; the rest is the
+// exact mode.
+#include <cuda_bf16.h>
+
 #include <type_traits>
 
 #include "route_hist.cuh"
@@ -102,9 +114,30 @@ __device__ __forceinline__ void cell_sums(const unsigned* words, int cell,
   }
 }
 
-template <typename In, bool kExact, bool kPacked>
+// Bin of feature j in a row of Bin words: uint8 (unpacked or packed) or
+// unpacked uint16.
+template <typename Bin, bool kPacked>
+__device__ __forceinline__ int bin_at(const Bin* row, int j, int fh) {
+  if constexpr (kPacked) {
+    return lgbt::read_bin<true>(row, j, fh);
+  } else {
+    return row[j];
+  }
+}
+
+// The hessian a row adds: as it is, or rounded to bf16 (single precision).
+template <bool kSingle>
+__device__ __forceinline__ float hess_value(float h) {
+  if constexpr (kSingle) {
+    return __bfloat162float(__float2bfloat16_rn(h));
+  } else {
+    return h;
+  }
+}
+
+template <typename In, typename Bin, bool kExact, bool kPacked, bool kSingle>
 __global__ void scatter_hist_kernel(
-    const uint8_t* __restrict__ bins, const In* __restrict__ grad,
+    const Bin* __restrict__ bins, const In* __restrict__ grad,
     const In* __restrict__ hess, const float* __restrict__ cnt,
     const int* __restrict__ block_slot, const int* __restrict__ src,
     const int* __restrict__ bounds, const int* __restrict__ scale_k,
@@ -149,7 +182,9 @@ __global__ void scatter_hist_kernel(
       if constexpr (kExact) {
         const long long q[3] = {
             lgbt::fixed_point(grad[r], mul[0]),
-            skip_hess ? 0ll : lgbt::fixed_point(hess[r], mul[1]),
+            skip_hess ? 0ll
+                      : lgbt::fixed_point(hess_value<kSingle>(hess[r]),
+                                          mul[1]),
             lgbt::fixed_point(cnt[r], mul[2])};
         for (int c = 0; c < 3; ++c) {
           add[c] = static_cast<unsigned>(q[c]) & ((1u << kLoBits) - 1u);
@@ -161,10 +196,10 @@ __global__ void scatter_hist_kernel(
                                       static_cast<int>(hess[r]));
         add[2] = __float_as_uint(cnt[r]);
       }
-      const uint8_t* row = bins + static_cast<size_t>(r) * rs;
+      const Bin* row = bins + static_cast<size_t>(r) * rs;
       int jf = jstart;
       for (int t = 0; t < fc; ++t) {
-        const int bin = lgbt::read_bin<kPacked>(row, f0 + jf, fh);
+        const int bin = bin_at<Bin, kPacked>(row, f0 + jf, fh);
         if (bin < b) {
           unsigned* cell = words + (jf * b + bin) * kWords;
           if constexpr (kExact) {
@@ -251,7 +286,8 @@ __global__ void reduce_kernel(const int* __restrict__ bounds,
   }
 }
 
-template <typename In, bool kExact, bool kPacked>
+template <typename In, typename Bin, bool kExact, bool kPacked,
+          bool kSingle>
 cudaError_t launch(const void* bins, const void* grad, const void* hess,
                    const void* cnt, const void* block_slot, const void* src,
                    const void* bounds, const void* scale_k, void* out,
@@ -266,11 +302,12 @@ cudaError_t launch(const void* bins, const void* grad, const void* hess,
   const int groups = (f + fgroup - 1) / fgroup;
   fgroup = (f + groups - 1) / groups;
   const size_t smem = fgroup * per_feature;
-  auto hist_k = scatter_hist_kernel<In, kExact, kPacked>;
+  if (smem > kGroupSmemBytes) return cudaErrorInvalidValue;  // bins > cap
+  auto hist_k = scatter_hist_kernel<In, Bin, kExact, kPacked, kSingle>;
   cudaError_t err = lgbt::allow_smem(hist_k, smem);
   if (err != cudaSuccess) return err;
   hist_k<<<dim3(tb, groups), kHistThreads, smem, stream>>>(
-      static_cast<const uint8_t*>(bins), static_cast<const In*>(grad),
+      static_cast<const Bin*>(bins), static_cast<const In*>(grad),
       static_cast<const In*>(hess), static_cast<const float*>(cnt),
       static_cast<const int*>(block_slot), static_cast<const int*>(src),
       static_cast<const int*>(bounds), static_cast<const int*>(scale_k),
@@ -296,27 +333,40 @@ cudaError_t launch(const void* bins, const void* grad, const void* hess,
 // channels hold their integer sums; else scale_k [3] i32 is the
 // fixed-point scale (histogram_mxu.exact_scale) and a run may hold at most
 // kWordRows rows (run_blocks x nb). fh > 0: bins are 4-bit packed, fh
-// bytes a row. const_hess != 0: hessians are const_hess x count.
+// bytes a row. wide != 0: bins are unpacked uint16 (f words a row), b at
+// most the bins whose cells fit kGroupSmemBytes. const_hess != 0:
+// hessians are const_hess x count. single != 0 (exact mode with a per-row
+// hessian): each hessian is rounded to bf16 before its fixed point.
 extern "C" int lgbt_build_histograms_scatter(
     const void* bins, const void* grad, const void* hess, const void* cnt,
     const void* block_slot, const void* src, const void* bounds,
     const void* scale_k, void* out, void* part, int n, int f, int fh, int b,
     int s, int nb, int tb, int run_blocks, float const_hess, int quantized,
-    void* stream) {
+    int single, int wide, void* stream) {
   if (s == 0 || tb == 0 || f == 0) return cudaSuccess;
   if (!quantized && static_cast<long long>(run_blocks) * nb > kWordRows) {
     return cudaErrorInvalidValue;
   }
-  auto st = static_cast<cudaStream_t>(stream);
-#define LGBT_SCATTER(In, E, P)                                               \
-  return launch<In, E, P>(bins, grad, hess, cnt, block_slot, src, bounds,    \
-                          scale_k, out, part, n, f, fh, b, s, nb, tb,        \
-                          run_blocks, const_hess, st)
-  if (quantized) {
-    if (fh > 0) LGBT_SCATTER(int8_t, false, true);
-    LGBT_SCATTER(int8_t, false, false);
+  if ((wide && fh > 0) || (single && (quantized || const_hess != 0.0f))) {
+    return cudaErrorInvalidValue;
   }
-  if (fh > 0) LGBT_SCATTER(float, true, true);
-  LGBT_SCATTER(float, true, false);
+  auto st = static_cast<cudaStream_t>(stream);
+#define LGBT_SCATTER(In, B, E, P, S)                                         \
+  return launch<In, B, E, P, S>(bins, grad, hess, cnt, block_slot, src,      \
+                                bounds, scale_k, out, part, n, f, fh, b, s,  \
+                                nb, tb, run_blocks, const_hess, st)
+  if (quantized) {
+    if (fh > 0) LGBT_SCATTER(int8_t, uint8_t, false, true, false);
+    if (wide) LGBT_SCATTER(int8_t, uint16_t, false, false, false);
+    LGBT_SCATTER(int8_t, uint8_t, false, false, false);
+  }
+  if (single) {
+    if (fh > 0) LGBT_SCATTER(float, uint8_t, true, true, true);
+    if (wide) LGBT_SCATTER(float, uint16_t, true, false, true);
+    LGBT_SCATTER(float, uint8_t, true, false, true);
+  }
+  if (fh > 0) LGBT_SCATTER(float, uint8_t, true, true, false);
+  if (wide) LGBT_SCATTER(float, uint16_t, true, false, false);
+  LGBT_SCATTER(float, uint8_t, true, false, false);
 #undef LGBT_SCATTER
 }

@@ -40,6 +40,10 @@
 // the decision is then the plain one. A compile-time mode: the unbundled
 // walk is unchanged.
 //
+// Wide mode (another compile-time mode; max_bin > 256, the JAX package's
+// int32 bin values at any width): the bins are uint16, rs words a row,
+// unbundled or bundled; the decisions are the same integer compares.
+//
 // Bound on this card: bytes, and those are few (the rows' bins on their
 // paths, the trees, K x N f32 out); the walk is latency-bound, a chain of
 // dependent loads a level. Design: a thread a row with a grid-stride
@@ -55,10 +59,11 @@ constexpr int kThreads = 128;
 constexpr int kCtasPerSm = 16;
 constexpr int kMaxDevices = 64;
 
-// The original local bin of feature feat in row rb: its byte, or under
-// EFB its bundle column's byte decoded through the loc table.
-template <bool kEfb>
-__device__ __forceinline__ int bin_of(const uint8_t* rb, int feat,
+// The original local bin of feature feat in row rb (Bin: uint8 or uint16
+// words): its word, or under EFB its bundle column's word decoded through
+// the loc table.
+template <bool kEfb, typename Bin>
+__device__ __forceinline__ int bin_of(const Bin* rb, int feat,
                                       const int* __restrict__ col_of_feat,
                                       const int* __restrict__ loc, int bb) {
   if (!kEfb) return rb[feat];
@@ -67,9 +72,9 @@ __device__ __forceinline__ int bin_of(const uint8_t* rb, int feat,
 }
 
 // The leaf node id of one row in tree `base` (node arrays offset by base).
-template <bool kEfb>
+template <bool kEfb, typename Bin>
 __device__ __forceinline__ int walk(
-    const uint8_t* rb, int f, int base, int m1,
+    const Bin* rb, int f, int base, int m1,
     const int* __restrict__ split_feature,
     const int* __restrict__ threshold_bin,
     const uint8_t* __restrict__ default_left,
@@ -87,7 +92,7 @@ __device__ __forceinline__ int walk(
     int feat = __ldg(split_feature + base + node);
     if (feat < 0) break;
     if (feat > f - 1) feat = f - 1;
-    const int b = bin_of<kEfb>(rb, feat, col_of_feat, loc, bb);
+    const int b = bin_of<kEfb, Bin>(rb, feat, col_of_feat, loc, bb);
     bool go_left;
     if (__ldg(is_cat + base + node)) {
       int word = b >> 5;
@@ -106,9 +111,9 @@ __device__ __forceinline__ int walk(
   return node;
 }
 
-template <bool kScore0, bool kLeaf, bool kEfb>
+template <bool kScore0, bool kLeaf, bool kEfb, typename Bin>
 __global__ void predict_binned_kernel(
-    const uint8_t* __restrict__ bins, int n, int f, int rs,
+    const Bin* __restrict__ bins, int n, int f, int rs,
     const int* __restrict__ split_feature,
     const int* __restrict__ threshold_bin,
     const uint8_t* __restrict__ default_left,
@@ -124,11 +129,11 @@ __global__ void predict_binned_kernel(
   const int stride = gridDim.x * blockDim.x;
   for (int row = blockIdx.x * blockDim.x + threadIdx.x; row < n;
        row += stride) {
-    const uint8_t* rb = bins + static_cast<size_t>(row) * rs;
+    const Bin* rb = bins + static_cast<size_t>(row) * rs;
     float s = kScore0 ? score0[row] : 0.0f;
     for (int t = 0; t < k; ++t) {
       const int base = t * m1;
-      const int node = walk<kEfb>(rb, f, base, m1, split_feature,
+      const int node = walk<kEfb, Bin>(rb, f, base, m1, split_feature,
                                   threshold_bin, default_left, is_cat,
                                   cat_bitset, words, left, right, num_bins,
                                   missing_is_nan, col_of_feat, loc, bb);
@@ -143,9 +148,9 @@ __global__ void predict_binned_kernel(
 
 // Class mode: k steps of g trees each (k * g stacked trees), score0 and
 // traj [N, C] a point.
-template <bool kEfb>
+template <bool kEfb, typename Bin>
 __global__ void predict_binned_class_kernel(
-    const uint8_t* __restrict__ bins, int n, int f, int rs,
+    const Bin* __restrict__ bins, int n, int f, int rs,
     const int* __restrict__ split_feature,
     const int* __restrict__ threshold_bin,
     const uint8_t* __restrict__ default_left,
@@ -162,7 +167,7 @@ __global__ void predict_binned_class_kernel(
   const size_t point = static_cast<size_t>(n) * num_class;
   for (int row = blockIdx.x * blockDim.x + threadIdx.x; row < n;
        row += stride) {
-    const uint8_t* rb = bins + static_cast<size_t>(row) * rs;
+    const Bin* rb = bins + static_cast<size_t>(row) * rs;
     const size_t at = static_cast<size_t>(row) * num_class;
     const float* prev = score0 + at;
     for (int t = 0; t < k; ++t) {
@@ -170,10 +175,11 @@ __global__ void predict_binned_class_kernel(
       for (int c = 0; c < num_class; ++c) out[c] = prev[c];
       for (int g = 0; g < group; ++g) {
         const int base = (t * group + g) * m1;
-        const int node = walk<kEfb>(rb, f, base, m1, split_feature,
-                                    threshold_bin, default_left, is_cat,
-                                    cat_bitset, words, left, right, num_bins,
-                                    missing_is_nan, col_of_feat, loc, bb);
+        const int node = walk<kEfb, Bin>(rb, f, base, m1, split_feature,
+                                         threshold_bin, default_left, is_cat,
+                                         cat_bitset, words, left, right,
+                                         num_bins, missing_is_nan,
+                                         col_of_feat, loc, bb);
         out[cls0 + g] = __fadd_rn(out[cls0 + g],
                                   __ldg(leaf_value + base + node));
       }
@@ -184,7 +190,7 @@ __global__ void predict_binned_class_kernel(
 
 // The kernel's arguments past its template choice.
 struct Args {
-  const uint8_t* bins;
+  const void* bins;
   int n, f, rs;
   const int *sf, *thr;
   const uint8_t *dl, *ic;
@@ -202,28 +208,29 @@ struct Args {
   int bb;
 };
 
-template <bool kScore0, bool kLeaf, bool kEfb>
+template <bool kScore0, bool kLeaf, bool kEfb, typename Bin>
 void launch(int blocks, cudaStream_t st, const Args& a) {
-  predict_binned_kernel<kScore0, kLeaf, kEfb><<<blocks, kThreads, 0, st>>>(
-      a.bins, a.n, a.f, a.rs, a.sf, a.thr, a.dl, a.ic, a.cb, a.words, a.l,
-      a.r, a.lv, a.k, a.m1, a.nb, a.nan, a.s0, a.traj, a.leaf, a.col, a.loc,
-      a.bb);
+  predict_binned_kernel<kScore0, kLeaf, kEfb, Bin>
+      <<<blocks, kThreads, 0, st>>>(
+      static_cast<const Bin*>(a.bins), a.n, a.f, a.rs, a.sf, a.thr, a.dl,
+      a.ic, a.cb, a.words, a.l, a.r, a.lv, a.k, a.m1, a.nb, a.nan, a.s0,
+      a.traj, a.leaf, a.col, a.loc, a.bb);
 }
 
-template <bool kEfb>
+template <bool kEfb, typename Bin>
 void launch_all(int blocks, cudaStream_t st, const Args& a, int num_class,
                 int group, int cls0) {
   if (num_class > 1) {
-    predict_binned_class_kernel<kEfb><<<blocks, kThreads, 0, st>>>(
-        a.bins, a.n, a.f, a.rs, a.sf, a.thr, a.dl, a.ic, a.cb, a.words, a.l,
-        a.r, a.lv, a.k, a.m1, a.nb, a.nan, a.s0, a.traj, num_class, group,
-        cls0, a.col, a.loc, a.bb);
+    predict_binned_class_kernel<kEfb, Bin><<<blocks, kThreads, 0, st>>>(
+        static_cast<const Bin*>(a.bins), a.n, a.f, a.rs, a.sf, a.thr, a.dl,
+        a.ic, a.cb, a.words, a.l, a.r, a.lv, a.k, a.m1, a.nb, a.nan, a.s0,
+        a.traj, num_class, group, cls0, a.col, a.loc, a.bb);
   } else if (a.s0 != nullptr) {
-    if (a.leaf != nullptr) launch<true, true, kEfb>(blocks, st, a);
-    else launch<true, false, kEfb>(blocks, st, a);
+    if (a.leaf != nullptr) launch<true, true, kEfb, Bin>(blocks, st, a);
+    else launch<true, false, kEfb, Bin>(blocks, st, a);
   } else {
-    if (a.leaf != nullptr) launch<false, true, kEfb>(blocks, st, a);
-    else launch<false, false, kEfb>(blocks, st, a);
+    if (a.leaf != nullptr) launch<false, true, kEfb, Bin>(blocks, st, a);
+    else launch<false, false, kEfb, Bin>(blocks, st, a);
   }
 }
 
@@ -233,7 +240,8 @@ void launch_all(int blocks, cudaStream_t st, const Args& a, int num_class,
 // tree's leaf value; no leaf_out writes no leaf ids. num_class > 1 is the
 // class mode: k steps of `group` trees into columns cls0.., score0 given,
 // no leaf ids. col_of_feat ([f] i32) and loc ([f, bb] i32) given: the
-// bundled-matrix mode, rs bytes a row (else rs = f).
+// bundled-matrix mode, rs words a row (else rs = f). wide != 0: the bins
+// are uint16 words, else uint8.
 extern "C" int lgbt_predict_binned(
     const void* bins, const void* split_feature, const void* threshold_bin,
     const void* default_left, const void* is_cat, const void* cat_bitset,
@@ -241,7 +249,7 @@ extern "C" int lgbt_predict_binned(
     const void* num_bins, const void* missing_is_nan, const void* score0,
     void* traj, void* leaf_out, const void* col_of_feat, const void* loc,
     int n, int f, int rs, int bb, int k, int m1, int words, int num_class,
-    int group, int cls0, void* stream) {
+    int group, int cls0, int wide, void* stream) {
   if (n == 0 || k == 0) return cudaSuccess;
   if (num_class > 1 && (score0 == nullptr || leaf_out != nullptr ||
                         group < 1 || cls0 < 0 || cls0 + group > num_class))
@@ -262,7 +270,7 @@ extern "C" int lgbt_predict_binned(
   int blocks = (n + kThreads - 1) / kThreads;
   if (blocks > sm_count[dev] * kCtasPerSm) blocks = sm_count[dev] * kCtasPerSm;
   auto st = static_cast<cudaStream_t>(stream);
-  const Args a{static_cast<const uint8_t*>(bins), n, f, rs,
+  const Args a{bins, n, f, rs,
                static_cast<const int*>(split_feature),
                static_cast<const int*>(threshold_bin),
                static_cast<const uint8_t*>(default_left),
@@ -276,7 +284,12 @@ extern "C" int lgbt_predict_binned(
                static_cast<int*>(leaf_out),
                static_cast<const int*>(col_of_feat),
                static_cast<const int*>(loc), bb};
-  if (efb) launch_all<true>(blocks, st, a, num_class, group, cls0);
-  else launch_all<false>(blocks, st, a, num_class, group, cls0);
+  if (wide) {
+    if (efb) launch_all<true, uint16_t>(blocks, st, a, num_class, group, cls0);
+    else launch_all<false, uint16_t>(blocks, st, a, num_class, group, cls0);
+  } else {
+    if (efb) launch_all<true, uint8_t>(blocks, st, a, num_class, group, cls0);
+    else launch_all<false, uint8_t>(blocks, st, a, num_class, group, cls0);
+  }
   return cudaGetLastError();
 }

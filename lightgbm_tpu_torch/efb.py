@@ -33,6 +33,7 @@ from typing import List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from .learner.histogram_mxu import gather_bins
 from .utils.log import Log
 
 __all__ = ["EfbPlan", "EfbScan", "EfbDev", "build_plan", "bundle_matrix",
@@ -395,6 +396,6 @@ def route_bins(bins: torch.Tensor, pf: torch.Tensor,
     the default bin)."""
     pf = pf.to(torch.int64)
     g = efb.col_of_feat[pf].to(torch.int64)
-    pos = torch.gather(bins, 1, g[:, None])[:, 0].to(torch.int64)
+    pos = gather_bins(bins, g)
     return efb.loc_table.reshape(-1)[pf * efb.bundle_bmax + pos] \
         .to(torch.int64)

@@ -49,13 +49,14 @@ KERNELS: Dict[str, tuple] = {
     "route_rows": ("lgbt_route_rows", [_P] * 10 + [_I] * 8 + [_P]),
     "partition_rows": ("lgbt_partition_rows", [_P] * 6 + [_I] * 4 + [_P]),
     "build_histograms_scatter": ("lgbt_build_histograms_scatter",
-                                 [_P] * 10 + [_I] * 8 + [_F, _I, _P]),
+                                 [_P] * 10 + [_I] * 8 + [_F] + [_I] * 3 +
+                                 [_P]),
     "node_values": ("lgbt_node_values", [_P] * 3 + [_I] * 2 + [_P]),
     "node_sums": ("lgbt_node_sums", [_P] * 6 + [_I] * 2 + [_P]),
     "find_best_splits": ("lgbt_find_best_splits",
                          [_P] * 6 + [_I] * 4 + [_F] * 7 + [_P]),
     "prune_best_first": ("lgbt_prune_best_first", [_P] * 8 + [_I] * 3 + [_P]),
-    "predict_binned": ("lgbt_predict_binned", [_P] * 16 + [_I] * 10 + [_P]),
+    "predict_binned": ("lgbt_predict_binned", [_P] * 16 + [_I] * 11 + [_P]),
 }
 
 _lock = threading.Lock()

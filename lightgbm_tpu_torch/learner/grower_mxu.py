@@ -95,7 +95,8 @@ from .grower import TreeArrays, _init_tree
 from .histogram_mxu import (build_histograms_auto, exact_scale, exact_sums,
                             fits_v2, fused_route_hist, fused_row_block,
                             node_sums, node_values, pack_route_tables,
-                            quantize_gradients, route_rows, unpack_bins_4bit)
+                            quantize_gradients, route_rows,
+                            single_prec_hess, unpack_bins_4bit)
 from .histogram_pallas import build_histograms_scatter
 from .prune import prune_best_first
 from .split import BestSplits, SplitHyperParams, find_best_splits, leaf_output
@@ -358,7 +359,8 @@ class Grower:
                  packed4: bool = False, hist_backend: str = "mxu",
                  partition_impl: str = "auto",
                  use_scan_kernel: bool = False,
-                 efb: Optional[EfbDev] = None):
+                 efb: Optional[EfbDev] = None,
+                 hist_double_prec: bool = True):
         if hist_backend not in HIST_BACKENDS:
             raise ValueError(f"grow_tree_mxu needs a resolved hist_backend, "
                              f"one of {HIST_BACKENDS}; got {hist_backend!r} "
@@ -388,6 +390,7 @@ class Grower:
         self.hist_subtraction = hist_subtraction
         self.tail_split_cap = plan.tail_split_cap
         self.ch, self.quant = const_hessian, quantized_grad
+        self.double_prec = hist_double_prec
         self.hist_backend, self.partition_impl = hist_backend, partition_impl
         self.m = 2 * plan.L_g - 1
         self.m1 = self.m + 1
@@ -458,13 +461,22 @@ class Grower:
                 hscale
             hist_fixed = None
         else:
-            h_grad, h_hess, hist_scale = grad, hess, None
+            # the single-precision mode's histograms sum bf16-rounded
+            # hessians; the root and every backend take the same values,
+            # so every node's hessian sum is its rows' (ROADMAP C15: the
+            # JAX package's root sums the unrounded ones, and the larger
+            # siblings, parent minus smaller, carry the difference down to
+            # leaves near 0). The kernels round again: bf16 rounding is
+            # idempotent, so their bits do not change
+            h_hess = hess if self.double_prec or ch else \
+                single_prec_hess(hess)
+            h_grad, hist_scale = grad, None
             # the fixed point of every exact histogram of the tree
-            hist_fixed = exact_scale(grad, hess, cnt_weight)
+            hist_fixed = exact_scale(grad, h_hess, cnt_weight)
             # root sums in the same fixed point, so they are the same bits
             # on every device (an f32 torch.sum adds in another order on
             # the card than on the CPU) and right = parent - left is exact
-            root_g, root_h, _ = exact_sums(grad, hess, cnt_weight,
+            root_g, root_h, _ = exact_sums(grad, h_hess, cnt_weight,
                                            hist_fixed)
             if ch:
                 root_h = root_c * ch
@@ -635,10 +647,11 @@ class Grower:
         if m_cap is not None and m_cap < self.plan.m_pad:
             tbl = tbl[:m_cap]
             member = member[:m_cap]
+        dp = self.double_prec
         if self.efb is not None:
             rw, rb = (0 if self.efb_range else f), 1024
         else:
-            rw, rb = 0, fused_row_block(nslots, f, bmax, ch, quant)
+            rw, rb = 0, fused_row_block(nslots, f, bmax, ch, quant, dp)
         if self.hist_backend != "mxu" and self.efb is None:
             pallas = self.hist_backend == "pallas"
             rn, rs, cts = route_rows(bins, row_node, tbl, member, feat_tbl,
@@ -650,7 +663,7 @@ class Grower:
                     bmax=bmax, num_features=nfp, quantized=quant,
                     const_hess=ch, slot_tallies=cts,
                     partition_impl=self.partition_impl,
-                    scale=inputs.hist_fixed)
+                    scale=inputs.hist_fixed, double_prec=dp)
             else:
                 ub = unpack_bins_4bit(bins, f) if nfp else bins
                 h = histogram.build_histograms(ub, h_grad, h_hess, rs, cnt,
@@ -659,13 +672,14 @@ class Grower:
                     # const x count, as the kernel backends' channel drop
                     h[..., 1] = h[..., 2] * ch
         elif fits_v2(nslots, fk, bk, quant, route_width=rw, row_block=rb,
-                     const_hess=ch):
+                     const_hess=ch, double_prec=dp):
             h, rn = fused_route_hist(bins, h_grad, h_hess, cnt, row_node,
                                      tbl, member, feat_tbl,
                                      num_slots=nslots, bmax=bk,
                                      const_hess=ch, quantized=quant,
                                      num_features=nfp,
-                                     scale=inputs.hist_fixed, **efb_kw)
+                                     scale=inputs.hist_fixed,
+                                     double_prec=dp, **efb_kw)
         else:
             rn, rs = route_rows(bins, row_node, tbl, member, feat_tbl,
                                 num_features=nfp, **efb_kw)
@@ -673,7 +687,8 @@ class Grower:
                                       num_slots=nslots, bmax=bk,
                                       const_hess=ch, quantized=quant,
                                       num_features=nfp,
-                                      scale=inputs.hist_fixed)
+                                      scale=inputs.hist_fixed,
+                                      double_prec=dp)
         if quant:
             h = h * inputs.hist_scale   # integer sums -> gradient units
         return h, rn
@@ -1005,8 +1020,12 @@ def grow_tree_mxu(bins: torch.Tensor, grad: torch.Tensor,
     never "auto", which the booster resolves first (autotune_hist_backend);
     partition_impl: the pallas backend's partition_rows impl. efb: an
     efb.EfbDev when bins is the bundled [N, Fb] matrix (module docstring;
-    num_bins and the other per-feature arrays stay original). The only
-    host reads are the fix-up loop's `done` (Grower.fixup_loop)."""
+    num_bins and the other per-feature arrays stay original).
+    hist_double_prec=False: exact histograms of bf16-rounded hessians (the
+    JAX package's hist_double_prec, gpu_use_dp=false; histogram_mxu's
+    single-precision mode), which also sizes the passes' kernel fit
+    (fits_v2 at 4 channels). The only host reads are the fix-up loop's
+    `done` (Grower.fixup_loop)."""
     return Grower(bins, num_bins, missing_is_nan, is_cat_feat,
                   **settings).grow(grad, hess, cnt_weight, feature_mask,
                                    rng_key)

@@ -8,12 +8,16 @@ plain XLA — a backend of its own, not a kernel's plain version.
 
 Sums run in float64 and are rounded to f32 once, so integer (quantized)
 gradient sums come out exact whatever order the adds take, bit for bit
-equal to the integer kernels' sums converted to f32.
+equal to the integer kernels' sums converted to f32. Bins are uint8 or
+uint16 (max_bin > 256: the portable grower with use_pallas=false or EFB,
+as the JAX package's XLA segment sums take any width).
 """
 
 from __future__ import annotations
 
 import torch
+
+from .histogram_mxu import bins_int64
 
 __all__ = ["build_histograms"]
 
@@ -26,8 +30,8 @@ def build_histograms(bins: torch.Tensor, grad: torch.Tensor,
                      cnt: torch.Tensor = None, *, num_slots: int,
                      bmax: int) -> torch.Tensor:
     """Per-slot histograms [num_slots, F, bmax, 3] f32 (sum grad, sum hess,
-    count) of an unpacked [N, F] bin matrix; rows whose slot is < 0 or >=
-    num_slots go nowhere. grad/hess: [N], any real dtype (int8 quantized
+    count) of an unpacked [N, F] uint8 or uint16 bin matrix; rows whose
+    slot is < 0 or >= num_slots go nowhere. grad/hess: [N], any real dtype (int8 quantized
     gradients included); cnt: [N] count weights, default 1."""
     n, f = bins.shape
     dev = bins.device
@@ -47,7 +51,7 @@ def build_histograms(bins: torch.Tensor, grad: torch.Tensor,
     for f0 in range(0, f, fb):
         js = torch.arange(f0, min(f0 + fb, f), device=dev)
         ids = (slot[:, None] * f + js[None, :]) * bmax + \
-            bins[:, f0:f0 + fb].to(torch.int64)                   # [N, fb]
+            bins_int64(bins[:, f0:f0 + fb])                       # [N, fb]
         flat.index_add_(0, ids.reshape(-1),
                         data[:, None, :].expand(-1, js.numel(), 3)
                         .reshape(-1, 3))

@@ -36,7 +36,20 @@ magnitude). Quantized (`quantized=True`, the JAX kernels' flag of that
 name): int8 gradients from `quantize_gradients` into int32 cells, returned
 as f32 integer sums that the caller scales. The
 routing and histogram kernels read the bin matrix unpacked ([N, F] uint8)
-or 4-bit packed (`pack_bins_4bit`, [N, ceil(F/2)] uint8, `num_features=F`).
+or 4-bit packed (`pack_bins_4bit`, [N, ceil(F/2)] uint8, `num_features=F`);
+the scatter kernel behind build_histograms also reads [N, F] uint16 bins
+(max_bin > 256, the portable grower's; `wide_bin_limit`), and
+`bins_int64` widens either for the torch glue (torch's uint16 has few
+operators).
+
+Single-precision hessians (`double_prec=False`, the reference's
+gpu_use_dp=false; the JAX kernels' flag of that name): in exact mode
+with a per-row hessian, each row's hessian is rounded to bf16 (round to
+nearest even, as the TPU kernels' bf16 operand cast) before it becomes a
+fixed-point value (`single_prec_hess`); gradient sums and counts are
+unchanged, and the sums stay integer sums, order-free. Quantized and
+constant-hessian modes ignore the flag, as in the JAX package. Launches
+in this mode count with "_sp", those over uint16 bins with "_wide".
 
 Each wrapper runs its kernel for CUDA tensors and its plain PyTorch version
 (`<name>_ref`, same module) for CPU tensors — chosen by the device of the
@@ -78,6 +91,8 @@ __all__ = ["fused_route_hist", "route_rows", "build_histograms",
            "NODE_SUMS_BITS", "quantize_gradients",
            "pack_route_tables", "pack_bins_4bit", "unpack_bins_4bit",
            "fits_v2", "fused_row_block", "launch_counts",
+           "single_prec_hess", "bins_int64", "rows_int64", "gather_bins",
+           "wide_bin_limit",
            "reset_launch_counts", "recording_launches", "add_launches",
            "scratch_buffers",
            "chunk_tallies_ref", "num_chunks", "CHUNK_ROWS"]
@@ -140,6 +155,32 @@ def _unpacked(bins, num_features: int):
     return unpack_bins_4bit(bins, num_features) if num_features else bins
 
 
+def bins_int64(bins: torch.Tensor) -> torch.Tensor:
+    """An unpacked bin matrix (or any slice of one) as int64: uint8 bins
+    widened, uint16 bins through an int16 view masked to 16 bits (torch's
+    uint16 has few operators; no value wraps)."""
+    if bins.dtype == torch.uint16:
+        return bins.view(torch.int16).to(torch.int64) & 0xFFFF
+    return bins.to(torch.int64)
+
+
+def rows_int64(bins: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """bins[rows] as int64, of an unpacked uint8 or uint16 bin matrix
+    (uint16 indexed through its int16 view)."""
+    if bins.dtype == torch.uint16:
+        return bins.view(torch.int16)[rows].to(torch.int64) & 0xFFFF
+    return bins[rows].to(torch.int64)
+
+
+def gather_bins(bins: torch.Tensor, col: torch.Tensor) -> torch.Tensor:
+    """[N] int64: row i's bin in column col[i] ([N] int64) of an unpacked
+    [N, F] uint8 or uint16 bin matrix."""
+    if bins.dtype == torch.uint16:
+        return torch.gather(bins.view(torch.int16), 1, col[:, None])[:, 0] \
+            .to(torch.int64) & 0xFFFF
+    return torch.gather(bins, 1, col[:, None])[:, 0].to(torch.int64)
+
+
 # ---------------------------------------------------------------------------
 # dispatch: which branch of the growth sweep a pass takes
 # ---------------------------------------------------------------------------
@@ -151,8 +192,10 @@ _FGROUP = 4
 
 def fits_v2(num_slots: int, num_features: int, bmax: int,
             quantized: bool = False, route_width: int = 0,
-            row_block: int = _V2_ROW_BLOCK, const_hess: float = 0.0) -> bool:
-    """The JAX package's fits_v2 (double-bf16 or quantized channels):
+            row_block: int = _V2_ROW_BLOCK, const_hess: float = 0.0,
+            double_prec: bool = True) -> bool:
+    """The JAX package's fits_v2 (double-bf16, single-bf16 hessian or
+    quantized channels: 5, 4 or 3, two fewer with a constant hessian):
     whether the TPU's fused and v2 kernels fit their VMEM budget at this
     shape. The port routes each growth pass down the branch the JAX
     package takes at the same shape — fused kernel or route_rows +
@@ -164,7 +207,7 @@ def fits_v2(num_slots: int, num_features: int, bmax: int,
     if const_hess:
         nchan = 2 if quantized else 3     # [g, cnt] / [g_hi, g_lo, cnt]
     else:
-        nchan = 3 if quantized else 5
+        nchan = 3 if quantized else (5 if double_prec else 4)
     out = nchan * num_slots * num_features * b * 4
     plane = _round_up(num_features, 128)
     flane_r = _round_up(max(route_width, num_features), 128)
@@ -175,7 +218,8 @@ def fits_v2(num_slots: int, num_features: int, bmax: int,
 
 
 def fused_row_block(num_slots: int, num_features: int, bmax: int,
-                    const_hess: float, quantized: bool = False) -> int:
+                    const_hess: float, quantized: bool = False,
+                    double_prec: bool = True) -> int:
     """The row block the reference's sweep sizes its fused kernel with
     (2048 at small frontiers; else the widest of 8192/4096/2048 whose
     working set fits) — an input of `fits_v2`."""
@@ -183,7 +227,7 @@ def fused_row_block(num_slots: int, num_features: int, bmax: int,
         return 2048
     for rb in (8192, 4096, 2048):
         if fits_v2(num_slots, num_features, bmax, quantized, row_block=rb,
-                   const_hess=const_hess):
+                   const_hess=const_hess, double_prec=double_prec):
             break
     return rb
 
@@ -293,7 +337,8 @@ def exact_scale(grad, hess, cnt) -> torch.Tensor:
     costs at most 2^-(B+1) of 2^e a row (about 2^-38 of the channel's max
     at B = 38). A channel whose max is not finite gets NONFINITE_K: its
     cells come out NaN. The grower computes it once per tree; a histogram
-    wrapper called without one computes it from its own inputs."""
+    wrapper called without one computes it from its own inputs (in the
+    single-precision mode, from the rounded hessians it sums)."""
     n = grad.shape[0]
     if n == 0:
         return torch.zeros(3, dtype=torch.int32, device=grad.device)
@@ -303,6 +348,19 @@ def exact_scale(grad, hess, cnt) -> torch.Tensor:
     k = bits - torch.frexp(amax).exponent
     return torch.where(torch.isfinite(amax), k, NONFINITE_K) \
         .to(torch.int32)
+
+
+def single_prec_hess(hess: torch.Tensor) -> torch.Tensor:
+    """The hessians the single-precision mode sums: each f32 value rounded
+    to bf16, round to nearest even (the TPU kernels' operand cast), as
+    f32."""
+    return hess.to(torch.bfloat16).to(torch.float32)
+
+
+def _single(double_prec: bool, quantized: bool, const_hess: float) -> bool:
+    """Whether a histogram call runs the single-precision mode: exact
+    sums of a per-row hessian with double_prec off."""
+    return not (double_prec or quantized or const_hess)
 
 
 def exact_sums(grad, hess, cnt, scale: torch.Tensor) -> torch.Tensor:
@@ -430,7 +488,8 @@ def route_rows_ref(bins, row_node, tbl, member, feat_tbl, *,
 def build_histograms_ref(bins, grad, hess, cnt, row_slot, *, num_slots: int,
                          bmax: int, const_hess: float = 0.0,
                          quantized: bool = False, num_features: int = 0,
-                         scale: torch.Tensor = None) -> torch.Tensor:
+                         scale: torch.Tensor = None,
+                         double_prec: bool = True) -> torch.Tensor:
     """[num_slots, F, bmax, 3] f32 (grad, hess, count) per-slot histograms
     by index_add_ over flattened (slot, feature, bin) cells; rows with slot
     < 0 or >= num_slots are dropped. Exact mode: the rows' fixed-point
@@ -441,14 +500,17 @@ def build_histograms_ref(bins, grad, hess, cnt, row_slot, *, num_slots: int,
     hessian sums are const x count. quantized: grad and hess hold whole
     numbers (int8 from quantize_gradients), summed exactly in int64; the
     result holds the unscaled integer sums. num_features > 0: bins are
-    4-bit packed."""
+    4-bit packed; uint16 bins are read as they are. double_prec=False:
+    the single-precision mode (module docstring)."""
     bins = _unpacked(bins, num_features)
     n, f = bins.shape
     dev = bins.device
+    if _single(double_prec, quantized, const_hess):
+        hess = single_prec_hess(hess)
     rows = torch.nonzero((row_slot >= 0) & (row_slot < num_slots))[:, 0]
     slot = row_slot[rows].to(torch.int64)
     cells = ((slot[:, None] * f + torch.arange(f, device=dev)[None, :])
-             * bmax + bins[rows].to(torch.int64)).reshape(-1)   # [Nv*F]
+             * bmax + rows_int64(bins, rows)).reshape(-1)     # [Nv*F]
     g = grad[rows]
     h = torch.zeros_like(g) if const_hess else hess[rows]
     ncell = num_slots * f * bmax
@@ -475,7 +537,8 @@ def fused_route_hist_ref(bins, grad, hess, cnt, row_node, tbl, member,
                          feat_tbl, *, num_slots: int, bmax: int,
                          const_hess: float = 0.0, quantized: bool = False,
                          num_features: int = 0, scale: torch.Tensor = None,
-                         loc_table=None, efb_range: bool = False
+                         loc_table=None, efb_range: bool = False,
+                         double_prec: bool = True
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(hist [num_slots, F, bmax, 3], new row_node): route one level, then
     histogram the rows by their new slot (build_histograms_ref). With
@@ -488,7 +551,7 @@ def fused_route_hist_ref(bins, grad, hess, cnt, row_node, tbl, member,
     hist = build_histograms_ref(bins, grad, hess, cnt, new_slot,
                                 num_slots=num_slots, bmax=bmax,
                                 const_hess=const_hess, quantized=quantized,
-                                scale=scale)
+                                scale=scale, double_prec=double_prec)
     return hist, new_node
 
 
@@ -580,10 +643,15 @@ def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _bin_dims(bins: torch.Tensor, num_features: int) -> Tuple[int, int]:
+def _bin_dims(bins: torch.Tensor, num_features: int,
+              wide_ok: bool = False) -> Tuple[int, int]:
     """(logical feature count F, packed bytes a row fh or 0 if unpacked) of
-    a bin matrix; checks its dtype, layout and packed width."""
+    a bin matrix; checks its dtype, layout and packed width. wide_ok: the
+    kernel also reads unpacked uint16 bins."""
     n, fcols = bins.shape
+    if wide_ok and bins.dtype == torch.uint16 and not num_features:
+        _check(bins, "bins", torch.uint16, (n, fcols))
+        return fcols, 0
     _check(bins, "bins", torch.uint8, (n, fcols))
     if not num_features:
         return fcols, 0
@@ -622,27 +690,50 @@ def _check_route_args(bins, row_node, tbl, member, feat_tbl,
     return f, fh
 
 
+#: the scatter kernel's shared-memory budget of a feature group
+#: (csrc/build_histograms_scatter.cu kGroupSmemBytes): one feature's cells,
+#: 6 words each exact and 3 quantized, must fit it
+GROUP_SMEM_BYTES = 100 * 1024
+
+
+def wide_bin_limit(quantized: bool = False) -> int:
+    """The widest bin axis the scatter kernel takes over uint16 bins: the
+    bins of one feature whose cells fit its shared-memory budget (4266
+    exact, 8533 quantized)."""
+    return GROUP_SMEM_BYTES // (4 * (3 if quantized else 6))
+
+
 def _check_hist_args(bins, grad, hess, cnt, bmax, quantized,
-                    num_features) -> Tuple[int, int]:
-    """Checks the histogram kernels' inputs; returns _bin_dims."""
-    f, fh = _bin_dims(bins, num_features)
+                    num_features, wide_ok: bool = False) -> Tuple[int, int]:
+    """Checks the histogram kernels' inputs; returns _bin_dims. wide_ok:
+    uint16 bins are taken (the scatter kernel), up to wide_bin_limit."""
+    f, fh = _bin_dims(bins, num_features, wide_ok)
     n = bins.shape[0]
     gdt = torch.int8 if quantized else torch.float32
     for t, name, dt in ((grad, "grad", gdt), (hess, "hess", gdt),
                         (cnt, "cnt", torch.float32)):
         _check(t, name, dt, (n,))
-    if not 0 < bmax <= 256:
+    if bins.dtype == torch.uint16:
+        limit = wide_bin_limit(quantized)
+        if not 0 < bmax <= limit:
+            raise ValueError(
+                f"bmax {bmax} outside (0, {limit}]: the scatter kernel "
+                "holds one feature's cells in its shared-memory budget "
+                f"of {GROUP_SMEM_BYTES} bytes")
+    elif not 0 < bmax <= 256:
         raise ValueError(f"bmax {bmax} outside (0, 256] (uint8 bins)")
     return f, fh
 
 
-def _scale_of(scale, grad, hess, cnt, quantized):
+def _scale_of(scale, grad, hess, cnt, quantized, single: bool = False):
     """The exact mode's fixed-point scale: the caller's (checked), else
-    exact_scale of the inputs; None in quantized mode."""
+    exact_scale of the inputs (single: of the rounded hessians); None in
+    quantized mode."""
     if quantized:
         return None
     if scale is None:
-        return exact_scale(grad, hess, cnt)
+        return exact_scale(grad, single_prec_hess(hess) if single else hess,
+                           cnt)
     _check(scale, "scale", torch.int32, (3,))
     return scale
 
@@ -651,7 +742,7 @@ def fused_route_hist(bins, grad, hess, cnt, row_node, tbl, member, feat_tbl,
                      *, num_slots: int, bmax: int, const_hess: float = 0.0,
                      quantized: bool = False, num_features: int = 0,
                      scale: torch.Tensor = None, loc_table=None,
-                     efb_range: bool = False
+                     efb_range: bool = False, double_prec: bool = True
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Route rows through the previous pass's tables and build the new
     frontier's histograms. Returns (hist [S, F, bmax, 3], new row_node [N]
@@ -661,7 +752,8 @@ def fused_route_hist(bins, grad, hess, cnt, row_node, tbl, member, feat_tbl,
     bins are 4-bit packed (pack_bins_4bit) with that many features.
     loc_table / efb_range: bins are EFB bundle columns (route_rows'
     modes), F is Fb and bmax is Bb; the launches count with "_efb" (loc
-    table) or "_efbr" (range) after the wrapper's name.
+    table) or "_efbr" (range) after the wrapper's name. double_prec=False:
+    the single-precision mode (module docstring), counted with "_sp".
 
     On the card: route_rows with chunk tallies, then the partition kernel
     fed those tallies (no count pass of its own) and the scatter kernel
@@ -673,7 +765,8 @@ def fused_route_hist(bins, grad, hess, cnt, row_node, tbl, member, feat_tbl,
     version's bit for bit."""
     args = (bins, grad, hess, cnt, row_node, tbl, member, feat_tbl)
     kw = dict(num_slots=num_slots, bmax=bmax, const_hess=const_hess,
-              quantized=quantized, num_features=num_features, scale=scale)
+              quantized=quantized, num_features=num_features, scale=scale,
+              double_prec=double_prec)
     if _on_cpu(*args):
         return fused_route_hist_ref(*args, loc_table=loc_table,
                                     efb_range=efb_range, **kw)
@@ -772,42 +865,48 @@ def _route(bins, row_node, tbl, member, feat_tbl, num_features, node_out,
 def build_histograms(bins, grad, hess, cnt, row_slot, *, num_slots: int,
                      bmax: int, const_hess: float = 0.0,
                      quantized: bool = False, num_features: int = 0,
-                     scale: torch.Tensor = None) -> torch.Tensor:
+                     scale: torch.Tensor = None,
+                     double_prec: bool = True) -> torch.Tensor:
     """Per-slot histograms [S, F, bmax, 3] keyed by row_slot (rows with
-    slot < 0 or >= S dropped). quantized, num_features, scale: as in
-    fused_route_hist. On the card the rows are partitioned by slot (the
-    partition kernel, counting for itself) and summed by the scatter
-    kernel, whose launches count here; the result is the plain version's
-    bit for bit."""
+    slot < 0 or >= S dropped). quantized, num_features, scale,
+    double_prec: as in fused_route_hist. On the card the rows are
+    partitioned by slot (the partition kernel, counting for itself) and
+    summed by the scatter kernel, whose launches count here; the result
+    is the plain version's bit for bit."""
     if _on_cpu(bins, grad, hess, cnt, row_slot):
         return build_histograms_ref(bins, grad, hess, cnt, row_slot,
                                     num_slots=num_slots, bmax=bmax,
                                     const_hess=const_hess,
                                     quantized=quantized,
-                                    num_features=num_features, scale=scale)
+                                    num_features=num_features, scale=scale,
+                                    double_prec=double_prec)
     from .histogram_pallas import scatter_histograms   # imports this module
     return scatter_histograms(
         "build_histograms", bins, grad, hess, cnt, row_slot,
         num_slots=num_slots, bmax=bmax, num_features=num_features,
-        const_hess=const_hess, quantized=quantized, scale=scale)
+        const_hess=const_hess, quantized=quantized, scale=scale,
+        double_prec=double_prec)
 
 
 def build_histograms_auto(bins, grad, hess, cnt, row_slot, *,
                           num_slots: int, bmax: int, const_hess: float = 0.0,
                           quantized: bool = False, num_features: int = 0,
-                          scale: torch.Tensor = None) -> torch.Tensor:
+                          scale: torch.Tensor = None,
+                          double_prec: bool = True) -> torch.Tensor:
     """The JAX package's build_histograms_mxu_auto: the v2 kernel's
     function (one row pass, reads packed bins) where fits_v2 holds at its
     default row block, else the v1 kernel's, on bins unpacked first (the
     JAX v1 kernel cannot read nibbles; packed storage targets small-bmax
     shapes, which always fit v2). Both are build_histograms here."""
     f = num_features or bins.shape[1]
-    if not fits_v2(num_slots, f, bmax, quantized, const_hess=const_hess):
+    if not fits_v2(num_slots, f, bmax, quantized, const_hess=const_hess,
+                   double_prec=double_prec):
         bins, num_features = _unpacked(bins, num_features), 0
     return build_histograms(bins, grad, hess, cnt, row_slot,
                             num_slots=num_slots, bmax=bmax,
                             const_hess=const_hess, quantized=quantized,
-                            num_features=num_features, scale=scale)
+                            num_features=num_features, scale=scale,
+                            double_prec=double_prec)
 
 
 def node_values(row_node, values) -> torch.Tensor:
@@ -896,14 +995,15 @@ def node_sums(row_node, grad, hess, cnt, *, num_nodes: int) -> torch.Tensor:
 # quantized (int8 gradients, int32 cells), "_counts" route_rows'
 # emit_counts, "_packed" 4-bit packed bins; a launch counts under its
 # wrapper's name plus the suffixes of the modes it ran in, in this order
-_MODES = {"fused_route_hist": ("_int", "_packed"),
+_MODES = {"fused_route_hist": ("_int", "_packed", "_sp"),
           "route_rows": ("_counts", "_packed"),
           # the EFB routing modes (never packed): loc table, range
-          "fused_route_hist_efb": ("_int",),
-          "fused_route_hist_efbr": ("_int",),
+          "fused_route_hist_efb": ("_int", "_sp"),
+          "fused_route_hist_efbr": ("_int", "_sp"),
           "route_rows_efb": ("_counts",), "route_rows_efbr": ("_counts",),
-          "build_histograms": ("_int", "_packed"),
-          "build_histograms_scatter": ("_int", "_packed"),
+          "build_histograms": ("_int", "_packed", "_sp"),
+          # and over uint16 bins: the portable grower's
+          "build_histograms_scatter": ("_int", "_packed", "_sp", "_wide"),
           # histogram_pallas: the partition inside build_histograms_scatter
           "partition_rows": (),
           "node_values": (), "node_sums": (),
@@ -914,9 +1014,10 @@ _MODES = {"fused_route_hist": ("_int", "_packed"),
           # predict.stacked_score_traj / predict_binned_tree, and its
           # class mode (k trees an iteration: class_score_add, a
           # multiclass block's stacked_score_traj)
-          "predict_binned": (), "predict_binned_class": (),
+          "predict_binned": ("_wide",), "predict_binned_class": ("_wide",),
           # and their bundled-matrix mode (EFB)
-          "predict_binned_efb": (), "predict_binned_class_efb": ()}
+          "predict_binned_efb": ("_wide",),
+          "predict_binned_class_efb": ("_wide",)}
 _LAUNCHES: Dict[str, int] = {}
 # tallies of launches recorded into CUDA graphs being captured (innermost
 # last): a captured launch does not run then, it runs at each replay
@@ -924,11 +1025,13 @@ _RECORDING: List[Dict[str, int]] = []
 
 
 def count_launch(name: str, *, quantized: bool = False, packed: bool = False,
-                 counts: bool = False) -> None:
+                 counts: bool = False, single: bool = False,
+                 wide: bool = False) -> None:
     """Count one kernel launch of wrapper `name` in the given modes; while
     a CUDA graph is captured (recording_launches), into the graph's tally
     instead."""
-    key = name + "_int" * quantized + "_counts" * counts + "_packed" * packed
+    key = name + "_int" * quantized + "_counts" * counts + \
+        "_packed" * packed + "_sp" * single + "_wide" * wide
     if _RECORDING:
         tally = _RECORDING[-1]
         tally[key] = tally.get(key, 0) + 1
@@ -958,7 +1061,8 @@ def add_launches(tally: Dict[str, int]) -> None:
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last reset, one key per kernel and mode:
     the wrapper's name for its plain mode, suffixed "_int" (quantized),
-    "_counts" (emit_counts) and "_packed" (4-bit bins) for the others."""
+    "_counts" (emit_counts), "_packed" (4-bit bins), "_sp" (single-
+    precision hessians) and "_wide" (uint16 bins) for the others."""
     return dict(_LAUNCHES)
 
 

@@ -20,6 +20,13 @@ build_histograms_mxu and _v2) and, after route_rows with chunk tallies,
 histogram_mxu.fused_route_hist on the card: `scatter_histograms` launches
 both for each of these wrappers.
 
+The kernel also reads [N, F] uint16 bins at a bin axis up to
+histogram_mxu.wide_bin_limit (max_bin > 256: the portable grower's
+histograms, where the JAX package calls its compat wrapper
+`build_histograms_pallas`),
+and rounds each hessian to bf16 in the single-precision mode
+(double_prec=False, histogram_mxu's module docstring).
+
 Both modes give integer sums, equal bit for bit to the other histogram
 kernels' (histogram_mxu's fused_route_hist and build_histograms), so
 trees and model text do not depend on the backend: quantized mode adds
@@ -40,12 +47,14 @@ import torch
 from . import _cuda
 from .histogram_mxu import (_check, _check_hist_args, _exact_result,
                             _fill_const_hess, _fixed_point, _on_cpu,
-                            _scale_of, _unpacked, count_launch,
-                            exact_scale, num_chunks, scratch)
+                            _scale_of, _single, _unpacked, count_launch,
+                            exact_scale, num_chunks, rows_int64, scratch,
+                            single_prec_hess)
 
 __all__ = ["build_histograms_scatter", "build_histograms_scatter_ref",
            "partition_rows", "partition_rows_ref", "scatter_histograms",
-           "scatter_runs", "slot_bounds", "RUN_BLOCKS"]
+           "scatter_runs",
+           "slot_bounds", "RUN_BLOCKS"]
 
 # partition blocks a histogram run takes at most: the root pass (one slot,
 # ~1000 blocks at 1M rows) spreads over every SM, and large slots do not
@@ -238,15 +247,19 @@ def build_histograms_scatter_ref(bins, grad, hess, cnt, row_slot, *,
                                  slot_counts: torch.Tensor = None,
                                  partition_impl: str = "auto",
                                  scale: torch.Tensor = None,
-                                 slot_tallies: torch.Tensor = None
+                                 slot_tallies: torch.Tensor = None,
+                                 double_prec: bool = True
                                  ) -> torch.Tensor:
     """Plain version of build_histograms_scatter: the same partition and
     runs; each run's rows summed into its (feature, bin) cells by
     index_add_ (int64 fixed-point values under `scale`, exact_scale of
     grad, hess, cnt when None; or int64 gradients and f32 counts when
     quantized), the runs added into their slots in run order, scaled back
-    once. Integer sums: the result is build_histograms_ref's bit for bit,
-    NaN channels included."""
+    once; double_prec=False rounds each hessian to bf16 first. Integer
+    sums: the result is build_histograms_ref's bit for bit, NaN channels
+    included."""
+    if _single(double_prec, quantized, const_hess):
+        hess = single_prec_hess(hess)
     block_slot, src = partition_rows_ref(row_slot, num_slots=num_slots,
                                          row_block=row_block,
                                          counts=slot_counts,
@@ -266,11 +279,11 @@ def build_histograms_scatter_ref(bins, grad, hess, cnt, row_slot, *,
     pos_run = run_of_block.repeat_interleave(row_block)
     keep = (src < n) & (pos_run >= 0)
     rows = src[keep].to(torch.int64)
-    ub = _unpacked(bins, num_features)[rows]
+    ub = rows_int64(_unpacked(bins, num_features), rows)
     f = ub.shape[1]
     run_cells = ((pos_run[keep][:, None] * f +
                   torch.arange(f, device=dev)[None, :]) * bmax +
-                 ub.to(torch.int64)).reshape(-1)
+                 ub).reshape(-1)
     g = grad[rows]
     h = torch.zeros_like(g) if const_hess else hess[rows]
     nr = runs.shape[0] * f * bmax
@@ -304,12 +317,16 @@ def build_histograms_scatter(bins, grad, hess, cnt, row_slot, *,
                              slot_counts: torch.Tensor = None,
                              partition_impl: str = "auto",
                              scale: torch.Tensor = None,
-                             slot_tallies: torch.Tensor = None
+                             slot_tallies: torch.Tensor = None,
+                             double_prec: bool = True
                              ) -> torch.Tensor:
     """Per-slot histograms [num_slots, F, bmax, 3] f32 (grad, hess, count)
     through the partition kernel and the slot-grouped scatter kernel; rows
     with slot < 0 or >= num_slots are dropped. num_features > 0: bins are
-    4-bit packed with that many features. quantized: grad and hess are
+    4-bit packed with that many features; uint16 bins (max_bin > 256) are
+    read at bmax up to histogram_mxu.wide_bin_limit, counted with "_wide";
+    double_prec=False: single-precision hessians, counted with "_sp".
+    quantized: grad and hess are
     int8 and the gradient channels hold their unscaled integer sums; else
     scale ([3] i32, exact_scale of grad, hess, cnt when None) is the fixed
     point of the sums. slot_counts: per-slot row counts from
@@ -320,7 +337,7 @@ def build_histograms_scatter(bins, grad, hess, cnt, row_slot, *,
               num_features=num_features, const_hess=const_hess,
               quantized=quantized, slot_counts=slot_counts,
               partition_impl=partition_impl, scale=scale,
-              slot_tallies=slot_tallies)
+              slot_tallies=slot_tallies, double_prec=double_prec)
     if _on_cpu(bins, grad, hess, cnt, row_slot):
         return build_histograms_scatter_ref(bins, grad, hess, cnt, row_slot,
                                             **kw)
@@ -335,7 +352,8 @@ def scatter_histograms(name, bins, grad, hess, cnt, row_slot, *,
                        slot_counts: torch.Tensor = None,
                        partition_impl: str = "auto",
                        scale: torch.Tensor = None,
-                       slot_tallies: torch.Tensor = None) -> torch.Tensor:
+                       slot_tallies: torch.Tensor = None,
+                       double_prec: bool = True) -> torch.Tensor:
     """The card's per-slot histograms for CUDA tensors, behind
     build_histograms_scatter, histogram_mxu.build_histograms and
     histogram_mxu.fused_route_hist (`name`:
@@ -348,11 +366,13 @@ def scatter_histograms(name, bins, grad, hess, cnt, row_slot, *,
     device's scratch buffers: only the output is allocated. Arguments as
     build_histograms_scatter's."""
     f, fh = _check_hist_args(bins, grad, hess, cnt, bmax, quantized,
-                            num_features)
+                            num_features, wide_ok=True)
+    wide = bins.dtype == torch.uint16
     n = bins.shape[0]
     dev = bins.device
     _check(row_slot, "row_slot", torch.int32, (n,))
-    scale = _scale_of(scale, grad, hess, cnt, quantized)
+    single = _single(double_prec, quantized, const_hess)
+    scale = _scale_of(scale, grad, hess, cnt, quantized, single)
     if not quantized and row_block * RUN_BLOCKS > _WORD_ROWS:
         raise ValueError(f"row_block {row_block}: exact mode holds at most "
                          f"{_WORD_ROWS // RUN_BLOCKS} rows a block")
@@ -377,6 +397,8 @@ def scatter_histograms(name, bins, grad, hess, cnt, row_slot, *,
         _cuda.call("build_histograms_scatter", dev, bins, grad, hess, cnt,
                    block_slot, src, bounds, scale, out[s0:s0 + s], part, n,
                    f, fh, bmax, s, row_block, tb, RUN_BLOCKS,
-                   float(const_hess), int(quantized))
-        count_launch(name, quantized=quantized, packed=fh > 0)
+                   float(const_hess), int(quantized), int(single), int(wide))
+        count_launch(name, quantized=quantized, packed=fh > 0,
+                     single=single, wide=wide)
     return out
+

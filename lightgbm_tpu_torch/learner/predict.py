@@ -31,6 +31,10 @@ table to the original local bin (efb.route_bins); the trees stay in
 original features. DART's and RF's re-predictions and rollback read the
 training matrix so; validation matrices stay unbundled. Its launches count
 as predict_binned_efb (predict_binned_class_efb in class mode).
+
+Bins are uint8, or uint16 at max_bin > 256 (the kernel's wide mode, in
+every mode above; its launches count with "_wide"): valid scores, DART's
+re-prediction and RF at wide bins.
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ import torch
 from ..efb import route_bins
 from . import _cuda
 from .grower import TreeArrays
-from .histogram_mxu import _check, _on_cpu, count_launch
+from .histogram_mxu import _check, _on_cpu, count_launch, gather_bins
 
 __all__ = ["predict_binned_tree", "leaf_index_tree", "stacked_score_traj",
            "class_score_add", "predict_binned_tree_ref",
@@ -60,17 +64,15 @@ def _traverse_ref(tree: TreeArrays, bins: torch.Tensor,
     NaN bin of a missing_is_nan feature the default_left way, any other
     bin left iff bin <= threshold_bin. efb: bins are bundled, each bin
     decoded by efb.route_bins."""
-    n = bins.shape[0]
     f = num_bins.shape[0]
     w = tree.cat_bitset.shape[-1]
-    rows = torch.arange(n, device=bins.device)
-    node = torch.zeros(n, dtype=torch.int64, device=bins.device)
+    node = torch.zeros(bins.shape[0], dtype=torch.int64, device=bins.device)
     while bool((tree.split_feature[node] >= 0).any()):
         feat = tree.split_feature[node].to(torch.int64)
         internal = feat >= 0
         fc = feat.clamp(0, f - 1)
         binv = route_bins(bins, fc, efb) if efb is not None \
-            else bins[rows, fc].to(torch.int64)
+            else gather_bins(bins, fc)
         is_nan_bin = missing_is_nan[fc] & (binv == num_bins[fc] - 1)
         word = torch.clamp(binv // 32, max=w - 1)
         in_set = ((tree.cat_bitset[node, word] >> (binv % 32)) & 1) == 1
@@ -143,7 +145,8 @@ def _launch(stacked: TreeArrays, score0, bins, num_bins, missing_is_nan,
     f = num_bins.shape[0]
     words = stacked.cat_bitset.shape[-1]
     dev = bins.device
-    _check(bins, "bins", torch.uint8, (n, rs))
+    wide = bins.dtype == torch.uint16
+    _check(bins, "bins", torch.uint16 if wide else torch.uint8, (n, rs))
     col = loc = None
     bb = 0
     if efb is not None:
@@ -187,9 +190,10 @@ def _launch(stacked: TreeArrays, score0, bins, num_bins, missing_is_nan,
                fields["is_cat"], fields["cat_bitset"], fields["left"],
                fields["right"], fields["leaf_value"], num_bins,
                missing_is_nan, score0, traj, leaf, col, loc, n, f, rs, bb, k,
-               m1, words, num_class, group, cls0)
+               m1, words, num_class, group, cls0, int(wide))
     count_launch(("predict_binned_class" if num_class > 1
-                  else "predict_binned") + ("_efb" if efb is not None else ""))
+                  else "predict_binned") + ("_efb" if efb is not None else ""),
+                 wide=wide)
     return traj, leaf
 
 

@@ -215,7 +215,8 @@ def test_slot_ranges_past_the_partition_limit(quantized, monkeypatch):
         return block_slot, src, torch_p.slot_bounds(block_slot, s)
 
     def kernel(stem, dev, bins, grad, hess, cnt, block_slot, src, bounds,
-               scale, out, part, n, f, fh, b, s, nb, tb, runs, ch, q):
+               scale, out, part, n, f, fh, b, s, nb, tb, runs, ch, q, sp,
+               wide):
         # the rows the partition put in slots [0, s), by their slot
         pos_slot = block_slot.long().repeat_interleave(nb)
         keep = (src < n) & (pos_slot < s)
@@ -223,7 +224,7 @@ def test_slot_ranges_past_the_partition_limit(quantized, monkeypatch):
         row_slot[src[keep].long()] = pos_slot[keep].to(torch.int32)
         out.copy_(torch_k.build_histograms_ref(
             bins, grad, hess, cnt, row_slot, num_slots=s, bmax=b,
-            quantized=bool(q), scale=scale))
+            quantized=bool(q), scale=scale, double_prec=not sp))
 
     monkeypatch.setattr(torch_p, "_PARTITION_MAX_SLOTS", 16)
     monkeypatch.setattr(torch_p, "_partition", partition)

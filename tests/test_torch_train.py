@@ -166,17 +166,12 @@ def test_train_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("extra", [
-    {"monotone_constraints": [1, 0, 0, 0],
-     "monotone_constraints_method": "intermediate"},
-    {"monotone_constraints": [1, 0, 0, 0],
-     "monotone_constraints_method": "advanced"},
     {"cegb_penalty_feature_coupled": [1.0, 0.0, 0.0, 0.0]},
-    {"use_pallas": False},
+    {"cegb_penalty_feature_lazy": [1.0, 0.0, 0.0, 0.0]},
     {"guard_nonfinite": "raise"},
     {"forcedsplits_filename": "forced.json"},
     {"cegb_penalty_split": 1.0},
     {"linear_tree": True},
-    {"gpu_use_dp": False},
     {"level_pipeline": True},
     {"tree_learner": "data"},
 ])
