@@ -12,6 +12,12 @@ quantized. Prints one JSON line: per run, the sha256 of its model text
 and its held-out AUC (chip_smoke.held_out_auc's rows), with the package
 directory and the card; with --out DIR also writes each model text there.
 Two checkouts' lines, taken in one call, say which runs' trees changed.
+With --rates it also times, twice each, `train` of 30 trees on the exact
+configuration at fused_block_size 10 without and with chip_smoke.py's
+40,000-row valid set (VALID_PARAMS: binary_logloss and auc every
+iteration): trees/s over the last 20 trees, the graphs' replays (and the
+valid sets' trajectories) alone. Run parent, change, change, parent in
+one call to compare two checkouts.
 """
 
 import argparse
@@ -27,6 +33,8 @@ def main():
         os.path.abspath(__file__)), help="checkout whose lightgbm_tpu_torch "
         "trains (default: this one)")
     ap.add_argument("--out", help="directory for the model texts")
+    ap.add_argument("--rates", action="store_true",
+                    help="also time train without and with a valid set")
     args = ap.parse_args()
     # the configurations and data come from this checkout's chip_smoke.py
     import chip_smoke as cs
@@ -64,8 +72,37 @@ def main():
                 fh.write(text)
         result[name] = {"sha256": hashlib.sha256(text.encode()).hexdigest(),
                         "held_out_auc": cs.held_out_auc(booster)}
+    if args.rates:
+        result["rates"] = rates(torch, lgt, cs, ds)
     print(json.dumps(result), flush=True)
     return 0
+
+
+def rates(torch, lgt, cs, ds):
+    """Trees/s of train's last 20 of 30 trees (fused_block_size 10) on the
+    exact configuration without and with the valid set, twice each."""
+    import time
+    Xva, yva = cs.make_higgs_like(cs.VALID_ROWS, cs.N_FEATURES, seed=99)
+    valid = ds.create_valid(Xva, label=yva)
+    rounds, first = cs.VALID_ROUNDS, cs.VALID_TRAJ_TREES
+    out = {"no_valid": [], "valid": []}
+    for _ in range(2):
+        for what in out:
+            marks = []
+
+            def mark(env):
+                if env.iteration == first - 1:
+                    torch.cuda.synchronize()
+                    marks.append(time.perf_counter())
+            mark.block_safe = True     # keeps train on the block path
+            params = cs.VALID_PARAMS if what == "valid" else cs.TRAIN_PARAMS
+            lgt.train(params, ds, rounds,
+                      valid_sets=[valid] if what == "valid" else None,
+                      callbacks=[mark])
+            torch.cuda.synchronize()
+            out[what].append((rounds - first) /
+                             (time.perf_counter() - marks[0]))
+    return {"trees_per_s_last20_" + k: v for k, v in out.items()}
 
 
 if __name__ == "__main__":

@@ -23,7 +23,9 @@ graphs): iteration 0 and two trees that capture the graphs as the
 warm-up, then blocks of --trees trees, each replayed; the host layers
 then read only what runs outside the graphs. --efb trains chip_smoke.py's
 `efb` phase data instead (200,000 x 1,000 sparse, exclusive groups of 20,
-as CSR; 63 leaves, 63 bins), bundled; --efb 6 that data at its card=6
+as CSR; 63 leaves, 63 bins), bundled: by default on the portable grower
+(per iteration only), with --param efb_use_mxu=true on the MXU grower
+(--fused too); --efb 6 that data at its card=6
 density (each nonzero one of 6 values). --param k=v (repeatable) adds a
 training parameter, e.g. efb_segmented_scan=false, or enable_bundle=false
 for the same data unbundled, max_bin=1023 (the portable grower over

@@ -1542,13 +1542,35 @@ def prune_rows(torch, dev, row):
     from lightgbm_tpu_torch.learner import prune
     rng = np.random.RandomState(31)
     cases = []
+    timed = {}
     for what, m1, splits, leaves, ties in (
             ("main path", M_GROWN, M_GROWN // 2 - 1, PRUNE_LEAVES, False),
             ("tied gains", M_GROWN, M_GROWN // 2 - 1, PRUNE_LEAVES, True),
             ("small tree", M_GROWN, 100, PRUNE_LEAVES, True),
-            ("4000 ids", 4000, 1999, 1000, False)):
+            ("4000 ids", 4000, 1999, 1000, False),
+            ("NaN gains", M_GROWN, M_GROWN // 2 - 1, PRUNE_LEAVES, False),
+            ("integer-tied gains", M_GROWN, M_GROWN // 2 - 1, PRUNE_LEAVES,
+             True),
+            ("rising chain", M_GROWN, M_GROWN // 2 - 1, PRUNE_LEAVES,
+             False),
+            ("10240 ids", prune.PRUNE_MAX_NODES,
+             prune.PRUNE_MAX_NODES // 2 - 1, 2000, False)):
+        left, right, parent, gain = overgrown_tree(rng, m1, splits, ties)
+        if what == "NaN gains":       # a NaN pop uses a step, selects nothing
+            gain[rng.rand(m1) < 0.1] = np.nan
+            gain[rng.rand(m1) < 0.05] = np.inf
+        if what == "integer-tied gains":   # three values: long tie runs
+            gain = np.where(left >= 0, rng.randint(1, 4, m1), 0) \
+                .astype(np.float32)
+        if what == "rising chain":    # one group, the whole tree: the
+            # kernel replays every step (its worst case)
+            left[:], right[:], parent[:] = -1, -1, -1
+            for j in range(0, 2 * splits, 2):
+                left[j], right[j] = j + 1, j + 2
+                parent[j + 1] = parent[j + 2] = j
+            gain = np.where(left >= 0, np.arange(m1), 0).astype(np.float32)
         args = [torch.as_tensor(a, device=dev)
-                for a in overgrown_tree(rng, m1, splits, ties)]
+                for a in (left, right, parent, gain)]
 
         def k(args=args, leaves=leaves):
             return prune.prune_best_first(*args, num_leaves=leaves)
@@ -1561,13 +1583,17 @@ def prune_rows(torch, dev, row):
         check(not bad, f"prune_best_first differs from its plain version "
               f"({what}): {bad}")
         cases.append(what)
+        if what in ("rising chain", "tied gains", "NaN gains"):
+            timed[what.replace(" ", "_") + "_device_ms"] = device_ms(
+                torch, k)
         if what == "main path":
             nbytes = m1 * (16 + 10)      # 4 inputs, 4 outputs of [m1]
             ops = (leaves - 1) * m1 + 2 * m1 * (m1 - 1).bit_length()
             row("prune_best_first",
                 "lightgbm_tpu/learner/grower_mxu.py:57", 0.0, k, k_ref, 3,
                 nbytes, ops, None)
-    emit("kernel_check", name="prune_best_first", cases=cases, equal=True)
+    emit("kernel_check", name="prune_best_first", cases=cases, equal=True,
+         **timed)
 
 
 def random_trees(rng, k, m1, leaves, f, bmax, words, cat_share):
@@ -1718,8 +1744,107 @@ def predict_binned_rows(torch, dev, row):
             "(_traverse, predict_binned_tree; lightgbm_tpu/boosting/"
             "fused.py:54 stacked_score_traj; XLA, no Pallas)", 0.0, kern,
             plain, 3, nbytes, visits, library, library_graph=True)
-    emit("kernel_check", name="predict_binned", cases=cases, equal=True,
-         rows=n, trees=k, node_ids=m1)
+    more, timed = predict_binned_modes(torch, dev, rng, bins, num_bins, nan)
+    emit("kernel_check", name="predict_binned", cases=cases + more,
+         equal=True, rows=n, trees=k, node_ids=m1, **timed)
+
+
+def predict_binned_modes(torch, dev, rng, bins, num_bins, nan):
+    """Kernel V beyond the main path's case, each bit for bit against its
+    plain version over the valid phase's 40,000 rows: a 50-tree class
+    block (10 steps of 5 classes of 255-leaf trees, which the kernel
+    takes in chunks of whole steps that fit shared memory) and one tree
+    into one class's column; uint16 bins at 1024 bins; 30 stacked trees,
+    in chunks, with and without a score; and trees too large
+    for shared memory (10,000 leaves in 20,000 node ids; 20,000 leaves in
+    40,000 ids, past the records' 16-bit child ids), which walk the node
+    arrays in global memory. The bundled mode is held at its shapes in
+    the efb phase (efb_traversal_row). Returns (cases, device ms of the
+    class block, the uint16 trees and each large tree)."""
+    from lightgbm_tpu_torch.learner import predict as pr
+    from lightgbm_tpu_torch.learner.grower import TreeArrays
+    n, f = bins.shape
+
+    def stack(arrays, lead):
+        t0 = int(np.prod(lead))
+        m1_ = arrays["left"].shape[-1]
+        z = torch.zeros((t0, m1_), device=dev)
+        zi = torch.zeros((t0, m1_), dtype=torch.int32, device=dev)
+        one = torch.ones((t0,), dtype=torch.int32, device=dev)
+        flat = TreeArrays(
+            **{key: torch.as_tensor(v, device=dev)
+               for key, v in arrays.items()},
+            parent=zi, sum_grad=z, sum_hess=z, count=z, gain=z, depth=zi,
+            is_leaf=torch.as_tensor(arrays["split_feature"] < 0,
+                                    device=dev),
+            num_nodes=one, num_leaves=one)
+        return TreeArrays(*[t.reshape(tuple(lead) + tuple(t.shape[1:]))
+                            for t in flat])
+
+    words = (BMAX + 31) // 32
+    cases = []
+    k, c, m1 = VALID_TRAJ_TREES, MC_CLASSES, 510
+    trees = stack(random_trees(rng, k * c, m1, 255, f, BMAX, words, 0.2),
+                  (k, c))
+    score0 = torch.as_tensor(rng.randn(n, c).astype(np.float32), device=dev)
+    _, traj = pr.stacked_score_traj(trees, score0, bins, num_bins, nan,
+                                    num_class=c)
+    _, want = pr.stacked_score_traj_ref(trees, score0, bins, num_bins, nan,
+                                        num_class=c)
+    one = TreeArrays(*[t[4, 1] for t in trees])
+    check(same_bits(torch, traj, want) and same_bits(
+        torch, pr.class_score_add(one, score0, 1, bins, num_bins, nan),
+        pr.class_score_add_ref(one, score0, 1, bins, num_bins, nan)),
+        "predict_binned_class differs from its plain version (50-tree "
+        "class block)")
+    cases.append("50-tree class block")
+    timed = {"class_block_device_ms": device_ms(
+        torch, lambda: pr.stacked_score_traj(trees, score0, bins, num_bins,
+                                             nan, num_class=c))}
+
+    wide_bins = torch.as_tensor(rng.randint(0, 1024, (n, f))
+                                .astype(np.uint16), device=dev)
+    wide_nb = torch.full((f,), 1024, dtype=torch.int32, device=dev)
+    trees = stack(random_trees(rng, k, m1, 255, f, 1024, 32, 0.2), (k,))
+    score = torch.as_tensor(rng.randn(n).astype(np.float32), device=dev)
+    traj, leaf = pr.stacked_leaf_nodes(trees, wide_bins, wide_nb, nan,
+                                       score)
+    _, want, want_leaf = pr.stacked_score_traj_ref(
+        trees, score, wide_bins, wide_nb, nan, leaves=True)
+    check(same_bits(torch, traj, want) and torch.equal(leaf, want_leaf),
+          "predict_binned differs from its plain version (uint16 bins)")
+    cases.append("uint16 bins")
+    timed["uint16_device_ms"] = device_ms(
+        torch, lambda: pr.stacked_score_traj(trees, score, wide_bins, wide_nb,
+                                             nan))
+
+    # 30 trees of 510 ids: more than a chunk's records (23 trees), so the
+    # adds of a chunk start from the trajectory point before it, with a
+    # score and without one (the first point the first leaf value)
+    long = stack(random_trees(rng, 30, m1, 255, f, BMAX, words, 0.1), (30,))
+    for s_ in (score, None):
+        traj, leaf = pr.stacked_leaf_nodes(long, bins, num_bins, nan, s_)
+        _, want, want_leaf = pr.stacked_score_traj_ref(
+            long, s_, bins, num_bins, nan, leaves=True)
+        check(same_bits(torch, traj, want) and torch.equal(leaf, want_leaf),
+              "predict_binned differs from its plain version (30 trees in "
+              f"chunks, score {'given' if s_ is not None else 'none'})")
+    cases.append("30 trees in chunks")
+
+    for leaves_ in (10_000, 20_000):
+        big = stack(random_trees(rng, 1, 2 * leaves_, leaves_, f, BMAX,
+                                 words, 0.1), (1,))
+        traj, leaf = pr.stacked_leaf_nodes(big, bins, num_bins, nan, score)
+        _, want, want_leaf = pr.stacked_score_traj_ref(
+            big, score, bins, num_bins, nan, leaves=True)
+        check(same_bits(torch, traj, want) and torch.equal(leaf, want_leaf),
+              f"predict_binned differs from its plain version (a tree of "
+              f"{leaves_} leaves)")
+        cases.append(f"{leaves_}-leaf tree")
+        timed[f"tree_{leaves_}_leaves_device_ms"] = device_ms(
+            torch, lambda: pr.stacked_score_traj(big, score, bins, num_bins,
+                                                 nan))
+    return cases, timed
 
 
 def native_host_phase(lgt, X, y, booster):
@@ -3712,11 +3837,17 @@ EFB_PARAMS = {"objective": "binary", "num_leaves": 63, "max_bin": 63,
 # two blocks: the smoke stays near half its time limit
 EFB_TREES = 20
 EFB_BLOCK = 10
-EFB_TURNS = (("efb_exact", {}),
-             ("efb_exact_expansion", {"efb_segmented_scan": False}),
-             ("efb_quantized", {"use_quantized_grad": True}),
-             ("efb_quantized_expansion", {"use_quantized_grad": True,
-                                          "efb_segmented_scan": False}))
+# bundled data takes the MXU grower and the fused trainer only under
+# efb_use_mxu=true (the JAX package's _mxu_exclusions); the turns run it
+EFB_MXU = {"efb_use_mxu": True}
+EFB_TURNS = (("efb_exact", EFB_MXU),
+             ("efb_exact_expansion", dict(EFB_MXU, efb_segmented_scan=False)),
+             ("efb_quantized", dict(EFB_MXU, use_quantized_grad=True)),
+             ("efb_quantized_expansion", dict(EFB_MXU, use_quantized_grad=True,
+                                              efb_segmented_scan=False)))
+# the default (the portable grower, one iteration a dispatch): trees timed
+# after one warm-up tree
+EFB_DEFAULT_TREES = 4
 EFB_DART = dict(EFB_PARAMS, boosting="dart", drop_rate=0.5, skip_drop=0.0)
 EFB_DART_TREES = 3
 # K1's widest kernel width in both modes (the grower's fit at row block
@@ -3992,6 +4123,27 @@ def replay_rate(torch, lgt, ds, params):
     return replayed_rate(torch, lgt, ds, dict(EFB_PARAMS, **params))
 
 
+def efb_default_rate(torch, lgt, ds):
+    """(trees/s, booster) of the default bundled path, EFB_PARAMS as
+    given: the portable grower (_hist_impl "scatter"), one iteration a
+    dispatch, never the fused trainer; one warm-up update(), then
+    EFB_DEFAULT_TREES update() calls timed."""
+    booster = lgt.Booster(EFB_PARAMS, ds)
+    g = booster.gbdt
+    check(g._efb is not None and g._hist_impl == "scatter" and
+          g._mxu_exclusions() == ["efb config"],
+          "efb: the default bundled booster is not on the portable grower")
+    booster.update()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(EFB_DEFAULT_TREES):
+        booster.update()
+    torch.cuda.synchronize()
+    rate = EFB_DEFAULT_TREES / (time.perf_counter() - t0)
+    check(not g.fused_stats, "efb: the default bundled path ran fused")
+    return rate, booster
+
+
 def efb_path(torch, lgt, hm, row):
     """Phase `efb`: the CSR matrix binned against the dense one (bin
     matrix byte-equal, seconds of each); the launch counts reset, then the
@@ -4000,9 +4152,12 @@ def efb_path(torch, lgt, hm, row):
     re-predicting dropped trees), the counts read; every EFB kernel
     launched; host predictions from the CSR input within 1e-4 of the
     device scores and equal to the dense array's; then kernel rows for K2
-    and K1 in both modes and V's bundled mode, and replayed trees/s and
-    held-out AUC bundled against enable_bundle=false on the same data,
-    in one call. Returns the launch counts."""
+    and K1 in both modes and V's bundled mode; then, in one call, the
+    default bundled path's update() trees/s (the portable grower: bundled
+    data takes the MXU grower only under efb_use_mxu, the four turns'
+    setting), and replayed trees/s and held-out AUC of efb_use_mxu=true
+    against enable_bundle=false on the same data. DART runs the default
+    (portable) grower. Returns the launch counts."""
     csr, y = make_sparse(EFB_ROWS, seed=11)
     csr_v, y_v = make_sparse(EFB_VALID_ROWS, seed=99)
     bin_params = {"max_bin": EFB_PARAMS["max_bin"], "verbosity": -1}
@@ -4045,23 +4200,30 @@ def efb_path(torch, lgt, hm, row):
     efb_rows(torch, hm, row, {"range": range_g, "loc": loc_g})
     efb_traversal_row(torch, row, dart.gbdt, dart.gbdt.trees[-1])
 
-    rate_b, bst_b = replay_rate(torch, lgt, ds, {})
+    # three runs in one call: the default (portable grower), the fused
+    # bundled path (efb_use_mxu) and enable_bundle=false
+    rate_d, bst_d = efb_default_rate(torch, lgt, ds)
+    rate_b, bst_b = replay_rate(torch, lgt, ds, EFB_MXU)
     rate_u, bst_u = replay_rate(torch, lgt, ds, {"enable_bundle": False})
     check(bst_u.gbdt._efb is None, "efb: enable_bundle=false bundled")
     auc_b = auc(bst_b.predict(csr_v, raw_score=True), y_v)
     auc_u = auc(bst_u.predict(csr_v, raw_score=True), y_v)
+    auc_d = auc(bst_d.predict(csr_v, raw_score=True), y_v)
     # the label lives on 2 of 1,000 features, each active in 1 row of 20:
-    # a weak target, the same for both
-    check(min(auc_b, auc_u) > 0.5 and abs(auc_b - auc_u) <= 0.005,
-          f"efb: held-out AUC bundled {auc_b}, unbundled {auc_u}")
+    # a weak target, the same for all three (the default after 5 trees)
+    check(min(auc_b, auc_u, auc_d) > 0.5 and abs(auc_b - auc_u) <= 0.005,
+          f"efb: held-out AUC bundled {auc_b}, unbundled {auc_u}, "
+          f"default {auc_d}")
     efb = g._efb
     emit("efb", rows=EFB_ROWS, features=EFB_FEATURES,
          nnz=int(csr.nnz), Fb=efb.num_cols, Bb=efb.bundle_bmax,
          bundled_bin_bytes=int(g.bins.numel()),
          csr_binning_s=csr_s, dense_binning_s=dense_s, path_s=path_s,
+         default_update_trees_per_s=rate_d,
          replayed_trees_per_s_bundled=rate_b,
          replayed_trees_per_s_unbundled=rate_u,
          held_out_auc_bundled=auc_b, held_out_auc_unbundled=auc_u,
+         held_out_auc_default_5_trees=auc_d,
          host_vs_device_max_abs=host_err,
          launches={k: counts[k] for k in EFB_PATH})
     return counts

@@ -14,7 +14,10 @@ request); prediction runs on the host model (the native predictor), like
 the JAX package's Booster.predict. Sparse data (a scipy CSR/CSC matrix)
 is binned without densifying its values (BinnedDataset.from_sparse; a
 validation set too) and predicted densified in row chunks, as in the JAX
-package (basic.py:366-436, 943-960).
+package (basic.py:366-436, 943-960). A pandas DataFrame's category
+columns train as categorical features through their codes, and valid
+sets and predictions encode them in the training category order
+(_data_from_pandas; the model text's pandas_categorical).
 """
 
 from __future__ import annotations
@@ -35,6 +38,40 @@ from .tree import HostModel
 from .utils.log import LightGBMError, Log
 
 __all__ = ["Dataset", "Booster", "LightGBMError"]
+
+
+def _is_pandas_df(data) -> bool:
+    return hasattr(data, "dtypes") and hasattr(data, "columns") and \
+        hasattr(data, "select_dtypes")
+
+
+def _data_from_pandas(df, pandas_categorical=None):
+    """DataFrame -> (f64 matrix, categorical column indices,
+    pandas_categorical): the JAX package's _data_from_pandas
+    (lightgbm_tpu/basic.py:70-100, the reference's basic.py:541-624).
+    Category-dtype columns become their category codes; training
+    remembers each column's category list, and a valid set or a
+    prediction encodes through the training lists, so codes follow the
+    training order whatever the frame's own categories; unseen categories
+    and NaN become NaN."""
+    cat_cols = [str(c) for c in df.select_dtypes(
+        include=["category"]).columns]
+    names = [str(c) for c in df.columns]
+    if pandas_categorical is None:
+        # native python scalars, so the model text's JSON round-trips
+        # int and float categories exactly
+        pandas_categorical = [df[c].cat.categories.tolist()
+                              for c in cat_cols]
+    elif len(cat_cols) != len(pandas_categorical):
+        raise ValueError("train and valid dataset categorical_feature do "
+                         "not match.")
+    df = df.copy(deep=False)
+    for col, cats in zip(cat_cols, pandas_categorical):
+        codes = df[col].cat.set_categories(cats).cat.codes
+        df[col] = np.where(codes.values < 0, np.nan,
+                           codes.values.astype(np.float64))
+    X = np.ascontiguousarray(df.astype(np.float64).values, dtype=np.float64)
+    return X, [names.index(c) for c in cat_cols], pandas_categorical
 
 
 def _to_2d_float(data) -> np.ndarray:
@@ -77,7 +114,17 @@ class Dataset:
         cfg = Config(self.params)
         # sparse stays sparse through binning: only the bins are dense
         sparse_in = is_sparse(self.data)
-        X = self.data if sparse_in else _to_2d_float(self.data)
+        pandas_cat = None
+        pandas_cat_idx: List[int] = []
+        if _is_pandas_df(self.data):
+            # category columns as codes; a valid set encodes through the
+            # training set's category lists
+            ref_pc = None if self.reference is None else getattr(
+                self.reference.binned, "pandas_categorical", None)
+            X, pandas_cat_idx, pandas_cat = _data_from_pandas(self.data,
+                                                              ref_pc)
+        else:
+            X = self.data if sparse_in else _to_2d_float(self.data)
         names: Optional[List[str]] = None
         if self.feature_name != "auto" and self.feature_name is not None:
             names = list(self.feature_name)
@@ -94,6 +141,8 @@ class Dataset:
         elif cfg.categorical_feature:
             cat = [int(c) for c in str(cfg.categorical_feature).split(",")
                    if c != ""]
+        elif pandas_cat_idx:
+            cat = list(pandas_cat_idx)   # "auto": the category columns
         md = Metadata(
             X.shape[0],
             label=None if self.label is None else
@@ -107,6 +156,7 @@ class Dataset:
             # a valid set: the training set's mappers and used features
             self._binned = BinnedDataset.from_reference(
                 X, md, self.reference.binned, names)
+            self._binned.pandas_categorical = pandas_cat
             if self.free_raw_data:
                 self.data = None
             return self
@@ -118,6 +168,7 @@ class Dataset:
             use_missing=cfg.use_missing, zero_as_missing=cfg.zero_as_missing,
             categorical_features=cat, seed=cfg.data_random_seed,
             feature_names=names, feature_pre_filter=cfg.feature_pre_filter)
+        self._binned.pandas_categorical = pandas_cat
         if self.free_raw_data:
             self.data = None
         return self
@@ -374,6 +425,9 @@ class Booster:
         kw = dict(start_iteration=start_iteration,
                   num_iteration=num_iteration, raw_score=raw_score,
                   pred_leaf=pred_leaf)
+        if _is_pandas_df(data) and model.pandas_categorical is not None:
+            # category columns coded in the training category order
+            data = _data_from_pandas(data, model.pandas_categorical)[0]
         if is_sparse(data):
             # densified in row chunks of about 32 MB, so wide sparse input
             # never needs its whole dense matrix (the JAX package's

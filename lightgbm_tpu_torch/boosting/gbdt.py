@@ -98,11 +98,10 @@ of rollback and DART reads the bundled matrix through kernel V's bundled
 mode (_train_values), and validation matrices stay unbundled. EFB pins the mxu
 sweep (the segment sums on the portable grower) and stores no 4-bit
 packed bins, as in the JAX package.
-efb_use_mxu selects the JAX package's grower for bundled data; the
-port's bundled MXU path is the JAX package's efb_use_mxu=true path, and
-bundled data takes the portable grower only where the JAX package's other
-exclusions send it there (max_bin > 256), so the parameter selects
-nothing.
+Bundled data grows on the MXU grower (and so on the fused trainer) only
+under efb_use_mxu=true, as in the JAX package (_mxu_exclusions, rule
+"efb config"); by default it grows on the portable grower with the
+segment sums, one iteration a dispatch, full precision.
 
 `check_supported` refuses every parameter value whose code is not ported,
 naming the ROADMAP.md port-queue item that will bring it.
@@ -363,9 +362,13 @@ class GBDT:
             else:
                 self._hist_impl = "pallas" if self._efb is None \
                     else "scatter"
-                Log.warning("training runs on the portable %s grower (MXU "
-                            "path excluded by: %s)", self._hist_impl,
-                            ", ".join(excl))
+                # the EFB rule alone is the JAX package's chosen default
+                # for bundled data: only the other exclusions warn
+                hard = [r for r in excl if r != "efb config"]
+                if hard:
+                    Log.warning("training runs on the portable %s grower "
+                                "(MXU path excluded by: %s)",
+                                self._hist_impl, ", ".join(hard))
         else:
             self._hist_impl = "scatter"
         if cfg.use_quantized_grad and self._hist_impl != "mxu":
@@ -465,13 +468,30 @@ class GBDT:
     def _mxu_exclusions(self) -> List[str]:
         """Why the MXU grower cannot grow this booster's trees (empty: it
         can), the JAX package's _mxu_exclusions (gbdt.py:566-584): bins
-        wider than its uint8 kernels read, and the monotone methods that
-        rescan every node. Lazy CEGB, its third rule, is refused before
-        (check_supported); the port's EFB path has no "efb config" rule
-        (module docstring: efb_use_mxu selects nothing)."""
+        wider than its uint8 kernels read, the monotone methods that
+        rescan every node, and bundled data unless efb_use_mxu is set,
+        every bundle fits 256 bins and either the segmented scan is in use
+        or the expansion fits 1 GiB. Lazy CEGB, its fourth rule, is
+        refused before (check_supported)."""
+        cfg = self.config
+        efb = self._efb
+        efb_ok = efb is None or (
+            cfg.efb_use_mxu and efb.bundle_bmax <= 256 and
+            (efb.scan is not None or self._mxu_expand_bytes() <= 1 << 30))
         return [r for r, hit in [
             ("max_bin > 256", self.bmax > 256),
-            ("monotone_constraints_method", self._mono_nonbasic)] if hit]
+            ("monotone_constraints_method", self._mono_nonbasic),
+            ("efb config", not efb_ok)] if hit]
+
+    def _mxu_expand_bytes(self) -> int:
+        """Bytes of one pass's expanded scan tensor under EFB on the MXU
+        grower, [s_max, F, bmax, 3] f32 (the JAX package's
+        _mxu_expand_bytes, gbdt.py:586-593)."""
+        cfg = self.config
+        over = max(cfg.growth_overshoot, 1.0)
+        s_max = int(math.ceil(cfg.num_leaves * over)) + 1
+        f = int(self._efb.col_of_feat.shape[0])
+        return s_max * f * self.bmax * 3 * 4
 
     def _const_hessian(self) -> float:
         """Constant-hessian fast path (reference IsConstantHessian,

@@ -17,19 +17,37 @@
 //   composed  f32  new_id of the node's nearest kept-leaf ancestor: the
 //                  row map's table (a row in node i goes to composed[i])
 //
-// Design. The replay is a chain of dependent argmax steps, so it runs in
-// one warp, a tournament of two levels in shared memory: the best of each
-// 32-id chunk of the availability vector, and over the chunk bests. A
-// step is one butterfly argmax over the chunk bests (a lane takes every
-// 32nd chunk), lane 0's three writes (the node popped, its children made
-// available), then the three changed chunks reduced again by three
-// butterflies side by side: ten dependent shuffle rounds a step, where a
-// lane rescanning its range in turn took 32 dependent reads (0.60 ms for
-// the main path's 254 steps on an H100). Children and masked gains are
-// staged in shared memory first, so a step touches no global memory. The closure and the row map are
-// ceil(log2 m1) pointer-doubling rounds over all m1 nodes, by the whole
-// CTA, in ping-pong buffers that reuse the replay's shared memory; the
-// renumbering is one block scan.
+// Design. Replayed step by step, the prune is a chain of dependent argmax
+// steps (~1.2 us a step in one warp on an H100); its result has a
+// parallel form. Let key(v) = (gain, id) in
+// lax.argmax's order and E(v) the least key on the path root..v, v
+// included. The replay pops the nodes in groups of equal E, in falling E:
+// a group is its head h (E(h) = key(h)) and the connected part of h's
+// subtree whose keys beat h's, popped best first from h. A popped NaN node
+// uses a step, is not selected and its children are never reached; once
+// the best available key is -inf every step does nothing. So the kernel
+//   1. finds each node's parent from the children arrays and computes E
+//      and "reached" (no proper ancestor NaN) by ceil(log2 m1) rounds of
+//      pointer doubling, each node's new values staged in registers;
+//   2. finds the key T of rank steps (0-based, from the top) among the
+//      reached nodes whose E is above -inf: a radix select of six 8-bit
+//      digits over the 48-bit keys (order-preserving gain bits, then
+//      0xffff - id), which also leaves r, T's rank inside its own group;
+//   3. selects every reached non-NaN node whose E beats T, then replays r
+//      steps from T's node alone, the boundary group's head, as a warp
+//      tournament (two levels in shared memory: the best of each 32-id
+//      chunk of the availability vector and the best over chunks, ten
+//      dependent shuffle rounds a step). A group's nodes beat every key
+//      outside it that the replay can reach, so r < |group| steps stay
+//      inside the group. A tree whose boundary group is the whole tree (a
+//      chain of rising gains) replays every step.
+// The kernel takes the grower's trees (an id is at most one node's child,
+// the root no node's); the plain version takes any arrays.
+// The closure and the row map are ceil(log2 m1) pointer-doubling rounds
+// over all m1 nodes, by the whole CTA, in ping-pong buffers that reuse the
+// earlier phases' shared memory; the renumbering is one block scan.
+// Bound: the replay's dependent latency where r is large; else the CTA's
+// ~50 barriers.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -46,6 +64,8 @@ constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 // 32-id chunks of the availability vector: m1 <= 32 * kMaxChunks
 constexpr int kMaxChunks = 320;
+// nodes a thread holds in the doubling (its new values in registers)
+constexpr int kPer = 32 * kMaxChunks / kThreads;
 
 // Whether (a, ia) comes before (b, ib) in lax.argmax's order: NaN above
 // every number, then the larger value, ties (NaN with NaN too) to the
@@ -57,6 +77,16 @@ __device__ __forceinline__ bool beats(float a, int ia, float b, int ib) {
   return ia < ib;
 }
 
+// The node's 48-bit key in lax.argmax's order: the gain's order-preserving
+// bits (-0 as +0, every NaN on top), then 0xffff - id (the lower id first).
+__device__ __forceinline__ unsigned long long key48(float g, int id) {
+  const unsigned b = __float_as_uint(g == 0.0f ? 0.0f : g);
+  const unsigned o = isnan(g) ? 0xffffffffu
+                     : (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+  return (static_cast<unsigned long long>(o) << 16) |
+         static_cast<unsigned>(0xffff - id);
+}
+
 __global__ void __launch_bounds__(kThreads)
     prune_kernel(const int* __restrict__ left, const int* __restrict__ right,
                  const int* __restrict__ parent,
@@ -65,18 +95,24 @@ __global__ void __launch_bounds__(kThreads)
                  uint8_t* __restrict__ kept_out, int* __restrict__ new_id_out,
                  float* __restrict__ composed_out) {
   extern __shared__ int smem[];
-  // four [m1] words arrays, each reused once the replay is over
-  float* avail = reinterpret_cast<float*>(smem);   // later ptr ping
+  // four [m1] word arrays, each reused once its phase is over
+  float* avail = reinterpret_cast<float*>(smem);   // first E and ptr,
+                                                   // later ptr ping
   float* gains = avail + m1;                       // later ptr pong
   int* lch = reinterpret_cast<int*>(gains + m1);   // later parent (clipped)
   int* rch = lch + m1;                             // later new_id
   uint8_t* sel = reinterpret_cast<uint8_t*>(rch + m1);
-  uint8_t* acc0 = sel + m1;
+  uint8_t* acc0 = sel + m1;                        // first "reached"
   uint8_t* acc1 = acc0 + m1;
   uint8_t* kept = acc1 + m1;
+  uint16_t* eptr = reinterpret_cast<uint16_t*>(avail);  // parent pointer
+  uint16_t* ehead = eptr + m1;                     // the node of E
+  uint8_t* reach = acc0;
   __shared__ int warp_total[kWarps];
   __shared__ float chbv[kMaxChunks];   // best of each 32-id chunk
   __shared__ int chbi[kMaxChunks];
+  __shared__ int hist[2][256];
+  __shared__ int s_digit, s_k, s_total;
 
   const int t = threadIdx.x;
   const int m_grow = m1 - 1;
@@ -85,25 +121,140 @@ __global__ void __launch_bounds__(kThreads)
     lch[i] = l;
     rch[i] = right[i];
     gains[i] = l >= 0 ? gain[i] : -INFINITY;
-    avail[i] = -INFINITY;
     sel[i] = 0;
+    eptr[i] = static_cast<uint16_t>(i);
+    ehead[i] = static_cast<uint16_t>(i);
+    reach[i] = i == 0;
   }
+  for (int i = t; i < 2 * 256; i += kThreads) (&hist[0][0])[i] = 0;
   __syncthreads();
 
-  // ---- the replay, in warp 0: the best of each 32-id chunk of `avail`
-  // is kept in chbv/chbi; a step is one warp argmax over the chunk bests,
-  // lane 0's three writes, then one warp argmax over each changed chunk
-  if (t < 32) {
+  // ---- 1. parents from the children (a node the replay can never make
+  // available keeps itself and stays unreached), then E and "reached" by
+  // pointer doubling
+  for (int j = t; j < m1; j += kThreads) {
+    if (lch[j] < 0) continue;
+    const bool ok = !isnan(gains[j]);
+    const int cl = min(max(lch[j], 0), m_grow);
+    const int cr = min(max(rch[j], 0), m_grow);
+    if (cl > 0 && cl < m_grow) {
+      eptr[cl] = static_cast<uint16_t>(j);
+      reach[cl] = ok;
+    }
+    if (cr > 0 && cr < m_grow) {
+      eptr[cr] = static_cast<uint16_t>(j);
+      reach[cr] = ok;
+    }
+  }
+  __syncthreads();
+  for (int r = 0; r < rounds; ++r) {
+    // each node's new (ptr, E) packed in one word and its flag in a mask:
+    // registers stay few at 1024 threads
+    unsigned st[kPer];
+    unsigned rmask = 0;
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+      const int i = t + q * kThreads;
+      if (i < m1) {
+        const int p = eptr[i], e = ehead[i], pe = ehead[p];
+        // the lesser key of the two: E is the least on the path
+        const int ne = beats(gains[pe], pe, gains[e], e) ? e : pe;
+        st[q] = static_cast<unsigned>(eptr[p]) |
+                (static_cast<unsigned>(ne) << 16);
+        if (reach[i] & reach[p]) rmask |= 1u << q;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+      const int i = t + q * kThreads;
+      if (i < m1) {
+        eptr[i] = static_cast<uint16_t>(st[q] & 0xffff);
+        ehead[i] = static_cast<uint16_t>(st[q] >> 16);
+        reach[i] = (rmask >> q) & 1;
+      }
+    }
+    __syncthreads();
+  }
+
+  // ---- 2. the boundary: the key of rank `steps` among the valid nodes'
+  // E keys (valid: reached, E above -inf), by a radix select from the top;
+  // each pass recomputes a node's key from E in shared memory
+  unsigned long long prefix = 0;
+  int k = steps;
+  bool all = false;   // every valid node is popped: no boundary group
+  for (int pass = 0; pass < 6; ++pass) {
+    const int shift = 40 - 8 * pass;
+    int* h = hist[pass & 1];
+    for (int i = t; i < m1; i += kThreads) {
+      const int e = ehead[i];
+      if (!reach[i] || gains[e] == -INFINITY) continue;
+      const unsigned long long key = key48(gains[e], e);
+      if ((key >> (shift + 8)) == (prefix >> (shift + 8)))
+        atomicAdd(&h[(key >> shift) & 255], 1);
+    }
+    __syncthreads();
+    if (t < 32) {
+      // lane L holds digits 255 - 8L .. 248 - 8L, from the top
+      int c[8];
+      int own = 0;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        c[q] = h[255 - 8 * t - q];
+        own += c[q];
+      }
+      int incl = own;
+      for (int off = 1; off < 32; off <<= 1) {
+        const int o = __shfl_up_sync(kFull, incl, off);
+        if (t >= off) incl += o;
+      }
+      const int ex = incl - own;
+      if (ex <= k && k < incl) {
+        int kk = k - ex, q = 0;
+        while (kk >= c[q]) kk -= c[q++];
+        s_digit = 255 - 8 * t - q;
+        s_k = kk;
+      }
+      if (t == 31) s_total = incl;
+    }
+    __syncthreads();
+    if (pass == 0 && s_total <= steps) {
+      all = true;
+      break;
+    }
+    prefix |= static_cast<unsigned long long>(s_digit) << shift;
+    k = s_k;
+    for (int i = t; i < 256; i += kThreads) h[i] = 0;
+  }
+
+  // ---- 3. the groups above the boundary whole, then r = k replay steps
+  // from the boundary group's head
+  for (int i = t; i < m1; i += kThreads) {
+    const int e = ehead[i];
+    if (reach[i] && !(gains[e] == -INFINITY) && !isnan(gains[i]) &&
+        (all || key48(gains[e], e) > prefix))
+      sel[i] = 1;
+  }
+  const int head = 0xffff - static_cast<int>(prefix & 0xffff);
+  const int r_steps = all ? 0 : k;
+  __syncthreads();   // E and ptr are dead: their words become `avail`
+  if (r_steps > 0) {
+    for (int i = t; i < m1; i += kThreads) avail[i] = -INFINITY;
+    __syncthreads();
+  }
+  if (t < 32 && r_steps > 0) {
     const int lane = t;
     const int nch = (m1 + 31) / 32;
     for (int c = lane; c < nch; c += 32) {
-      // every entry -inf but avail[0]: the first index of each chunk
-      chbv[c] = c == 0 ? gains[0] : -INFINITY;
-      chbi[c] = c * 32;
+      // every entry -inf but avail[head]: the first index of each chunk,
+      // the head in its own (its gain is above -inf)
+      const bool hc = c == (head >> 5);
+      chbv[c] = hc ? gains[head] : -INFINITY;
+      chbi[c] = hc ? head : c * 32;
     }
-    if (lane == 0) avail[0] = gains[0];
+    if (lane == 0) avail[head] = gains[head];
     __syncwarp();
-    for (int step = 0; step < steps; ++step) {
+    for (int step = 0; step < r_steps; ++step) {
       float v = -INFINITY;
       int j = INT_MAX;   // a lane with no chunk loses to every real index
       for (int c = lane; c < nch; c += 32) {
@@ -264,6 +415,7 @@ __global__ void __launch_bounds__(kThreads)
 
 // bytes of shared memory a node takes (four words, four flags)
 constexpr int kBytesPerNode = 20;
+constexpr int kMaxDevices = 64;
 
 extern "C" int lgbt_prune_best_first(const void* left, const void* right,
                                      const void* parent, const void* gain,
@@ -273,8 +425,21 @@ extern "C" int lgbt_prune_best_first(const void* left, const void* right,
   if (m1 <= 0) return cudaSuccess;
   if (m1 > 32 * kMaxChunks) return cudaErrorInvalidValue;
   const size_t bytes = static_cast<size_t>(m1) * kBytesPerNode;
-  cudaError_t err = lgbt::allow_smem(prune_kernel, bytes);
+  // the largest tree's shared memory, allowed once a device at the first
+  // launch (the fused trainer runs every program eagerly before it
+  // captures, so this never falls inside a capture)
+  static bool allowed[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!allowed[dev]) {
+    err = lgbt::allow_smem(prune_kernel,
+                           static_cast<size_t>(32 * kMaxChunks) *
+                               kBytesPerNode);
+    if (err != cudaSuccess) return err;
+    allowed[dev] = true;
+  }
   prune_kernel<<<1, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(left), static_cast<const int*>(right),
       static_cast<const int*>(parent), static_cast<const float*>(gain), m1,

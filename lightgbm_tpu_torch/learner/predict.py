@@ -16,9 +16,10 @@ class_score_add adds one tree into one class's column (the per-iteration
 valid update, the JAX package's score.at[:, cls].add(...)).
 
 On CUDA tensors each function is one launch of the hand-written kernel
-csrc/predict_binned.cu (a thread walks its row through the K trees in
-turn, no host sync; in class mode the thread carries its row's
-num_class scores from point to point); on CPU tensors the plain versions
+csrc/predict_binned.cu (no host sync: a CTA packs the trees into 16-byte
+node records in shared memory, a thread walks one (row, tree) pair, and a
+thread a row adds the leaf values in tree order onto the previous point;
+in class mode into the class's column); on CPU tensors the plain versions
 run, the JAX formulation in torch (`_traverse_ref`: every row one level a
 step until all sit on a leaf). Leaf ids are integers and each score is
 the same sequence of f32 adds, so kernel and plain version agree bit for

@@ -12,8 +12,13 @@ nearest kept-leaf ancestor; kept nodes are renumbered densely.
 
 `prune_best_first` runs the hand-written kernel csrc/prune_best_first.cu
 (one CTA) for CUDA tensors and its plain version `prune_best_first_ref`
-(the JAX formulation in torch ops) for CPU tensors. Every output is an
-integer or a selection, so the kernel equals its plain version exactly.
+(the JAX formulation in torch ops) for CPU tensors. The kernel does not
+replay step by step: it computes each node's least key on its root path
+by pointer doubling, radix-selects the boundary group of the best-first
+order and replays that group alone (the design in the source;
+tests/test_torch_prune.py holds a numpy model of it, phase for phase, to
+the plain version). Every output is an integer or a selection, so the
+kernel equals its plain version exactly.
 The compaction of the tree and the row map stay in the grower
 (grower_mxu._prune_to_best_first: torch ops and node_values).
 """

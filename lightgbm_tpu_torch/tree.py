@@ -284,6 +284,8 @@ class HostModel:
             model.max_feature_idx = ds.num_total_features - 1
             model.feature_names = list(ds.feature_names)
             model.feature_infos = _feature_infos(ds)
+            model.pandas_categorical = getattr(ds, "pandas_categorical",
+                                               None)
             used_to_orig = np.asarray(ds.used_features, np.int64)
             mappers = ds.mappers
         else:

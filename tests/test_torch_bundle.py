@@ -12,6 +12,7 @@ import numpy as np
 import lightgbm_tpu as lgb
 import lightgbm_tpu_torch as lgt
 from tests.test_torch_train import _STRUCT_KEYS, _assert_same_model, _trees
+from tests.test_torch_one_thread import one_thread  # noqa: F401
 
 
 def _exclusive(seed, n=3000, groups=3, width=6):
@@ -50,7 +51,9 @@ def _jax_booster(X, y, params, enable_bundle):
 
 
 def _port_booster(X, y, params, enable_bundle=True):
-    p = dict(params, device_type="cpu", enable_bundle=enable_bundle)
+    # efb_use_mxu: the MXU grower the JAX booster is pinned to
+    p = dict(params, device_type="cpu", enable_bundle=enable_bundle,
+             efb_use_mxu=True)
     bst = lgt.train(p, lgt.Dataset(X, label=y, params=p), 5)
     assert (bst.gbdt._efb is not None) == enable_bundle
     return bst

@@ -7,6 +7,11 @@ interaction constraints, feature_fraction_bynode, extra_trees and all four
 together (the JAX grower in Pallas interpret mode, the port on CPU tensors)
 in exact and quantized growth; and the booster with each option.
 
+The grower and booster option tests are spread over this file and
+tests/test_torch_constraints_{grower,quantized,train,train_all}.py (one JAX
+interpret compile each, ~20-45 s under -n 6), so that --dist loadfile
+spreads them; their bodies live here.
+
 A node's NaN direction is compared wherever a row with the split feature's
 NaN bin reaches the node. Where none does, both directions send the same
 rows and their gains are equal: the JAX histograms leave an empty NaN cell
@@ -32,8 +37,8 @@ from lightgbm_tpu_torch.learner.split import SplitHyperParams
 from lightgbm_tpu_torch.learner.split import find_best_splits
 from tests.conftest import make_binary, make_regression
 from tests.test_torch_grower import _data
-from tests.test_torch_quantized import _dyadic_problem
 from tests.test_torch_train import _assert_same_model, _jax_booster
+from tests.test_torch_one_thread import one_thread  # noqa: F401
 
 _KEYS = (0, 1, 42, 2 ** 33 + 5)
 _SHAPES = ((7,), (3, 5), (28,), (63, 28))
@@ -280,8 +285,10 @@ def assert_same_tree(want, r_want, got, r_got, ds, quantized=False,
         assert not ((b > lo) & (b <= hi)).any(), node
 
 
-@pytest.mark.parametrize("name", list(_OPTIONS))
-def test_grower_options_match_jax(name):
+def _grower_option_case(name):
+    """test_grower_options_match_jax's body (its cases are spread over
+    this file and tests/test_torch_constraints_grower.py, so that
+    --dist loadfile spreads their JAX interpret compiles)."""
     ds, grad, hess = _data(3000, 6, seed=2, with_nan=True)
     want, r_want, got, r_got = _grow_both(ds, grad, hess, _OPTIONS[name])
     assert int(got.num_leaves) == 15
@@ -290,16 +297,9 @@ def test_grower_options_match_jax(name):
     assert_same_tree(want, r_want, got, r_got, ds)
 
 
-@pytest.mark.parametrize("name", ["monotone", "all"])
-def test_quantized_grower_options_match_jax(name):
-    ds, grad, hess = _dyadic_problem(3000, 6, seed=4, const_hess=False)
-    want, r_want, got, r_got = _grow_both(ds, grad, hess, _OPTIONS[name],
-                                          quantized=True)
-    assert_same_tree(want, r_want, got, r_got, ds, quantized=True)
-    leaf = got.is_leaf.numpy()
-    value = got.leaf_value.numpy()[leaf]
-    free = value == -got.sum_grad.numpy()[leaf] / got.sum_hess.numpy()[leaf]
-    assert free.sum() >= 5 and (~free).sum() >= 1   # both kinds of leaf
+@pytest.mark.parametrize("name", ["monotone", "interaction", "bynode"])
+def test_grower_options_match_jax(name):
+    _grower_option_case(name)
 
 
 def test_monotone_growth_keeps_children_ordered():
@@ -351,17 +351,24 @@ _ALL_OPTIONS = {"monotone_constraints": [1, -1, 0, 0, 0, 0, 0, 0, 0, 0],
                 "feature_fraction": 0.8, "feature_fraction_bynode": 0.8}
 
 
-@pytest.mark.parametrize("extra", [
-    {"feature_fraction": 0.6},
-    {"feature_fraction_bynode": 0.5},
-    {"extra_trees": True},
-    {"monotone_constraints": [1, 0, -1, 0, 0, 0, 0, 0, 0, 0],
-     "monotone_penalty": 1.0},
-    {"interaction_constraints": [[0, 1], [2, 3, 4], [5, 6, 7, 8, 9]]},
-    _ALL_OPTIONS,
-], ids=["feature_fraction", "bynode", "extra_trees", "monotone",
-        "interaction", "all"])
-def test_train_options_match_jax_package(extra):
+# test_train_options_match_jax_package's cases, by id; they run in
+# tests/test_torch_constraints_train.py and
+# tests/test_torch_constraints_train_all.py, so that --dist loadfile
+# spreads their JAX interpret compiles
+_TRAIN_OPTIONS = {
+    "feature_fraction": {"feature_fraction": 0.6},
+    "bynode": {"feature_fraction_bynode": 0.5},
+    "extra_trees": {"extra_trees": True},
+    "monotone": {"monotone_constraints": [1, 0, -1, 0, 0, 0, 0, 0, 0, 0],
+                 "monotone_penalty": 1.0},
+    "interaction": {"interaction_constraints": [[0, 1], [2, 3, 4],
+                                                [5, 6, 7, 8, 9]]},
+    "all": _ALL_OPTIONS,
+}
+
+
+def _train_option_case(extra):
+    """test_train_options_match_jax_package's body."""
     X, y = make_binary(n=2000, f=10)
     params = dict({"objective": "binary", "num_leaves": 15, "max_bin": 63,
                    "verbosity": -1}, **extra)
@@ -372,32 +379,6 @@ def test_train_options_match_jax_package(extra):
     np.testing.assert_allclose(b_torch.predict(X, raw_score=True),
                                b_jax.predict(X, raw_score=True),
                                rtol=1e-5, atol=5e-5)
-
-
-def test_quantized_train_all_options_match_jax_package():
-    # quantized training under every option at once, held as
-    # test_quantized_booster_matches_jax_package holds quantized training:
-    # after the first tree each tree's rounding key folds in the bits of
-    # an f32 sum(grad) that torch and XLA add in different orders, so the
-    # trees may differ and the training losses agree to 1%
-    X, y = make_binary(n=2000, f=10)
-    params = dict({"objective": "binary", "num_leaves": 15, "max_bin": 63,
-                   "verbosity": -1, "use_quantized_grad": True},
-                  **_ALL_OPTIONS)
-    b_jax = _jax_booster(X, y, params, 3)
-    p = dict(params, device_type="cpu")
-    b_torch = lgt.train(p, lgt.Dataset(X, label=y, params=p), 3)
-
-    def logloss(b):
-        prob = np.clip(b.predict(X), 1e-15, 1 - 1e-15)
-        return float(-np.mean(y * np.log(prob) + (1 - y) * np.log(1 - prob)))
-    loss_jax, loss_torch = logloss(b_jax), logloss(b_torch)
-    assert abs(loss_torch - loss_jax) <= 0.01 * loss_jax, (loss_torch,
-                                                           loss_jax)
-    assert loss_torch < 0.95 * np.log(2.0)
-    np.testing.assert_allclose(b_torch.gbdt.train_score.numpy(),
-                               b_torch.predict(X, raw_score=True),
-                               rtol=1e-5, atol=1e-5)
 
 
 def test_train_monotone_predictions():

@@ -39,6 +39,7 @@ from lightgbm_tpu_torch.learner import predict as torch_predict
 from lightgbm_tpu_torch.learner.split import SplitHyperParams
 from lightgbm_tpu_torch.learner.split_bundled import find_best_splits_bundled
 from tests.test_torch_train import _STRUCT_KEYS, _VALUE_KEYS, _trees
+from tests.test_torch_one_thread import one_thread  # noqa: F401
 
 
 def _sparse_X(seed, n=3000, f=32, with_nan=False, with_cat=False):
@@ -355,7 +356,11 @@ def _assert_same_model(s_a, s_b, tol, skip=()):
 
 
 def _port_booster(X, y, params, rounds):
+    """The port's booster on the MXU grower under EFB (efb_use_mxu, unless
+    the params say otherwise: the JAX package's accelerator path for
+    bundled data at that setting), `rounds` update() calls."""
     p = dict(params, device_type="cpu")
+    p.setdefault("efb_use_mxu", True)
     bst = lgt.Booster(p, lgt.Dataset(X, label=y, params=p))
     for _ in range(rounds):
         bst.update()

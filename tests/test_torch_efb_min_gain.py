@@ -13,7 +13,8 @@ a split whose gain is at most two f32 ulps of its node's gain. With that
 alone, the models are identical in structure, within 1e-4 in values
 (tests/test_torch_train.py's exact-mode bars), and send every training
 row to the same leaf of every tree. Unwrapped, the four cases in _PARTS
-part at such nodes (the port refuses at least one split there).
+part at such nodes (the port refuses at least one split there). The
+cases in _MORE run in tests/test_torch_efb_min_gain_more.py.
 """
 
 import jax
@@ -27,7 +28,7 @@ import lightgbm_tpu.learner.split_bundled as jax_split_bundled
 from lightgbm_tpu_torch.learner import grower_mxu as torch_grower
 from tests.test_torch_efb import _assert_same_model, _port_booster
 from tests.test_torch_efb_boosters import _BOOSTERS, _case, _jax_booster
-from tests.test_torch_multiclass import one_thread  # noqa: F401
+from tests.test_torch_one_thread import one_thread  # noqa: F401
 
 ULPS = 2
 _PARTS = {"dart", "expansion", "multiclass", "nan_cat"}
@@ -76,9 +77,13 @@ def refuse_zero_gain(monkeypatch):
     jax.clear_caches()
 
 
-@pytest.mark.parametrize("name", sorted(_BOOSTERS))
-def test_min_gain_zero_parts_only_at_pure_nodes(name, refuse_zero_gain,
-                                                one_thread):  # noqa: F811
+# the cases that run in tests/test_torch_efb_min_gain_more.py, so that
+# --dist loadfile spreads their JAX interpret compiles
+_MORE = ("multiclass", "quantized", "regression")
+
+
+def _min_gain_case(name, refuse_zero_gain):
+    """test_min_gain_zero_parts_only_at_pure_nodes's body."""
     X, y, params, rounds = _case(name, min_gain_to_split=0.0)
     bst = _port_booster(X, y, params, rounds)
     assert bst.gbdt._efb is not None
@@ -88,3 +93,9 @@ def test_min_gain_zero_parts_only_at_pure_nodes(name, refuse_zero_gain,
                                   jbst.predict(X, pred_leaf=True))
     if name in _PARTS:
         assert sum(refuse_zero_gain) > 0
+
+
+@pytest.mark.parametrize("name", [n for n in sorted(_BOOSTERS)
+                                  if n not in _MORE])
+def test_min_gain_zero_parts_only_at_pure_nodes(name, refuse_zero_gain):
+    _min_gain_case(name, refuse_zero_gain)

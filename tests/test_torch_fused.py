@@ -24,6 +24,7 @@ import torch
 import lightgbm_tpu as lgb
 import lightgbm_tpu_torch as lgt
 from tests.test_torch_train import _assert_same_model
+from tests.test_torch_one_thread import one_thread  # noqa: F401
 
 _BASE = {"objective": "binary", "num_leaves": 15, "min_data_in_leaf": 5,
          "max_bin": 63, "verbosity": -1, "device_type": "cpu",

@@ -29,6 +29,7 @@ from tests.test_torch_kernels import (BMAX, NUM_SLOTS, _assert_hist_close,
                                       _torch_tables)
 from tests.test_torch_packed import BMAX4, _inputs4, _jax_tables4
 from tests.test_torch_quantized import _quantized_channels, _same_bits
+from tests.test_torch_one_thread import one_thread  # noqa: F401
 
 # rows a partition block holds here: at the tests' 3500 rows one slot
 # takes 14 blocks, four runs of the scatter kernel

@@ -21,6 +21,7 @@ from lightgbm_tpu.learner.split import SplitHyperParams as JaxHP
 from lightgbm_tpu_torch import convert
 from lightgbm_tpu_torch.learner import grower_mxu as torch_grower
 from lightgbm_tpu_torch.learner.split import SplitHyperParams
+from tests.test_torch_one_thread import one_thread  # noqa: F401
 
 _STRUCT = ("split_feature", "threshold_bin", "left", "right", "is_cat",
            "default_left", "parent", "depth", "is_leaf")

@@ -36,7 +36,7 @@ from lightgbm_tpu_torch import rng as trng
 from lightgbm_tpu_torch.learner import grower as torch_grower
 from lightgbm_tpu_torch.learner.split import SplitHyperParams
 from tests.conftest import make_binary
-from tests.test_torch_multiclass import one_thread  # noqa: F401
+from tests.test_torch_one_thread import one_thread  # noqa: F401
 
 _STRUCT = ("split_feature", "threshold_bin", "left", "right", "is_cat",
            "default_left", "parent", "depth", "is_leaf", "cat_bitset")

@@ -36,6 +36,7 @@ from tests.test_torch_kernels import (BMAX, N, NUM_SLOTS, _assert_hist_close,
                                       _torch_tables)
 from tests.test_torch_quantized import (_dyadic_problem, _quantized_channels,
                                         _same_bits)
+from tests.test_torch_one_thread import one_thread  # noqa: F401
 
 
 def strip_backend_echo(model_str):

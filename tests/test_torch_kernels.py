@@ -17,6 +17,7 @@ import jax.numpy as jnp
 
 from lightgbm_tpu.learner import histogram_mxu as jax_k
 from lightgbm_tpu_torch.learner import histogram_mxu as torch_k
+from tests.test_torch_one_thread import one_thread  # noqa: F401
 
 N, F, BMAX = 3500, 8, 64
 M1 = 600            # node ids up to 599: past the 256 of one base-256 digit

@@ -28,7 +28,7 @@ from lightgbm_tpu_torch.learner import grower as torch_grower
 from lightgbm_tpu_torch.learner import monotone as torch_mono
 from lightgbm_tpu_torch.learner.split import SplitHyperParams
 from tests.test_torch_train import _assert_same_model
-from tests.test_torch_multiclass import one_thread  # noqa: F401
+from tests.test_torch_one_thread import one_thread  # noqa: F401
 
 _MONO = [1, -1, 0, 0, 0, 0]
 

@@ -41,19 +41,9 @@ from lightgbm_tpu_torch.objectives import create_objective
 from tests.test_torch_predict_binned import _inputs, _random_stack, _to_jax
 from tests.test_torch_sync_free import _watch, _within
 from tests.test_torch_train import _assert_same_model
+from tests.test_torch_one_thread import one_thread  # noqa: F401
 
 K = 3
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op torch thread for each test: its tensors are small, and
-    under pytest-xdist every worker's threads would contend for the same
-    cores (a test here runs ~20x slower so)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 _BASE = {"objective": "multiclass", "num_class": K, "num_leaves": 7,

@@ -26,6 +26,7 @@ import lightgbm_tpu.cext as jcext
 import lightgbm_tpu_torch as lgt
 from lightgbm_tpu_torch import binning, cext
 from lightgbm_tpu_torch.data import BinnedDataset, Metadata
+from tests.test_torch_one_thread import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

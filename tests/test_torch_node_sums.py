@@ -19,6 +19,7 @@ import torch
 
 from lightgbm_tpu.learner import histogram_mxu as jax_k
 from lightgbm_tpu_torch.learner import histogram_mxu as torch_k
+from tests.test_torch_one_thread import one_thread  # noqa: F401
 
 
 def _rule(node, cols, m):

@@ -33,7 +33,7 @@ from lightgbm_tpu_torch.data import Metadata
 from lightgbm_tpu_torch.learner.renew import renew_tree_output
 from lightgbm_tpu_torch.objectives import OBJECTIVE_ALIASES, create_objective
 from tests.test_torch_predict_binned import _random_stack, _to_jax
-from tests.test_torch_multiclass import one_thread  # noqa: F401
+from tests.test_torch_one_thread import one_thread  # noqa: F401
 from tests.test_torch_train import _assert_same_model, _trees
 
 _RENEW = ("regression_l1", "huber", "fair", "quantile", "mape")

@@ -30,6 +30,7 @@ from tests.test_torch_grower import _data
 from tests.test_torch_hist_backends import strip_backend_echo
 from tests.test_torch_kernels import (BMAX, N, NUM_SLOTS, _inputs,
                                       _jax_tables, _t, _torch_tables)
+from tests.test_torch_one_thread import one_thread  # noqa: F401
 
 WORD_ROWS = 4096       # rows a 32-bit word of the scatter kernel takes
 LO_BITS = 20

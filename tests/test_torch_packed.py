@@ -32,6 +32,7 @@ from tests.test_torch_kernels import (M1, M_PAD, N, NUM_SLOTS,
                                       _assert_hist_close, _t, _torch_tables)
 from tests.test_torch_quantized import (_dyadic_problem, _quantized_channels,
                                         _same_bits)
+from tests.test_torch_one_thread import one_thread  # noqa: F401
 
 BMAX4 = 16
 

@@ -31,6 +31,7 @@ from lightgbm_tpu_torch.learner import histogram_mxu as torch_k
 from lightgbm_tpu_torch.learner import histogram_pallas as torch_p
 from tests.test_torch_kernels import (M1, N, _inputs, _jax_tables, _t,
                                       _torch_tables)
+from tests.test_torch_one_thread import one_thread  # noqa: F401
 
 CHUNK = torch_k.CHUNK_ROWS
 WARPS = 8                      # partition_rows.cu kWarps

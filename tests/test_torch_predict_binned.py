@@ -25,6 +25,7 @@ from lightgbm_tpu_torch.learner import predict
 from lightgbm_tpu_torch.learner.grower import TreeArrays
 from lightgbm_tpu_torch.learner.histogram_mxu import (pack_bins_4bit,
                                                       unpack_bins_4bit)
+from tests.test_torch_one_thread import one_thread  # noqa: F401
 
 ATOL = 1e-6
 

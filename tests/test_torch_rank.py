@@ -36,7 +36,7 @@ import lightgbm_tpu_torch as lgt
 from lightgbm_tpu_torch import metrics, objectives_rank
 from lightgbm_tpu_torch.config import Config
 from lightgbm_tpu_torch.data import Metadata
-from tests.test_torch_multiclass import one_thread  # noqa: F401
+from tests.test_torch_one_thread import one_thread  # noqa: F401
 from tests.test_torch_train import _assert_same_model, _trees
 
 _BASE = {"objective": "lambdarank", "num_leaves": 7, "learning_rate": 0.2,

@@ -31,6 +31,7 @@ from lightgbm_tpu_torch.boosting import gbdt as tgbdt
 from lightgbm_tpu_torch.config import Config
 from tests.test_torch_sync_free import _within, _watch
 from tests.test_torch_train import _assert_same_model
+from tests.test_torch_one_thread import one_thread  # noqa: F401
 
 _BASE = {"objective": "binary", "num_leaves": 7, "learning_rate": 0.2,
          "max_bin": 31, "min_data_in_leaf": 5, "verbosity": -1}

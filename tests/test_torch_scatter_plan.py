@@ -23,6 +23,7 @@ from lightgbm_tpu_torch.learner import histogram_mxu as torch_k
 from lightgbm_tpu_torch.learner import histogram_pallas as torch_p
 from tests.test_torch_kernels import BMAX, _assert_hist_close, _inputs, _t
 from tests.test_torch_quantized import _quantized_channels, _same_bits
+from tests.test_torch_one_thread import one_thread  # noqa: F401
 
 
 def _plan(n, num_slots, row_block, seed, parked=0.03):

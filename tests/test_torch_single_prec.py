@@ -46,7 +46,7 @@ from tests.conftest import make_binary, make_regression
 from tests.test_torch_kernels import (BMAX, NUM_SLOTS, _inputs, _jax_tables,
                                       _t, _torch_tables)
 from tests.test_torch_train import _assert_same_model
-from tests.test_torch_multiclass import one_thread  # noqa: F401
+from tests.test_torch_one_thread import one_thread  # noqa: F401
 
 
 def _assert_single_hist(h_torch, h_jax, d, slot):

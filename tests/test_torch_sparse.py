@@ -21,6 +21,7 @@ from lightgbm_tpu.data import BinnedDataset as JaxBinned
 from lightgbm_tpu.data import Metadata as JaxMetadata
 from lightgbm_tpu_torch.data import BinnedDataset, Metadata
 from tests.test_torch_efb import _assert_same_model
+from tests.test_torch_one_thread import one_thread  # noqa: F401
 
 
 def _sparse(seed, n=3000, f=40):
@@ -112,7 +113,7 @@ def test_csr_training_equals_dense_and_jax():
     params = {"objective": "binary", "num_leaves": 15, "max_bin": 15,
               "min_data_in_leaf": 20, "min_gain_to_split": 1e-3,
               "categorical_feature": "5", "verbosity": -1,
-              "device_type": "cpu"}
+              "efb_use_mxu": True, "device_type": "cpu"}
     ds_sparse = lgt.Dataset(csr, label=y, params=params)
     bst = lgt.train(params, ds_sparse, 3)
     assert bst.gbdt._efb is not None        # the sparse columns bundle

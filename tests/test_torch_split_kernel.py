@@ -34,6 +34,7 @@ from lightgbm_tpu_torch.learner.split import SplitHyperParams
 from lightgbm_tpu_torch.learner.split import find_best_splits
 from tests.test_torch_constraints import assert_same_tree
 from tests.test_torch_grower import _data
+from tests.test_torch_one_thread import one_thread  # noqa: F401
 
 _S, _F, _B = 6, 5, 31
 _CASES = ("plain", "nan", "mono", "mono_nan", "slot_masks",

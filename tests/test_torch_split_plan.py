@@ -38,6 +38,7 @@ import torch
 from lightgbm_tpu_torch.learner import _cuda
 from lightgbm_tpu_torch.learner import split_kernel as sk
 from lightgbm_tpu_torch.learner.split import SplitHyperParams
+from tests.test_torch_one_thread import one_thread  # noqa: F401
 
 SRC = (_cuda.CSRC / "find_best_splits.cu").read_text()
 WARPS = int(re.search(r"constexpr int kWarps = (\d+);", SRC).group(1))

@@ -33,6 +33,7 @@ from lightgbm_tpu_torch.boosting import fused
 from lightgbm_tpu_torch.learner import grower_mxu
 from lightgbm_tpu_torch.learner import histogram_mxu, histogram_pallas
 from lightgbm_tpu_torch.learner import prune, split_kernel
+from tests.test_torch_one_thread import one_thread  # noqa: F401
 
 _SYNC_OPS = {"_local_scalar_dense", "nonzero", "masked_select", "bincount",
              "repeat_interleave", "unique", "_unique", "_unique2",
@@ -101,8 +102,10 @@ _CONFIGS = {
                     "feature_fraction_bynode": 0.8, "extra_trees": True},
     "quantized_pallas": {"use_quantized_grad": True,
                          "hist_backend": "pallas", "max_bin": 15},
-    "efb": {"max_bin": 15},
-    "efb_expansion": {"max_bin": 15, "efb_segmented_scan": False},
+    # efb_use_mxu: bundled data on the MXU grower and the fused trainer
+    "efb": {"max_bin": 15, "efb_use_mxu": True},
+    "efb_expansion": {"max_bin": 15, "efb_segmented_scan": False,
+                      "efb_use_mxu": True},
 }
 
 

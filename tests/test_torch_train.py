@@ -17,6 +17,7 @@ import pytest
 import lightgbm_tpu as lgb
 import lightgbm_tpu_torch as lgt
 from tests.conftest import make_binary, make_regression
+from tests.test_torch_one_thread import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _VALUE_KEYS = ("leaf_value", "internal_value", "split_gain")

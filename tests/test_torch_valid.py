@@ -37,6 +37,7 @@ from lightgbm_tpu_torch.config import Config
 from lightgbm_tpu_torch.data import Metadata
 from lightgbm_tpu_torch.objectives import create_objective
 from tests.test_torch_train import _assert_same_model
+from tests.test_torch_one_thread import one_thread  # noqa: F401
 
 PARAMS = {"objective": "binary", "num_leaves": 7, "learning_rate": 0.2,
           "max_bin": 31, "verbosity": -1, "min_data_in_leaf": 5,

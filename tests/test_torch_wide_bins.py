@@ -40,7 +40,7 @@ from tests.conftest import make_binary
 from tests.test_torch_grower_portable import _sparse, _sparse_raw
 from tests.test_torch_predict_binned import _random_stack, _to_jax, _tree
 from tests.test_torch_train import _assert_same_model
-from tests.test_torch_multiclass import one_thread  # noqa: F401
+from tests.test_torch_one_thread import one_thread  # noqa: F401
 
 
 def _hist_inputs(seed, bmax, n=4000, f=5, s=11):
