@@ -28,9 +28,9 @@ categorical and NaN nodes; K1 (f32 and integer), K3, K7 (integer) and
 K5 again on sampled rows, a bagging mask and GOSS's weights and count,
 bit for bit, with GOSS's sampler and threshold timed — then trains through
 lightgbm_tpu_torch's entry points along twelve paths, each with the launch
-counts reset before it and read after it (sixteen with the last four
-below: EFB, single-precision hessians, wide bins and the rescanning
-monotone methods):
+counts reset before it and read after it (seventeen with the last five
+below: EFB, single-precision hessians, the rescanning monotone methods,
+forced splits with CEGB and the guard rails, and wide bins):
 
 - exact histograms: the Higgs-like binary configuration (num_leaves 255,
   max_bin 255), the same with min_data_in_leaf 1000 (which runs the
@@ -151,6 +151,22 @@ monotone methods):
   engine.train, byte-equal; every leaf -G/H of its rows or clamped to
   another node's value; held-out sweeps monotone; tree 0 equal to the
   CPU's at 100,000 rows and 63 leaves;
+- forced splits, CEGB and the guard rails (phase `forced_cegb`): a
+  nested forced spec (a root on feature 0, both children, a grandchild)
+  through engine.train at fused_block_size 10 for 20 trees against 20
+  update() calls, byte-equal, exact and quantized, every tree's forced
+  nodes the spec's features and threshold bins, held-out AUC above 0.75,
+  replayed trees/s with and without the spec alternating in one call; a
+  spec whose grandchild cannot apply ends its BFS there; the prune P
+  bit-equal to its plain version on the main path's forced rank keys and
+  on an overgrown tree whose top group is tied at 1e30 (row
+  `prune_best_first_forced`, after the counts are read; its launches are
+  the path's prunes under a forced spec); CEGB on the MXU grower (split
+  and coupled penalties; the coupled one alone), 10 trees each, the
+  penalised feature never split on; lazy CEGB on the portable grower, 3
+  trees (K7, not K1); guard_nonfinite warn, skip_iteration, rollback and
+  raise against a custom objective's NaN gradient, and a clean warn run
+  equal to guard_nonfinite=off;
 - max_bin 1023 (phase `wide_bins`): the 1M x 28 matrix binned to uint16,
   the portable grower with K7's uint16 mode and with the segment sums
   (use_pallas=false), 10 trees by update() (leaf_check) against
@@ -181,6 +197,7 @@ power limit as nvidia-smi prints them, and the result
 {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -4772,6 +4789,366 @@ def monotone_methods_path(torch, lgt, hm, X, y, ds, exact_auc):
     return counts
 
 
+# ---- forced splits, CEGB and the guard rails
+FORCED_TREES = 20
+FORCED_BLOCK = 10
+# a root on feature 0, both children, and one grandchild (right-left)
+FORCED_SPEC = {"feature": 0, "threshold": 0.0,
+               "left": {"feature": 1, "threshold": 0.5},
+               "right": {"feature": 2, "threshold": -0.3,
+                         "left": {"feature": 3, "threshold": 0.2}}}
+# the grandchild's threshold lies past its feature's range: every row goes
+# left, the forced split cannot apply and the BFS stops there (its child
+# on feature 5 is never forced)
+FORCED_STOP_SPEC = {**FORCED_SPEC, "right": {
+    "feature": 2, "threshold": -0.3,
+    "left": {"feature": 3, "threshold": 1e9,
+             "left": {"feature": 5, "threshold": 0.0}}}}
+CEGB_TREES = 10
+CEGB_BLOCKED = 4      # the feature the coupled penalty keeps out
+CEGB_COUPLED = [1e6 if f == CEGB_BLOCKED else 0.0 for f in range(N_FEATURES)]
+CEGB_PARAMS = dict(TRAIN_PARAMS, cegb_penalty_split=0.1,
+                   cegb_penalty_feature_coupled=CEGB_COUPLED)
+# the coupled penalty alone: at 1M rows the split penalty above (0.1 x a
+# node's rows) stops trees at a few leaves, so the blocked feature is
+# also held out of full 255-leaf trees
+CEGB_COUPLED_PARAMS = dict(TRAIN_PARAMS,
+                           cegb_penalty_feature_coupled=CEGB_COUPLED)
+LAZY_TREES = 3
+LAZY_PARAMS = dict(TRAIN_PARAMS, cegb_penalty_feature_lazy=[1e-3] * N_FEATURES)
+GUARD_TREES = 5
+# a forced node's rank key in the prune, gain + 1e30 in f32: 1e30 itself
+FORCED_KEY = float(np.float32(1e30))
+GUARD_BAD_CALL = 3    # the custom objective's call that holds a NaN
+FORCED_CEGB_PATH = ("prune_best_first", "fused_route_hist",
+                    "fused_route_hist_int", "node_values", "node_sums",
+                    "build_histograms_scatter")
+# the row's launches: the path's prunes under a forced spec (its counts'
+# key of that name), not the path's other prunes
+ROW_PATH["prune_best_first_forced"] = "forced_cegb"
+
+
+def _forced_applied(tree, spec, bins):
+    """The spec's BFS nodes that `tree` (TreeArrays) split as the spec
+    says, walking spec and tree together from the root until a node does
+    not (bins: the spec's threshold bins in BFS order)."""
+    feat = tree.split_feature.cpu().numpy()
+    thr = tree.threshold_bin.cpu().numpy()
+    left, right = tree.left.cpu().numpy(), tree.right.cpu().numpy()
+    fbin = [int(b) for b in bins]
+    applied, todo, i = [], [(0, spec)], 0
+    while todo:
+        node, sp = todo.pop(0)
+        if feat[node] != sp["feature"] or thr[node] != fbin[i]:
+            return applied
+        applied.append(int(node))
+        i += 1
+        for side, child in (("left", left), ("right", right)):
+            if sp.get(side):
+                todo.append((int(child[node]), sp[side]))
+    return applied
+
+
+def _nan_fobj(y, bad_call):
+    """A binary logloss objective on the host whose call `bad_call` puts a
+    NaN in one gradient."""
+    def fobj(score, data):
+        fobj.calls += 1
+        p = 1.0 / (1.0 + np.exp(-score.astype(np.float64)))
+        g = (p - y).astype(np.float32)
+        h = (p * (1.0 - p)).astype(np.float32)
+        if fobj.calls == bad_call:
+            g[0] = np.nan
+        return g, h
+    fobj.calls = 0
+    return fobj
+
+
+def forced_cegb_path(torch, lgt, hm, X, y, ds, row):
+    """Phase `forced_cegb`, launch counts reset before it and
+    read after it:
+    - forced splits on the fused trainer: FORCED_SPEC (a root on feature
+      0, both children, one grandchild) through engine.train at
+      fused_block_size 10 for 20 trees against 20 update() calls,
+      byte-equal, exact and quantized; every tree's root and forced
+      descendants carry the spec's features and threshold bins; held-out
+      AUC above 0.75; replayed trees/s with and without the spec
+      (informational, alternating);
+    - FORCED_STOP_SPEC (an inapplicable grandchild): the prune's rank keys
+      hold three forced nodes, not four, and the grandchild's split is not
+      the spec's;
+    - CEGB on the MXU grower (split penalty 0.1, a coupled penalty of 1e6
+      on feature CEGB_BLOCKED; then the coupled penalty alone), per
+      iteration, 10 trees each: the feature is never split on, K8 never
+      launched, train equals update(), seconds a tree;
+    - lazy CEGB on the portable grower, 3 trees: K7 launched, K1 not,
+      finite trees, seconds a tree;
+    - guard_nonfinite with a custom objective that puts a NaN in one
+      gradient on its third call, each policy for 5 trees: warn,
+      skip_iteration and rollback complete with one trip and finite
+      predictions, raise raises GuardError; a clean run under warn writes
+      guard_nonfinite=off's trees.
+    The counts are read there; then the prune kernel P is held against
+    its plain version, bit for bit, on the main path's forced rank keys
+    (caught at the prune of an update() tree) and on a synthetic
+    overgrown tree whose top group is tied at 1e30, and timed as the row
+    prune_best_first_forced. Returns the counts, with the prunes run under
+    a forced spec as "prune_best_first_forced"."""
+    import json
+    import tempfile
+    from lightgbm_tpu_torch.learner import grower_mxu, prune
+    from lightgbm_tpu_torch.reliability import counters, guards
+    t_phase = time.perf_counter()
+    hm.reset_launch_counts()
+    tmp = tempfile.TemporaryDirectory()
+    paths = {}
+    for name, spec in (("forced", FORCED_SPEC), ("stop", FORCED_STOP_SPEC)):
+        paths[name] = os.path.join(tmp.name, name + ".json")
+        with open(paths[name], "w") as fh:
+            json.dump(spec, fh)
+    out = {}
+    caught = []
+    orig_prune = grower_mxu._prune_to_best_first
+
+    def catch(tree, row_node, **kw):
+        if kw.get("rank_gain") is not None:
+            caught.append((tree.left, tree.right, tree.parent,
+                           kw["rank_gain"]))
+        return orig_prune(tree, row_node, **kw)
+
+    forced_prunes = [0]           # P's launches under a forced spec
+
+    @contextlib.contextmanager
+    def under_spec():
+        p0 = hm.launch_counts()["prune_best_first"]
+        try:
+            yield
+        finally:
+            forced_prunes[0] += hm.launch_counts()["prune_best_first"] - p0
+
+    # ---- forced splits on the fused trainer, exact and quantized
+    for name, base in (("exact", TRAIN_PARAMS), ("quantized", QUANT_PARAMS)):
+        params = dict(base, forcedsplits_filename=paths["forced"],
+                      fused_block_size=FORCED_BLOCK)
+        with under_spec():
+            trained = lgt.train(params, ds, FORCED_TREES)
+        g = trained.gbdt
+        check(bool(g.fused_stats) and g._fused_eligible(),
+              f"forced {name}: train did not run the fused trainer")
+        stepped = lgt.Booster(params, ds)
+        with under_spec():
+            for _ in range(FORCED_TREES):
+                stepped.update()
+        sha_t, sha_s = _model_sha(trained), _model_sha(stepped)
+        check(sha_t == sha_s, f"forced {name}: train's model text is not "
+              "update()'s")
+        applied = [_forced_applied(t, FORCED_SPEC, g._forced[1])
+                   for t in g.trees]
+        check(all(len(a) == 4 for a in applied), f"forced {name}: trees "
+              f"apply {sorted(set(len(a) for a in applied))} of the spec's "
+              "4 splits")
+        auc_ = held_out_auc(trained)
+        check(auc_ > 0.75, f"forced {name}: held-out AUC {auc_} <= 0.75")
+        if name == "exact":
+            grower_mxu._prune_to_best_first = catch
+            try:
+                with under_spec():
+                    stepped.update()
+            finally:
+                grower_mxu._prune_to_best_first = orig_prune
+        # the trees' sha256 (the parameter lines name a temporary file)
+        out[name] = dict(trees_sha256=_sha(tree_blocks(
+                             trained.model_to_string()))[:16],
+                         held_out_auc=auc_,
+                         fused_stats_trees=[s["trees"]
+                                            for s in g.fused_stats],
+                         forced_nodes_tree0=applied[0],
+                         leaves=[int(t.num_leaves) for t in g.trees])
+        del trained, stepped, g
+    torch.cuda.empty_cache()
+    # ---- replayed trees/s with and without the spec (informational)
+    rates = {"spec": [], "none": []}
+    fixups = {"spec": [], "none": []}     # fix-up passes a tree
+    for which in ("none", "spec", "spec", "none"):
+        params = dict(TRAIN_PARAMS)
+        if which == "spec":
+            params["forcedsplits_filename"] = paths["forced"]
+            with under_spec():
+                rate, b = replayed_rate(torch, lgt, ds, params)
+        else:
+            rate, b = replayed_rate(torch, lgt, ds, params)
+        rates[which].append(rate)
+        fixups[which].append([sum(st["fixup_passes"]) / st["trees"]
+                              for st in b.gbdt.fused_stats])
+        del b
+        torch.cuda.empty_cache()
+    # ---- an inapplicable grandchild stops the BFS
+    params = dict(TRAIN_PARAMS, forcedsplits_filename=paths["stop"])
+    stop = lgt.Booster(params, ds)
+    grower_mxu._prune_to_best_first = catch
+    try:
+        n_caught = len(caught)
+        with under_spec():
+            stop.update()
+    finally:
+        grower_mxu._prune_to_best_first = orig_prune
+    stop_keys = caught[n_caught][3]
+    n_forced = int((stop_keys == FORCED_KEY).sum())
+    t0 = stop.gbdt.trees[0]
+    rl = int(t0.left[int(t0.right[0])])
+    rl_split = (int(t0.split_feature[rl]), int(t0.threshold_bin[rl]))
+    check(n_forced == 3 and rl_split != (3, int(stop.gbdt._forced[1][3])),
+          f"forced stop: {n_forced} forced nodes (want 3), the grandchild "
+          f"split {rl_split}")
+    check(len(_forced_applied(t0, FORCED_STOP_SPEC, stop.gbdt._forced[1]))
+          == 3, "forced stop: the first three spec splits did not apply")
+    out["stop"] = dict(forced_nodes=n_forced, grandchild_split=rl_split)
+    del stop
+    # ---- CEGB on the MXU grower, per iteration
+    for name, params in (("cegb", CEGB_PARAMS),
+                         ("cegb_coupled", CEGB_COUPLED_PARAMS)):
+        before = hm.launch_counts()
+        cegb = lgt.Booster(params, ds)
+        torch.cuda.synchronize()
+        t0_ = time.perf_counter()
+        for _ in range(CEGB_TREES):
+            cegb.update()
+        torch.cuda.synchronize()
+        cegb_s = (time.perf_counter() - t0_) / CEGB_TREES
+        g = cegb.gbdt
+        used = sorted({int(f) for t in g.trees
+                       for f in t.split_feature.cpu().numpy() if f >= 0})
+        check(g._hist_impl == "mxu" and CEGB_BLOCKED not in used,
+              f"{name}: {g._hist_impl} grower, split features {used}")
+        k8 = hm.launch_counts()["find_best_splits"] - \
+            before["find_best_splits"]
+        check(k8 == 0, f"{name} launched K8 {k8} times")
+        trained = lgt.train(params, ds, CEGB_TREES)
+        check(not trained.gbdt.fused_stats and
+              _model_sha(trained) == _model_sha(cegb),
+              f"{name}: train is not update()'s, one iteration a dispatch")
+        out[name] = dict(s_per_tree=cegb_s, features_used=used,
+                         leaves=[int(t.num_leaves) for t in g.trees],
+                         feat_used=g._cegb_state.feat_used.cpu().numpy()
+                         .astype(int).tolist(),
+                         held_out_auc=held_out_auc(cegb))
+        del cegb, trained, g
+    # ---- lazy CEGB on the portable grower
+    before = hm.launch_counts()
+    lazy = lgt.Booster(LAZY_PARAMS, ds)
+    torch.cuda.synchronize()
+    t0_ = time.perf_counter()
+    for _ in range(LAZY_TREES):
+        lazy.update()
+    torch.cuda.synchronize()
+    lazy_s = (time.perf_counter() - t0_) / LAZY_TREES
+    g = lazy.gbdt
+    delta = {k: v - before[k] for k, v in hm.launch_counts().items()}
+    finite = all(bool(torch.isfinite(t.leaf_value).all()) for t in g.trees)
+    check(g._hist_impl == "pallas" and delta["build_histograms_scatter"] > 0
+          and delta["fused_route_hist"] == 0 and finite,
+          f"lazy cegb: {g._hist_impl} grower, K7 "
+          f"{delta['build_histograms_scatter']}, K1 "
+          f"{delta['fused_route_hist']}, finite {finite}")
+    rfu = g._cegb_state.row_feat_used
+    out["lazy"] = dict(s_per_tree=lazy_s, row_feat_used_shape=list(rfu.shape),
+                       row_feat_used_share=float(rfu.float().mean()),
+                       leaves=[int(t.num_leaves) for t in g.trees],
+                       passes_per_tree=g.grow_stats["passes"] /
+                       g.grow_stats["trees"])
+    del lazy, g, rfu
+    torch.cuda.empty_cache()
+    # ---- guard_nonfinite, per iteration, with a custom objective
+    guard = {}
+    for policy in ("warn", "skip_iteration", "rollback", "raise"):
+        counters.reset()
+        params = dict(TRAIN_PARAMS, guard_nonfinite=policy)
+        fobj = _nan_fobj(y, GUARD_BAD_CALL)
+        raised = False
+        try:
+            b = lgt.train(params, ds, GUARD_TREES, fobj=fobj)
+        except guards.GuardError:
+            raised, b = True, None
+        trips = counters.get("guard_trips")
+        if policy == "raise":
+            check(raised and trips == 1, f"guard raise: raised {raised}, "
+                  f"{trips} trips")
+            guard[policy] = dict(raised=raised, trips=trips)
+            continue
+        finite = bool(np.isfinite(b.predict(X[:HOST_ROWS])).all())
+        check(not raised and b.current_iteration() == GUARD_TREES and
+              trips == 1 and finite, f"guard {policy}: iterations "
+              f"{b.current_iteration()}, {trips} trips, finite {finite}")
+        guard[policy] = dict(trips=trips, iterations=b.current_iteration(),
+                             finite=finite,
+                             leaves=[int(t.num_leaves) for t in b.gbdt.trees])
+        del b
+    counters.reset()
+    clean = lgt.train(dict(TRAIN_PARAMS, guard_nonfinite="warn"), ds,
+                      GUARD_TREES)
+    off = lgt.train(TRAIN_PARAMS, ds, GUARD_TREES)
+    same = tree_blocks(clean.model_to_string()) == \
+        tree_blocks(off.model_to_string())
+    check(same and counters.get("guard_trips") == 0 and
+          not clean.gbdt.fused_stats, "guard warn: a clean run's trees are "
+          "not guard_nonfinite=off's")
+    guard["clean_warn_equals_off"] = same
+    del clean, off
+    tmp.cleanup()
+    counts = hm.launch_counts()
+    counts["prune_best_first_forced"] = forced_prunes[0]
+    for key in FORCED_CEGB_PATH + ("prune_best_first_forced",):
+        check(counts[key] > 0, f"{key} was not launched on the forced_cegb "
+              "path")
+    # ---- P against its plain version on forced rank keys
+    main_keys = caught[0]
+    check(int((main_keys[3] == FORCED_KEY).sum()) == 4,
+          "the main path's rank keys hold no 4 forced nodes")
+    rng = np.random.RandomState(71)
+    left, right, parent, gain = overgrown_tree(rng, M_GROWN,
+                                               M_GROWN // 2 - 1, False)
+    forced = np.zeros(M_GROWN, bool)
+    todo = [0]
+    while todo:                    # a root-connected group of forced nodes
+        j = todo.pop(0)
+        forced[j] = True
+        todo += [int(c) for c in (left[j], right[j])
+                 if left[c] >= 0 and rng.rand() < 0.8]
+    rank = (gain + np.where(forced, np.float32(1e30), np.float32(0))) \
+        .astype(np.float32)
+    synth = [torch.as_tensor(a, device="cuda")
+             for a in (left, right, parent, rank)]
+    equal = {}
+    for what, args in (("main path", main_keys), ("1e30-tied group", synth)):
+        got = prune.prune_best_first(*args, num_leaves=PRUNE_LEAVES)
+        want = prune.prune_best_first_ref(*args, num_leaves=PRUNE_LEAVES)
+        equal[what] = [bool(torch.equal(a, b)) for a, b in zip(got, want)]
+        check(all(equal[what]), f"prune_best_first on forced rank keys "
+              f"({what}) differs from its plain version: {equal[what]}")
+    m1 = M_GROWN
+    row("prune_best_first_forced", "lightgbm_tpu/learner/grower_mxu.py:57",
+        0.0, lambda: prune.prune_best_first(*main_keys,
+                                            num_leaves=PRUNE_LEAVES),
+        lambda: prune.prune_best_first_ref(*main_keys,
+                                           num_leaves=PRUNE_LEAVES), 3,
+        m1 * (16 + 10),
+        (PRUNE_LEAVES - 1) * m1 + 2 * m1 * (m1 - 1).bit_length(), None,
+        source="prune_best_first")
+    emit("kernel_check", name="prune_best_first_forced",
+         cases=list(equal), equal=True,
+         forced_nodes={"main path": 4, "1e30-tied group": int(forced.sum())})
+    emit("forced_cegb", rows=N_ROWS, features=N_FEATURES,
+         trees=FORCED_TREES, fused_block_size=FORCED_BLOCK, spec=FORCED_SPEC,
+         runs=out, replayed_trees_per_s=rates,
+         fixup_passes_per_tree=fixups,
+         order=["none", "spec", "spec", "none"], guard=guard,
+         prune_launches=counts["prune_best_first"],
+         prune_launches_under_spec=forced_prunes[0],
+         seconds=time.perf_counter() - t_phase,
+         launches={k: counts[k] for k in FORCED_CEGB_PATH})
+    return counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4828,6 +5205,8 @@ def main():
     single_prec_rows(torch, hm, hp, rng, dev, make_row(torch, rows))
     counts["monotone_methods"] = monotone_methods_path(torch, lgt, hm, X, y,
                                                        ds, exact_auc)
+    counts["forced_cegb"] = forced_cegb_path(torch, lgt, hm, X, y, ds,
+                                             make_row(torch, rows))
     del ds, reg_ds
     torch.cuda.empty_cache()
     counts["packed"] = packed_path(torch, lgt, hm, X, y)

@@ -46,6 +46,12 @@ stack at [iteration, class] and advances the class (and, after the last
 class, the iteration). The graphs are captured once, as for one class,
 so the pool and the capture do not grow with k.
 
+Forced splits ride along, as in the JAX package's fused scan: the spec's
+tensors are the Grower's, made before any capture, and the forced node
+state (node_force, forced_ok, was_forced) is part of the grower state
+that the prologue resets every tree. CEGB and the guard rails keep a
+booster off this trainer (GBDT._fused_eligible).
+
 The JAX package's stacked_score_traj (:54-79) is
 learner/predict.stacked_score_traj here: GBDT.train_many scores each
 block's stacked trees over the validation sets with it after the block,

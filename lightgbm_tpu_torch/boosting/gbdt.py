@@ -103,6 +103,18 @@ under efb_use_mxu=true, as in the JAX package (_mxu_exclusions, rule
 "efb config"); by default it grows on the portable grower with the
 segment sums, one iteration a dispatch, full precision.
 
+Forced splits (forcedsplits_filename: the JSON spec tree, flattened BFS
+into four int32 tensors on the device by _load_forced_splits) ride the
+MXU grower, the fused trainer and the portable grower; CEGB
+(cegb_penalty_split and the coupled and lazy per-feature penalties,
+_setup_cegb) rides both growers, the lazy term only the portable one
+(_mxu_exclusions' fourth rule), one iteration a dispatch: the
+feature-used flags carry from tree to tree on the host side
+(_cegb_state), as in the JAX package. guard_nonfinite (reliability/
+guards.py) checks the gradients before growth and the training score and
+the new trees' leaves after (train_one_iter: sanitize, skip, roll back
+or raise), one iteration a dispatch.
+
 `check_supported` refuses every parameter value whose code is not ported,
 naming the ROADMAP.md port-queue item that will bring it.
 """
@@ -121,7 +133,7 @@ from .. import rng
 from ..config import Config
 from ..data import BinnedDataset
 from ..efb import build_plan, bundle_matrix, make_device_tables
-from ..learner.grower import TreeArrays, grow_tree
+from ..learner.grower import CegbParams, CegbState, TreeArrays, grow_tree
 from ..learner.grower_mxu import (Grower, _kernel_cap,
                                   autotune_hist_backend)
 from ..learner.histogram_mxu import (fits_v2, node_values, pack_bins_4bit,
@@ -131,6 +143,7 @@ from ..learner.predict import (class_score_add, predict_binned_tree,
 from ..learner.renew import renew_tree_output
 from ..learner.split import SplitHyperParams
 from ..objectives import ObjectiveFunction, gradients_at
+from ..reliability import guards
 from ..utils.log import Log
 
 __all__ = ["GBDT", "check_supported", "create_boosting", "resolve_device"]
@@ -245,13 +258,7 @@ def _unsupported(cfg: Config) -> List[tuple]:
     whose code this port does not have yet."""
     return [(name, item) for name, item, hit in [
         ("level_pipeline", "P9", cfg.level_pipeline),
-        ("forcedsplits_filename", "P13", bool(cfg.forcedsplits_filename)),
-        ("cegb_*", "P13",
-         cfg.cegb_penalty_split > 0 or
-         cfg.cegb_penalty_feature_lazy is not None or
-         cfg.cegb_penalty_feature_coupled is not None),
         ("linear_tree", "P13", cfg.linear_tree),
-        ("guard_nonfinite", "P13", cfg.guard_nonfinite != "off"),
         ("tree_learner=" + str(cfg.tree_learner), "P14",
          cfg.tree_learner != "serial" or cfg.num_machines > 1),
         ("checkpoint_period/checkpoint_dir", "A9",
@@ -347,6 +354,7 @@ class GBDT:
                     is_cat=np.asarray(ds.is_categorical) if seg else None,
                     device=dev)
                 bins = bundle_matrix(ds.bins, plan)
+        self._setup_cegb(cfg, ds)
         # the growth path, as the JAX package picks it (gbdt.py:209-259):
         # the MXU grower unless something excludes it, else the portable
         # grower (learner/grower.py) with the scatter kernel, or with the
@@ -446,6 +454,7 @@ class GBDT:
                     orig2used[int(fi)] for fi in grp
                     if int(fi) in orig2used)))
             self._interaction_groups = tuple(g for g in groups if g)
+        self._forced = self._load_forced_splits(cfg, ds, dev)
         self.hp = SplitHyperParams(
             lambda_l1=cfg.lambda_l1, lambda_l2=cfg.lambda_l2,
             min_gain_to_split=cfg.min_gain_to_split,
@@ -469,10 +478,10 @@ class GBDT:
         """Why the MXU grower cannot grow this booster's trees (empty: it
         can), the JAX package's _mxu_exclusions (gbdt.py:566-584): bins
         wider than its uint8 kernels read, the monotone methods that
-        rescan every node, and bundled data unless efb_use_mxu is set,
-        every bundle fits 256 bins and either the segmented scan is in use
-        or the expansion fits 1 GiB. Lazy CEGB, its fourth rule, is
-        refused before (check_supported)."""
+        rescan every node, the lazy CEGB penalty (its per-row charges),
+        and bundled data unless efb_use_mxu is set, every bundle fits 256
+        bins and either the segmented scan is in use or the expansion fits
+        1 GiB."""
         cfg = self.config
         efb = self._efb
         efb_ok = efb is None or (
@@ -481,7 +490,101 @@ class GBDT:
         return [r for r, hit in [
             ("max_bin > 256", self.bmax > 256),
             ("monotone_constraints_method", self._mono_nonbasic),
+            ("cegb_penalty_feature_lazy",
+             self._cegb_cfg is not None and self._cegb_cfg.has_lazy),
             ("efb config", not efb_ok)] if hit]
+
+    def _setup_cegb(self, cfg: Config, ds: BinnedDataset) -> None:
+        """Cost-effective gradient boosting (reference
+        cost_effective_gradient_boosting.hpp:23; the JAX package's
+        _setup_cegb, gbdt.py:306-340): _cegb_cfg, and _cegb_state, the
+        CegbState the growers advance from tree to tree, per-feature lists
+        mapped to used-feature order."""
+        self._cegb_cfg = None
+        self._cegb_state = None
+        lazy = cfg.cegb_penalty_feature_lazy
+        coupled = cfg.cegb_penalty_feature_coupled
+        has_lazy, has_coupled = bool(lazy), bool(coupled)
+        if cfg.cegb_penalty_split <= 0 and not has_lazy and not has_coupled:
+            return
+        f = ds.num_features
+        used = np.asarray(ds.used_features, np.int64)
+        dev = self.device
+
+        def per_used(pen):
+            pen = np.asarray(pen, np.float32)
+            if len(pen) != ds.num_total_features:
+                # the reference requires one penalty per feature
+                raise ValueError(
+                    f"cegb per-feature penalty has {len(pen)} entries but "
+                    f"the dataset has {ds.num_total_features} features")
+            return torch.as_tensor(pen[used], device=dev)
+
+        zf = torch.zeros(f, dtype=torch.float32, device=dev)
+        self._cegb_cfg = CegbParams(
+            tradeoff=float(cfg.cegb_tradeoff),
+            penalty_split=float(cfg.cegb_penalty_split),
+            has_coupled=has_coupled, has_lazy=has_lazy)
+        self._cegb_state = CegbState(
+            per_used(coupled) if has_coupled else zf,
+            per_used(lazy) if has_lazy else zf.clone(),
+            torch.zeros(f, dtype=torch.bool, device=dev),
+            torch.zeros((ds.num_data, f) if has_lazy else (1, 1),
+                        dtype=torch.bool, device=dev))
+
+    @staticmethod
+    def _load_forced_splits(cfg: Config, ds: BinnedDataset,
+                            device: torch.device):
+        """The forced-splits JSON tree (reference ForceSplits,
+        serial_tree_learner.cpp:459; read at serial_tree_learner.cpp:53)
+        flattened breadth first into (feature, threshold bin, left spec,
+        right spec) [K] int32 tensors on `device`, spec i the i-th node of
+        the BFS and -1 for none; None without a spec. A node on an unused
+        or a categorical feature is kept as feature -1 with no children,
+        with the JAX package's warning (gbdt.py:342-405)."""
+        fname = cfg.forcedsplits_filename
+        if not fname:
+            return None
+        import json
+        with open(fname) as fh:
+            root = json.load(fh)
+        if not root:
+            return None
+        orig2used = {int(o): j for j, o in enumerate(ds.used_features)}
+        feat, tbin, left, right = [], [], [], []
+        nodes = [root]
+        i = 0
+        while i < len(nodes):
+            nd = nodes[i]
+            i += 1
+            fo = int(nd["feature"])
+            fu = orig2used.get(fo)
+            if fu is None:
+                Log.warning("forced split on unused feature %d ignored", fo)
+            elif ds.mappers[fu].is_categorical:
+                Log.warning("forced split on categorical feature %d ignored "
+                            "(numerical thresholds only)", fo)
+                fu = None
+            if fu is None:              # a leaf of the spec: its BFS ends
+                feat.append(-1)
+                tbin.append(0)
+                left.append(-1)
+                right.append(-1)
+                continue
+            feat.append(fu)
+            tbin.append(ds.mappers[fu]._value_to_bin_scalar(
+                float(nd["threshold"])))
+            for key, out in (("left", left), ("right", right)):
+                child = nd.get(key)
+                if child:
+                    nodes.append(child)
+                    out.append(len(nodes) - 1)
+                else:
+                    out.append(-1)
+        if not feat or all(f < 0 for f in feat):
+            return None
+        return tuple(torch.tensor(a, dtype=torch.int32, device=device)
+                     for a in (feat, tbin, left, right))
 
     def _mxu_expand_bytes(self) -> int:
         """Bytes of one pass's expanded scan tensor under EFB on the MXU
@@ -580,7 +683,8 @@ class GBDT:
             quantized_grad=cfg.use_quantized_grad, packed4=self._packed4,
             hist_backend=self._resolved_hist_backend(),
             partition_impl=cfg.partition_impl, efb=self._efb,
-            hist_double_prec=cfg.gpu_use_dp)
+            hist_double_prec=cfg.gpu_use_dp, forced=self._forced,
+            cegb_cfg=self._cegb_cfg)
 
     def _mask_settings(self) -> dict:
         cfg = self.config
@@ -625,11 +729,14 @@ class GBDT:
         sample). The MXU grower, or the portable one (_grow_portable)."""
         if cnt is None:
             grad, hess, cnt = self._sample(grad, hess)
+        # with CEGB the growers advance _cegb_state: the feature-used flags
+        # persist across the whole model (the reference's
+        # is_feature_used_in_split_ and is_feature_used_)
         if self._hist_impl != "mxu":
             return self._grow_portable(grad, hess, cnt)
         return self._grower().grow(grad, hess, cnt,
                                    self._feature_mask_at(self.iter_),
-                                   self._tree_key())
+                                   self._tree_key(), self._cegb_state)
 
     def _grow_portable(self, grad, hess, cnt):
         """One tree on the portable grower (the JAX package's call,
@@ -649,7 +756,8 @@ class GBDT:
             rng_key=self._tree_key(), hist_impl=self._hist_impl,
             partition_impl=cfg.partition_impl,
             monotone_method=self._mono_method, efb=self._efb,
-            stats=self.grow_stats)
+            forced=self._forced, cegb_cfg=self._cegb_cfg,
+            cegb_state=self._cegb_state, stats=self.grow_stats)
 
     def _leaf_values(self, tree: TreeArrays,
                      row_node: torch.Tensor) -> torch.Tensor:
@@ -720,7 +828,11 @@ class GBDT:
         on the objective's gradients or, where given, the caller's ([N] f32,
         or [k, N] with k trees an iteration, on the training device): one
         tree a class. Returns True if training cannot continue (no tree of
-        the iteration made a split)."""
+        the iteration made a split). With guard_nonfinite, the rails of
+        the JAX package's train_one_iter (gbdt.py:1001-1010, 1120-1145):
+        non-finite gradients or hessians before growth, and a non-finite
+        training score or leaf of the new trees after it, trip the
+        policy."""
         cfg = self.config
         k = self.num_tree_per_iteration
         init_scores = [0.0] * k
@@ -731,6 +843,20 @@ class GBDT:
             for cls in range(k):
                 init_scores[cls] = self._boost_from_average(cls)
             gradients, hessians = self._gradients(self.train_score)
+        guard = cfg.guard_nonfinite
+        prev_scores = None
+        if guard != "off":
+            # pre-growth rail: non-finite gradients (an exploding custom
+            # objective, corrupted scores) poison every later iteration
+            if not guards.all_finite(gradients, hessians):
+                gradients, hessians = self._guard_gradients(
+                    guard, gradients, hessians)
+                if gradients is None:      # skip_iteration consumed it
+                    return False
+            # the scores are never written in place, so keeping the
+            # references restores them exactly (subtracting a NaN tree
+            # cannot un-NaN a score)
+            prev_scores = (self.train_score, list(self.valid_scores))
         renew = self.objective is not None and \
             self.objective.need_renew_tree_output
         cnt = None
@@ -784,7 +910,62 @@ class GBDT:
             self.trees.append(tree)
             self.tree_class.append(cls)
         self.iter_ += 1
+        if guard != "off" and not guards.all_finite(
+                self.train_score,
+                *[self._guarded_tree_values(t) for t in self.trees[-k:]]):
+            guards.trip("split gains/scores", guard, self.iter_ - 1)
+            if guard in ("skip_iteration", "rollback"):
+                # discard the offending iteration by exact restoration
+                for _ in range(k):
+                    self.trees.pop()
+                    self.tree_class.pop()
+                self.train_score = prev_scores[0]
+                for i, score in enumerate(prev_scores[1]):
+                    self._set_valid(i, score)
+                self.iter_ -= 1
+                if guard == "skip_iteration":
+                    self._append_zero_trees()
         return finished
+
+    def _append_zero_trees(self) -> None:
+        """An iteration of constant zero trees: it keeps the tree count
+        aligned with the boosting rounds and moves no score."""
+        for cls in range(self.num_tree_per_iteration):
+            self.trees.append(self._constant_tree(0.0))
+            self.tree_class.append(cls)
+        self.iter_ += 1
+
+    @staticmethod
+    def _guarded_tree_values(tree: TreeArrays) -> torch.Tensor:
+        """The leaf values of `tree`'s nodes in use: slots past num_nodes
+        and internal nodes are padding, which the guard does not read."""
+        idx = torch.arange(tree.leaf_value.shape[0],
+                           device=tree.leaf_value.device)
+        valid = (idx < tree.num_nodes) & tree.is_leaf
+        return torch.where(valid, tree.leaf_value, 0.0)
+
+    def _guard_gradients(self, guard: str, gradients, hessians):
+        """The pre-growth rail (the JAX package's _guard_gradients,
+        gbdt.py:1159-1190): usable (gradients, hessians), or (None, None)
+        when skip_iteration consumed the iteration. rollback drops the
+        iteration that produced the scores (with an objective to recompute
+        from) and recomputes; what is still non-finite is set to 0, as
+        under warn."""
+        guards.trip("gradients/hessians", guard, self.iter_)
+        if guard == "rollback" and self.iter_ > 0 and \
+                self.objective is not None:
+            self.rollback_one_iter()
+            gradients, hessians = self._gradients(self.train_score)
+            if guards.all_finite(gradients, hessians):
+                return gradients, hessians
+            guards.trip("gradients/hessians after rollback", guard,
+                        self.iter_)
+        if guard == "skip_iteration":
+            self._append_zero_trees()
+            return None, None
+        return (torch.nan_to_num(gradients, nan=0.0, posinf=0.0,
+                                 neginf=0.0),
+                torch.nan_to_num(hessians, nan=0.0, posinf=0.0, neginf=0.0))
 
     def _class_score(self, cls: int) -> torch.Tensor:
         """The training score of class cls ([N])."""
@@ -807,14 +988,17 @@ class GBDT:
         calls: the JAX package's rule (gbdt or GOSS on the serial MXU
         grower, bagging and k trees an iteration included; not RF or DART,
         not the portable grower; no guard rails, no linear trees, no leaf
-        renewal, no CEGB, no custom objective)."""
+        renewal, no CEGB, whose feature-used flags carry across trees, no
+        custom objective). Forced splits ride along: the spec is the
+        same for every tree."""
         cfg = self.config
         return (type(self) is GBDT and cfg.boosting in ("gbdt", "goss")
                 and self._hist_impl == "mxu"
                 and cfg.guard_nonfinite == "off" and not cfg.linear_tree
                 and self.objective is not None
                 and not self.objective.need_renew_tree_output
-                and not self._custom_objective)
+                and not self._custom_objective
+                and self._cegb_cfg is None)
 
     def _build_fused(self):
         """The fused trainer. It gets no reference to the booster (its

@@ -40,11 +40,22 @@ per iteration only (the booster's fused trainer needs the MXU grower), so
 each pass reads `done` on the host once, to stop (`stats`). The root
 sums are the fixed-point sums of histogram_mxu.exact_sums, the same bits
 on every device. Not ported here: the sharded and feature-parallel
-branches, forced splits and CEGB (the booster refuses their params).
+branches (the booster refuses their params).
+
+Forced splits (forced=, the JAX package's grower.py:309-318, 582-660,
+716-728; reference ForceSplits, serial_tree_learner.cpp:459) and all
+three CEGB terms (cegb_cfg= with cegb_state=, :320-330, 431-449,
+731-735, 797-804; reference cost_effective_gradient_boosting.hpp) work as
+in grower_mxu.py, the forced sums gathered from the (under EFB expanded)
+histograms; the lazy term is each slot's sum of the count weights of its
+rows not yet charged for a feature (row_feat_used [N, F], read through
+row_node when rescanning), and a row is charged for a feature when its
+node splits on it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -56,12 +67,139 @@ from . import histogram
 from .histogram_mxu import exact_scale, exact_sums, gather_bins
 from .histogram_pallas import build_histograms_scatter
 from .monotone import recompute_bounds
-from .split import BestSplits, SplitHyperParams, find_best_splits, leaf_output
+from .split import (BestSplits, SplitHyperParams, find_best_splits,
+                    leaf_gain, leaf_output)
 
-__all__ = ["TreeArrays", "_init_tree", "grow_tree", "HIST_IMPLS"]
+__all__ = ["CegbParams", "CegbState", "TreeArrays", "_init_tree",
+           "grow_tree", "HIST_IMPLS"]
 
 #: the portable grower's histogram backends
 HIST_IMPLS = ("pallas", "scatter")
+
+
+@dataclasses.dataclass(frozen=True)
+class CegbParams:
+    """Static CEGB settings (reference Config cegb_* params,
+    cost_effective_gradient_boosting.hpp:23), the JAX package's."""
+    tradeoff: float = 1.0
+    penalty_split: float = 0.0
+    has_coupled: bool = False
+    has_lazy: bool = False
+
+
+@dataclasses.dataclass
+class CegbState:
+    """The CEGB state a booster carries across its trees, in used-feature
+    order: the coupled and lazy per-feature penalties ([F] f32),
+    feat_used ([F] bool, the features split on in the model so far) and
+    row_feat_used ([N, F] bool, the rows charged for a feature; [1, 1]
+    without the lazy term). A grower reads it when a tree starts and sets
+    feat_used and row_feat_used to the flags after the tree."""
+    coupled: torch.Tensor
+    lazy: torch.Tensor
+    feat_used: torch.Tensor
+    row_feat_used: torch.Tensor
+
+
+def _f32(x: float) -> float:
+    return float(np.float32(x))
+
+
+def cegb_penalty(cfg: CegbParams, count: torch.Tensor, num_features: int,
+                 coupled: torch.Tensor, feat_used: torch.Tensor
+                 ) -> torch.Tensor:
+    """[s, F] f32 CEGB gain penalty of scan slots whose nodes hold `count`
+    rows ([s]): tradeoff x (penalty_split x count + coupled[f] while f is
+    unused in the model), the split and coupled terms of the reference's
+    CostEfficientGradientBoosting::DeltaGain (the JAX package's
+    grower.py:431-436, grower_mxu.py:728-737); the lazy term is the
+    portable grower's."""
+    gp = _f32(cfg.tradeoff * cfg.penalty_split) * count[:, None] * \
+        torch.ones((count.shape[0], num_features), dtype=torch.float32,
+                   device=count.device)
+    if cfg.has_coupled:
+        gp = gp + _f32(cfg.tradeoff) * coupled[None, :] * \
+            (~feat_used)[None, :].to(torch.float32)
+    return gp
+
+
+def mark_used(feat_used: torch.Tensor, fclip: torch.Tensor,
+              split_mask: torch.Tensor) -> torch.Tensor:
+    """feat_used [F] with the features of this pass's splits set (fclip
+    [m1], split_mask [m1]): the model's feature-used flags."""
+    f = feat_used.shape[0]
+    return feat_used | ((fclip[:, None] == torch.arange(
+        f, device=fclip.device)[None, :]) & split_mask[:, None]).any(dim=0)
+
+
+def force_splits(hist: torch.Tensor, parent, sn: torch.Tensor,
+                 node_force: torch.Tensor, spec: torch.Tensor,
+                 bs: BestSplits, hp: SplitHyperParams, m: int, f: int,
+                 expand=None):
+    """Each scan slot's best split overridden by its node's forced spec
+    (reference ForceSplits, serial_tree_learner.cpp:459; the JAX
+    package's grower.py:582-636, grower_mxu.py:774-848): the spec's
+    feature and threshold, the left sums gathered from the slot's
+    histogram of that feature as FeatureHistogram::GatherInfoForThreshold
+    does, the split gain minus the parent's shift, NaN right, no
+    categorical set. Valid where the node has a spec whose feature is in
+    use and both children get rows.
+
+    hist: [s, F, B, 3] (original features), or what expand(ff) ([s] i64
+    features) turns into the [s, B, 3] rows; parent: the slots'
+    (sum_grad, sum_hess, count, leaf_value) [s]; spec: [K, 4] i32
+    (feature, threshold bin, left spec, right spec); node_force [m1] each
+    node's spec (-1 none). Returns (bs, valid [s] bool). Left and right go
+    through the leaf formulas stacked and the replaced fields through one
+    where: on the fused trainer these ops run every pass of every tree."""
+    pg, ph, pc, pout = parent
+    s = sn.shape[0]
+    dev = sn.device
+    nf_slot = node_force[sn]
+    sp = spec[nf_slot.clamp(min=0)]                           # [s, 4]
+    ff = sp[:, 0].clamp(0, f - 1).to(torch.int64)
+    fb = sp[:, 1]
+    hsel = expand(ff) if expand is not None else \
+        hist[torch.arange(s, device=dev), ff]                 # [s, B, 3]
+    lmask = torch.arange(hsel.shape[1], device=dev)[None, :] <= fb[:, None]
+    # summed in float64 and rounded once, as the scan's prefix sums
+    left = torch.where(lmask[..., None], hsel.to(torch.float64),
+                       0.0).sum(dim=1).to(torch.float32)      # [s, 3]
+    # [2, s, 3]: the left child's sums, the right's (parent - left)
+    lr = torch.stack([left, torch.stack([pg, ph, pc], -1) - left])
+    g2, h2, c2 = lr[..., 0], lr[..., 1], lr[..., 2]
+    l1, l2, mds, ps = (hp.lambda_l1, hp.lambda_l2, hp.max_delta_step,
+                       hp.path_smooth)
+    shift = leaf_gain(pg, ph, l1, l2, mds, ps, pc, pout)
+    gain2 = leaf_gain(g2, h2, l1, l2, mds, ps, c2, pout[None])
+    out2 = leaf_output(g2, h2, l1, l2, mds, ps, c2, pout[None])
+    fgain = gain2[0] + gain2[1] - shift
+    valid = (nf_slot >= 0) & (sn < m) & (c2[0] > 0) & (c2[1] > 0) & \
+        (sp[:, 0] >= 0)
+    new = torch.where(valid, torch.stack(
+        [fgain, g2[0], h2[0], c2[0], out2[0], out2[1]]), torch.stack(
+        [bs.gain, bs.left_grad, bs.left_hess, bs.left_count,
+         bs.left_output, bs.right_output]))
+    bs = bs._replace(
+        gain=new[0], left_grad=new[1], left_hess=new[2], left_count=new[3],
+        left_output=new[4], right_output=new[5],
+        feature=torch.where(valid, ff.to(torch.int32), bs.feature),
+        threshold_bin=torch.where(valid, fb, bs.threshold_bin),
+        default_left=bs.default_left & ~valid,
+        cat_bitset=torch.where(valid[:, None], 0, bs.cat_bitset))
+    return bs, valid
+
+
+def forced_children(spec: torch.Tensor, node_force: torch.Tensor,
+                    split_mask: torch.Tensor, forced_ok: torch.Tensor):
+    """([m1], [m1]) the spec indices the left and right children of each
+    node take: the spec's subtrees where the node's forced split was
+    applied, -1 elsewhere (a node whose forced split could not apply ends
+    the spec's BFS there, as the reference's)."""
+    kids = spec[node_force.clamp(min=0)]                      # [m1, 4]
+    inherit = (split_mask & (node_force >= 0) & forced_ok)[:, None]
+    kids = torch.where(inherit, kids, -1)
+    return kids[:, 2], kids[:, 3]
 
 
 class TreeArrays(NamedTuple):
@@ -140,6 +278,9 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
               rng_key: Optional[torch.Tensor] = None,
               hist_impl: str = "scatter", partition_impl: str = "auto",
               monotone_method: str = "basic", efb=None,
+              forced: Optional[tuple] = None,
+              cegb_cfg: Optional[CegbParams] = None,
+              cegb_state: Optional[CegbState] = None,
               stats: Optional[dict] = None):
     """Grow one tree (the JAX package's grow_tree, serial learner).
     grad/hess already carry the row sample's weights (zeros out of the
@@ -152,7 +293,9 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     passes run added in (one host read of `done` a pass) and, under
     monotone constraints, "node_bounds": [M+1, 2] f32, the interval each
     node's value was clamped into when its parent split (+-inf for the
-    root), this tree's.
+    root), this tree's. forced: the spec tree, (feature, threshold bin,
+    left spec, right spec) [K] i32 tensors in BFS order. cegb_cfg with
+    cegb_state (a CegbState, advanced to the flags after this tree).
 
     Returns (tree, row_node [N] i32): each row's leaf, out-of-bag rows
     included, for the booster's score update."""
@@ -220,6 +363,18 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     use_bynode = feature_fraction_bynode < 1.0 and rng_key is not None
     k_bynode = max(1, int(round(feature_fraction_bynode * f)))
 
+    if forced is not None:
+        spec = torch.stack(forced, dim=1)
+        node_force = ifull(m1, -1)
+        node_force[0].fill_(0)
+        forced_ok = torch.zeros(m1, dtype=torch.bool, device=dev)
+    if cegb_cfg is not None:
+        cegb_coupled, cegb_lazy = cegb_state.coupled, cegb_state.lazy
+        feat_used, row_feat_used = cegb_state.feat_used, \
+            cegb_state.row_feat_used
+        if cegb_cfg.has_lazy:
+            # charged below in place, on this tree's copy
+            row_feat_used = row_feat_used.clone()
     row_node = torch.zeros(n, dtype=torch.int32, device=dev)
     slot_of_node = ifull(m1, -1)
     slot_of_node[0].fill_(0)
@@ -295,18 +450,47 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
                 cmin_s, cmax_s = cons_min[sn], cons_max[sn]
             mono_kw = dict(monotone=monotone, cons_min=cmin_s,
                            cons_max=cmax_s, depth=tree.depth[sn])
+        gp = None
+        if cegb_cfg is not None:
+            gp = cegb_penalty(cegb_cfg, tree.count[sn], f, cegb_coupled,
+                              feat_used)
+            if cegb_cfg.has_lazy:
+                # each slot's count weight of the rows not yet charged for
+                # a feature (the reference's on-demand cost)
+                rs = row_node if mono_rescan else \
+                    torch.where(row_slot < 0, s, row_slot)
+                uncharged = torch.zeros((s_scan + 1, f), dtype=torch.float32,
+                                        device=dev).index_add_(
+                    0, rs.to(torch.int64),
+                    (~row_feat_used).to(torch.float32) *
+                    cnt_weight[:, None])[:s_scan]
+                gp = gp + _f32(cegb_cfg.tradeoff) * cegb_lazy[None, :] * \
+                    uncharged
+        parent = (tree.sum_grad[sn], tree.sum_hess[sn], tree.count[sn],
+                  tree.leaf_value[sn])
         bs = find_best_splits(
-            hist, tree.sum_grad[sn], tree.sum_hess[sn], tree.count[sn],
-            tree.leaf_value[sn], num_bins, missing_is_nan, is_cat_feat,
-            slot_fmask, hp, rand_bins=rand_bins, **mono_kw)
+            hist, *parent, num_bins, missing_is_nan, is_cat_feat,
+            slot_fmask, hp, rand_bins=rand_bins, gain_penalty=gp, **mono_kw)
+        if forced is not None:
+            bs, valid = force_splits(hist, parent, sn, node_force, spec, bs,
+                                     hp, m, f)
+            forced_ok = _put(forced_ok, sn, valid, m)
         best = BestSplits(*[_put(getattr(best, fld), sn, getattr(bs, fld),
                                  m) for fld in BestSplits._fields])
 
         # ---- 3. choose splits: top-budget by gain
         eligible = tree.is_leaf & torch.isfinite(best.gain) & (best.gain > 0)
+        if forced is not None:
+            # forced nodes split whatever the sign of their gain, and
+            # outrank every gain-chosen candidate
+            eligible = tree.is_leaf & torch.isfinite(best.gain) & \
+                ((best.gain > 0) | forced_ok)
         if max_depth > 0:
             eligible &= tree.depth < max_depth
         gains = torch.where(eligible[:m], best.gain[:m], ninf)
+        if forced is not None:
+            gains = torch.where(eligible[:m] & forced_ok[:m],
+                                1e30 + best.gain[:m], gains)
         budget = num_leaves - tree.num_leaves
         k_allowed = torch.clamp(budget, max=1 if leafwise else k_top)
         # top_k with ties broken lower index first, as lax.top_k does
@@ -364,6 +548,13 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
             right=scat(new_tree.right, neg1, neg1))
         ninf_m = ninf.expand(m1)
         best = best._replace(gain=scat(best.gain, ninf_m, ninf_m))
+        if forced is not None:
+            node_force = scat(node_force, *forced_children(
+                spec, node_force, split_mask, forced_ok))
+            zb = torch.zeros(m1, dtype=torch.bool, device=dev)
+            forced_ok = scat(forced_ok, zb, zb)
+        if cegb_cfg is not None and cegb_cfg.has_coupled:
+            feat_used = mark_used(feat_used, fclip, split_mask)
         if keep_bounds:
             # the bounds the children's outputs were clamped to: the
             # parent's in this pass's scan
@@ -419,6 +610,11 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         row_node = torch.where(
             pm_rows, torch.where(go_left, child_l[pnode], child_r[pnode]),
             row_node)
+        if cegb_cfg is not None and cegb_cfg.has_lazy:
+            # the rows of a node that split are charged for its feature
+            # (the reference's per-row is_feature_used_ flags)
+            ar_n = torch.arange(n, device=dev)
+            row_feat_used[ar_n, pf] = row_feat_used[ar_n, pf] | pm_rows
         tree = new_tree
         # the loop's one host read a pass: is growth over
         if bool((k == 0) | (tree.num_leaves >= num_leaves)):
@@ -427,4 +623,7 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         stats["passes"] = stats.get("passes", 0) + passes
         if keep_bounds:
             stats["node_bounds"] = torch.stack([node_lo, node_hi], 1)
+    if cegb_cfg is not None:
+        cegb_state.feat_used = feat_used
+        cegb_state.row_feat_used = row_feat_used
     return tree, row_node

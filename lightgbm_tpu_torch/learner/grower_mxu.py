@@ -58,8 +58,23 @@ loop (the JAX package's while_loop) reads `done`, once before each fix-up
 pass. The prune's replay is one kernel (prune.prune_best_first, the JAX
 package's fori_loop). `Grower` holds these programs apart, so the fused
 trainer (boosting/fused.py) can capture each in a CUDA graph;
-grow_tree_mxu runs them eagerly. Not ported: psum (distributed), forced
-splits, CEGB; boosting/gbdt.py refuses the params that need them.
+grow_tree_mxu runs them eagerly. Not ported: psum (distributed);
+boosting/gbdt.py refuses the params that need it.
+
+Forced splits (forced=, the JAX package's grower_mxu.py:519-534,
+774-865, 940-955, 1131-1141; reference ForceSplits,
+serial_tree_learner.cpp:459): the root takes spec 0; a scanned node with
+a spec has its best split replaced by the spec's feature and threshold,
+its sums gathered from the scan tensor; such a split is taken whatever
+the sign of its gain and ranks at 1e30 + gain, above every gain-chosen
+one; its children take the spec's subtrees, and a node whose forced split
+cannot apply (a child without rows) ends the spec's BFS there. The prune
+ranks forced splits first (rank_gain). CEGB (cegb_cfg=, split and coupled
+terms; the lazy term is the portable grower's): a per-(slot, feature)
+gain penalty (grower.cegb_penalty) that the split scan subtracts, and
+the model's feature-used flags carried from tree to tree. The split-scan
+kernel K8 takes no penalty, so a CEGB pass always scans with
+find_best_splits, as in the JAX package.
 
 EFB (efb=, an efb.EfbDev; the JAX package's grower_mxu.py:392-401,
 585-620, 696-753, 1025-1044, 1124-1126): `bins` is the bundled [N, Fb]
@@ -88,10 +103,11 @@ import numpy as np
 import torch
 
 from .. import rng
-from ..efb import EfbDev, expand_histograms
+from ..efb import EfbDev, _empty_to_zero, expand_histograms
 from ..utils.log import Log
 from . import histogram
-from .grower import TreeArrays, _init_tree
+from .grower import (CegbParams, CegbState, TreeArrays, _init_tree,
+                     cegb_penalty, force_splits, forced_children, mark_used)
 from .histogram_mxu import (build_histograms_auto, exact_scale, exact_sums,
                             fits_v2, fused_route_hist, fused_row_block,
                             node_sums, node_values, pack_route_tables,
@@ -235,6 +251,14 @@ class _GrowState(NamedTuple):
     cons_min: torch.Tensor     # [m1] f32 monotone output bounds per node
     cons_max: torch.Tensor
     path_mask: torch.Tensor    # [m1, F] bool features on the node's path
+    # forced splits ([m1], None without a spec, so a booster without one
+    # runs no op for them): each node's spec index (-1 none), whether its
+    # forced split applies, whether it was forced
+    node_force: Optional[torch.Tensor]
+    forced_ok: Optional[torch.Tensor]
+    was_forced: Optional[torch.Tensor]
+    feat_used: Optional[torch.Tensor]  # [F] bool CEGB (else None): the
+    #                                    model's features used
 
 
 class _TreeInputs(NamedTuple):
@@ -248,6 +272,7 @@ class _TreeInputs(NamedTuple):
     h_hess: torch.Tensor
     hist_scale: Optional[torch.Tensor]   # [3] f32 quantized sums' scales
     hist_fixed: Optional[torch.Tensor]   # [3] i32 exact fixed point
+    cegb_coupled: Optional[torch.Tensor]  # [F] f32 CEGB coupled penalty
 
 
 def _set_dropping(base: torch.Tensor, idx: torch.Tensor,
@@ -262,6 +287,32 @@ def _set_dropping(base: torch.Tensor, idx: torch.Tensor,
     return out[:n]
 
 
+def _expand_feature(hist_b: torch.Tensor, efb: EfbDev,
+                    ff: torch.Tensor) -> torch.Tensor:
+    """[S, bmax, C]: slot i's bundled histogram [S, Fb, Bb, C] expanded
+    to original feature ff[i] alone, the same gather and default-mass
+    reconstruction as efb.expand_histograms (equal to its [i, ff[i]]
+    row), without the [S, F, bmax, C] tensor."""
+    s, fb, bb, c = hist_b.shape
+    ar = torch.arange(s, device=hist_b.device)
+    fp = efb.flat_pos[ff]                                   # [S, bmax]
+    gath = torch.gather(hist_b.reshape(s, fb * bb, c), 1,
+                        fp[..., None].expand(-1, -1, c))
+    h64 = hist_b.to(torch.float64)
+    csum = torch.cumsum(h64, dim=2)
+    total = h64[:, 0].sum(dim=1)                            # [S, C]
+    col = efb.col_of_feat[ff].to(torch.int64)
+    hi_s = csum[ar, col, efb.seg_hi[ff].to(torch.int64)]
+    lo_s = torch.where((efb.seg_lo[ff] > 0)[:, None],
+                       csum[ar, col, (efb.seg_lo[ff] - 1).clamp(min=0)
+                            .to(torch.int64)], 0.0)
+    dmass = _empty_to_zero(total - (hi_s - lo_s)).to(torch.float32)
+    zero = torch.zeros((), dtype=hist_b.dtype, device=hist_b.device)
+    out = torch.where(efb.is_valid_pos[ff][..., None], gath, zero)
+    return torch.where(efb.is_default_pos[ff][..., None], dmass[:, None],
+                       out)
+
+
 def _select(done: torch.Tensor, old, new):
     """torch.where(done, old, new) over a state (nested named tuples of
     tensors): a pass that finds growth over leaves the state as it was,
@@ -274,19 +325,23 @@ def _select(done: torch.Tensor, old, new):
 
 
 def _prune_to_best_first(tree: TreeArrays, row_node: torch.Tensor, *,
-                         num_leaves: int, m_grow: int, aux: Tuple = ()
-                         ) -> Tuple:
+                         num_leaves: int, m_grow: int, aux: Tuple = (),
+                         rank_gain: Optional[torch.Tensor] = None) -> Tuple:
     """Replay the reference's strict best-first growth order over an
     OVERGROWN tree's recorded split gains, keep the winning num_leaves-1
     splits, compact, and move rows to their nearest kept-leaf ancestor.
     The replay and its closure are one kernel (prune.prune_best_first);
     the compaction writes dropped nodes to a pad row, so nothing here
     syncs. `aux`: (per-node array, fill) pairs compacted the same way and
-    returned as a third element."""
+    returned as a third element. rank_gain [m1] f32, where given, orders
+    the replay in place of the gains (forced splits rank first,
+    serial_tree_learner.cpp:459); the tree keeps its true gains."""
     dev = row_node.device
     mf1 = 2 * num_leaves
     sel, kept, new_id, composed = prune_best_first(
-        tree.left, tree.right, tree.parent, tree.gain, num_leaves=num_leaves)
+        tree.left, tree.right, tree.parent,
+        tree.gain if rank_gain is None else rank_gain,
+        num_leaves=num_leaves)
     final_leaf = kept & ~sel
     dst = torch.where(kept, new_id, mf1).to(torch.int64)
     par = tree.parent.to(torch.int64).clamp(0, m_grow)
@@ -345,7 +400,11 @@ class Grower:
                  quantized refit
 
     The fix-up loop (grow) is the only code that reads the device: `done`,
-    once before each fix-up pass. Settings as grow_tree_mxu's."""
+    once before each fix-up pass. Settings as grow_tree_mxu's. A forced
+    spec (forced=) is held here, made before any capture, and its node
+    state is reset by start, so the fused trainer's graphs replay it
+    tree after tree; CEGB (cegb_cfg=) takes each tree's feature-used
+    flags and coupled penalties through start's cegb_state."""
 
     def __init__(self, bins: torch.Tensor, num_bins: torch.Tensor,
                  missing_is_nan: torch.Tensor, is_cat_feat: torch.Tensor,
@@ -360,7 +419,9 @@ class Grower:
                  partition_impl: str = "auto",
                  use_scan_kernel: bool = False,
                  efb: Optional[EfbDev] = None,
-                 hist_double_prec: bool = True):
+                 hist_double_prec: bool = True,
+                 forced: Optional[Tuple[torch.Tensor, ...]] = None,
+                 cegb_cfg: Optional[CegbParams] = None):
         if hist_backend not in HIST_BACKENDS:
             raise ValueError(f"grow_tree_mxu needs a resolved hist_backend, "
                              f"one of {HIST_BACKENDS}; got {hist_backend!r} "
@@ -411,6 +472,15 @@ class Grower:
         self.feature_fraction_bynode = feature_fraction_bynode
         self.k_bynode = max(1, int(round(feature_fraction_bynode * f)))
         self.use_kernel = use_scan_kernel and kernel_supports(hp)
+        # forced splits: (feature, threshold bin, left spec, right spec)
+        # [K] i32 each on the device, the spec tree in BFS order, held as
+        # one [K, 4] table (one gather a lookup)
+        self.spec = torch.stack(forced, dim=1).contiguous() \
+            if forced is not None else None
+        if cegb_cfg is not None and cegb_cfg.has_lazy:
+            raise NotImplementedError(
+                "cegb_penalty_feature_lazy runs on the portable grower")
+        self.cegb = cegb_cfg
         #: the host counter of the first fix-up pass; pass it + 1000 runs
         #: while it < L_g
         self.first_fixup = len(plan.schedule) + 1
@@ -431,9 +501,13 @@ class Grower:
     # ------------------------------------------------------------------
     def start(self, grad: torch.Tensor, hess: torch.Tensor,
               cnt_weight: torch.Tensor, feature_mask: torch.Tensor,
-              rng_key: Optional[torch.Tensor] = None
+              rng_key: Optional[torch.Tensor] = None,
+              cegb_state: Optional[CegbState] = None
               ) -> Tuple[_TreeInputs, _GrowState]:
-        """The prologue: the tree's inputs and its initial state."""
+        """The prologue: the tree's inputs and its initial state.
+        cegb_state (with cegb_cfg): the booster's CegbState."""
+        if (cegb_state is None) != (self.cegb is None):
+            raise ValueError("cegb_state goes with cegb_cfg")
         dev, hp, ch = self.dev, self.hp, self.ch
         m, m1, w_cat, P_all = self.m, self.m1, self.w_cat, self.P_all
         ifull = self._ifull
@@ -507,6 +581,14 @@ class Grower:
             self.plan.m_pad, efb=self.efb)
         slot_nodes0 = ifull(self.plan.s_max, m)
         slot_nodes0[0].fill_(0)
+        forced0 = (None, None, None)
+        if self.spec is not None:
+            # the root takes spec 0
+            node_force0 = ifull(m1, -1)
+            node_force0[0].fill_(0)
+            forced0 = (node_force0, torch.zeros(m1, dtype=torch.bool,
+                                                device=dev),
+                       torch.zeros(m1, dtype=torch.bool, device=dev))
         kstart0 = ifull(P_all, -1)
         kstart0[0].fill_(0)
         sub = self.hist_subtraction
@@ -521,9 +603,13 @@ class Grower:
             torch.ones(P_all, dtype=torch.bool, device=dev), kstart0,
             ninf.expand(m1).clone(), (-ninf).expand(m1).clone(),
             torch.zeros((m1, self.f) if self.group_masks is not None
-                        else (1, 1), dtype=torch.bool, device=dev))
+                        else (1, 1), dtype=torch.bool, device=dev),
+            *forced0,
+            cegb_state.feat_used if cegb_state is not None else None)
         inputs = _TreeInputs(grad, hess, cnt_weight, feature_mask, rng_key,
-                             h_grad, h_hess, hist_scale, hist_fixed)
+                             h_grad, h_hess, hist_scale, hist_fixed,
+                             cegb_state.coupled if cegb_state is not None
+                             else None)
         return inputs, state
 
     def scheduled(self):
@@ -584,12 +670,15 @@ class Grower:
             it += 1
         return it - self.first_fixup, reads, False
 
-    def grow(self, grad, hess, cnt_weight, feature_mask, rng_key=None
-             ) -> Tuple[TreeArrays, torch.Tensor]:
+    def grow(self, grad, hess, cnt_weight, feature_mask, rng_key=None,
+             cegb_state=None) -> Tuple:
         """Grow one tree eagerly: start, the scheduled passes, the fix-up
-        loop, finish. last_fixups: the loop's (passes, reads of `done`)."""
+        loop, finish. last_fixups: the loop's (passes, reads of `done`).
+        Returns (tree, row_node); with CEGB, cegb_state's feat_used is set
+        to the flags the next tree starts from (row_feat_used stays: the
+        lazy term is the portable grower's)."""
         inputs, state = self.start(grad, hess, cnt_weight, feature_mask,
-                                   rng_key)
+                                   rng_key, cegb_state)
         for _, fn in self.scheduled():
             state = fn(inputs, state)
 
@@ -599,7 +688,10 @@ class Grower:
 
         passes, reads, _ = self.fixup_loop(lambda: bool(state.done), run)
         self.last_fixups = (passes, reads)
-        return self.finish(inputs, state)
+        tree, row_node = self.finish(inputs, state)
+        if cegb_state is not None:
+            cegb_state.feat_used = state.feat_used
+        return tree, row_node
 
     # ------------------------------------------------------------------
     def slot_masks(self, inputs: _TreeInputs, s, sn, path_mask, pass_idx):
@@ -761,6 +853,8 @@ class Grower:
 
         slot_fmask, rand_bins = self.slot_masks(inputs, s, sn, path_mask,
                                                 pass_idx)
+        gp = None if self.cegb is None else cegb_penalty(
+            self.cegb, tree.count[sn], f, inputs.cegb_coupled, st.feat_used)
         args = (hist_scan, tree.sum_grad[sn], tree.sum_hess[sn],
                 tree.count[sn], tree.leaf_value[sn], self.num_bins,
                 self.missing_is_nan, self.is_cat_feat, slot_fmask, hp)
@@ -769,20 +863,41 @@ class Grower:
             if hp.has_monotone else {}
         if self.efb_range:
             bs = find_best_splits_bundled(*args, efb, **mono_kw,
-                                          rand_bins=rand_bins)
-        elif self.use_kernel and rand_bins is None:
+                                          rand_bins=rand_bins,
+                                          gain_penalty=gp)
+        elif self.use_kernel and rand_bins is None and gp is None:
+            # the fused scan kernel takes no gain penalty
             bs = find_best_splits_kernel(*args, **mono_kw)
         else:
-            bs = find_best_splits(*args, **mono_kw, rand_bins=rand_bins)
+            bs = find_best_splits(*args, **mono_kw, rand_bins=rand_bins,
+                                  gain_penalty=gp)
+        forced_ok = st.forced_ok
+        if self.spec is not None:
+            bs, valid_f = force_splits(
+                hist_scan, args[1:5], sn, st.node_force, self.spec, bs, hp,
+                m, f, expand=functools.partial(_expand_feature, hist_scan,
+                                               efb) if self.efb_range
+                else None)
+            forced_ok = _set_dropping(forced_ok, sn, valid_f)
+            forced_ok[m].fill_(False)
         best = BestSplits(*[_set_dropping(getattr(best, fld), sn,
                                           getattr(bs, fld))
                             for fld in BestSplits._fields])
 
         # ---- choose splits: top-budget by gain; children fit next pass
-        eligible = tree.is_leaf & torch.isfinite(best.gain) & (best.gain > 0)
+        positive = best.gain > 0
+        if self.spec is not None:
+            # forced nodes split whatever the sign of their gain
+            positive = positive | forced_ok
+        eligible = tree.is_leaf & torch.isfinite(best.gain) & positive
         if self.max_depth > 0:
             eligible &= tree.depth < self.max_depth
         gains = torch.where(eligible[:m], best.gain[:m], ninf)
+        if self.spec is not None:
+            # and outrank every gain-chosen candidate (the reference's BFS
+            # of forced splits comes first)
+            gains = torch.where(eligible[:m] & forced_ok[:m],
+                                1e30 + best.gain[:m], gains)
         budget = L_g - tree.num_leaves
         if k_cap is None:
             k_cap = min(k_top, s)   # children fill the next pass (2*s)
@@ -877,6 +992,17 @@ class Grower:
             left=scat(new_tree.left, neg1, neg1),
             right=scat(new_tree.right, neg1, neg1))
         best = best._replace(gain=torch.where(is_child, ninf, best.gain))
+        node_force, was_forced = st.node_force, st.was_forced
+        if self.spec is not None:
+            # children of an applied forced split take the spec's subtrees;
+            # a node whose forced split did not apply ends the BFS there
+            node_force = scat(node_force, *forced_children(
+                self.spec, node_force, split_mask, forced_ok))
+            was_forced = was_forced | (split_mask & forced_ok)
+            forced_ok = forced_ok & ~is_child
+        feat_used = st.feat_used
+        if self.cegb is not None and self.cegb.has_coupled:
+            feat_used = mark_used(feat_used, fclip, split_mask)
         if hp.has_monotone:
             # children's output bounds meet at the split's midpoint on the
             # side the constraint orders (the reference's basic method)
@@ -945,7 +1071,8 @@ class Grower:
         new = _GrowState(new_tree, row_node, tbl, member, slot_nodes, best,
                          st.done | done, parent_hist, pair_parent,
                          pair_sleft, pair_kstart, cons_min, cons_max,
-                         path_mask)
+                         path_mask, node_force, forced_ok, was_forced,
+                         feat_used)
         return _select(st.done, st, new)
 
     def finish(self, inputs: _TreeInputs, st: _GrowState
@@ -960,13 +1087,19 @@ class Grower:
                                  efb_range=self.efb_range)
         tree = st.tree
         cmin, cmax = st.cons_min, st.cons_max
+        # forced splits outrank every gain-chosen split in the replay
+        # order; the tree keeps their true gains
+        rank = tree.gain + torch.where(st.was_forced, 1e30, 0.0) \
+            if self.spec is not None else None
         if self.plan.over and self.quant and hp.has_monotone:
             tree, row_node, (cmin, cmax) = _prune_to_best_first(
                 tree, row_node, num_leaves=self.num_leaves, m_grow=self.m,
-                aux=((cmin, float("-inf")), (cmax, float("inf"))))
+                aux=((cmin, float("-inf")), (cmax, float("inf"))),
+                rank_gain=rank)
         elif self.plan.over:
             tree, row_node = _prune_to_best_first(
-                tree, row_node, num_leaves=self.num_leaves, m_grow=self.m)
+                tree, row_node, num_leaves=self.num_leaves, m_grow=self.m,
+                rank_gain=rank)
         if self.quant:
             # exact leaf refit from the unquantized gradients (reference
             # closed form, feature_histogram.hpp:737); path smoothing pulls
@@ -995,8 +1128,9 @@ def grow_tree_mxu(bins: torch.Tensor, grad: torch.Tensor,
                   hess: torch.Tensor, cnt_weight: torch.Tensor,
                   feature_mask: torch.Tensor, num_bins: torch.Tensor,
                   missing_is_nan: torch.Tensor, is_cat_feat: torch.Tensor,
-                  *, rng_key: Optional[torch.Tensor] = None, **settings
-                  ) -> Tuple[TreeArrays, torch.Tensor]:
+                  *, rng_key: Optional[torch.Tensor] = None,
+                  cegb_state: Optional[CegbState] = None, **settings
+                  ) -> Tuple:
     """Grow one tree. Returns (TreeArrays, row_node [N] i32: each row's
     leaf node id). Same contract and same trees as the JAX package's
     grow_tree_mxu (serial mode) with the same arguments.
@@ -1024,8 +1158,12 @@ def grow_tree_mxu(bins: torch.Tensor, grad: torch.Tensor,
     hist_double_prec=False: exact histograms of bf16-rounded hessians (the
     JAX package's hist_double_prec, gpu_use_dp=false; histogram_mxu's
     single-precision mode), which also sizes the passes' kernel fit
-    (fits_v2 at 4 channels). The only host reads are the fix-up loop's
-    `done` (Grower.fixup_loop)."""
+    (fits_v2 at 4 channels). forced: the spec tree as (feature, threshold
+    bin, left spec, right spec) [K] i32 tensors, BFS order, spec 0 the
+    root's (GBDT._load_forced_splits). cegb_cfg (learner.grower.
+    CegbParams, no lazy term) with cegb_state (learner.grower.CegbState,
+    its feat_used advanced): the CEGB gain penalties. The only
+    host reads are the fix-up loop's `done` (Grower.fixup_loop)."""
     return Grower(bins, num_bins, missing_is_nan, is_cat_feat,
                   **settings).grow(grad, hess, cnt_weight, feature_mask,
-                                   rng_key)
+                                   rng_key, cegb_state)

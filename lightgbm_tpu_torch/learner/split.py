@@ -213,7 +213,9 @@ def find_best_splits(hist: torch.Tensor, parent_grad: torch.Tensor,
                      cons_min: Optional[torch.Tensor] = None,
                      cons_max: Optional[torch.Tensor] = None,
                      depth: Optional[torch.Tensor] = None,
-                     rand_bins: Optional[torch.Tensor] = None) -> BestSplits:
+                     rand_bins: Optional[torch.Tensor] = None,
+                     gain_penalty: Optional[torch.Tensor] = None
+                     ) -> BestSplits:
     """Find the best split per slot.
 
     Args:
@@ -228,6 +230,9 @@ def find_best_splits(hist: torch.Tensor, parent_grad: torch.Tensor,
       rand_bins: [S, F] int random draws; with hp.extra_trees, threshold
         rand_bins % (t_limit + 1) is the only one evaluated per (slot,
         feature).
+      gain_penalty: [S, F] f32 subtracted from every threshold's gain of
+        (slot, feature) after the min_gain_to_split gate (the CEGB
+        penalties, cost_effective_gradient_boosting.hpp DeltaGain).
     """
     s, f, b, _ = hist.shape
     dev = hist.device
@@ -342,6 +347,11 @@ def find_best_splits(hist: torch.Tensor, parent_grad: torch.Tensor,
     num_gain = torch.where(num_gain > min_gain_shift[:, None, None],
                            num_gain, ninf)
     all_gain = torch.where(is_cat[None, :, None], cat_gain, num_gain)
+    if gain_penalty is not None:
+        # constant across one feature's thresholds, so its argmax stands;
+        # only the competition across features and the recorded gain see
+        # the penalty (as in the reference)
+        all_gain = all_gain - gain_penalty[:, :, None]
 
     flat = all_gain.reshape(s, f * b)
     best_idx = torch.argmax(flat, dim=1)                           # [S]

@@ -54,12 +54,15 @@ def find_best_splits_bundled(hist_b: torch.Tensor, parent_grad: torch.Tensor,
                              cons_min: Optional[torch.Tensor] = None,
                              cons_max: Optional[torch.Tensor] = None,
                              depth: Optional[torch.Tensor] = None,
-                             rand_bins: Optional[torch.Tensor] = None
+                             rand_bins: Optional[torch.Tensor] = None,
+                             gain_penalty: Optional[torch.Tensor] = None
                              ) -> BestSplits:
     """split.find_best_splits over BUNDLED histograms [S, Fb, Bb, 3]: the
     same contract (per-ORIGINAL-feature num_bins, missing_is_nan, is_cat,
     feature_mask; BestSplits in original feature ids), `efb` an EfbDev
-    with its scan tables."""
+    with its scan tables. gain_penalty [S, F] is applied per original
+    feature, to the bundle positions of each and in the categorical
+    sub-scan."""
     t = efb.scan
     s, fb, bb, _ = hist_b.shape
     dev = hist_b.device
@@ -129,6 +132,8 @@ def find_best_splits_bundled(hist_b: torch.Tensor, parent_grad: torch.Tensor,
     # also maps NaN gains to -inf before the argmax
     num_gain = torch.where(num_gain > min_gain_shift[:, None], num_gain,
                            ninf)
+    if gain_penalty is not None:
+        num_gain = num_gain - gain_penalty[:, fid_c] * (fid >= 0)
 
     best_p = torch.argmax(num_gain, dim=1)                       # [S]
     ar = torch.arange(s, device=dev)
@@ -155,7 +160,9 @@ def find_best_splits_bundled(hist_b: torch.Tensor, parent_grad: torch.Tensor,
             torch.ones(fc, dtype=torch.bool, device=dev), fmask[:, cf], hp,
             monotone=monotone[cf] if monotone is not None else None,
             cons_min=cons_min, cons_max=cons_max, depth=depth,
-            rand_bins=rand_bins[:, cf] if rand_bins is not None else None)
+            rand_bins=rand_bins[:, cf] if rand_bins is not None else None,
+            gain_penalty=gain_penalty[:, cf]
+            if gain_penalty is not None else None)
         cat_gain = bs_cat.gain + gain_shift                      # undo shift
         cat_better = cat_gain > torch.where(torch.isfinite(num_best_gain),
                                             num_best_gain, ninf)

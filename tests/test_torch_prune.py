@@ -12,6 +12,10 @@ the compaction and the row map) to the JAX package's _prune_to_best_first
 in interpret mode: every field of the compacted tree and the row map
 equal. The compacted tree's last row is the scratch node, which the JAX
 scatter fills with whichever dropped node it writes last; it is left out.
+The forced cases rank a root-connected set of forced nodes by
+gain + 1e30 (rank_gain, the grower's key for forced splits: in f32 every
+such key is 1e30, one tied group at the top of the best-first order),
+the compacted tree keeping the true gains.
 """
 
 import numpy as np
@@ -72,6 +76,25 @@ def _overgrown(rng, m_grow, n_splits, n_rows, ties):
     return fields, row_node
 
 
+def _forced_rank(rng, fields, share=0.3):
+    """gain + 1e30 (f32) on a root-connected set of internal nodes (the
+    root, then each internal child of a forced node with probability
+    1 - share), gain elsewhere: the grower's rank keys for forced
+    splits."""
+    left, right = fields["left"], fields["right"]
+    forced = np.zeros(len(left), bool)
+    todo = [0] if left[0] >= 0 else []
+    while todo:
+        j = todo.pop(0)
+        forced[j] = True
+        for c in (left[j], right[j]):
+            if left[c] >= 0 and rng.rand() > share:
+                todo.append(int(c))
+    rank = fields["gain"] + np.where(forced, np.float32(1e30),
+                                     np.float32(0))
+    return rank.astype(np.float32), forced
+
+
 def _replay_numpy(fields, num_leaves, m_grow):
     """(sel, kept, new_id, composed) by a sequential numpy replay."""
     left, right = fields["left"], fields["right"]
@@ -110,33 +133,51 @@ def _replay_numpy(fields, num_leaves, m_grow):
     return sel, kept, new_id, composed
 
 
-_CASES = [  # (m_grow, splits, num_leaves, ties)
-    (59, 29, 15, True), (59, 29, 15, False), (127, 60, 31, True),
-    (255, 100, 31, False), (63, 7, 15, True), (19, 9, 2, True)]
+_CASES = [  # (m_grow, splits, num_leaves, ties, forced)
+    (59, 29, 15, True, False), (59, 29, 15, False, False),
+    (127, 60, 31, True, False), (255, 100, 31, False, False),
+    (63, 7, 15, True, False), (19, 9, 2, True, False),
+    (59, 29, 15, False, True), (127, 60, 31, True, True),
+    (255, 100, 31, False, True), (63, 30, 4, False, True)]
 
 
 @pytest.mark.parametrize("case", range(len(_CASES)))
 def test_prune_plain_version_matches_jax(case):
-    m_grow, n_splits, num_leaves, ties = _CASES[case]
+    m_grow, n_splits, num_leaves, ties, forced = _CASES[case]
     rng = np.random.RandomState(100 + case)
     fields, row_node = _overgrown(rng, m_grow, n_splits, 500, ties)
     tree = convert.tree_arrays_from_numpy(fields)
+    rank = None
+    if forced:
+        is_forced = np.zeros(1, bool)
+        while is_forced.sum() < 3:     # a group of three forced nodes or more
+            rank, is_forced = _forced_rank(rng, fields)
+        assert np.all(rank[is_forced] == np.float32(1e30))
 
     sel, kept, new_id, composed = prune_best_first_ref(
-        tree.left, tree.right, tree.parent, tree.gain, num_leaves=num_leaves)
-    want = _replay_numpy(fields, num_leaves, m_grow)
+        tree.left, tree.right, tree.parent,
+        tree.gain if rank is None else torch.as_tensor(rank),
+        num_leaves=num_leaves)
+    want = _replay_numpy(dict(fields, gain=fields["gain"] if rank is None
+                              else rank), num_leaves, m_grow)
     for got, exp, name in zip((sel, kept, new_id, composed), want,
                               ("sel", "kept", "new_id", "composed")):
         np.testing.assert_array_equal(got.numpy(), exp, err_msg=name)
+    if forced:
+        # forced nodes come first: as many as the steps allow, in id order
+        steps = min(num_leaves - 1, int(is_forced.sum()))
+        assert sel[torch.as_tensor(is_forced)].sum() == steps
 
     pruned, rows = torch_grower._prune_to_best_first(
         tree, torch.as_tensor(row_node), num_leaves=num_leaves,
-        m_grow=m_grow)
+        m_grow=m_grow,
+        rank_gain=None if rank is None else torch.as_tensor(rank))
     jtree = jax_tree.TreeArrays(**{k: jnp.asarray(v)
                                    for k, v in fields.items()})
     j_pruned, j_rows = jax_grower._prune_to_best_first(
         jtree, jnp.asarray(row_node), num_leaves=num_leaves, m_grow=m_grow,
-        interpret=True)
+        interpret=True,
+        rank_gain=None if rank is None else jnp.asarray(rank))
     j_np = convert.tree_arrays_from_numpy(
         {k: np.asarray(v) for k, v in j_pruned._asdict().items()})
     mf = 2 * num_leaves - 1
@@ -148,6 +189,8 @@ def test_prune_plain_version_matches_jax(case):
                                       err_msg=name)
     np.testing.assert_array_equal(rows.numpy(), np.asarray(j_rows))
     assert int(pruned.num_leaves) == min(num_leaves, n_splits + 1)
+    # the true gains are kept
+    assert float(pruned.gain.max()) < 1e20
 
 
 # ---- the card kernel's algorithm (csrc/prune_best_first.cu), phase for
@@ -285,12 +328,16 @@ def _model_tree(rng, kind):
     if kind == "zeros":        # -0 and +0 tie on the id
         gain = np.where(rng.rand(m1) < 0.5, np.float32(-0.0),
                         np.float32(0.0)).astype(np.float32)
+    if kind == "forced":       # a root-connected 1e30-tied top group
+        gain, _ = _forced_rank(rng, dict(left=left, right=right, gain=gain),
+                               share=float(rng.choice([0.0, 0.3, 0.7])))
     # leaves carry gains too; the kernel reads them only where left >= 0
     num_leaves = int(rng.randint(2, m_grow + 2))
     return left, right, parent, gain, num_leaves
 
 
-_MODEL_KINDS = ("random", "ties", "depth", "nan", "ninf", "zeros", "chain")
+_MODEL_KINDS = ("random", "ties", "depth", "nan", "ninf", "zeros", "chain",
+                "forced")
 
 
 @pytest.mark.parametrize("kind", _MODEL_KINDS)
@@ -298,9 +345,10 @@ def test_group_order_model_matches_replay(kind):
     """The kernel's algorithm (numpy model) equals prune_best_first_ref in
     all four outputs on 120 random overgrown trees of each kind: random
     gains, integer-tied gains, gains falling with depth, NaN and +inf
-    gains, -inf gains (sometimes every one), signed zeros, and rising
-    chains (the boundary group is the whole tree); trees of 0 splits up
-    to full, step counts from 1 to more than the tree has."""
+    gains, -inf gains (sometimes every one), signed zeros, rising
+    chains (the boundary group is the whole tree) and forced rank keys (a
+    root-connected group tied at 1e30 above the rest); trees of 0 splits
+    up to full, step counts from 1 to more than the tree has."""
     rng = np.random.RandomState(2024 + _MODEL_KINDS.index(kind))
     for _ in range(120):
         left, right, parent, gain, nl = _model_tree(rng, kind)
@@ -316,12 +364,13 @@ def test_group_order_model_matches_replay(kind):
 def test_group_order_model_matches_jax():
     """The whole prune with the kernel's algorithm in place of the replay
     (the port's grower_mxu._prune_to_best_first) against the JAX
-    package's _prune_to_best_first: tied gains, NaN gains and a rising
-    chain, every field of the compacted tree and the row map equal."""
+    package's _prune_to_best_first: tied gains, NaN gains, a rising chain
+    and forced rank keys, every field of the compacted tree and the row
+    map equal."""
     rng = np.random.RandomState(77)
     for case, (m_grow, n_splits, num_leaves, kind) in enumerate((
             (63, 25, 15, "ties"), (63, 31, 15, "nan"),
-            (63, 31, 15, "chain"))):
+            (63, 31, 15, "chain"), (63, 31, 15, "forced"))):
         fields, row_node = _overgrown(rng, m_grow, n_splits, 300,
                                       kind == "ties")
         if kind == "nan":
@@ -339,6 +388,7 @@ def test_group_order_model_matches_jax():
             leaves = np.flatnonzero((left < 0) & (parent >= 0))
             row_node = rng.choice(leaves, 300).astype(np.int32)
         tree = convert.tree_arrays_from_numpy(fields)
+        rank = _forced_rank(rng, fields)[0] if kind == "forced" else None
 
         def model(l, r, p, g, *, num_leaves):
             return tuple(torch.as_tensor(a) for a in _prune_by_groups(
@@ -348,14 +398,16 @@ def test_group_order_model_matches_jax():
         try:
             pruned, rows = torch_grower._prune_to_best_first(
                 tree, torch.as_tensor(row_node), num_leaves=num_leaves,
-                m_grow=m_grow)
+                m_grow=m_grow,
+                rank_gain=None if rank is None else torch.as_tensor(rank))
         finally:
             torch_grower.prune_best_first = orig
         jtree = jax_tree.TreeArrays(**{k: jnp.asarray(v)
                                        for k, v in fields.items()})
         j_pruned, j_rows = jax_grower._prune_to_best_first(
             jtree, jnp.asarray(row_node), num_leaves=num_leaves,
-            m_grow=m_grow, interpret=True)
+            m_grow=m_grow, interpret=True,
+            rank_gain=None if rank is None else jnp.asarray(rank))
         j_np = convert.tree_arrays_from_numpy(
             {k: np.asarray(v) for k, v in j_pruned._asdict().items()})
         mf = 2 * num_leaves - 1

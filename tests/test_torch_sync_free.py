@@ -17,11 +17,17 @@ each fix-up pass, which the runs below need. The fused trainer's programs
 way over a block of trees: none inside any program. The efb* configurations
 train on sparse, mutually exclusive features that the booster bundles
 (exclusive feature bundling): the bundle-range routing and the segmented
-scan, or the loc-table routing and the per-pass expansion.
+scan, or the loc-table routing and the per-pass expansion. The forced*
+configurations grow under a nested forced-split spec: its tensors and the
+forced node state ride every pass and program.
 """
+
+import json
 
 import collections
 import functools
+import os
+import tempfile
 
 import numpy as np
 import pytest
@@ -106,7 +112,21 @@ _CONFIGS = {
     "efb": {"max_bin": 15, "efb_use_mxu": True},
     "efb_expansion": {"max_bin": 15, "efb_segmented_scan": False,
                       "efb_use_mxu": True},
+    "forced": {"forced": True},
+    "forced_quantized": {"forced": True, "use_quantized_grad": True},
 }
+# a root on feature 0, both children, one grandchild
+_SPEC = {"feature": 0, "threshold": 0.0,
+         "left": {"feature": 1, "threshold": 0.2,
+                  "right": {"feature": 2, "threshold": -0.1}},
+         "right": {"feature": 3, "threshold": 0.1}}
+
+
+def _spec_file() -> str:
+    fd, path = tempfile.mkstemp(suffix=".json")
+    with os.fdopen(fd, "w") as fh:
+        json.dump(_SPEC, fh)
+    return path
 
 
 def _booster(name):
@@ -126,8 +146,16 @@ def _booster(name):
     params = dict({"objective": "binary", "num_leaves": 15,
                    "min_data_in_leaf": 40, "max_bin": 31, "verbosity": -1,
                    "device_type": "cpu"}, **_CONFIGS[name])
-    bst = lgt.Booster(params, lgt.Dataset(X, label=y, params=params))
+    spec = params.pop("forced", False) and _spec_file()
+    if spec:
+        params["forcedsplits_filename"] = spec
+    try:
+        bst = lgt.Booster(params, lgt.Dataset(X, label=y, params=params))
+    finally:
+        if spec:
+            os.remove(spec)
     assert (bst.gbdt._efb is not None) == name.startswith("efb")
+    assert (bst.gbdt._forced is not None) == name.startswith("forced")
     bst.update()
     return bst
 

@@ -167,11 +167,6 @@ def test_train_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("extra", [
-    {"cegb_penalty_feature_coupled": [1.0, 0.0, 0.0, 0.0]},
-    {"cegb_penalty_feature_lazy": [1.0, 0.0, 0.0, 0.0]},
-    {"guard_nonfinite": "raise"},
-    {"forcedsplits_filename": "forced.json"},
-    {"cegb_penalty_split": 1.0},
     {"linear_tree": True},
     {"level_pipeline": True},
     {"tree_learner": "data"},
@@ -182,6 +177,31 @@ def test_unsupported_params_raise(extra):
                    "device_type": "cpu"}, **extra)
     with pytest.raises(NotImplementedError, match="ROADMAP.md port queue"):
         lgt.train(params, lgt.Dataset(X, label=y), 1)
+
+
+@pytest.mark.parametrize("extra", [
+    {"cegb_penalty_feature_coupled": [1.0, 0.0, 0.0, 0.0]},
+    {"cegb_penalty_feature_lazy": [1.0, 0.0, 0.0, 0.0]},
+    {"guard_nonfinite": "raise"},
+    {"forcedsplits_filename": "forced.json"},
+    {"cegb_penalty_split": 1.0},
+])
+def test_formerly_refused_params_train(extra, tmp_path):
+    """Forced splits, the three CEGB parameters and the guard rails train
+    (tests/test_torch_forced.py, test_torch_cegb.py, test_torch_guards.py
+    hold them to the JAX package)."""
+    X, y = make_binary(n=200, f=4)
+    if "forcedsplits_filename" in extra:
+        fn = tmp_path / extra["forcedsplits_filename"]
+        fn.write_text('{"feature": 2, "threshold": 0.0}')
+        extra = {"forcedsplits_filename": str(fn)}
+    params = dict({"objective": "binary", "verbosity": -1,
+                   "device_type": "cpu"}, **extra)
+    bst = lgt.train(params, lgt.Dataset(X, label=y), 2)
+    assert bst.current_iteration() == 2
+    assert np.all(np.isfinite(bst.predict(X)))
+    if "forcedsplits_filename" in extra:
+        assert all(int(t.split_feature[0]) == 2 for t in bst.gbdt.trees)
 
 
 def test_valid_sets_and_callbacks_raise():
