@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
-Builds the port's eight CUDA kernel sources from lightgbm_tpu_torch/csrc,
+Builds the port's nine CUDA kernel sources from lightgbm_tpu_torch/csrc,
 holds each kernel against its plain PyTorch version on the card — every
 histogram kernel and the node sums bit for bit (integer sums in every
 mode) and across two calls — at the shapes the training path gives it
@@ -28,9 +28,10 @@ categorical and NaN nodes; K1 (f32 and integer), K3, K7 (integer) and
 K5 again on sampled rows, a bagging mask and GOSS's weights and count,
 bit for bit, with GOSS's sampler and threshold timed — then trains through
 lightgbm_tpu_torch's entry points along twelve paths, each with the launch
-counts reset before it and read after it (seventeen with the last five
+counts reset before it and read after it (eighteen with the last six
 below: EFB, single-precision hessians, the rescanning monotone methods,
-forced splits with CEGB and the guard rails, and wide bins):
+forced splits with CEGB and the guard rails, linear trees, and wide
+bins):
 
 - exact histograms: the Higgs-like binary configuration (num_leaves 255,
   max_bin 255), the same with min_data_in_leaf 1000 (which runs the
@@ -167,6 +168,22 @@ forced splits with CEGB and the guard rails, and wide bins):
   trees (K7, not K1); guard_nonfinite warn, skip_iteration, rollback and
   raise against a custom objective's NaN gradient, and a clean warn run
   equal to guard_nonfinite=off;
+- linear trees (phase `linear`): the binary configuration with 1% of
+  features 0 and 1 NaN in the training and held-out rows and
+  linear_tree, through engine.train with the 40,000-row held-out set, one
+  iteration a dispatch: 10 trees at linear_lambda 0 and 0.1 (the latter
+  twice, model text byte-equal, its is_linear sections written) and a
+  quantized turn of 5 trees, twice; L1 (linear_gram), L2
+  (linear_values), K1, P and V launched (K5 in the quantized turn); the
+  host model (native and numpy) within 1e-4 of the device training and
+  valid scores, the text round trip, held-out AUC above 0.75 beside the
+  constant-leaf model's on the same data, seconds a tree with and
+  without linear_tree; 8 leaves of the last tree's fit against a float64
+  host ridge solve; SHAP on the main constant-leaf model (1000 rows, its
+  first tree: contributions summing to the raw score) and its refusal of
+  linear trees; L1 bit-equal to its plain version and across two calls on
+  that fit's inputs (also with out-of-bag rows and an infinite hessian),
+  L2 on its training rows and the held-out set's leaf ids from kernel V;
 - max_bin 1023 (phase `wide_bins`): the 1M x 28 matrix binned to uint16,
   the portable grower with K7's uint16 mode and with the segment sums
   (use_pallas=false), 10 trees by update() (leaf_check) against
@@ -5149,6 +5166,343 @@ def forced_cegb_path(torch, lgt, hm, X, y, ds, row):
     return counts
 
 
+LINEAR_TREES = 10
+LINEAR_QUANT_TREES = 5
+LINEAR_LAMBDAS = (0.0, 0.1)
+LINEAR_NAN_SHARE = 0.01
+LINEAR_NAN_FEATURES = (0, 1)
+LINEAR_PARAMS = dict(TRAIN_PARAMS, linear_tree=True)
+LINEAR_QUANT = dict(LINEAR_PARAMS, use_quantized_grad=True,
+                    hist_backend="mxu", linear_lambda=0.1)
+LINEAR_PATH = ("linear_gram", "linear_values", "fused_route_hist",
+               "prune_best_first", "predict_binned", "node_sums")
+LINEAR_FIT_LEAVES = 8      # leaves held to a float64 host ridge solve
+LINEAR_FIT_TOL = 1e-3      # of max(1, the host solution's largest |entry|)
+LINEAR_HOST_TOL = 1e-4     # host float64 walk against device f32 scores
+SHAP_ROWS = 1000
+F64_OPS_PER_S = 34e12      # H100 SXM float64 outside the tensor cores
+ROW_PATH.update(dict.fromkeys(("linear_gram", "linear_values"), "linear"))
+
+
+def _with_nan(X, seed):
+    """X with LINEAR_NAN_SHARE of the rows' LINEAR_NAN_FEATURES values set
+    to NaN (a copy)."""
+    X = X.copy()
+    rng = np.random.RandomState(seed)
+    for f in LINEAR_NAN_FEATURES:
+        X[rng.uniform(size=X.shape[0]) < LINEAR_NAN_SHARE, f] = np.nan
+    return X
+
+
+def host_ridge(lin, leaf, row_node, raw, g, h, cnt, lam):
+    """(coefficients, const) of one leaf from a float64 ridge solve over
+    its usable rows (cnt > 0, no NaN in its features), and the fitted
+    model's, for the leaf check."""
+    fs = lin.feat[leaf][lin.feat[leaf] >= 0].cpu().numpy()
+    rows = ((row_node == leaf) & (cnt > 0)).cpu().numpy()
+    x = raw.cpu().numpy()[rows][:, fs].astype(np.float64)
+    ok = ~np.isnan(x).any(1)
+    x = np.c_[x[ok], np.ones(ok.sum())]
+    hv = h.cpu().numpy()[rows][ok].astype(np.float64)
+    gv = g.cpu().numpy()[rows][ok].astype(np.float64)
+    a = x.T @ (x * hv[:, None])
+    a[np.arange(len(fs)), np.arange(len(fs))] += lam
+    want = -np.linalg.solve(a, x.T @ gv)
+    got = np.r_[lin.coeff[leaf][:len(fs)].cpu().numpy(),
+                lin.const[leaf].cpu().numpy()].astype(np.float64)
+    return got, want
+
+
+def linear_bits_equal(torch, got, want):
+    """Equal bits where the plain version is finite, NaN where it is NaN
+    (the card and the host write other NaN bit patterns)."""
+    nan = torch.isnan(want)
+    return bool(torch.equal(torch.isnan(got), nan) and torch.equal(
+        got[~nan].view(torch.int32), want[~nan].view(torch.int32)))
+
+
+def linear_path(torch, lgt, hm, X, y, row, booster):
+    """Linear trees (linear_tree) at full width: the Higgs-like binary
+    configuration with LINEAR_NAN_SHARE of features 0 and 1 NaN in the
+    training and held-out rows, through engine.train with the 40,000-row
+    held-out set, one iteration a dispatch on the MXU grower: 10 trees at
+    each linear_lambda of LINEAR_LAMBDAS, the last run twice (model text
+    byte-equal), and a quantized turn of 5 trees, twice. Checks the
+    launches (L1, L2, K1, P and V; K5 in the quantized turn), the host
+    model (native and numpy) against the device training scores and the
+    valid scores, the text round trip, held-out AUC above 0.75 beside the
+    constant-leaf model's on the same data, 8 leaves against a float64
+    host ridge solve, SHAP on the constant-leaf main model (contributions
+    summing to the raw score) and its refusal of the linear model; then L1
+    and L2 bit-equal to their plain versions, and across two calls, on the
+    captured inputs of the last exact tree's fit and on the valid set's
+    leaf ids, and their kernel-table rows."""
+    from lightgbm_tpu_torch.boosting import gbdt as gbdt_mod
+    from lightgbm_tpu_torch.learner import linear as lmod
+    from lightgbm_tpu_torch.learner.predict import stacked_leaf_nodes
+    t_phase = time.perf_counter()
+    Xl = _with_nan(X, 81)
+    Xva, yva = make_higgs_like(VALID_ROWS, N_FEATURES, seed=99)
+    Xva = _with_nan(Xva, 82)
+    t0 = time.perf_counter()
+    ds = lgt.Dataset(Xl, label=y, params=LINEAR_PARAMS)
+    ds.construct()
+    binning_s = time.perf_counter() - t0
+    check(ds.binned.raw is not None and ds.binned.raw.shape == X.shape,
+          "the linear dataset kept no raw values")
+    caught = {}
+    fit = gbdt_mod.fit_linear_leaves
+
+    def capture(tree, row_node, raw, g, h, cnt, is_cat, lam, *, dmax):
+        lin = fit(tree, row_node, raw, g, h, cnt, is_cat, lam, dmax=dmax)
+        caught.update(tree=tree, row_node=row_node, raw=raw, g=g, h=h,
+                      cnt=cnt, is_cat=is_cat, lam=lam, dmax=dmax, lin=lin)
+        return lin
+
+    def run(params, trees):
+        valid = ds.create_valid(Xva, label=yva)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        b = lgt.train(dict(params, metric="auc"), ds, trees,
+                      valid_sets=[valid])
+        torch.cuda.synchronize()
+        return b, (time.perf_counter() - t) / trees
+
+    hm.reset_launch_counts()
+    runs, s_tree = {}, {}
+    for lam in LINEAR_LAMBDAS:
+        if lam == LINEAR_LAMBDAS[-1]:
+            gbdt_mod.fit_linear_leaves = capture
+        try:
+            runs[lam], s_tree[f"lambda_{lam}"] = run(
+                dict(LINEAR_PARAMS, linear_lambda=lam), LINEAR_TREES)
+        finally:
+            gbdt_mod.fit_linear_leaves = fit
+    lin_b = runs[LINEAR_LAMBDAS[-1]]
+    again, _ = run(dict(LINEAR_PARAMS, linear_lambda=LINEAR_LAMBDAS[-1]),
+                   LINEAR_TREES)
+    q_b, s_tree["quantized"] = run(LINEAR_QUANT, LINEAR_QUANT_TREES)
+    q_again, _ = run(LINEAR_QUANT, LINEAR_QUANT_TREES)
+    counts = hm.launch_counts()
+    for key in LINEAR_PATH:
+        check(counts[key] > 0, f"{key} was not launched on the linear path")
+    text = lin_b.model_to_string()
+    byte_equal = {"exact": _sha(text) == _sha(again.model_to_string()),
+                  "quantized": _sha(q_b.model_to_string()) ==
+                  _sha(q_again.model_to_string())}
+    check(all(byte_equal.values()), f"linear model text differs across "
+          f"two runs: {byte_equal}")
+    check(text.count("is_linear=1") == LINEAR_TREES and
+          "leaf_coeff=" in text, "the linear model text lacks its linear "
+          "trees")
+    del again, q_again
+    # the constant-leaf model on the same data: seconds a tree on the same
+    # per-iteration path (update()) and through train's fused blocks
+    const_ds = lgt.Dataset(Xl, label=y, params=TRAIN_PARAMS)
+    const_b = lgt.Booster(TRAIN_PARAMS, const_ds)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(LINEAR_TREES):
+        const_b.update()
+    torch.cuda.synchronize()
+    s_tree["constant_update"] = (time.perf_counter() - t) / LINEAR_TREES
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    const_t = lgt.train(TRAIN_PARAMS, const_ds, LINEAR_TREES)
+    torch.cuda.synchronize()
+    s_tree["constant_train"] = (time.perf_counter() - t) / LINEAR_TREES
+    aucs = {"linear": auc(lin_b.predict(Xva, raw_score=True), yva),
+            "linear_quantized": auc(q_b.predict(Xva, raw_score=True), yva),
+            "constant": auc(const_b.predict(Xva, raw_score=True), yva)}
+    check(min(aucs.values()) > 0.75, f"held-out AUC: {aucs}")
+    del const_t
+    # host against device: the training rows and the held-out rows
+    host = {}
+    for name, b in (("exact", lin_b), ("quantized", q_b)):
+        model = b._host_model()
+        dev_train = b.gbdt.train_score_host()[:HOST_ROWS]
+        native = b.predict(Xl[:HOST_ROWS], raw_score=True)
+        numpy_ = model.predict(Xl[:HOST_ROWS], raw_score=True, native=False)
+        dev_valid = b.gbdt.valid_scores[0].cpu().numpy()
+        host[name] = {
+            "train": float(np.abs(native - dev_train).max()),
+            "native_numpy": float(np.abs(native - numpy_).max()),
+            "valid": float(np.abs(b.predict(Xva, raw_score=True) -
+                                  dev_valid).max())}
+        check(max(host[name]["train"], host[name]["valid"]) <=
+              LINEAR_HOST_TOL and host[name]["native_numpy"] == 0.0,
+              f"linear host predictions against the device ({name}): "
+              f"{host[name]}")
+    back = lgt.Booster(model_str=text)
+    round_trip = float(np.abs(back.predict(Xva) - lin_b.predict(Xva)).max())
+    check(back.model_to_string() == text and round_trip <= 1e-9,
+          f"linear model text round trip: {round_trip}")
+    # SHAP on the constant-leaf main model (host numpy, ~20 ms a row and
+    # 255-leaf tree: its first tree) and its refusal on linear trees
+    t = time.perf_counter()
+    contrib = booster.predict(X[:SHAP_ROWS], pred_contrib=True,
+                              num_iteration=1)
+    raw1 = booster.predict(X[:SHAP_ROWS], raw_score=True, num_iteration=1)
+    shap_s = time.perf_counter() - t
+    shap_err = float(np.abs(contrib.sum(1) - raw1).max())
+    check(contrib.shape == (SHAP_ROWS, N_FEATURES + 1) and
+          shap_err <= 1e-6, f"SHAP contributions do not sum to the raw "
+          f"score: {shap_err}")
+    try:
+        lin_b.predict(Xva[:5], pred_contrib=True)
+        refused = False
+    except NotImplementedError:
+        refused = True
+    check(refused, "pred_contrib on linear trees did not raise")
+    # ---- 8 leaves of the captured fit against a float64 host solve
+    c = caught
+    lin = c["lin"]
+    fitted = torch.nonzero(lin.nfeat > 0)[:, 0].cpu().numpy()
+    check(len(fitted) >= LINEAR_FIT_LEAVES, f"only {len(fitted)} leaves "
+          "got a linear model")
+    pick = np.random.RandomState(83).choice(fitted, LINEAR_FIT_LEAVES,
+                                            replace=False)
+    fit_err = []
+    for leaf in pick:
+        got, want = host_ridge(lin, int(leaf), c["row_node"], c["raw"],
+                               c["g"], c["h"], c["cnt"], c["lam"])
+        fit_err.append(float(np.abs(got - want).max() /
+                             max(1.0, np.abs(want).max())))
+    check(max(fit_err) <= LINEAR_FIT_TOL, f"leaf models against a host "
+          f"ridge solve: {fit_err}")
+    # ---- L1 and L2 against their plain versions at the path's shapes
+    feat = lmod.leaf_features(lmod.path_feature_masks(
+        c["tree"], c["raw"].shape[1], c["is_cat"]), c["dmax"])
+    gram_args = (c["raw"], c["row_node"], c["g"], c["h"], c["cnt"], feat)
+    dev = c["raw"].device
+    cnt_bag = (torch.rand(c["cnt"].shape, device=dev,
+                          generator=torch.Generator(dev).manual_seed(5))
+               > 0.3).to(torch.float32)
+    # an infinite hessian on a usable row of one fitted leaf: that leaf's
+    # X'HX comes out NaN
+    fs = lin.feat[int(pick[0])]
+    fs = fs[fs >= 0].long()
+    usable_rows = (c["row_node"] == int(pick[0])) & (c["cnt"] > 0) & \
+        ~torch.isnan(c["raw"][:, fs]).any(1)
+    h_inf = c["h"].clone()
+    h_inf[int(torch.nonzero(usable_rows)[0, 0])] = float("inf")
+    gram_cases = {"main path": gram_args,
+                  "out-of-bag rows": gram_args[:4] + (cnt_bag, feat),
+                  "an infinite hessian": gram_args[:3] + (h_inf,) +
+                  gram_args[4:]}
+    wants = {}
+    for what, args in gram_cases.items():
+        got, twice = lmod.linear_gram(*args), lmod.linear_gram(*args)
+        want = wants[what] = lmod.linear_gram_ref(*args)
+        for i, (a, b, w) in enumerate(zip(got, twice, want)):
+            if w.dtype == torch.int32:
+                ok = torch.equal(a, w) and torch.equal(b, w)
+            else:
+                ok = linear_bits_equal(torch, a, w) and \
+                    linear_bits_equal(torch, b, w)
+            check(ok, f"linear_gram output {i} ({what}) differs from its "
+                  "plain version or across two calls")
+    check(bool(torch.isnan(wants["an infinite hessian"][0][
+        int(pick[0])]).all()), "an infinite hessian did not make its leaf "
+        "NaN")
+    # the valid set's leaf ids in the captured tree, from kernel V
+    tree = c["tree"]
+    gb = lin_b.gbdt
+    _, vleaf = stacked_leaf_nodes(
+        type(tree)(*[t.unsqueeze(0) for t in tree]), gb.valid_bins[0],
+        gb.num_bins_d, gb.missing_is_nan_d)
+    vleaf = vleaf[0].contiguous()
+    value_cases = {"training rows": (c["row_node"], c["raw"]),
+                   "valid rows": (vleaf, gb.valid_raws[0])}
+    for what, (leaf, raw) in value_cases.items():
+        got = lmod.linear_leaf_values(tree, lin, leaf, raw)
+        twice = lmod.linear_leaf_values(tree, lin, leaf, raw)
+        want = lmod.linear_leaf_values_ref(tree, lin, leaf, raw)
+        check(linear_bits_equal(torch, got, want) and
+              linear_bits_equal(torch, twice, want),
+              f"linear_values ({what}) differs from its plain version")
+    emit("kernel_check", name="linear_gram", cases=list(gram_cases),
+         bit_equal=True)
+    emit("kernel_check", name="linear_values", cases=list(value_cases),
+         bit_equal=True)
+    # ---- kernel rows, at the captured fit's shapes
+    n, f = c["raw"].shape
+    m1, d = feat.shape
+    d1 = d + 1
+    # bytes: each row's node, g, h, cnt and its leaf's raw values, the
+    # feature table, the outputs; float64 operations: each usable row's
+    # three multiplies an (i <= j) entry and two an X'g entry
+    node = c["row_node"].long()
+    nact = (feat >= 0).sum(1).long() + 1            # slots with the intercept
+    usable = wants["main path"][2].long()
+    f64_ops = int((usable * (3 * (nact * (nact + 1) // 2) + 2 * nact)).sum())
+    gram_bytes = n * 16 + int(4 * (nact[node] - 1).sum()) + \
+        m1 * d * 4 + m1 * (d1 * d1 + d1 + 1) * 4
+
+    def jax_formulation():
+        """The JAX package's accumulation (linear.py:84-140): 8192-row
+        chunks of [C, D+1, D+1] outer products index_add_-ed per leaf."""
+        raw, g, h, cn = c["raw"], c["g"], c["h"], c["cnt"]
+        xthx = torch.zeros((m1, d1, d1), device=dev)
+        xtg = torch.zeros((m1, d1), device=dev)
+        for c0 in range(0, n, 8192):
+            nd = c["row_node"][c0:c0 + 8192].long()
+            lf = feat[nd]
+            fm = lf >= 0
+            xg = raw[c0:c0 + 8192].gather(1, lf.clamp(0).long())
+            nanr = (torch.isnan(xg) & fm).any(1)
+            x = torch.where(fm & ~torch.isnan(xg), xg, 0.0)
+            xt = torch.cat([x, torch.ones_like(x[:, :1])], 1)
+            use = (~nanr) & (cn[c0:c0 + 8192] > 0)
+            wh = torch.where(use, h[c0:c0 + 8192], 0.0)
+            wg = torch.where(use, g[c0:c0 + 8192], 0.0)
+            xthx.index_add_(0, nd, xt[:, :, None] * xt[:, None, :] *
+                            wh[:, None, None])
+            xtg.index_add_(0, nd, xt * wg[:, None])
+        return xthx, xtg
+
+    row("linear_gram", "lightgbm_tpu/learner/linear.py:84 "
+        "(fit_linear_leaves, XLA)", 0.0, lambda: lmod.linear_gram(*gram_args),
+        lambda: lmod.linear_gram_ref(*gram_args), 3, gram_bytes, f64_ops,
+        jax_formulation, source="linear_leaves", ops_per_s=F64_OPS_PER_S,
+        library_graph=True)
+
+    def indexing_walk():
+        """One formulation in library calls: gather each row's model, its
+        features, the dot, and the NaN fallback."""
+        nd = c["row_node"].long()
+        lf = lin.feat[nd]
+        fm = lf >= 0
+        xg = c["raw"].gather(1, lf.clamp(0).long())
+        x = torch.where(fm, xg, 0.0)
+        val = lin.const[nd] + (lin.coeff[nd] * x).sum(1)
+        return torch.where((torch.isnan(xg) & fm).any(1),
+                           tree.leaf_value[nd], val)
+
+    nf_row = (lin.feat >= 0).sum(1)[node]
+    values_bytes = n * 8 + int(4 * nf_row.sum()) + m1 * (3 * 4 + 2 * d * 4)
+    row("linear_values", "lightgbm_tpu/learner/linear.py:163 "
+        "(linear_leaf_values, XLA)", 0.0,
+        lambda: lmod.linear_leaf_values(tree, lin, c["row_node"], c["raw"]),
+        lambda: lmod.linear_leaf_values_ref(tree, lin, c["row_node"],
+                                            c["raw"]), 5,
+        values_bytes, 2 * n * d, indexing_walk, source="linear_leaves")
+    emit("linear", rows=N_ROWS, features=N_FEATURES, valid_rows=VALID_ROWS,
+         nan_share=LINEAR_NAN_SHARE, nan_features=list(LINEAR_NAN_FEATURES),
+         trees=LINEAR_TREES, quantized_trees=LINEAR_QUANT_TREES,
+         lambdas=list(LINEAR_LAMBDAS), binning_s=binning_s,
+         seconds_per_tree=s_tree, held_out_auc=aucs, host=host,
+         round_trip_max_abs=round_trip, byte_equal=byte_equal,
+         fit_check={"leaves": [int(x) for x in pick],
+                    "max_rel_err": fit_err, "tol": LINEAR_FIT_TOL},
+         leaves_with_models=int(len(fitted)), dmax=int(c["dmax"]),
+         shap={"rows": SHAP_ROWS, "trees": 1, "max_sum_err": shap_err,
+               "seconds": shap_s, "linear_refused": refused},
+         seconds=time.perf_counter() - t_phase,
+         launches={k: counts[k] for k in LINEAR_PATH})
+    return counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5207,6 +5561,8 @@ def main():
                                                        ds, exact_auc)
     counts["forced_cegb"] = forced_cegb_path(torch, lgt, hm, X, y, ds,
                                              make_row(torch, rows))
+    counts["linear"] = linear_path(torch, lgt, hm, X, y,
+                                   make_row(torch, rows), booster)
     del ds, reg_ds
     torch.cuda.empty_cache()
     counts["packed"] = packed_path(torch, lgt, hm, X, y)

@@ -6,8 +6,8 @@ label, ..., reference=)` with lazy construction (a validation set bins
 with its reference's mappers; `Dataset.create_valid`) and
 `Booster(params, train_set)` with update (optionally on a custom
 objective's gradients) / update_batch / rollback_one_iter / add_valid /
-eval_train / eval_valid / reset_parameter / predict (raw, converted or leaf
-indices) / model_to_string / save_model. A booster trained on from an
+eval_train / eval_valid / reset_parameter / predict (raw, converted, leaf
+indices or SHAP contributions) / model_to_string / save_model. A booster trained on from an
 init_model keeps the base model's trees in front of its own. Training runs
 on the device named by `device_type` ("cuda" by default, "cpu" on
 request); prediction runs on the host model (the native predictor), like
@@ -155,7 +155,8 @@ class Dataset:
         if self.reference is not None:
             # a valid set: the training set's mappers and used features
             self._binned = BinnedDataset.from_reference(
-                X, md, self.reference.binned, names)
+                X, md, self.reference.binned, names,
+                keep_raw=cfg.linear_tree)
             self._binned.pandas_categorical = pandas_cat
             if self.free_raw_data:
                 self.data = None
@@ -167,7 +168,8 @@ class Dataset:
             sample_cnt=cfg.bin_construct_sample_cnt,
             use_missing=cfg.use_missing, zero_as_missing=cfg.zero_as_missing,
             categorical_features=cat, seed=cfg.data_random_seed,
-            feature_names=names, feature_pre_filter=cfg.feature_pre_filter)
+            feature_names=names, feature_pre_filter=cfg.feature_pre_filter,
+            keep_raw=cfg.linear_tree)
         self._binned.pandas_categorical = pandas_cat
         if self.free_raw_data:
             self.data = None
@@ -267,6 +269,9 @@ class Booster:
         `name` from now on; the trees trained so far are replayed over
         it."""
         data.reference = self.train_set
+        if self.config.linear_tree and data._binned is None:
+            # valid sets keep their raw values for the leaf models
+            data.params = dict(data.params or {}, linear_tree=True)
         data.construct()
         metrics = self._metrics()
         for m in metrics:
@@ -419,12 +424,16 @@ class Booster:
 
     def predict(self, data, start_iteration: int = 0,
                 num_iteration: Optional[int] = None,
-                raw_score: bool = False,
-                pred_leaf: bool = False) -> np.ndarray:
+                raw_score: bool = False, pred_leaf: bool = False,
+                pred_contrib: bool = False) -> np.ndarray:
+        """Scores, leaf indices (pred_leaf) or SHAP contributions
+        (pred_contrib: [n, (F + 1) x k], the expected value last in each
+        class's block; a CSR matrix for sparse input, as in the JAX
+        package; NotImplementedError on linear trees) of the host model."""
         model = self._host_model()
         kw = dict(start_iteration=start_iteration,
                   num_iteration=num_iteration, raw_score=raw_score,
-                  pred_leaf=pred_leaf)
+                  pred_leaf=pred_leaf, pred_contrib=pred_contrib)
         if _is_pandas_df(data) and model.pandas_categorical is not None:
             # category columns coded in the training category order
             data = _data_from_pandas(data, model.pandas_categorical)[0]
@@ -436,9 +445,13 @@ class Booster:
             if csr.shape[0] == 0:
                 return model.predict(np.zeros((0, csr.shape[1])), **kw)
             chunk = max(1, (32 << 20) // max(1, 8 * csr.shape[1]))
-            return np.concatenate([
-                model.predict(_to_2d_float(csr[i:i + chunk]), **kw)
-                for i in range(0, csr.shape[0], chunk)], axis=0)
+            outs = [model.predict(_to_2d_float(csr[i:i + chunk]), **kw)
+                    for i in range(0, csr.shape[0], chunk)]
+            if pred_contrib:
+                # [n, F + 1] contributions stay sparse for sparse input
+                import scipy.sparse as sp
+                return sp.vstack([sp.csr_matrix(o) for o in outs])
+            return np.concatenate(outs, axis=0)
         return model.predict(_to_2d_float(data), **kw)
 
     def model_to_string(self, num_iteration: Optional[int] = None,

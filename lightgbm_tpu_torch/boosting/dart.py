@@ -15,9 +15,12 @@ learner/predict.predict_binned_tree (on the card kernel V at one tree);
 every score move is the tree's values times the factor, then one f32 add,
 the JAX package's order; with k trees an iteration an iteration is
 dropped, scaled and put back class by class, each tree on its class's
-column. The trees carry their weights in their leaf values, so the model
-text and predict need nothing else. DART runs one iteration a dispatch
-(GBDT._fused_eligible).
+column. The trees carry their weights in their leaf values (a linear
+tree's leaf models, linear_tree, scale with them: constants and
+coefficients, the JAX package's dart.py:125-165), so the model text and
+predict need nothing else; a linear tree's outputs are its leaf models'
+values (GBDT._train_values and _valid_values with its LinearLeaves). DART
+runs one iteration a dispatch (GBDT._fused_eligible).
 """
 
 from __future__ import annotations
@@ -26,7 +29,6 @@ from typing import List
 
 import numpy as np
 
-from ..learner.predict import predict_binned_tree
 from ..utils.log import Log
 from .gbdt import GBDT
 
@@ -83,19 +85,21 @@ class DART(GBDT):
         valid scores."""
         tree = self.trees[idx]
         cls = self.tree_class[idx]
+        lin = self._lin(idx)
         self._set_class_score(cls, self._class_score(cls) +
-                              self._train_values(tree, bins_u) * factor)
+                              self._train_values(tree, bins_u, lin) * factor)
         for i in range(len(self.valid_sets)):
-            vals = predict_binned_tree(tree, self.valid_bins[i],
-                                       self.num_bins_d,
-                                       self.missing_is_nan_d) * factor
-            score = self.valid_scores[i]
-            if self.num_tree_per_iteration > 1:
-                score = score.clone()
-                score[:, cls] = self.valid_scores[i][:, cls] + vals
-            else:
-                score = score + vals
-            self._set_valid(i, score)
+            self._add_valid_values(
+                i, cls, self._valid_values(tree, i, lin) * factor)
+
+    def _scale_tree(self, idx: int, factor: float) -> None:
+        """Tree idx's leaf values, and its leaf models', times factor."""
+        tree = self.trees[idx]
+        self.trees[idx] = tree._replace(leaf_value=tree.leaf_value * factor)
+        lin = self._lin(idx)
+        if lin is not None:
+            self.linear_models[idx] = lin._replace(
+                const=lin.const * factor, coeff=lin.coeff * factor)
 
     def _drop_trees(self) -> None:
         # one unpack of packed bins an iteration, not one a dropped tree
@@ -128,17 +132,13 @@ class DART(GBDT):
             # their weight removes
             for idx in range(len(self.trees) - k, len(self.trees)):
                 self._apply_tree_to_scores(idx, new_factor - 1.0, bins_u)
-                tree = self.trees[idx]
-                self.trees[idx] = tree._replace(
-                    leaf_value=tree.leaf_value * new_factor)
+                self._scale_tree(idx, new_factor)
         self.tree_weights.append(new_factor)
         # the dropped iterations back in at old_factor
         for it in self.drop_indices:
             for idx in range(it * k, it * k + k):
                 self._apply_tree_to_scores(idx, old_factor, bins_u)
-                tree = self.trees[idx]
-                self.trees[idx] = tree._replace(
-                    leaf_value=tree.leaf_value * old_factor)
+                self._scale_tree(idx, old_factor)
             self.tree_weights[it] *= old_factor
         if self.drop_indices:
             Log.debug("DART: dropped %d trees", len(self.drop_indices))

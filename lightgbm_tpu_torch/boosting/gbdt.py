@@ -115,6 +115,20 @@ guards.py) checks the gradients before growth and the training score and
 the new trees' leaves after (train_one_iter: sanitize, skip, roll back
 or raise), one iteration a dispatch.
 
+Linear trees (linear_tree, linear_lambda; the JAX package's
+gbdt.py:285-300,1076-1113) grow on the MXU grower one iteration a
+dispatch, on full-precision bins (no EFB, no 4-bit packing), and keep the
+training and valid sets' raw values on the device (raw, valid_raws). After
+growth (and leaf renewal) each tree's leaves get ridge models
+(learner/linear.py fit_linear_leaves: kernel L1's sums and a batched
+solve) on the sample's gradients, which train_one_iter draws itself so the
+fit sees the in-bag count; shrinkage scales their constants and
+coefficients, the first tree's constants take the init score, and
+linear_models keeps one LinearLeaves or None per tree, aligned with trees
+wherever a tree is added or dropped. Scores take the leaf models' values
+(kernel L2): the training rows by their grown leaf, the valid rows, and
+the training rows of rollback and DART, by their leaf ids from kernel V.
+
 `check_supported` refuses every parameter value whose code is not ported,
 naming the ROADMAP.md port-queue item that will bring it.
 """
@@ -138,8 +152,10 @@ from ..learner.grower_mxu import (Grower, _kernel_cap,
                                   autotune_hist_backend)
 from ..learner.histogram_mxu import (fits_v2, node_values, pack_bins_4bit,
                                      unpack_bins_4bit)
+from ..learner.linear import (LinearLeaves, fit_linear_leaves,
+                              linear_leaf_values)
 from ..learner.predict import (class_score_add, predict_binned_tree,
-                               stacked_score_traj)
+                               stacked_leaf_nodes, stacked_score_traj)
 from ..learner.renew import renew_tree_output
 from ..learner.split import SplitHyperParams
 from ..objectives import ObjectiveFunction, gradients_at
@@ -258,7 +274,6 @@ def _unsupported(cfg: Config) -> List[tuple]:
     whose code this port does not have yet."""
     return [(name, item) for name, item, hit in [
         ("level_pipeline", "P9", cfg.level_pipeline),
-        ("linear_tree", "P13", cfg.linear_tree),
         ("tree_learner=" + str(cfg.tree_learner), "P14",
          cfg.tree_learner != "serial" or cfg.num_machines > 1),
         ("checkpoint_period/checkpoint_dir", "A9",
@@ -315,6 +330,9 @@ class GBDT:
         self.iter_ = 0
         self.trees: List[TreeArrays] = []
         self.tree_class: List[int] = []
+        #: each tree's leaf models (LinearLeaves), None for constant leaves
+        self.linear_models: List[Optional[LinearLeaves]] = []
+        self.valid_raws: List[Optional[torch.Tensor]] = []
         self._fused_run = None
         #: the stats of each fused trainer built (FusedTrainer.stats),
         #: kept after release_fused
@@ -390,11 +408,12 @@ class GBDT:
         # 4-bit packed bin storage (reference dense_bin.hpp:42) where the
         # JAX package packs: every feature fits a nibble and every growth
         # pass fits the fused/v2 kernels (the v1 fallback would unpack the
-        # whole matrix per call); not under EFB (no linear trees in the
-        # port). Packed on the host, so the matrix goes to the device once.
+        # whole matrix per call); not under EFB or linear trees. Packed on
+        # the host, so the matrix goes to the device once.
         self._packed4 = False
         if (self._hist_impl == "mxu" and cfg.bin_pack_4bit and
-                self.bmax <= 16 and self._efb is None):
+                self.bmax <= 16 and self._efb is None and
+                not cfg.linear_tree):
             over = cfg.growth_overshoot if cfg.growth_overshoot >= 1.0 \
                 else 0.0
             L_g = int(math.ceil(cfg.num_leaves * over)) if over \
@@ -473,6 +492,17 @@ class GBDT:
         self._boosted_from_average = [False] * k
         if self.objective is not None:
             self.objective.init(ds.metadata, ds.num_data, dev)
+        # linear trees: the used features' raw values (dataset.cpp:418-420)
+        self._linear = bool(cfg.linear_tree)
+        self.raw = None
+        if self._linear:
+            if ds.raw is None:
+                raise ValueError(
+                    "linear_tree=true requires raw feature values; "
+                    "reconstruct the dataset with linear_tree in params")
+            self.raw = torch.as_tensor(ds.raw, device=dev).contiguous()
+            depth_cap = cfg.max_depth if cfg.max_depth > 0 else 31
+            self._lin_dmax = max(1, min(ds.num_features, depth_cap, 31))
 
     def _mxu_exclusions(self) -> List[str]:
         """Why the MXU grower cannot grow this booster's trees (empty: it
@@ -764,7 +794,8 @@ class GBDT:
         """[N] each row's leaf value, the learner-side score update
         (score_updater.hpp:21-110): the node_values kernel on the MXU
         path, the plain gather leaf_value[row_node] on the portable one,
-        as in the JAX package (gbdt.py:1674-1678)."""
+        as in the JAX package (gbdt.py:1674-1678); a linear tree's rows
+        take its leaf models' values instead (linear_leaf_values)."""
         if self._hist_impl == "mxu":
             return node_values(row_node, tree.leaf_value)
         return tree.leaf_value[row_node.to(torch.int64)]
@@ -860,8 +891,9 @@ class GBDT:
         renew = self.objective is not None and \
             self.objective.need_renew_tree_output
         cnt = None
-        if k > 1 or renew:
-            # one row sample an iteration, shared by its classes
+        if k > 1 or renew or self._linear:
+            # one row sample an iteration, shared by its classes (the leaf
+            # models' fit needs its in-bag count)
             gradients, hessians, cnt = self._sample(gradients, hessians)
         first = self.iter_ == 0
         finished = True
@@ -870,6 +902,7 @@ class GBDT:
             h = hessians if k == 1 else hessians[cls]
             tree, row_node = self._grow(g, h) if cnt is None \
                 else self._grow(g, h, cnt)
+            lin = None
             if int(tree.num_leaves) > 1:
                 finished = False
                 score = self._class_score(cls)
@@ -879,20 +912,33 @@ class GBDT:
                     tree = renew_tree_output(tree, row_node, score,
                                              obj.label, rw,
                                              obj.renew_percentile)
+                if self._linear:
+                    # the leaf models, on the full-precision gradients of
+                    # the sample (quantized growth included)
+                    lin = fit_linear_leaves(
+                        tree, row_node, self.raw, g, h, cnt, self.is_cat_d,
+                        self.config.linear_lambda, dmax=self._lin_dmax)
                 # shrinkage (tree.cpp Shrinkage), then the learner-side
                 # score update
                 tree = tree._replace(
                     leaf_value=tree.leaf_value * self.shrinkage_rate)
-                self._set_class_score(
-                    cls, score + self._leaf_values(tree, row_node))
-                self._update_valid(tree, cls)
+                if lin is not None:
+                    lin = lin._replace(const=lin.const * self.shrinkage_rate,
+                                       coeff=lin.coeff * self.shrinkage_rate)
+                self._set_class_score(cls, score + (
+                    self._leaf_values(tree, row_node) if lin is None else
+                    linear_leaf_values(tree, lin, row_node, self.raw)))
+                self._update_valid(tree, cls, lin)
                 if abs(init_scores[cls]) > 1e-35:
                     # AddBias (gbdt.cpp:416-417): fold the init score into
-                    # the first tree's leaves
+                    # the first tree's leaves (and the leaf models' const)
+                    leaf = tree.split_feature < 0
                     tree = tree._replace(leaf_value=torch.where(
-                        tree.split_feature < 0,
-                        tree.leaf_value + init_scores[cls],
+                        leaf, tree.leaf_value + init_scores[cls],
                         tree.leaf_value))
+                    if lin is not None:
+                        lin = lin._replace(const=torch.where(
+                            leaf, lin.const + init_scores[cls], lin.const))
             else:
                 value = 0.0
                 if first:
@@ -909,6 +955,7 @@ class GBDT:
                     self._update_valid(tree, cls)
             self.trees.append(tree)
             self.tree_class.append(cls)
+            self.linear_models.append(lin)
         self.iter_ += 1
         if guard != "off" and not guards.all_finite(
                 self.train_score,
@@ -919,6 +966,7 @@ class GBDT:
                 for _ in range(k):
                     self.trees.pop()
                     self.tree_class.pop()
+                    self.linear_models.pop()
                 self.train_score = prev_scores[0]
                 for i, score in enumerate(prev_scores[1]):
                     self._set_valid(i, score)
@@ -933,6 +981,7 @@ class GBDT:
         for cls in range(self.num_tree_per_iteration):
             self.trees.append(self._constant_tree(0.0))
             self.tree_class.append(cls)
+            self.linear_models.append(None)
         self.iter_ += 1
 
     @staticmethod
@@ -1119,11 +1168,13 @@ class GBDT:
                 if kcls == 1:
                     self.trees.append(TreeArrays(*[t[i] for t in stacked]))
                     self.tree_class.append(0)
+                    self.linear_models.append(None)
                     continue
                 for c in range(kcls):
                     self.trees.append(TreeArrays(*[t[i, c]
                                                    for t in stacked]))
                     self.tree_class.append(c)
+                    self.linear_models.append(None)
         return handle["stop"]
 
     def _start_copy(self, count: torch.Tensor):
@@ -1202,7 +1253,14 @@ class GBDT:
         if ds.num_features != int(self.num_bins_d.shape[0]):
             raise ValueError("validation set has other features than the "
                              "training set: bin it with reference=")
+        if self._linear and ds.raw is None:
+            raise ValueError(
+                "linear_tree model needs raw values on validation sets; "
+                "construct them with linear_tree in params")
         self.valid_sets.append(ds)
+        self.valid_raws.append(
+            torch.as_tensor(ds.raw, device=self.device).contiguous()
+            if self._linear else None)
         self.valid_names.append(name)
         self.valid_metrics.append(list(metrics))
         self.valid_bins.append(torch.as_tensor(ds.bins,
@@ -1217,33 +1275,74 @@ class GBDT:
         self.valid_scores.append(score)
         self._valid_host.append(None)
         i = len(self.valid_sets) - 1
-        for tree, cls in zip(self.trees, self.tree_class):
-            if k > 1:
+        for ti, (tree, cls) in enumerate(zip(self.trees, self.tree_class)):
+            lin = self._lin(ti)
+            if lin is not None:
+                self._add_valid_values(i, cls,
+                                       self._valid_values(tree, i, lin))
+            elif k > 1:
                 self._set_valid(i, class_score_add(
                     tree, self.valid_scores[i], cls, self.valid_bins[i],
                     self.num_bins_d, self.missing_is_nan_d))
-                continue
-            self._set_valid(i, self.valid_scores[i] + predict_binned_tree(
-                tree, self.valid_bins[i], self.num_bins_d,
-                self.missing_is_nan_d))
+            else:
+                self._set_valid(i, self.valid_scores[i] + predict_binned_tree(
+                    tree, self.valid_bins[i], self.num_bins_d,
+                    self.missing_is_nan_d))
 
     def _set_valid(self, i: int, score: torch.Tensor,
                    host: Optional[np.ndarray] = None) -> None:
         self.valid_scores[i] = score
         self._valid_host[i] = host
 
-    def _update_valid(self, tree: TreeArrays, cls: int = 0) -> None:
+    def _lin(self, idx: int) -> Optional[LinearLeaves]:
+        """The leaf models of tree idx (None: constant leaves)."""
+        return self.linear_models[idx] \
+            if idx < len(self.linear_models) else None
+
+    def _valid_values(self, tree: TreeArrays, i: int,
+                      lin: Optional[LinearLeaves] = None) -> torch.Tensor:
+        """[N_i] the tree's values over valid set i: kernel V's leaf values
+        or, for a linear tree, V's leaf ids and the leaf models' values
+        (kernel L2) on the set's raw values (the JAX package's
+        _tree_values)."""
+        if lin is None:
+            return predict_binned_tree(tree, self.valid_bins[i],
+                                       self.num_bins_d,
+                                       self.missing_is_nan_d)
+        _, leaf = stacked_leaf_nodes(_stack1(tree), self.valid_bins[i],
+                                     self.num_bins_d, self.missing_is_nan_d)
+        return linear_leaf_values(tree, lin, leaf[0], self.valid_raws[i])
+
+    def _add_valid_values(self, i: int, cls: int,
+                          vals: torch.Tensor) -> None:
+        """Valid score i plus vals (into column cls with k trees an
+        iteration), one f32 add."""
+        score = self.valid_scores[i]
+        if self.num_tree_per_iteration > 1:
+            score = score.clone()
+            score[:, cls] = self.valid_scores[i][:, cls] + vals
+        else:
+            score = score + vals
+        self._set_valid(i, score)
+
+    def _update_valid(self, tree: TreeArrays, cls: int = 0,
+                      lin: Optional[LinearLeaves] = None) -> None:
         """Each valid score plus the tree's leaf values (into column cls
         with k trees an iteration): one f32 add, the trajectory step the
-        fused block's stacked_score_traj takes."""
+        fused block's stacked_score_traj takes; a linear tree's values
+        come from _valid_values."""
         for i in range(len(self.valid_sets)):
+            if lin is not None:
+                self._add_valid_values(i, cls,
+                                       self._valid_values(tree, i, lin))
+                continue
             if self.num_tree_per_iteration > 1:
                 self._set_valid(i, class_score_add(
                     tree, self.valid_scores[i], cls, self.valid_bins[i],
                     self.num_bins_d, self.missing_is_nan_d))
                 continue
             fin, _ = stacked_score_traj(
-                TreeArrays(*[t.unsqueeze(0) for t in tree]),
+                _stack1(tree),
                 self.valid_scores[i], self.valid_bins[i], self.num_bins_d,
                 self.missing_is_nan_d)
             self._set_valid(i, fin)
@@ -1274,12 +1373,20 @@ class GBDT:
         return unpack_bins_4bit(self.bins, int(self.num_bins_d.shape[0]))
 
     def _train_values(self, tree: TreeArrays,
-                      bins: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      bins: Optional[torch.Tensor] = None,
+                      lin: Optional[LinearLeaves] = None) -> torch.Tensor:
         """[N] leaf values of `tree` over the training rows (bins: the
         _train_bins_unpacked matrix, fetched when None), through kernel V's
-        bundled mode under EFB (the JAX package's _tree_values(efb=))."""
+        bundled mode under EFB (the JAX package's _tree_values(efb=)); a
+        linear tree's through V's leaf ids and the leaf models (kernel
+        L2; never bundled: EFB is off under linear trees)."""
         if bins is None:
             bins = self._train_bins_unpacked()
+        if lin is not None:
+            _, leaf = stacked_leaf_nodes(_stack1(tree), bins,
+                                         self.num_bins_d,
+                                         self.missing_is_nan_d)
+            return linear_leaf_values(tree, lin, leaf[0], self.raw)
         return predict_binned_tree(tree, bins, self.num_bins_d,
                                    self.missing_is_nan_d, efb=self._efb)
 
@@ -1296,19 +1403,13 @@ class GBDT:
         for _ in range(k):
             tree = self.trees.pop()
             cls = self.tree_class.pop()
+            lin = self.linear_models.pop()
             self._set_class_score(cls, self._class_score(cls) -
-                                  self._train_values(tree, bins))
+                                  self._train_values(tree, bins, lin))
             for i in range(len(self.valid_sets)):
-                vals = predict_binned_tree(tree, self.valid_bins[i],
-                                           self.num_bins_d,
-                                           self.missing_is_nan_d)
-                score = self.valid_scores[i]
-                if k > 1:
-                    score = score.clone()
-                    score[:, cls] = self.valid_scores[i][:, cls] - vals
-                else:
-                    score = score - vals
-                self._set_valid(i, score)
+                # a + (-b) is a - b, bit for bit
+                self._add_valid_values(i, cls,
+                                       -self._valid_values(tree, i, lin))
         self.iter_ -= 1
 
     def train_score_host(self) -> np.ndarray:
@@ -1335,6 +1436,11 @@ class GBDT:
 
     def current_iteration(self) -> int:
         return self.iter_
+
+
+def _stack1(tree: TreeArrays) -> TreeArrays:
+    """One tree as a stack of one ([1, ...] fields)."""
+    return TreeArrays(*[t.unsqueeze(0) for t in tree])
 
 
 def create_boosting(config: Config, train_set: BinnedDataset,

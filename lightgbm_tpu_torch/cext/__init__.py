@@ -241,26 +241,27 @@ def forest_predict(flat: dict, X: np.ndarray, k: int, start_tree: int,
                    end_tree: int) -> np.ndarray:
     """[n, k] float64 raw scores of trees [start_tree, end_tree) of a
     forest flattened by tree.HostModel._flatten_native: each row adds its
-    trees' leaf values in tree order, as the numpy walk does."""
+    trees' leaf values in tree order, as the numpy walk does; a linear
+    tree's leaf adds const + coeff x x feature after feature, or its
+    leaf_value where a model feature is NaN."""
     X = np.ascontiguousarray(X, np.float64)
     n, nfeat = X.shape
     out = np.zeros((n, k), np.float64)
-    # the port has no linear leaves: every tree's is_linear is 0 and the
-    # linear arrays are empty
-    t = flat["num_trees"]
-    no_lin = np.zeros(max(t, 1), np.uint8)
-    lconst = np.zeros(1, np.float64)
-    lfoff = np.zeros(1, np.int64)
-    lfeat = np.zeros(1, np.int32)
-    lcoef = np.zeros(1, np.float64)
+
+    # an empty array still needs a valid pointer; the arrays are held
+    # here until the call returns
+    lin = [_ptr(flat[key] if flat[key].size else np.zeros(1, dtype), ct)
+           for key, dtype, ct in (
+               ("is_linear", np.uint8, ctypes.c_uint8),
+               ("leaf_const", np.float64, ctypes.c_double),
+               ("lfeat_off", np.int64, ctypes.c_long),
+               ("leaf_features", np.int32, ctypes.c_int),
+               ("leaf_coeff", np.float64, ctypes.c_double))]
     _lib("predict").lgbt_predict(
-        _ptr(X, ctypes.c_double), n, nfeat, t,
+        _ptr(X, ctypes.c_double), n, nfeat, flat["num_trees"],
         _ptr(flat["tree_class"], ctypes.c_int), k, *_tree_args(flat),
-        _ptr(flat["leaf_value"], ctypes.c_double), *_cat_args(flat),
-        _ptr(no_lin, ctypes.c_uint8), _ptr(lconst, ctypes.c_double),
-        _ptr(lfoff, ctypes.c_long), _ptr(lfeat, ctypes.c_int),
-        _ptr(lcoef, ctypes.c_double), start_tree, end_tree,
-        _ptr(out, ctypes.c_double))
+        _ptr(flat["leaf_value"], ctypes.c_double), *_cat_args(flat), *lin,
+        start_tree, end_tree, _ptr(out, ctypes.c_double))
     return out
 
 

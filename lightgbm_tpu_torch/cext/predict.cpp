@@ -6,8 +6,9 @@
 // CategoricalDecision, include/LightGBM/tree.h:335-412). It serves
 // Booster.predict on raw matrices; each row adds its trees' leaf values
 // in tree order in float64, as the numpy walk of tree.py does, so the
-// two agree bit for bit. The port has no linear leaves and passes every
-// tree's is_linear as 0.
+// two agree bit for bit. A linear tree's leaf (linear_tree) adds its
+// const and then coeff x x feature after feature, as tree.py's numpy walk
+// does; a NaN model feature gives the leaf's constant leaf_value.
 //
 // Decision-type byte layout matches the model format (tree.py):
 //   bit0 = categorical, bit1 = default_left, bits2-3 = missing type

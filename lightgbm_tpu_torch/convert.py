@@ -17,8 +17,10 @@ import torch
 from .binning import BinMapper
 from .data import BinnedDataset, Metadata
 from .learner.grower import TreeArrays
+from .learner.linear import LinearLeaves
 
 __all__ = ["tree_arrays_from_numpy", "tree_arrays_to_numpy",
+           "linear_leaves_from_numpy", "linear_leaves_to_numpy",
            "binned_from_numpy", "score_from_numpy", "key_from_numpy"]
 
 _DTYPES = {
@@ -52,6 +54,25 @@ def tree_arrays_to_numpy(tree: TreeArrays) -> Dict[str, np.ndarray]:
         a = getattr(tree, name).detach().cpu().numpy()
         out[name] = a.astype(np.uint32) if name == "cat_bitset" else a
     return out
+
+
+_LIN_DTYPES = {"const": torch.float32, "coeff": torch.float32,
+               "feat": torch.int32, "nfeat": torch.int32}
+
+
+def linear_leaves_from_numpy(arrays: Dict[str, np.ndarray],
+                             device="cpu") -> LinearLeaves:
+    """LinearLeaves from the JAX package's fields (name -> numpy array)."""
+    return LinearLeaves(**{
+        name: torch.tensor(np.asarray(arrays[name]), device=device)
+        .to(_LIN_DTYPES[name]) for name in LinearLeaves._fields})
+
+
+def linear_leaves_to_numpy(lin: LinearLeaves) -> Dict[str, np.ndarray]:
+    """The inverse: numpy fields (f32 const and coeff, i32 feat and
+    nfeat)."""
+    return {name: getattr(lin, name).detach().cpu().numpy()
+            for name in LinearLeaves._fields}
 
 
 def binned_from_numpy(bins: np.ndarray, num_bins: np.ndarray,

@@ -11,7 +11,10 @@ features (BinnedDataset.from_reference; the JAX package's
 basic.py:462-477, reference LoadFromFileAlignWithOtherDataset,
 dataset_loader.cpp:299). A scipy sparse matrix is binned without
 densifying its raw values (BinnedDataset.from_sparse, the JAX package's
-data.py:197-250): only the bin matrix is dense.
+data.py:197-250): only the bin matrix is dense. Linear trees keep the used
+features' raw values beside the bins (keep_raw: BinnedDataset.raw, [N,
+F_used] f32, the JAX package's data.py:131-136,157-194); they need dense
+input, so from_sparse refuses keep_raw as the JAX package does.
 """
 
 from __future__ import annotations
@@ -111,16 +114,27 @@ def _select_used_features(all_mappers, pre_filter: bool):
     return used, used_mappers, dtype
 
 
+def _raw_of(X: np.ndarray, used: np.ndarray,
+            keep: bool) -> Optional[np.ndarray]:
+    """The used columns of dense X as a contiguous f32 matrix, or None."""
+    return np.ascontiguousarray(X[:, used], dtype=np.float32) if keep \
+        else None
+
+
 class BinnedDataset:
     """Quantized dataset: `[num_data, num_used_features]` bin matrix."""
 
     def __init__(self, bins: np.ndarray, mappers: List[BinMapper],
                  used_features: np.ndarray, num_total_features: int,
                  metadata: Metadata,
-                 feature_names: Optional[List[str]] = None):
+                 feature_names: Optional[List[str]] = None,
+                 raw: Optional[np.ndarray] = None):
         if bins.shape[1] != len(used_features):
             raise ValueError("bin matrix width != number of used features")
         self.bins = bins                      # [N, F_used] uint8/uint16
+        # raw values of the used features, kept only for linear trees
+        # (reference Dataset has_raw_, dataset.cpp:418-420)
+        self.raw = raw                        # [N, F_used] f32 or None
         self.mappers = mappers                # per USED feature
         self.used_features = used_features    # used idx -> original idx
         self.num_total_features = num_total_features
@@ -142,9 +156,11 @@ class BinnedDataset:
                  categorical_features: Optional[Sequence[int]] = None,
                  seed: int = 1, feature_names: Optional[List[str]] = None,
                  feature_pre_filter: bool = True,
-                 native: bool = True) -> "BinnedDataset":
+                 native: bool = True,
+                 keep_raw: bool = False) -> "BinnedDataset":
         """Quantize a dense raw feature matrix (native=False: the numpy
-        plain versions of the mapper search and the quantization)."""
+        plain versions of the mapper search and the quantization);
+        keep_raw: keep the used features' raw values as f32 (raw)."""
         X = np.asarray(X)
         if X.ndim != 2:
             raise ValueError("X must be 2-dimensional")
@@ -159,7 +175,7 @@ class BinnedDataset:
             all_mappers, feature_pre_filter)
         binned = bin_columns(X, used, used_mappers, dtype, native=native)
         return BinnedDataset(binned, used_mappers, used, num_total, metadata,
-                             feature_names)
+                             feature_names, raw=_raw_of(X, used, keep_raw))
 
     @staticmethod
     def from_sparse(X, metadata: Metadata, max_bin: int = 255,
@@ -167,12 +183,18 @@ class BinnedDataset:
                     use_missing: bool = True, zero_as_missing: bool = False,
                     categorical_features: Optional[Sequence[int]] = None,
                     seed: int = 1, feature_names: Optional[List[str]] = None,
-                    feature_pre_filter: bool = True) -> "BinnedDataset":
+                    feature_pre_filter: bool = True,
+                    keep_raw: bool = False) -> "BinnedDataset":
         """Quantize a scipy CSR/CSC matrix without densifying its raw
         values: the mappers from each column's stored values and implicit
         zeros (find_bin_mappers_sparse), then the bins of each used column
         (the reference's SparseBin ingestion, sparse_bin.hpp:73). The same
-        mappers and bin matrix as from_raw on the dense matrix."""
+        mappers and bin matrix as from_raw on the dense matrix. keep_raw
+        (linear trees) raises: leaf models need dense raw values."""
+        if keep_raw:
+            raise ValueError(
+                "linear_tree requires dense input (leaf linear models "
+                "need raw feature values)")
         X = _canonical_csc(X)
         all_mappers = find_bin_mappers_sparse(
             X, max_bin=max_bin, min_data_in_bin=min_data_in_bin,
@@ -189,14 +211,20 @@ class BinnedDataset:
     def from_reference(X: np.ndarray, metadata: Metadata,
                        reference: "BinnedDataset",
                        feature_names: Optional[List[str]] = None,
-                       native: bool = True) -> "BinnedDataset":
+                       native: bool = True,
+                       keep_raw: bool = False) -> "BinnedDataset":
         """Quantize X with the reference (training) dataset's mappers,
         keeping its used features: the bin matrix the JAX package gets by
         binning every column with the reference's mappers and keeping the
         used ones (the same dtype: the other columns' trivial mappers have
         one bin). X may be a scipy sparse matrix (binned as
-        from_sparse bins)."""
+        from_sparse bins); keep_raw: keep the used features' raw values
+        (dense X only, as from_sparse)."""
         sparse = is_sparse(X)
+        if sparse and keep_raw:
+            raise ValueError(
+                "linear_tree requires dense input (leaf linear models "
+                "need raw feature values)")
         if not sparse:
             X = np.asarray(X)
         if len(X.shape) != 2 or X.shape[1] != reference.num_total_features:
@@ -213,7 +241,8 @@ class BinnedDataset:
                                  native=native)
         return BinnedDataset(binned, list(reference.mappers), used,
                              reference.num_total_features, metadata,
-                             feature_names or reference.feature_names)
+                             feature_names or reference.feature_names,
+                             raw=_raw_of(X, used, keep_raw))
 
     @property
     def num_data(self) -> int:

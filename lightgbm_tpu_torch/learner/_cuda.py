@@ -27,7 +27,7 @@ from typing import Dict
 
 import torch
 
-__all__ = ["KERNELS", "build_all", "c_args", "call"]
+__all__ = ["KERNELS", "SOURCES", "build_all", "c_args", "call"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -38,13 +38,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # per-source flags, after NVCC_FLAGS: the split scan rounds every f32 op
 # on its own, as torch's elementwise kernels do, so it picks the splits
 # its plain version picks on the card
-EXTRA_FLAGS: Dict[str, tuple] = {"find_best_splits": ("-fmad=false",)}
+EXTRA_FLAGS: Dict[str, tuple] = {"find_best_splits": ("-fmad=false",),
+                                  "linear_leaves": ("-fmad=false",)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# kernel source stem -> (C entry point, argtypes); the last argument of
-# every entry is the CUDA stream
+_L = ctypes.c_longlong
+# kernel name -> (C entry point, argtypes); the last argument of every
+# entry is the CUDA stream. A kernel's source is csrc/<name>.cu unless
+# SOURCES names another stem (one source may hold several entries)
 KERNELS: Dict[str, tuple] = {
     "route_rows": ("lgbt_route_rows", [_P] * 10 + [_I] * 8 + [_P]),
     "partition_rows": ("lgbt_partition_rows", [_P] * 6 + [_I] * 4 + [_P]),
@@ -57,7 +60,11 @@ KERNELS: Dict[str, tuple] = {
                          [_P] * 6 + [_I] * 4 + [_F] * 7 + [_P]),
     "prune_best_first": ("lgbt_prune_best_first", [_P] * 8 + [_I] * 3 + [_P]),
     "predict_binned": ("lgbt_predict_binned", [_P] * 16 + [_I] * 11 + [_P]),
+    "linear_gram": ("lgbt_linear_gram", [_P] * 10 + [_I] * 4 + [_L, _P]),
+    "linear_values": ("lgbt_linear_values", [_P] * 7 + [_I] * 4 + [_P]),
 }
+SOURCES: Dict[str, str] = {"linear_gram": "linear_leaves",
+                           "linear_values": "linear_leaves"}
 
 _lock = threading.Lock()
 _entries: Dict[str, ctypes._CFuncPtr] = {}
@@ -88,9 +95,11 @@ def _lib_path(stem: str) -> Path:
 
 def build_all() -> Dict[str, Path]:
     """Compile every kernel source that has no up-to-date library yet, all
-    nvcc processes started together; returns stem -> library path."""
+    nvcc processes started together; returns source stem -> library
+    path."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    libs = {stem: _lib_path(stem) for stem in KERNELS}
+    libs = {stem: _lib_path(stem)
+            for stem in sorted({SOURCES.get(k, k) for k in KERNELS})}
     todo = {stem: p for stem, p in libs.items() if not p.exists()}
     if not todo:
         return libs
@@ -121,7 +130,8 @@ def _entry(stem: str):
         if stem not in _entries:
             libs = build_all()
             for name, (sym, argtypes) in KERNELS.items():
-                f = getattr(ctypes.CDLL(str(libs[name])), sym)
+                f = getattr(ctypes.CDLL(str(libs[SOURCES.get(name, name)])),
+                            sym)
                 f.argtypes = argtypes
                 f.restype = ctypes.c_int
                 _entries[name] = f

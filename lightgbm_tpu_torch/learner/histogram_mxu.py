@@ -1007,6 +1007,8 @@ _MODES = {"fused_route_hist": ("_int", "_packed", "_sp"),
           # histogram_pallas: the partition inside build_histograms_scatter
           "partition_rows": (),
           "node_values": (), "node_sums": (),
+          # learner/linear.py: the leaf models' sums (L1) and values (L2)
+          "linear_gram": (), "linear_values": (),
           # split_kernel.find_best_splits_kernel: plain and monotone modes
           "find_best_splits": (), "find_best_splits_mono": (),
           # prune.prune_best_first

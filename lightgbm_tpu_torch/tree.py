@@ -18,13 +18,18 @@ leaves addressed as `~leaf_index` (negative) in child arrays (tree.h:25).
 decision_type packs {categorical:1, default_left:2, missing_type<<2}
 (tree.h decision-type masks; missing: None=0, Zero=1, NaN=2).
 
-Copy of lightgbm_tpu/tree.py for the PyTorch/CUDA port without linear
-leaves, SHAP, refit, JSON dump and prediction early stop. Prediction runs
-the native runtime's forest predictor (cext/predict.cpp, OpenMP over
-rows), as the JAX package's does; the numpy tree walk stays as its plain
-version (native=False) and gives the same bits: both add each row's leaf
-values in tree order in float64. A model text written by either package
-loads in the other.
+Copy of lightgbm_tpu/tree.py for the PyTorch/CUDA port without refit,
+JSON dump and prediction early stop. Prediction runs the native runtime's
+forest predictor (cext/predict.cpp, OpenMP over rows), as the JAX
+package's does; the numpy tree walk stays as its plain version
+(native=False) and gives the same bits: both add each row's leaf values in
+tree order in float64, and a linear leaf's value as const + coeff x x
+feature after feature (the JAX package's numpy walk takes a matrix
+product, which may round otherwise). Linear leaves (linear_tree) are
+written and read as the reference's is_linear sections; SHAP
+contributions (predict(pred_contrib=True), shap.py) refuse linear trees,
+as the reference does. A model text written by either package loads in
+the other.
 """
 
 from __future__ import annotations
@@ -76,6 +81,12 @@ class HostTree:
     cat_threshold: np.ndarray = dataclasses.field(
         default_factory=lambda: np.zeros(0, np.uint32))
     shrinkage: float = 1.0
+    is_linear: bool = False
+    # linear leaves (reference tree.h leaf_const_/leaf_coeff_/leaf_features_)
+    leaf_const: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros(0, np.float64))   # [nl]
+    leaf_coeff: List[np.ndarray] = dataclasses.field(default_factory=list)
+    leaf_features: List[np.ndarray] = dataclasses.field(default_factory=list)
 
     @property
     def num_cat(self) -> int:
@@ -83,7 +94,32 @@ class HostTree:
 
     # ---- prediction (reference tree.h:335-412 decisions) -------------
     def predict_rows(self, X: np.ndarray) -> np.ndarray:
-        return self.leaf_value[self.leaf_index_rows(X)]
+        leaf = self.leaf_index_rows(X)
+        if not self.is_linear:
+            return self.leaf_value[leaf]
+        # linear leaves: const + coeff . x, feature after feature in
+        # float64 (cext/predict.cpp's order); NaN in a model feature falls
+        # back to the constant leaf_value (tree.cpp:133-150)
+        out = np.empty(len(leaf), np.float64)
+        order = np.argsort(leaf, kind="stable")
+        bounds = np.searchsorted(leaf[order], np.arange(self.num_leaves + 1))
+        for li in range(self.num_leaves):
+            rows = order[bounds[li]:bounds[li + 1]]
+            if rows.size == 0:
+                continue
+            feats = self.leaf_features[li] if li < len(self.leaf_features) \
+                else np.zeros(0, np.int32)
+            v = np.full(rows.size, float(self.leaf_const[li])
+                        if li < len(self.leaf_const)
+                        else float(self.leaf_value[li]))
+            nanr = np.zeros(rows.size, bool)
+            for fi, c in zip(feats, self.leaf_coeff[li]):
+                xv = X[rows, int(fi)].astype(np.float64)
+                nanr |= np.isnan(xv)
+                v = v + float(c) * xv
+            v[nanr] = self.leaf_value[li]
+            out[rows] = v
+        return out
 
     def leaf_index_rows(self, X: np.ndarray) -> np.ndarray:
         n = X.shape[0]
@@ -154,7 +190,22 @@ class HostTree:
         if self.num_cat > 0:
             lines += ["cat_boundaries=" + _join(self.cat_boundaries),
                       "cat_threshold=" + _join(self.cat_threshold)]
-        lines += ["is_linear=0", f"shrinkage={_fmt(self.shrinkage)}"]
+        lines += [f"is_linear={int(self.is_linear)}"]
+        if self.is_linear:
+            # reference Tree::ToString linear section (tree.cpp:377-399):
+            # flattened per-leaf feature lists and coefficients
+            nf = [len(self.leaf_features[li])
+                  if li < len(self.leaf_features) else 0
+                  for li in range(self.num_leaves)]
+            lines += [
+                "leaf_const=" + _join(self.leaf_const, _fmt),
+                "num_features=" + _join(nf),
+                "leaf_features=" + _join(
+                    [f for fl in self.leaf_features for f in fl]),
+                "leaf_coeff=" + _join(
+                    [c for cl in self.leaf_coeff for c in cl], _fmt),
+            ]
+        lines += [f"shrinkage={_fmt(self.shrinkage)}"]
         return "\n".join(lines) + "\n\n"
 
     @staticmethod
@@ -181,7 +232,8 @@ class HostTree:
                 internal_value=arr("internal_value", np.float64, nl - 1),
                 internal_weight=arr("internal_weight", np.float64, nl - 1),
                 internal_count=arr("internal_count", np.int64, nl - 1),
-                shrinkage=float(kv.get("shrinkage", 1)))
+                shrinkage=float(kv.get("shrinkage", 1)),
+                is_linear=bool(int(kv.get("is_linear", 0))))
         else:
             t = HostTree(
                 num_leaves=nl,
@@ -197,13 +249,24 @@ class HostTree:
                 internal_value=np.zeros(0, np.float64),
                 internal_weight=np.zeros(0, np.float64),
                 internal_count=np.zeros(0, np.int64),
-                shrinkage=float(kv.get("shrinkage", 1)))
+                shrinkage=float(kv.get("shrinkage", 1)),
+                is_linear=bool(int(kv.get("is_linear", 0))))
         if "cat_boundaries" in kv:
             t.cat_boundaries = np.asarray(
                 kv["cat_boundaries"].split(" "), np.int64)
             t.cat_threshold = np.asarray(
                 kv["cat_threshold"].split(" "), np.uint64).astype(np.uint32)
+        if t.is_linear and "leaf_const" in kv:
+            t.leaf_const = arr("leaf_const", np.float64, nl)
+            nf = arr("num_features", np.int64, nl)
+            flat_f = arr("leaf_features", np.int64)
+            flat_c = arr("leaf_coeff", np.float64)
+            offs = np.concatenate([[0], np.cumsum(nf)]).astype(np.int64)
+            t.leaf_features = [flat_f[offs[i]:offs[i + 1]].astype(np.int32)
+                               for i in range(nl)]
+            t.leaf_coeff = [flat_c[offs[i]:offs[i + 1]] for i in range(nl)]
         return t
+
 
 class HostModel:
     """Full model: header + trees (reference GBDT model text)."""
@@ -230,8 +293,9 @@ class HostModel:
 
     def _flatten_native(self) -> dict:
         """The forest as the concatenated arrays the native predictor
-        reads (the JAX package's HostModel._flatten_native without linear
-        leaves); cached until the tree list changes."""
+        reads (the JAX package's HostModel._flatten_native): a linear
+        tree's leaves add their constants and, from lfeat_off, their
+        features and coefficients; cached until the tree list changes."""
         cached = getattr(self, "_native_flat", None)
         if cached is not None and cached["num_trees"] == len(self.trees):
             return cached
@@ -245,6 +309,29 @@ class HostModel:
             parts = [np.asarray(getattr(t, key), dtype) for t in trees]
             return np.ascontiguousarray(np.concatenate(parts)) if parts \
                 else np.zeros(0, dtype)
+
+        leaf_off = offsets([t.num_leaves for t in trees])
+        lconst = np.zeros(int(leaf_off[-1]), np.float64)
+        nfeat = np.zeros(int(leaf_off[-1]), np.int64)
+        lfeats: List[np.ndarray] = []
+        lcoefs: List[np.ndarray] = []
+        for i, t in enumerate(trees):
+            if not t.is_linear:
+                continue
+            for li in range(min(t.num_leaves, len(t.leaf_const))):
+                gi = int(leaf_off[i]) + li
+                lconst[gi] = t.leaf_const[li]
+                feats = t.leaf_features[li] if li < len(t.leaf_features) \
+                    else []
+                nfeat[gi] = len(feats)
+                lfeats.append(np.asarray(feats, np.int32))
+                lcoefs.append(np.asarray(t.leaf_coeff[li], np.float64)
+                              if li < len(t.leaf_coeff) else
+                              np.zeros(0, np.float64))
+
+        def joined(parts, dtype):
+            return np.ascontiguousarray(np.concatenate(parts), dtype) \
+                if parts else np.zeros(0, dtype)
 
         flat = {
             "num_trees": len(trees),
@@ -263,6 +350,12 @@ class HostModel:
             "leaf_value": cat("leaf_value", np.float64),
             "cat_boundaries": cat("cat_boundaries", np.int64),
             "cat_threshold": cat("cat_threshold", np.uint32),
+            "is_linear": np.ascontiguousarray(
+                [int(t.is_linear) for t in trees], np.uint8),
+            "leaf_const": lconst,
+            "lfeat_off": offsets(nfeat),
+            "leaf_features": joined(lfeats, np.int32),
+            "leaf_coeff": joined(lcoefs, np.float64),
         }
         self._native_flat = flat
         return flat
@@ -293,10 +386,11 @@ class HostModel:
             used_to_orig = None
             mappers = None
         model.params = {k: str(v) for k, v in cfg.raw_params.items()}
-        for tarr, cls in zip(gbdt.trees, gbdt.tree_class):
-            model.trees.append(
-                host_tree_from_arrays(tarr, used_to_orig, mappers,
-                                      float(cfg.learning_rate)))
+        lins = gbdt.linear_models
+        for ti, (tarr, cls) in enumerate(zip(gbdt.trees, gbdt.tree_class)):
+            model.trees.append(host_tree_from_arrays(
+                tarr, used_to_orig, mappers, float(cfg.learning_rate),
+                lin=lins[ti] if ti < len(lins) else None))
             model.tree_class.append(cls)
         return model
 
@@ -304,10 +398,13 @@ class HostModel:
     def predict(self, X: np.ndarray, start_iteration: int = 0,
                 num_iteration: Optional[int] = None,
                 raw_score: bool = False, pred_leaf: bool = False,
+                pred_contrib: bool = False,
                 native: bool = True) -> np.ndarray:
-        """Scores ([n] or [n, k]; raw or converted) or, with pred_leaf,
-        each row's leaf index in each tree ([n, trees] int32), through
-        the native predictor or (native=False) the numpy tree walk."""
+        """Scores ([n] or [n, k]; raw or converted), with pred_leaf each
+        row's leaf index in each tree ([n, trees] int32), or with
+        pred_contrib the SHAP contributions ([n, (F + 1) x k],
+        predict_contrib), through the native predictor or (native=False)
+        the numpy tree walk."""
         k = max(self.num_tree_per_iteration, 1)
         total_iters = self.num_iterations
         if num_iteration is None or num_iteration <= 0:
@@ -322,6 +419,13 @@ class HostModel:
             for j, ti in enumerate(rng):
                 out[:, j] = self.trees[ti].leaf_index_rows(X)
             return out
+        if pred_contrib:
+            if any(t.is_linear for t in self.trees):
+                # reference parity: predictor.hpp:90 Log::Fatal
+                raise NotImplementedError(
+                    "Predicting SHAP feature contributions is not "
+                    "implemented for linear trees.")
+            return self.predict_contrib(X, start_iteration, end_iteration)
         if native:
             out = cext.forest_predict(self._flatten_native(), X, k,
                                       rng.start, rng.stop)
@@ -336,6 +440,14 @@ class HostModel:
         if not raw_score:
             out = self._convert_output(out)
         return out[:, 0] if k == 1 else out
+
+    def predict_contrib(self, X: np.ndarray, start_iteration: int,
+                        end_iteration: int) -> np.ndarray:
+        """SHAP values of the iterations [start_iteration, end_iteration)
+        by TreeSHAP (shap.py; reference Tree::PredictContrib): [n, (F + 1)
+        x k], each class's expected value last in its block."""
+        from .shap import tree_shap_model
+        return tree_shap_model(self, X, start_iteration, end_iteration)
 
     def _convert_output(self, raw: np.ndarray) -> np.ndarray:
         obj = self.objective.split(" ")[0]
@@ -544,9 +656,12 @@ def _host(x) -> np.ndarray:
 
 
 def host_tree_from_arrays(tarr, used_to_orig: Optional[np.ndarray],
-                          mappers, shrinkage: float) -> HostTree:
+                          mappers, shrinkage: float, lin=None) -> HostTree:
     """Convert TreeArrays (node-id space; tensors on any device, or numpy
-    arrays) to reference numbering. cat_bitset words hold 32 bits each."""
+    arrays) to reference numbering. cat_bitset words hold 32 bits each.
+    lin: the tree's LinearLeaves (learner/linear.py), written as linear
+    leaves in original feature indices, coefficients of magnitude <= 1e-35
+    dropped as the reference drops them (linear_tree_learner.cpp:356-362)."""
     nn = int(tarr.num_nodes)
     split_feature = _host(tarr.split_feature)[:nn]
     is_leaf = split_feature < 0
@@ -646,4 +761,19 @@ def host_tree_from_arrays(tarr, used_to_orig: Optional[np.ndarray],
         cat_boundaries=np.asarray(cat_boundaries, np.int64),
         cat_threshold=np.asarray(cat_threshold, np.uint32),
         shrinkage=shrinkage)
+    if lin is not None:
+        const = _host(lin.const)[:nn]
+        coeff = _host(lin.coeff)[:nn]
+        lfeat = _host(lin.feat)[:nn]
+        tree.is_linear = True
+        tree.leaf_const = const[leaf_ids].astype(np.float64) \
+            if len(leaf_ids) else np.asarray([float(value[0])])
+        tree.leaf_features, tree.leaf_coeff = [], []
+        for nid in (leaf_ids if len(leaf_ids) else [0]):
+            keep = (lfeat[nid] >= 0) & (np.abs(coeff[nid]) > _ZERO_THRESHOLD)
+            fu = lfeat[nid][keep].astype(np.int64)
+            tree.leaf_features.append(
+                (used_to_orig[fu] if used_to_orig is not None else fu)
+                .astype(np.int32))
+            tree.leaf_coeff.append(coeff[nid][keep].astype(np.float64))
     return tree

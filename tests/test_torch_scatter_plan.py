@@ -180,7 +180,10 @@ def test_c_args_convert_in_one_pass():
 
 
 def test_kernel_argument_tables_name_every_source():
-    assert set(_cuda.KERNELS) == {p.stem for p in _cuda.CSRC.glob("*.cu")}
+    # csrc/linear_leaves.cu holds two entries (_cuda.SOURCES)
+    assert {_cuda.SOURCES.get(k, k) for k in _cuda.KERNELS} == \
+        {p.stem for p in _cuda.CSRC.glob("*.cu")}
+    assert set(_cuda.SOURCES) <= set(_cuda.KERNELS)
 
 
 @pytest.mark.parametrize("m1", [1025, 1500])

@@ -167,7 +167,6 @@ def test_train_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("extra", [
-    {"linear_tree": True},
     {"level_pipeline": True},
     {"tree_learner": "data"},
 ])
@@ -185,11 +184,13 @@ def test_unsupported_params_raise(extra):
     {"guard_nonfinite": "raise"},
     {"forcedsplits_filename": "forced.json"},
     {"cegb_penalty_split": 1.0},
+    {"linear_tree": True},
 ])
 def test_formerly_refused_params_train(extra, tmp_path):
-    """Forced splits, the three CEGB parameters and the guard rails train
-    (tests/test_torch_forced.py, test_torch_cegb.py, test_torch_guards.py
-    hold them to the JAX package)."""
+    """Forced splits, the three CEGB parameters, the guard rails and
+    linear trees train (tests/test_torch_forced.py, test_torch_cegb.py,
+    test_torch_guards.py, test_torch_linear*.py hold them to the JAX
+    package)."""
     X, y = make_binary(n=200, f=4)
     if "forcedsplits_filename" in extra:
         fn = tmp_path / extra["forcedsplits_filename"]
