@@ -182,8 +182,12 @@ bins):
   host ridge solve; SHAP on the main constant-leaf model (1000 rows, its
   first tree: contributions summing to the raw score) and its refusal of
   linear trees; L1 bit-equal to its plain version and across two calls on
-  that fit's inputs (also with out-of-bag rows and an infinite hessian),
-  L2 on its training rows and the held-out set's leaf ids from kernel V;
+  that fit's inputs (also with out-of-bag rows, an infinite hessian, 31
+  slots, 8300 node ids, one leaf holding every row and raw off 16
+  bytes), L2 on its training rows, the held-out set's leaf ids from
+  kernel V, signed zeros, 31 slots, 8300 leaves and raw off 16 bytes;
+  the 32-byte sectors of raw that hold the rows' model features (the
+  sector floor beside the byte bound);
 - max_bin 1023 (phase `wide_bins`): the 1M x 28 matrix binned to uint16,
   the portable grower with K7's uint16 mode and with the segment sums
   (use_pallas=false), 10 trees by update() (leaf_check) against
@@ -224,6 +228,7 @@ import re
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -5181,6 +5186,10 @@ LINEAR_FIT_TOL = 1e-3      # of max(1, the host solution's largest |entry|)
 LINEAR_HOST_TOL = 1e-4     # host float64 walk against device f32 scores
 SHAP_ROWS = 1000
 F64_OPS_PER_S = 34e12      # H100 SXM float64 outside the tensor cores
+LINEAR_BIG_M1 = 8300       # node ids past L1's 8192 shared-memory counters
+LINEAR_WIDE_D = 31         # the kernels' widest model: 32 slots with the
+                           # intercept, 560 entries a leaf
+SECTOR_BYTES = 32
 ROW_PATH.update(dict.fromkeys(("linear_gram", "linear_values"), "linear"))
 
 
@@ -5219,6 +5228,150 @@ def linear_bits_equal(torch, got, want):
     nan = torch.isnan(want)
     return bool(torch.equal(torch.isnan(got), nan) and torch.equal(
         got[~nan].view(torch.int32), want[~nan].view(torch.int32)))
+
+
+def raw_sectors(torch, raw, node, feat):
+    """32-byte sectors of the row-major raw [N, F] that hold each row's
+    leaf's model features (feat [M+1, D], -1 empty; rows whose node is out
+    of range hold none), summed over the rows: the least a kernel reads of
+    raw to gather them."""
+    n, f = raw.shape
+    m1 = feat.shape[0]
+    total = 0
+    for r0 in range(0, n, 1 << 18):
+        nd = node[r0:r0 + (1 << 18)].long()
+        inside = (nd >= 0) & (nd < m1)
+        cols = feat[nd.clamp(0, m1 - 1)].long()
+        rows = torch.arange(r0, r0 + nd.shape[0], device=raw.device)
+        sec = (rows[:, None] * f + cols) * 4 // SECTOR_BYTES
+        sec = torch.where((cols >= 0) & inside[:, None], sec, -1)
+        sec = torch.sort(sec, dim=1).values
+        first = sec[:, :1] >= 0
+        later = (sec[:, 1:] != sec[:, :-1]) & (sec[:, 1:] >= 0)
+        total += int(first.sum() + later.sum())
+    return total
+
+
+def linear_kernel_checks(torch, lmod, c, inf_leaf, valid=None):
+    """L1 and L2 bit-equal to their plain versions, and across two calls,
+    on the captured fit `c` (raw, row_node, g, h, cnt, the tree and its
+    models): L1 on the fit's inputs, out-of-bag rows, an infinite hessian
+    on a usable row of leaf inf_leaf (its X'HX NaN), 31 slots a leaf (all
+    active, repeating columns: 560 entries, two a thread, 64-float
+    records), LINEAR_BIG_M1 node ids (past the pack's shared-memory
+    counters: a global counter a row), every row in one leaf (~1000
+    chunks of it, ~500 runs reserving in it) and raw 4 bytes past a
+    16-byte boundary (rows gathered, not staged); L2 on the training
+    rows, the valid rows where `valid` = (leaf ids, raw) is given, and
+    signed zeros (const -0.0, every other row +0 in every feature, the
+    model coefficients negated, empty slots with coefficients -1 and -0 in
+    even leaves, -1, +1 and -0 in odd ones), 31 active slots a leaf (the
+    compact entries read from the global table), LINEAR_BIG_M1 leaves (the
+    headers too) and raw off 16 bytes. Returns (the plain versions' gram
+    outputs by case, the gram case names, the value case names)."""
+    tree, lin = c["tree"], c["lin"]
+    raw, node = c["raw"], c["row_node"]
+    dev = raw.device
+    n, f = raw.shape
+    feat = lmod.leaf_features(lmod.path_feature_masks(
+        tree, f, c["is_cat"]), c["dmax"])
+    m1, d = feat.shape
+    gram_args = (raw, node, c["g"], c["h"], c["cnt"], feat)
+    cnt_bag = (torch.rand(c["cnt"].shape, device=dev,
+                          generator=torch.Generator(dev).manual_seed(5))
+               > 0.3).to(torch.float32)
+    fs = lin.feat[inf_leaf]
+    fs = fs[fs >= 0].long()
+    usable_rows = (node == inf_leaf) & (c["cnt"] > 0) & \
+        ~torch.isnan(raw[:, fs]).any(1)
+    h_inf = c["h"].clone()
+    h_inf[int(torch.nonzero(usable_rows)[0, 0])] = float("inf")
+    ids = torch.arange(m1, device=dev)
+    wide = ((ids[:, None] + torch.arange(LINEAR_WIDE_D, device=dev)) % f) \
+        .to(torch.int32).contiguous()
+    rows = torch.arange(n, device=dev)
+    big = torch.where((node >= 0) & (node < m1),
+                      (node.long() * 37 + rows) % LINEAR_BIG_M1, -1) \
+        .to(torch.int32)
+    big_feat = feat[torch.arange(LINEAR_BIG_M1, device=dev) % m1] \
+        .contiguous()
+    nf = (feat >= 0).sum(1)
+    one = int(torch.argmax(nf * tree.is_leaf))      # a leaf with a model
+    # raw 4 bytes past a 16-byte boundary: rows gathered, not staged
+    raw_off = torch.empty(n * f + 1, dtype=raw.dtype, device=dev)[1:] \
+        .view(n, f)
+    raw_off.copy_(raw)
+    gram_cases = {
+        "main path": gram_args,
+        "out-of-bag rows": gram_args[:4] + (cnt_bag, feat),
+        "an infinite hessian": gram_args[:3] + (h_inf,) + gram_args[4:],
+        f"{LINEAR_WIDE_D} slots": gram_args[:5] + (wide,),
+        f"{LINEAR_BIG_M1} node ids": (raw, big) + gram_args[2:5] +
+        (big_feat,),
+        "one leaf, every row": (raw, torch.full_like(node, one)) +
+        gram_args[2:],
+        "raw off 16 bytes": (raw_off,) + gram_args[1:]}
+    wants = {}
+    for what, args in gram_cases.items():
+        got, twice = lmod.linear_gram(*args), lmod.linear_gram(*args)
+        want = wants[what] = lmod.linear_gram_ref(*args)
+        for i, (a, b, w) in enumerate(zip(got, twice, want)):
+            if w.dtype == torch.int32:
+                ok = torch.equal(a, w) and torch.equal(b, w)
+            else:
+                ok = linear_bits_equal(torch, a, w) and \
+                    linear_bits_equal(torch, b, w)
+            check(ok, f"linear_gram output {i} ({what}) differs from its "
+                  "plain version or across two calls")
+    check(bool(torch.isnan(wants["an infinite hessian"][0][
+        inf_leaf]).all()), "an infinite hessian did not make its leaf NaN")
+    check(int(wants["one leaf, every row"][2][one]) ==
+          int((c["cnt"] > 0).sum() - torch.isnan(
+              raw[:, lin.feat[one][lin.feat[one] >= 0].long()]).any(1)
+              .logical_and(c["cnt"] > 0).sum()),
+          "one leaf, every row: its usable rows miscounted")
+    # signed zeros: -0.0 survives a row only where every add is -0
+    slot = torch.arange(lin.feat.shape[1], device=dev)
+    lid = torch.arange(lin.feat.shape[0], device=dev)[:, None]
+    empty_c = torch.where(
+        lid % 2 == 0, torch.tensor([-1.0, -0.0], device=dev)[slot % 2],
+        torch.tensor([-1.0, 1.0, -0.0], device=dev)[(lid + slot) % 3])
+    sz = lmod.LinearLeaves(
+        const=torch.full_like(lin.const, -0.0),
+        coeff=torch.where(lin.feat >= 0, -lin.coeff.abs(), empty_c)
+        .contiguous(), feat=lin.feat, nfeat=lin.nfeat)
+    raw_sz = raw.clone()
+    raw_sz[::2] = 0.0
+    # 31 active slots a leaf (the entries read from the global table) and
+    # LINEAR_BIG_M1 leaves (the headers too)
+    gen = torch.Generator(dev).manual_seed(6)
+    lin31 = lmod.LinearLeaves(
+        const=lin.const, coeff=torch.randn(
+            (m1, LINEAR_WIDE_D), device=dev, generator=gen),
+        feat=wide, nfeat=torch.full_like(lin.nfeat, LINEAR_WIDE_D))
+    tile = torch.arange(LINEAR_BIG_M1, device=dev) % m1
+    big_tree = SimpleNamespace(leaf_value=tree.leaf_value[tile].contiguous())
+    lin_big = lmod.LinearLeaves(*[t[tile].contiguous() for t in lin])
+    value_cases = {"training rows": (tree, lin, node, raw)}
+    if valid is not None:
+        value_cases["valid rows"] = (tree, lin, *valid)
+    value_cases.update({
+        "signed zeros": (tree, sz, node, raw_sz),
+        f"{LINEAR_WIDE_D} slots": (tree, lin31, node, raw),
+        f"{LINEAR_BIG_M1} leaves": (big_tree, lin_big, big, raw),
+        "raw off 16 bytes": (tree, lin, node, raw_off)})
+    for what, (t, model, leaf, x) in value_cases.items():
+        got = lmod.linear_leaf_values(t, model, leaf, x)
+        twice = lmod.linear_leaf_values(t, model, leaf, x)
+        want = lmod.linear_leaf_values_ref(t, model, leaf, x)
+        check(linear_bits_equal(torch, got, want) and
+              linear_bits_equal(torch, twice, want),
+              f"linear_values ({what}) differs from its plain version")
+        if what == "signed zeros":
+            bits = want.view(torch.int32)
+            check(bool((bits == -2 ** 31).any() and (bits == 0).any()),
+                  "signed zeros: the case gave no -0.0 or no +0.0")
+    return wants, list(gram_cases), list(value_cases)
 
 
 def linear_path(torch, lgt, hm, X, y, row, booster):
@@ -5370,77 +5523,47 @@ def linear_path(torch, lgt, hm, X, y, row, booster):
                              max(1.0, np.abs(want).max())))
     check(max(fit_err) <= LINEAR_FIT_TOL, f"leaf models against a host "
           f"ridge solve: {fit_err}")
-    # ---- L1 and L2 against their plain versions at the path's shapes
-    feat = lmod.leaf_features(lmod.path_feature_masks(
-        c["tree"], c["raw"].shape[1], c["is_cat"]), c["dmax"])
-    gram_args = (c["raw"], c["row_node"], c["g"], c["h"], c["cnt"], feat)
-    dev = c["raw"].device
-    cnt_bag = (torch.rand(c["cnt"].shape, device=dev,
-                          generator=torch.Generator(dev).manual_seed(5))
-               > 0.3).to(torch.float32)
-    # an infinite hessian on a usable row of one fitted leaf: that leaf's
-    # X'HX comes out NaN
-    fs = lin.feat[int(pick[0])]
-    fs = fs[fs >= 0].long()
-    usable_rows = (c["row_node"] == int(pick[0])) & (c["cnt"] > 0) & \
-        ~torch.isnan(c["raw"][:, fs]).any(1)
-    h_inf = c["h"].clone()
-    h_inf[int(torch.nonzero(usable_rows)[0, 0])] = float("inf")
-    gram_cases = {"main path": gram_args,
-                  "out-of-bag rows": gram_args[:4] + (cnt_bag, feat),
-                  "an infinite hessian": gram_args[:3] + (h_inf,) +
-                  gram_args[4:]}
-    wants = {}
-    for what, args in gram_cases.items():
-        got, twice = lmod.linear_gram(*args), lmod.linear_gram(*args)
-        want = wants[what] = lmod.linear_gram_ref(*args)
-        for i, (a, b, w) in enumerate(zip(got, twice, want)):
-            if w.dtype == torch.int32:
-                ok = torch.equal(a, w) and torch.equal(b, w)
-            else:
-                ok = linear_bits_equal(torch, a, w) and \
-                    linear_bits_equal(torch, b, w)
-            check(ok, f"linear_gram output {i} ({what}) differs from its "
-                  "plain version or across two calls")
-    check(bool(torch.isnan(wants["an infinite hessian"][0][
-        int(pick[0])]).all()), "an infinite hessian did not make its leaf "
-        "NaN")
-    # the valid set's leaf ids in the captured tree, from kernel V
+    # ---- L1 and L2 against their plain versions at the path's shapes,
+    # with V's leaf ids of the valid set in the captured tree
     tree = c["tree"]
     gb = lin_b.gbdt
     _, vleaf = stacked_leaf_nodes(
         type(tree)(*[t.unsqueeze(0) for t in tree]), gb.valid_bins[0],
         gb.num_bins_d, gb.missing_is_nan_d)
-    vleaf = vleaf[0].contiguous()
-    value_cases = {"training rows": (c["row_node"], c["raw"]),
-                   "valid rows": (vleaf, gb.valid_raws[0])}
-    for what, (leaf, raw) in value_cases.items():
-        got = lmod.linear_leaf_values(tree, lin, leaf, raw)
-        twice = lmod.linear_leaf_values(tree, lin, leaf, raw)
-        want = lmod.linear_leaf_values_ref(tree, lin, leaf, raw)
-        check(linear_bits_equal(torch, got, want) and
-              linear_bits_equal(torch, twice, want),
-              f"linear_values ({what}) differs from its plain version")
-    emit("kernel_check", name="linear_gram", cases=list(gram_cases),
+    wants, gram_names, value_names = linear_kernel_checks(
+        torch, lmod, c, int(pick[0]),
+        valid=(vleaf[0].contiguous(), gb.valid_raws[0]))
+    emit("kernel_check", name="linear_gram", cases=gram_names,
          bit_equal=True)
-    emit("kernel_check", name="linear_values", cases=list(value_cases),
+    emit("kernel_check", name="linear_values", cases=value_names,
          bit_equal=True)
     # ---- kernel rows, at the captured fit's shapes
+    dev = c["raw"].device
     n, f = c["raw"].shape
+    feat = lmod.leaf_features(lmod.path_feature_masks(
+        tree, f, c["is_cat"]), c["dmax"])
+    gram_args = (c["raw"], c["row_node"], c["g"], c["h"], c["cnt"], feat)
     m1, d = feat.shape
     d1 = d + 1
     # bytes: each row's node, g, h, cnt and its leaf's raw values, the
     # feature table, the outputs; float64 operations: each usable row's
-    # three multiplies an (i <= j) entry and two an X'g entry
+    # three multiplies an (i <= j) entry and two an X'g entry. The sector
+    # floor counts, in place of the raw values' own bytes, the 32-byte
+    # sectors of the row-major raw that hold them
     node = c["row_node"].long()
     nact = (feat >= 0).sum(1).long() + 1            # slots with the intercept
     usable = wants["main path"][2].long()
     f64_ops = int((usable * (3 * (nact * (nact + 1) // 2) + 2 * nact)).sum())
-    gram_bytes = n * 16 + int(4 * (nact[node] - 1).sum()) + \
-        m1 * d * 4 + m1 * (d1 * d1 + d1 + 1) * 4
+    gram_tables = m1 * d * 4 + m1 * (d1 * d1 + d1 + 1) * 4
+    gram_bytes = n * 16 + int(4 * (nact[node] - 1).sum()) + gram_tables
+    sectors = {"linear_gram": raw_sectors(torch, c["raw"], c["row_node"],
+                                          feat),
+               "linear_values": raw_sectors(torch, c["raw"], c["row_node"],
+                                            lin.feat)}
+    floor_bytes = {"linear_gram": n * 16 + gram_tables}
 
     def jax_formulation():
-        """The JAX package's accumulation (linear.py:84-140): 8192-row
+        """The JAX package's accumulation (linear.py:87-150): 8192-row
         chunks of [C, D+1, D+1] outer products index_add_-ed per leaf."""
         raw, g, h, cn = c["raw"], c["g"], c["h"], c["cnt"]
         xthx = torch.zeros((m1, d1, d1), device=dev)
@@ -5461,7 +5584,7 @@ def linear_path(torch, lgt, hm, X, y, row, booster):
             xtg.index_add_(0, nd, xt * wg[:, None])
         return xthx, xtg
 
-    row("linear_gram", "lightgbm_tpu/learner/linear.py:84 "
+    row("linear_gram", "lightgbm_tpu/learner/linear.py:87 "
         "(fit_linear_leaves, XLA)", 0.0, lambda: lmod.linear_gram(*gram_args),
         lambda: lmod.linear_gram_ref(*gram_args), 3, gram_bytes, f64_ops,
         jax_formulation, source="linear_leaves", ops_per_s=F64_OPS_PER_S,
@@ -5480,8 +5603,10 @@ def linear_path(torch, lgt, hm, X, y, row, booster):
                            tree.leaf_value[nd], val)
 
     nf_row = (lin.feat >= 0).sum(1)[node]
-    values_bytes = n * 8 + int(4 * nf_row.sum()) + m1 * (3 * 4 + 2 * d * 4)
-    row("linear_values", "lightgbm_tpu/learner/linear.py:163 "
+    values_tables = m1 * (3 * 4 + 2 * d * 4)
+    values_bytes = n * 8 + int(4 * nf_row.sum()) + values_tables
+    floor_bytes["linear_values"] = n * 8 + values_tables
+    row("linear_values", "lightgbm_tpu/learner/linear.py:173 "
         "(linear_leaf_values, XLA)", 0.0,
         lambda: lmod.linear_leaf_values(tree, lin, c["row_node"], c["raw"]),
         lambda: lmod.linear_leaf_values_ref(tree, lin, c["row_node"],
@@ -5496,6 +5621,9 @@ def linear_path(torch, lgt, hm, X, y, row, booster):
          fit_check={"leaves": [int(x) for x in pick],
                     "max_rel_err": fit_err, "tol": LINEAR_FIT_TOL},
          leaves_with_models=int(len(fitted)), dmax=int(c["dmax"]),
+         raw_sectors=sectors, sector_floor_ms={
+             k: (floor_bytes[k] + SECTOR_BYTES * v) / HBM_BYTES_PER_S * 1e3
+             for k, v in sectors.items()},
          shap={"rows": SHAP_ROWS, "trees": 1, "max_sum_err": shap_err,
                "seconds": shap_s, "linear_refused": refused},
          seconds=time.perf_counter() - t_phase,

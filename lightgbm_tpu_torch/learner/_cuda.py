@@ -61,7 +61,7 @@ KERNELS: Dict[str, tuple] = {
     "prune_best_first": ("lgbt_prune_best_first", [_P] * 8 + [_I] * 3 + [_P]),
     "predict_binned": ("lgbt_predict_binned", [_P] * 16 + [_I] * 11 + [_P]),
     "linear_gram": ("lgbt_linear_gram", [_P] * 10 + [_I] * 4 + [_L, _P]),
-    "linear_values": ("lgbt_linear_values", [_P] * 7 + [_I] * 4 + [_P]),
+    "linear_values": ("lgbt_linear_values", [_P] * 8 + [_I] * 4 + [_P]),
 }
 SOURCES: Dict[str, str] = {"linear_gram": "linear_leaves",
                            "linear_values": "linear_leaves"}
