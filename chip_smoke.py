@@ -31,7 +31,8 @@ lightgbm_tpu_torch's entry points along twelve paths, each with the launch
 counts reset before it and read after it (eighteen with the last six
 below: EFB, single-precision hessians, the rescanning monotone methods,
 forced splits with CEGB and the guard rails, linear trees, and wide
-bins):
+bins; twenty with slice 20's pipeline and checkpoint paths, whose
+launches each kernel row lists apart under `launches_new_paths`):
 
 - exact histograms: the Higgs-like binary configuration (num_leaves 255,
   max_bin 255), the same with min_data_in_leaf 1000 (which runs the
@@ -68,6 +69,21 @@ bins):
   per-iteration run's; feval with the training set as a valid set (one
   iteration a dispatch) giving the same model; trees/s with and without
   a valid set, host syncs a tree;
+- the pipelined executor, checkpoint and resume (slice 20; phases
+  `pipeline*`, `checkpoint_*`):
+  train with the held-out set and binary_logloss for 40 rounds under the
+  defaults (device evaluation, adaptive blocks: [10, 10, 13, 7] on the
+  card), under pipeline_device_eval=false and under pipeline=false, in
+  turns: model text byte-equal with the dispatch echo lines dropped,
+  histories exact on the host and within 1e-5 under device evaluation,
+  no trajectory host copy under device evaluation, trees/s, block sizes
+  and overlap_frac of each; a quantized turn, the 5-class turn with
+  multi_logloss (run with the multiclass phases' data) and an early stop
+  that falls inside one of the executor's blocks (best_iteration,
+  trees and model text equal to pipeline=false's); checkpoint_period 10 over 30 rounds with bagging and with GOSS, resumed
+  from the iteration-20 bundle to 30: model text byte-equal and training
+  score bit-equal to the uninterrupted run's, save and load ms of the
+  1M-row bundle (written under chiprun_out/ and removed);
 - row sampling, random forest and DART (phases `sampling*`): bagging
   (fraction 0.8, freq 5), GOSS (top_rate 0.2, other_rate 0.1) and
   bagging with quantized gradients through the fused phases' turns
@@ -232,6 +248,7 @@ from types import SimpleNamespace
 
 import numpy as np
 
+_T0 = time.perf_counter()
 N_ROWS = 1_000_000
 N_FEATURES = 28
 BMAX = 256
@@ -365,6 +382,25 @@ SAMPLING_CHECKS = (
                                      min_data_in_leaf=FIXUP_MIN_DATA)),
     ("sampling_bagging_pallas", dict(QUANT_PARAMS, **BAGGING,
                                      hist_backend="pallas")))
+# the pipelined executor (engine.train's default): device evaluation,
+# host evaluation through the executor, and pipeline=false (the block
+# loop, the parity oracle); 40 rounds, so the adaptive scheduler grows the
+# third block past fused_block_size and the trainer runs it in chunks
+PIPELINE_MODES = {"device_eval": {},
+                  "host_eval": {"pipeline_device_eval": False},
+                  "serial": {"pipeline": False}}
+PIPELINE_ROUNDS = 40
+PIPELINE_QUANT_ROUNDS = 20
+PIPELINE_RTOL = 1e-5  # device (f32) metrics against the float64 host's
+PIPELINE_ES_ROUNDS = (3, 4, 5)
+PIPELINE_PATH = ("predict_binned", "prune_best_first", "fused_route_hist",
+                 "fused_route_hist_int", "node_values", "node_sums")
+# checkpoint and resume: bundles every CKPT_PERIOD of CKPT_ROUNDS rounds,
+# resumed from CKPT_RESUME
+CKPT_ROUNDS, CKPT_PERIOD, CKPT_RESUME = 30, 10, 20
+CKPT_PATH = ("prune_best_first", "fused_route_hist", "node_values")
+# the paths of slice 20, whose launches each kernel row lists apart
+NEW_PATHS = ("pipeline", "pipeline_multiclass", "checkpoint")
 RF_PARAMS = dict(TRAIN_PARAMS, boosting="rf", bagging_fraction=0.7,
                  bagging_freq=1)
 RF_TREES = 10
@@ -482,7 +518,9 @@ def check(ok, what):
 
 
 def emit(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase line, with `t`: seconds since this module was loaded."""
+    print(json.dumps({"phase": phase, **fields,
+                      "t": round(time.perf_counter() - _T0, 1)}), flush=True)
 
 
 def auc(score, label):
@@ -1973,7 +2011,9 @@ def valid_path(torch, lgt, hm, ds, y):
         return mark
 
     def run(block, label, rounds=VALID_ROUNDS, with_train=False, **kw):
-        params = dict(VALID_PARAMS, fused_block_size=block,
+        # the block loop: the executor (pipeline_path) neither pins the
+        # valid scores to each inner iteration nor keeps the blocks at 10
+        params = dict(VALID_PARAMS, fused_block_size=block, pipeline=False,
                       **kw.pop("params", {}))
         valid = ds.create_valid(Xva, label=label)
         ev, snaps, marks = {}, [], []
@@ -2092,6 +2132,268 @@ def valid_path(torch, lgt, hm, ds, y):
     counts = hm.launch_counts()
     for key in VALID_PATH:
         check(counts[key] > 0, f"{key} was not launched on the valid path")
+    return counts
+
+
+def strip_dispatch(text):
+    """Model text without the dispatch-granularity echo lines
+    ([pipeline*, [fused_block_size)."""
+    return "\n".join(ln for ln in text.splitlines()
+                     if not ln.startswith(("[pipeline",
+                                           "[fused_block_size")))
+
+
+def history_rel(ev, ref):
+    """The largest relative difference between two record_evaluation
+    histories of the same keys and lengths (checked)."""
+    worst = 0.0
+    check(ev.keys() == ref.keys(), f"history sets {list(ev)} {list(ref)}")
+    for vn in ref:
+        check(ev[vn].keys() == ref[vn].keys(), f"history metrics of {vn}")
+        for mn in ref[vn]:
+            a, b = np.asarray(ev[vn][mn]), np.asarray(ref[vn][mn])
+            check(a.shape == b.shape, f"history {vn}/{mn} lengths "
+                  f"{a.shape} {b.shape}")
+            worst = max(worst, float(np.max(np.abs(a - b) /
+                                            np.maximum(np.abs(b), 1e-30))))
+    return worst
+
+
+def pipeline_run(torch, lgt, ds, valid, params, rounds):
+    """engine.train of `rounds` with one valid set and record_evaluation:
+    (booster, seconds, history, trees/s after the first block)."""
+    ev, marks = {}, []
+
+    def mark(env):
+        # the card drained when the first block's last iteration is
+        # evaluated: the trees after it are replays alone
+        if env.iteration == VALID_TRAJ_TREES - 1:
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+    mark.block_safe = True
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    booster = lgt.train(params, ds, rounds, valid_sets=[valid],
+                        callbacks=[lgt.record_evaluation(ev), mark])
+    torch.cuda.synchronize()
+    end = time.perf_counter()
+    rate = (booster.current_iteration() - VALID_TRAJ_TREES) / \
+        (end - marks[0]) if marks else None
+    return booster, end - t0, ev, rate
+
+
+def pipeline_turns(torch, lgt, ds, valid, params, rounds, order, name):
+    """`order`'s modes (PIPELINE_MODES) of one configuration in turns:
+    the model text byte-equal to pipeline=false's once the dispatch echo
+    lines are dropped, the history exact under host evaluation and within
+    PIPELINE_RTOL of it under device evaluation, no trajectory host copy
+    under device evaluation and one a block under host evaluation. Prints
+    the phase line `name`; returns it."""
+    runs = []
+    for mode in order:
+        b, sec, ev, rate = pipeline_run(
+            torch, lgt, ds, valid, dict(params, **PIPELINE_MODES[mode]),
+            rounds)
+        gb = b.gbdt
+        st = gb._pipeline_stats
+        runs.append({"mode": mode, "s": sec, "ev": ev, "rate": rate,
+                     "text": strip_dispatch(b.model_to_string()),
+                     "stats": st.as_dict() if st is not None else None,
+                     "copies": gb.valid_host_copies,
+                     "trees": b.current_iteration()})
+        del b, gb
+    serial = [r for r in runs if r["mode"] == "serial"][0]
+    for r in runs:
+        check(r["text"] == serial["text"], f"{name}: {r['mode']} model "
+              "text differs from pipeline=false's")
+        check(r["trees"] == rounds, f"{name}: {r['trees']} trees")
+        st = r["stats"]
+        if r["mode"] == "serial":
+            check(st is None and r["copies"] ==
+                  -(-rounds // TRAIN_TREES), f"{name}: serial copies "
+                  f"{r['copies']}, stats {st}")
+            continue
+        check(st is not None and st["iterations"] == rounds,
+              f"{name}: {r['mode']} stats {st}")
+        if r["mode"] == "device_eval":
+            r["rel"] = history_rel(r["ev"], serial["ev"])
+            check(r["copies"] == 0 and r["rel"] <= PIPELINE_RTOL,
+                  f"{name}: device eval copied the trajectory "
+                  f"{r['copies']} times; history off by {r['rel']}")
+        else:
+            check(r["ev"] == serial["ev"] and
+                  r["copies"] == st["blocks"], f"{name}: host eval "
+                  f"history differs or copies {r['copies']} for "
+                  f"{st['blocks']} blocks")
+    line = {"phase": name, "rounds": rounds, "order": order,
+            "params": {k: v for k, v in params.items() if k != "verbosity"},
+            "byte_equal": True,
+            "train_s": [r["s"] for r in runs],
+            "trees_per_s": [rounds / r["s"] for r in runs],
+            "trees_per_s_after_first_block": [r["rate"] for r in runs],
+            "valid_host_copies": [r["copies"] for r in runs],
+            "history_max_rel": [r.get("rel") for r in runs],
+            "block_sizes": [r["stats"] and r["stats"]["block_sizes"]
+                            for r in runs],
+            "overlap_frac": [r["stats"] and r["stats"]["overlap_frac"]
+                             for r in runs],
+            "block_ms": [r["stats"] and r["stats"]["device_ms"]
+                         for r in runs],
+            "overlapped_host_ms": [r["stats"] and r["stats"]["host_ms"]
+                                   for r in runs],
+            "final": {k: v[-1] for k, v in serial["ev"]["valid_0"].items()}}
+    emit(**line)
+    return line
+
+
+def pipeline_path(torch, lgt, hm, ds):
+    """The pipelined executor (engine.train's default) on the binary
+    configuration with the 40,000-row held-out set: PIPELINE_ROUNDS
+    rounds with binary_logloss under the defaults (device evaluation,
+    adaptive blocks), under pipeline_device_eval=false and under
+    pipeline=false, in turns (pipeline_turns); quantized gradients, device
+    evaluation against pipeline=false; then an early stop (permuted
+    held-out labels) that falls inside a block of the executor:
+    best_iteration, current_iteration and model text equal to
+    pipeline=false's, best_score within PIPELINE_RTOL. Returns the launch
+    counts."""
+    Xva, yva = make_higgs_like(VALID_ROWS, N_FEATURES, seed=99)
+    yperm = yva[np.random.RandomState(7).permutation(VALID_ROWS)]
+    params = dict(TRAIN_PARAMS, metric="binary_logloss")
+    hm.reset_launch_counts()
+    valid = ds.create_valid(Xva, label=yva)
+    pipeline_turns(torch, lgt, ds, valid, params, PIPELINE_ROUNDS,
+                   ["device_eval", "serial", "host_eval", "host_eval",
+                    "serial", "device_eval"], "pipeline")
+    pipeline_turns(torch, lgt, ds, valid,
+                   dict(QUANT_PARAMS, metric="binary_logloss"),
+                   PIPELINE_QUANT_ROUNDS, ["device_eval", "serial"],
+                   "pipeline_quantized")
+    # the early stop: the executor's blocks are early_stopping_round long
+    # (the scheduler's cap), so take the first round count whose stop
+    # (found by pipeline=false) is not a block's last iteration
+    pvalid = ds.create_valid(Xva, label=yperm)
+    for es in PIPELINE_ES_ROUNDS:
+        p = dict(params, early_stopping_round=es)
+        ref = pipeline_run(torch, lgt, ds, pvalid,
+                           dict(p, pipeline=False), PIPELINE_ROUNDS)[0]
+        if ref.current_iteration() % es:
+            break
+    check(ref.current_iteration() % es, "pipeline: every early stop fell "
+          "on a block's last iteration")
+    got, sec, _, _ = pipeline_run(torch, lgt, ds, pvalid, p,
+                                  PIPELINE_ROUNDS)
+    st = got.gbdt._pipeline_stats
+    rel = max(abs(got.best_score["valid_0"][k] / v - 1.0)
+              for k, v in ref.best_score["valid_0"].items())
+    check(got.best_iteration == ref.best_iteration and
+          got.current_iteration() == ref.current_iteration() and
+          strip_dispatch(got.model_to_string()) ==
+          strip_dispatch(ref.model_to_string()) and rel <= PIPELINE_RTOL,
+          f"pipeline early stop: best {got.best_iteration} vs "
+          f"{ref.best_iteration}, trees {got.current_iteration()} vs "
+          f"{ref.current_iteration()}, best score off by {rel}")
+    check(st.iterations > got.current_iteration(), "pipeline: the early "
+          f"stop rolled nothing back ({st.as_dict()})")
+    emit("pipeline_early_stop", labels="permuted (seed 7)",
+         early_stopping_round=es, best_iteration=got.best_iteration,
+         current_iteration=got.current_iteration(),
+         rolled_back=st.iterations - got.current_iteration(),
+         block_sizes=st.block_sizes, best_score_rel=rel,
+         equal_to_pipeline_false=True, seconds=sec)
+    del ref, got, st
+    counts = hm.launch_counts()
+    for key in PIPELINE_PATH:
+        check(counts[key] > 0, f"{key} was not launched on the pipeline "
+              "path")
+    return counts
+
+
+def pipeline_multiclass(torch, lgt, hm, ds, Xv, yv):
+    """The multiclass turn of the pipeline path: MC_VALID_ROUNDS rounds
+    of the 5-class task with multi_logloss on its held-out set, device
+    evaluation against pipeline=false (pipeline_turns). Returns the
+    launch counts."""
+    hm.reset_launch_counts()
+    pipeline_turns(torch, lgt, ds, ds.create_valid(Xv, label=yv),
+                   dict(MC_PARAMS, metric="multi_logloss"),
+                   MC_VALID_ROUNDS, ["device_eval", "serial"],
+                   "pipeline_multiclass")
+    counts = hm.launch_counts()
+    for key in ("predict_binned_class",) + CKPT_PATH:
+        check(counts[key] > 0, f"{key} was not launched on the pipeline "
+              "path's multiclass turn")
+    return counts
+
+
+def checkpoint_path(torch, lgt, hm, ds):
+    """Checkpoint and resume (checkpoint_period, train(resume_from=)) on
+    the binary configuration, for bagging and for GOSS: CKPT_ROUNDS
+    rounds with checkpoint_period CKPT_PERIOD (one iteration a dispatch:
+    the checkpoint callback is not block safe), the bundles and LATEST
+    checked, then a fresh train resumed from the bundle at CKPT_RESUME to
+    CKPT_ROUNDS: its model text byte-equal to the uninterrupted run's and
+    its training score bit-equal. Times a save of the 1M-row state
+    (training_state, then save_checkpoint) and a load. The bundles live
+    under chiprun_out/ beside this script and are removed. Returns the
+    launch counts."""
+    import shutil
+    from lightgbm_tpu_torch.reliability.checkpoint import (
+        latest_checkpoint, load_checkpoint, save_checkpoint)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "chiprun_out", "chip_smoke_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    hm.reset_launch_counts()
+    for name, extra in (("bagging", BAGGING), ("goss", GOSS)):
+        d = os.path.join(root, name)
+        params = dict(TRAIN_PARAMS, **extra, checkpoint_period=CKPT_PERIOD,
+                      checkpoint_dir=d)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = lgt.train(params, ds, CKPT_ROUNDS)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        bundles = sorted(n for n in os.listdir(d) if n.startswith("ckpt_"))
+        check(bundles == [f"ckpt_{i:07d}" for i in range(
+            CKPT_PERIOD, CKPT_ROUNDS + 1, CKPT_PERIOD)][-3:] and
+            latest_checkpoint(d) == os.path.join(d, bundles[-1]),
+            f"checkpoint {name}: bundles {bundles}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resumed = lgt.train(params, ds, CKPT_ROUNDS, resume_from=os.path.join(
+            d, f"ckpt_{CKPT_RESUME:07d}"))
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        check(resumed.current_iteration() == CKPT_ROUNDS and
+              resumed.model_to_string() == ref.model_to_string() and
+              torch.equal(resumed.gbdt.train_score.view(torch.int32),
+                          ref.gbdt.train_score.view(torch.int32)),
+              f"checkpoint {name}: the resumed run differs from the "
+              "uninterrupted one")
+        save_ms, load_ms = [], []
+        for rep in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, arrays = ref._training_state()
+            path = save_checkpoint(os.path.join(root, "timing"), rep + 1,
+                                   ref.model_to_string(), state, arrays)
+            t1 = time.perf_counter()
+            loaded = load_checkpoint(path)
+            load_ms.append((time.perf_counter() - t1) * 1e3)
+            save_ms.append((t1 - t0) * 1e3)
+            check(loaded.iteration == rep + 1, "checkpoint: load")
+        emit("checkpoint_" + name, rounds=CKPT_ROUNDS, period=CKPT_PERIOD,
+             resumed_from=CKPT_RESUME, byte_equal=True, bundles=bundles,
+             train_s=train_s, resume_s=resume_s,
+             save_ms=save_ms, load_ms=load_ms,
+             bundle_bytes={n: os.path.getsize(os.path.join(path, n))
+                           for n in os.listdir(path)})
+        del ref, resumed
+    shutil.rmtree(root, ignore_errors=True)
+    counts = hm.launch_counts()
+    for key in CKPT_PATH:
+        check(counts[key] > 0, f"{key} was not launched on the checkpoint "
+              "path")
     return counts
 
 
@@ -3649,8 +3951,10 @@ def multiclass_path(torch, lgt, hm, dev, row):
                                   inspect=inspect, classes=MC_CLASSES)
 
     def run(block, label, **extra):
+        # the block loop's float64 metrics (pipeline_multiclass runs the
+        # executor)
         params = dict(MC_PARAMS, metric="multi_logloss,multi_error",
-                      fused_block_size=block, **extra)
+                      fused_block_size=block, pipeline=False, **extra)
         ev = {}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3715,7 +4019,8 @@ def multiclass_path(torch, lgt, hm, dev, row):
          ova_byte_equal=True, replay_trees_per_s=rates,
          predict_binned_class_launches=counts["predict_binned_class"])
     class_traj_row(torch, dev, row, b10, Xv)
-    return counts
+    del b10, b1, e10, e1, b_ova, b_upd
+    return counts, pipeline_multiclass(torch, lgt, hm, ds, Xv, yv)
 
 
 def ranking_path(torch, lgt, hm, dev):
@@ -5673,6 +5978,9 @@ def main():
           f"quantized held-out AUC {q_auc} vs exact {exact_auc}")
     counts["fused"], fused_rates = fused_path(torch, lgt, hm, ds, y)
     counts["valid"] = valid_path(torch, lgt, hm, ds, y)
+    counts["pipeline"] = pipeline_path(torch, lgt, hm, ds)
+    counts["checkpoint"] = checkpoint_path(torch, lgt, hm, ds)
+    torch.cuda.empty_cache()
     counts["sampling"] = sampling_path(torch, lgt, hm, X, y, ds,
                                        make_row(torch, rows), fused_rates)
     fused_configs_check(torch, lgt, X, y, ds)
@@ -5698,8 +6006,8 @@ def main():
                                          make_row(torch, rows), exact_auc)
     del X, y
     torch.cuda.empty_cache()
-    counts["multiclass"] = multiclass_path(torch, lgt, hm, dev,
-                                           make_row(torch, rows))
+    counts["multiclass"], counts["pipeline_multiclass"] = multiclass_path(
+        torch, lgt, hm, dev, make_row(torch, rows))
     counts["ranking"] = ranking_path(torch, lgt, hm, dev)
     counts["objectives"] = objectives_path(torch, lgt, hm)
     torch.cuda.empty_cache()
@@ -5712,6 +6020,8 @@ def main():
         key = ROW_KEY.get(r["name"], r["name"])
         r["launches"] = sum(counts[p][key] for p in (
             (paths,) if isinstance(paths, str) else paths))
+        r["launches_new_paths"] = {p: counts[p].get(key, 0)
+                                   for p in NEW_PATHS}
     check(sorted(r["name"] for r in rows) == sorted(ROW_PATH),
           "the kernel table and the paths' kernels differ")
     cross_device_phase(torch, lgt, grow_tree_mxu)

@@ -7,10 +7,12 @@ with its reference's mappers; `Dataset.create_valid`) and
 `Booster(params, train_set)` with update (optionally on a custom
 objective's gradients) / update_batch / rollback_one_iter / add_valid /
 eval_train / eval_valid / reset_parameter / predict (raw, converted, leaf
-indices or SHAP contributions) / model_to_string / save_model. A booster trained on from an
-init_model keeps the base model's trees in front of its own. Training runs
-on the device named by `device_type` ("cuda" by default, "cpu" on
-request); prediction runs on the host model (the native predictor), like
+indices or SHAP contributions) / model_to_string / save_model, and the
+training state of a checkpoint bundle (_training_state /
+_restore_training_state). A booster trained on from an init_model, or
+resumed from a bundle, keeps the base model's trees in front of its own.
+Training runs on the device named by `device_type` ("cuda" by default,
+"cpu" on request); prediction runs on the host model (the native predictor), like
 the JAX package's Booster.predict. Sparse data (a scipy CSR/CSC matrix)
 is binned without densifying its values (BinnedDataset.from_sparse; a
 validation set too) and predicted densified in row chunks, as in the JAX
@@ -333,6 +335,28 @@ class Booster:
         self._model = None
         self.gbdt.rollback_one_iter()
         return self
+
+    # ------------------------------------------------------------------
+    # training-state serialization (reliability/checkpoint.py bundles)
+    def _training_state(self):
+        """(json state, arrays) of everything model_to_string does not
+        carry (GBDT.training_state) plus best_iteration: with the saved
+        model text, enough for _restore_training_state to continue the
+        run bit for bit."""
+        state, arrays = self.gbdt.training_state()
+        state["best_iteration"] = int(self.best_iteration)
+        return state, arrays
+
+    def _restore_training_state(self, ckpt) -> None:
+        """Restore from a reliability.checkpoint.CheckpointState; the
+        caller (engine.train's resume) has attached the bundle's model as
+        _base_model."""
+        self._model = None
+        self.gbdt.restore_training_state(ckpt.iteration, ckpt.state,
+                                         ckpt.arrays)
+        best = int(ckpt.state.get("best_iteration", -1))
+        if best >= 0:
+            self.best_iteration = best
 
     def current_iteration(self) -> int:
         if self.gbdt is not None:

@@ -50,10 +50,19 @@ becomes the same constant tree on the device, and the stall poll is
 lagged, as in the JAX package (each block's last leaf count is copied
 back without waiting and read when a later block crosses a poll
 boundary). Iteration 0 always runs train_one_iter, which owns
-boost-from-average. The JAX package's pipelined executor produces the
-same models as block dispatch, so the port ignores `pipeline`; its
-retry-and-fall-back around a fused dispatch (reliability, ROADMAP A9) is
-not ported: a failed dispatch raises.
+boost-from-average. train_many_dispatch and finalize_block are
+train_many's two halves, which the pipelined executor
+(pipeline/executor.py, engine.train's default) interleaves with the next
+block; the JAX package's retry-and-fall-back around a fused dispatch
+(reliability, ROADMAP A9 part 2) is not ported: a failed dispatch raises.
+level_pipeline and level_pipeline_lookahead are read and every tree
+still grows through Grower.grow: the port's fix-up pass has no free
+no-op (a pass on a finished tree computes a whole pass before
+grower_mxu._select keeps the old state), so the JAX package's lagged
+fix-up loop would buy one fewer host read with a whole pass of device
+work for each speculative pass (ROADMAP B2). training_state and restore_training_state carry
+what a checkpoint bundle holds beyond the model text
+(reliability/checkpoint.py).
 
 Row sampling (the JAX package's gbdt.py:925-975, reference
 gbdt.cpp:183-264 and goss.hpp): each tree grows on a sample of the rows
@@ -160,7 +169,7 @@ from ..learner.renew import renew_tree_output
 from ..learner.split import SplitHyperParams
 from ..objectives import ObjectiveFunction, gradients_at
 from ..reliability import guards
-from ..utils.log import Log
+from ..utils.log import LightGBMError, Log
 
 __all__ = ["GBDT", "check_supported", "create_boosting", "resolve_device"]
 
@@ -273,11 +282,8 @@ def _unsupported(cfg: Config) -> List[tuple]:
     """(param, ROADMAP.md port-queue item) for every non-default value
     whose code this port does not have yet."""
     return [(name, item) for name, item, hit in [
-        ("level_pipeline", "P9", cfg.level_pipeline),
         ("tree_learner=" + str(cfg.tree_learner), "P14",
          cfg.tree_learner != "serial" or cfg.num_machines > 1),
-        ("checkpoint_period/checkpoint_dir", "A9",
-         cfg.checkpoint_period > 0 and bool(cfg.checkpoint_dir)),
     ] if hit]
 
 
@@ -328,6 +334,10 @@ class GBDT:
             objective.num_model_per_iteration if objective is not None
             else self.num_class)
         self.iter_ = 0
+        # iterations a resumed run's base model holds
+        # (restore_training_state): iter_ stays absolute, so every draw
+        # keyed by the iteration is the uninterrupted run's
+        self._iter_offset = 0
         self.trees: List[TreeArrays] = []
         self.tree_class: List[int] = []
         #: each tree's leaf models (LinearLeaves), None for constant leaves
@@ -337,6 +347,8 @@ class GBDT:
         #: the stats of each fused trainer built (FusedTrainer.stats),
         #: kept after release_fused
         self.fused_stats: List[dict] = []
+        #: the pipelined executor's PipelineStats of the last run through it
+        self._pipeline_stats = None
         self._grower_obj = None
         # the lagged stall poll of train_many: the last leaf count of the
         # latest block, copied to the host without waiting
@@ -1001,7 +1013,7 @@ class GBDT:
         from) and recomputes; what is still non-finite is set to 0, as
         under warn."""
         guards.trip("gradients/hessians", guard, self.iter_)
-        if guard == "rollback" and self.iter_ > 0 and \
+        if guard == "rollback" and self.iter_ > self._iter_offset and \
                 self.objective is not None:
             self.rollback_one_iter()
             gradients, hessians = self._gradients(self.train_score)
@@ -1188,12 +1200,16 @@ class GBDT:
         event.record()
         return host, event
 
-    def _read_pending(self) -> int:
+    def _pending_value(self) -> int:
+        """The lagged stall poll's leaf count, once its copy has landed."""
         host, event = self._pending_nleaves
         if event is not None:
             event.synchronize()
-        self.stall_polls += 1
         return int(host)
+
+    def _read_pending(self) -> int:
+        self.stall_polls += 1
+        return self._pending_value()
 
     def _constant_tree(self, value: float) -> TreeArrays:
         m1 = 2 * self.config.num_leaves
@@ -1347,16 +1363,18 @@ class GBDT:
                 self.missing_is_nan_d)
             self._set_valid(i, fin)
 
-    def valid_traj_point(self, j: int) -> None:
+    def valid_traj_point(self, j: int, host: bool = True) -> None:
         """Pin every valid score to point j of the last block's trajectory
         (engine.train evaluates each inner iteration so); the trajectory
-        comes to the host once a block."""
+        comes to the host once a block. host=False pins the device scores
+        without that copy (the pipelined executor's device evaluation)."""
         traj = self._fused_valid_traj
-        if self._fused_valid_traj_host is None:
+        if host and self._fused_valid_traj_host is None:
             self._fused_valid_traj_host = [t.cpu().numpy() for t in traj]
             self.valid_host_copies += len(traj)
+        hosts = self._fused_valid_traj_host
         for i, t in enumerate(traj):
-            self._set_valid(i, t[j], self._fused_valid_traj_host[i][j])
+            self._set_valid(i, t[j], None if hosts is None else hosts[i][j])
 
     def _valid_score_host(self, i: int) -> np.ndarray:
         if self._valid_host[i] is None:
@@ -1396,7 +1414,7 @@ class GBDT:
         add-then-subtract can leave a last-bit residue, as in the JAX
         package); with k trees an iteration, each class's tree off its
         class's scores."""
-        if self.iter_ <= 0:
+        if self.iter_ <= self._iter_offset:
             return
         k = self.num_tree_per_iteration
         bins = self._train_bins_unpacked()
@@ -1435,7 +1453,104 @@ class GBDT:
         return out
 
     def current_iteration(self) -> int:
-        return self.iter_
+        return self.iter_ - self._iter_offset
+
+    # ------------------------------------------------------------------
+    # checkpoint and resume (reliability/checkpoint.py bundles)
+    def training_state(self):
+        """(json state, arrays) beyond what the model text carries: the
+        exact f32 training and valid scores, the key stream's position,
+        the boost-from-average flags and the lagged stall poll (the JAX
+        package's training_state). With these restored, iterations k..N
+        reproduce an uninterrupted run bit for bit: every draw keyed by
+        the iteration takes the absolute iter_, which resume keeps. The
+        bagging mask is a function of the iteration (ROADMAP C10), so no
+        mask is saved."""
+        state = {
+            "boosting": self.config.boosting,
+            "num_class": self.num_class,
+            "shrinkage_rate": float(self.shrinkage_rate),
+            "boosted_from_average": [bool(b) for b in
+                                     self._boosted_from_average],
+            "has_init_score": bool(self._has_init_score),
+            "num_valid": len(self.valid_scores),
+        }
+        if self._pending_nleaves is not None:
+            # one host read of the lagged poll (saving is IO-bound anyway);
+            # not a stall poll, so stall_polls does not count it
+            state["pending_nleaves"] = self._pending_value()
+        arrays = {
+            "train_score": self.train_score.cpu().numpy(),
+            "rng_key": self._rng_key.cpu().numpy(),
+        }
+        for i, score in enumerate(self.valid_scores):
+            arrays[f"valid_score_{i}"] = score.cpu().numpy()
+        return state, arrays
+
+    def restore_training_state(self, iteration: int, state: dict,
+                               arrays: dict) -> None:
+        """Continue a checkpointed run: `iteration` boosting rounds live in
+        the attached base model; this booster trains the rest from the
+        exact state the killed run held (the JAX package's
+        restore_training_state, with its refusals)."""
+        cfg = self.config
+        if int(state.get("num_class", self.num_class)) != self.num_class:
+            raise LightGBMError(
+                "checkpoint num_class=%s does not match num_class=%d" %
+                (state.get("num_class"), self.num_class))
+        if state.get("boosting", cfg.boosting) != cfg.boosting:
+            raise LightGBMError(
+                "checkpoint boosting=%r does not match boosting=%r" %
+                (state.get("boosting"), cfg.boosting))
+        if cfg.boosting not in ("gbdt", "goss"):
+            Log.warning(
+                "resume is exact for gbdt/goss boosting; %r resumes "
+                "best-effort (sampling state beyond the RNG key is "
+                "rebuilt)" % cfg.boosting)
+        if self._cegb_cfg is not None:
+            Log.warning(
+                "cegb feature-used state is not checkpointed; resumed "
+                "CEGB penalties restart from a clean slate")
+        score = np.asarray(arrays["train_score"])
+        if tuple(score.shape) != tuple(self.train_score.shape):
+            raise LightGBMError(
+                "checkpoint train_score shape %s does not match the "
+                "training set (%s) — resume needs the same dataset" %
+                (score.shape, tuple(self.train_score.shape)))
+        # valid scores are restored by position: a valid set the bundle
+        # lacks would start without the bundle's trees in its scores
+        n_valid = int(state.get("num_valid", len(self.valid_scores)))
+        if n_valid != len(self.valid_scores):
+            raise LightGBMError(
+                "checkpoint holds %d valid set(s) but the resumed run has "
+                "%d — resume needs the same valid sets in the same order" %
+                (n_valid, len(self.valid_scores)))
+        valid = [np.asarray(arrays[f"valid_score_{i}"])
+                 for i in range(n_valid)]
+        for i, vs in enumerate(valid):
+            if tuple(vs.shape) != tuple(self.valid_scores[i].shape):
+                raise LightGBMError(
+                    "checkpoint valid_score_%d shape %s does not match "
+                    "valid set %d (%s) — resume needs the same valid sets "
+                    "in the same order" % (i, vs.shape, i,
+                                           tuple(self.valid_scores[i].shape)))
+        dev = self.device
+        self.iter_ = int(iteration)
+        self._iter_offset = int(iteration)
+        self.train_score = torch.as_tensor(score, device=dev)
+        self._rng_key = torch.as_tensor(np.asarray(arrays["rng_key"]),
+                                        device=dev)
+        self.shrinkage_rate = float(
+            state.get("shrinkage_rate", self.shrinkage_rate))
+        bfa = state.get("boosted_from_average")
+        if bfa is not None:
+            self._boosted_from_average = [bool(b) for b in bfa]
+        if state.get("pending_nleaves") is not None:
+            self._pending_nleaves = (
+                torch.tensor(int(state["pending_nleaves"]),
+                             dtype=torch.int32), None)
+        for i, vs in enumerate(valid):
+            self._set_valid(i, torch.as_tensor(vs, device=dev))
 
 
 def _stack1(tree: TreeArrays) -> TreeArrays:

@@ -5,8 +5,10 @@ as the reference: callables taking a CallbackEnv namedtuple, with a
 `before_iteration` attribute controlling ordering, EarlyStopException for
 control flow, and `block_safe` marking the callbacks that read only
 evaluation results, which engine.train's block dispatch may run from a
-block's valid-score trajectory. `checkpoint` is not ported (ROADMAP.md
-A9).
+block's valid-score trajectory. `checkpoint` writes the training-state
+bundles of reliability/checkpoint.py that train(resume_from=) resumes
+from; it is not block_safe, so it keeps training one iteration a
+dispatch.
 """
 
 from __future__ import annotations
@@ -117,12 +119,60 @@ def reset_parameter(**kwargs: Any) -> Callable:
 
 
 def checkpoint(period: int, directory: str, keep_last: int = 3) -> Callable:
-    """Training-state bundles every `period` iterations (the JAX package's
-    reliability/checkpoint.py) are not ported: refused, naming ROADMAP.md
-    A9."""
-    raise NotImplementedError(
-        "callback.checkpoint is not ported to lightgbm_tpu_torch yet "
-        "(ROADMAP.md port queue A9)")
+    """Save an atomic training-state bundle every `period` iterations and
+    at the last one (reliability/checkpoint.py). A bundle written at
+    iteration k lets ``train(..., resume_from=directory)`` continue a
+    killed run to a model byte-identical to an uninterrupted one.
+
+    A failed save (a full disk) is a warning that counts
+    `checkpoint_failures`, not a training failure: the run continues and
+    the next period retries.
+
+    Not ``block_safe``: under block dispatch the booster already holds
+    the whole block's trees at inner iterations, so a mid-block snapshot
+    would capture future state; checkpointing keeps the per-iteration
+    cadence."""
+    if period <= 0:
+        raise ValueError("checkpoint period must be > 0")
+    if not directory:
+        raise ValueError("checkpoint directory must be non-empty")
+    # eval history accumulated across iterations (and, on resume, seeded
+    # from the bundle) so every snapshot carries the whole run's curves
+    history: Dict[str, Dict[str, List[float]]] = {}
+
+    def _callback(env: CallbackEnv) -> None:
+        for item in env.evaluation_result_list or []:
+            data_name, eval_name, result = item[0], item[1], item[2]
+            history.setdefault(data_name, collections.OrderedDict())
+            history[data_name].setdefault(eval_name, [])
+            history[data_name][eval_name].append(result)
+        done = env.iteration + 1
+        if done % period != 0 and done != env.end_iteration:
+            return
+        from .reliability.checkpoint import save_checkpoint
+        from .reliability.counters import counters
+        booster = env.model
+        try:
+            state, arrays = booster._training_state()
+            state["eval_history"] = history
+            save_checkpoint(directory, done, booster.model_to_string(),
+                            state, arrays, keep_last=keep_last)
+        except Exception as exc:
+            counters.inc("checkpoint_failures")
+            Log.warning(
+                "checkpoint save failed at iteration %d (%s: %s); "
+                "training continues", done, type(exc).__name__, exc)
+
+    def _seed_history(h) -> None:
+        history.clear()
+        for data_name, metrics in (h or {}).items():
+            history[data_name] = collections.OrderedDict(
+                (k, list(v)) for k, v in metrics.items())
+
+    _callback.order = 40          # after eval/early-stop bookkeeping
+    _callback.is_checkpoint = True
+    _callback._seed_history = _seed_history
+    return _callback
 
 
 class _BestTracker:

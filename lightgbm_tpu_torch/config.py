@@ -487,24 +487,17 @@ _PARAMS: List[ParamSpec] = [
        "of that package's algorithms give, so the choice is "
        "byte-neutral on model.txt"),
     _p("level_pipeline", bool, False, (),
-       desc="stage-dispatched tree growth (learner/grower_pipeline.py): "
-            "each doubling-schedule pass, the bridge and speculative "
-            "fixup chunks run as separate async dispatches so level "
-            "k+1's histogram build is enqueued before level k's "
-            "bookkeeping is host-visible, and the host regains a "
-            "per-level observation point (the level_pipeline trace "
-            "span). Byte-identical models to the default monolithic "
-            "one-dispatch-per-tree grower, which stays the parity "
-            "oracle and remains the right shape for remoted "
-            "accelerators where every dispatch pays a tunnel "
-            "round-trip. Serial MXU growth only: the sharded grower "
-            "and the fused multi-tree scan ignore it"),
+       desc="stage-dispatched tree growth in the JAX package (its "
+            "learner/grower_pipeline.py: speculative fix-up chunks "
+            "checked against a lagged done flag). Accepted for that "
+            "package's configs and byte-neutral on model.txt: the port "
+            "grows every tree through Grower.grow, because its fix-up "
+            "pass on a finished tree still computes a whole pass before "
+            "it keeps the old state, so a speculative pass would cost "
+            "device time where the JAX package's costs none"),
     _p("level_pipeline_lookahead", int, 4, (), lambda v: v >= 1,
-       "speculative fixup stages enqueued per chunk before the "
-       "level-pipelined grower consults the previous chunk's "
-       "(already in flight) done flag. Larger values keep the device "
-       "busier past the done boundary at the cost of more identity "
-       "no-op dispatches on early-finishing trees"),
+       "speculative fix-up passes a chunk in the JAX package's level "
+       "pipeline. Accepted and checked; the port does not use it"),
     _p("fused_block_size", int, 10, (), lambda v: v >= 1,
        "iterations per fused on-device dispatch in engine.train when "
        "the config is fused-eligible (boosting/fused.py). Metrics, "

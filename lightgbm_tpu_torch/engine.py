@@ -1,14 +1,17 @@
 """train() entry point (reference python-package/lightgbm/engine.py).
 
-Port of lightgbm_tpu/engine.py:34-420 without checkpoint resume
-(`resume_from`, ROADMAP A9), `keep_training_booster` (A12), streaming
-input and the pipelined executor (`pipeline` is accepted and ignored,
-ROADMAP A3: it gives the models of block dispatch). Same callback protocol
-as the reference: validation sets, custom objectives (fobj: objective
-"none", gradients from the caller) and evaluation functions (feval),
-continued training from an init_model (its host predictions seed the init
-scores before binning; its trees stay in front of the new ones) and
-early stopping through EarlyStopException.
+Port of lightgbm_tpu/engine.py:34-420 without `keep_training_booster`
+(A12) and streaming input (A11). Same callback protocol as the
+reference: validation sets, custom objectives (fobj: objective "none",
+gradients from the caller) and evaluation functions (feval), continued
+training from an init_model (its host predictions seed the init scores
+before binning; its trees stay in front of the new ones) and early
+stopping through EarlyStopException. Kill-and-resume: checkpoint_period
+with checkpoint_dir (and checkpoint_keep) attach callback.checkpoint, and
+`resume_from` (a bundle or a checkpoint directory) puts the bundle's
+model in front as the base model, restores the exact training state
+(reliability/checkpoint.py) and trains from the bundle's iteration to
+num_boost_round, to the model text of an uninterrupted run.
 
 As in the JAX package, iterations go fused_block_size at a time through
 Booster.update_batch (the fused trainer, boosting/fused.py) when nothing
@@ -21,8 +24,15 @@ the best iteration back and pins the valid scores to the trajectory point:
 the models, best_iteration and best_score of fused_block_size 1 (the
 rollback's add-then-subtract can leave a last-bit residue on the training
 scores, as in the JAX package). Otherwise each iteration is one
-Booster.update(). The booster returned holds no fused trainer: its CUDA
-graphs are freed when training ends, however it ends.
+Booster.update(). With `pipeline` (default true) the block loop runs
+through the pipelined executor (pipeline/executor.py): adaptive block
+sizes (pipeline_adaptive_blocks, pipeline_target_block_ms,
+pipeline_max_block), the previous block's trees appended while the next
+block runs, and, with pipeline_device_eval, the valid metrics reduced on
+the device: the same models, best_iteration and early stops as
+pipeline=false, the metric values in f32. The booster returned holds no
+fused trainer: its CUDA graphs are freed when training ends, however it
+ends.
 """
 
 from __future__ import annotations
@@ -34,6 +44,7 @@ import numpy as np
 
 from . import callback as callback_mod
 from .basic import Booster, Dataset, _best_score_dict
+from .utils.log import Log
 
 __all__ = ["train"]
 
@@ -88,11 +99,19 @@ def train(params: Dict[str, Any], train_set: Dataset,
           callbacks: Optional[List] = None,
           resume_from: Optional[str] = None) -> Booster:
     """Train a booster for num_boost_round iterations (a num_iterations
-    alias in params takes precedence, as in the reference)."""
+    alias in params takes precedence, as in the reference); with
+    resume_from, num_boost_round stays the total."""
+    resume_state = None
     if resume_from is not None:
-        raise NotImplementedError(
-            "train(resume_from=...) is not ported to lightgbm_tpu_torch "
-            "yet (ROADMAP.md port queue A9)")
+        # restore the checkpointed f32 scores and key stream verbatim
+        # (init_model re-seeds init scores through a host predict and
+        # restarts the stream instead), so the finished model is the
+        # uninterrupted run's
+        if init_model is not None:
+            raise ValueError("resume_from and init_model are exclusive: "
+                             "a checkpoint bundle already carries its model")
+        from .reliability.checkpoint import load_checkpoint
+        resume_state = load_checkpoint(resume_from)
     if keep_training_booster:
         raise NotImplementedError(
             "train(keep_training_booster=True) is not ported to "
@@ -126,6 +145,11 @@ def train(params: Dict[str, Any], train_set: Dataset,
         _unseed_init_scores([train_set] + others)
 
     booster = Booster(params=params, train_set=train_set)
+    if resume_state is not None:
+        # the bundle's trees ride in front like continued training's, but
+        # without init-score seeding: the restored scores already hold
+        # them in the killed run's f32 bits
+        base_model = Booster(model_str=resume_state.model_str)
     booster._base_model = base_model
     is_valid_contain_train = False
     reduced_valid_sets = []
@@ -141,10 +165,28 @@ def train(params: Dict[str, Any], train_set: Dataset,
         booster.add_valid(valid_data, valid_names[i]
                           if valid_names is not None else f"valid_{i}")
 
+    start_iter = 0
+    if resume_state is not None:
+        booster._restore_training_state(resume_state)
+        start_iter = resume_state.iteration
+        Log.info(f"resuming training from checkpoint "
+                 f"{resume_state.path!r} at iteration {start_iter}")
+
     cbs = set(callbacks or [])
-    if int(params.get("early_stopping_round", 0) or 0) > 0:
-        cbs.add(callback_mod.early_stopping(
-            int(params["early_stopping_round"]), first_metric_only))
+    es_rounds = int(params.get("early_stopping_round", 0) or 0)
+    if es_rounds > 0:
+        cbs.add(callback_mod.early_stopping(es_rounds, first_metric_only))
+    cfg = booster.config
+    if cfg.checkpoint_period > 0 and cfg.checkpoint_dir and \
+            not any(getattr(cb, "is_checkpoint", False) for cb in cbs):
+        cbs.add(callback_mod.checkpoint(
+            cfg.checkpoint_period, cfg.checkpoint_dir, cfg.checkpoint_keep))
+    if resume_state is not None:
+        history = resume_state.state.get("eval_history")
+        if history:
+            for cb in cbs:
+                if hasattr(cb, "_seed_history"):
+                    cb._seed_history(history)
     callbacks_before = sorted(
         (cb for cb in cbs if getattr(cb, "before_iteration", False)),
         key=lambda cb: getattr(cb, "order", 0))
@@ -163,6 +205,17 @@ def train(params: Dict[str, Any], train_set: Dataset,
                           for cb in callbacks_after)
                   and not is_valid_contain_train
                   and booster.gbdt._fused_eligible())
+    # the pipelined executor: the same block dispatch with host work
+    # overlapped and the metrics reduced on the device; pipeline=false
+    # keeps the loop below as the parity oracle
+    use_pipeline = use_blocks and bool(cfg.pipeline)
+
+    def run_callbacks(i, results):
+        for cb in callbacks_after:
+            cb(callback_mod.CallbackEnv(
+                model=booster, params=params, iteration=i,
+                begin_iteration=start_iter, end_iteration=num_boost_round,
+                evaluation_result_list=results))
 
     def eval_at(i):
         results = []
@@ -171,17 +224,23 @@ def train(params: Dict[str, Any], train_set: Dataset,
                 results.extend(booster.eval_train(feval))
             if reduced_valid_sets:
                 results.extend(booster.eval_valid(feval))
-        for cb in callbacks_after:
-            cb(callback_mod.CallbackEnv(
-                model=booster, params=params, iteration=i,
-                begin_iteration=0, end_iteration=num_boost_round,
-                evaluation_result_list=results))
+        run_callbacks(i, results)
         return results
 
     gb = booster.gbdt
     results = []
     try:
-        i = 0
+        if use_pipeline and start_iter < num_boost_round:
+            from .pipeline import run_pipelined
+            results = run_pipelined(
+                booster, start_iter=start_iter,
+                num_boost_round=num_boost_round, base_block=block,
+                run_callbacks=run_callbacks,
+                has_valid=bool(reduced_valid_sets),
+                stopping_rounds=es_rounds)
+            i = num_boost_round   # fully trained; the loop below no-ops
+        else:
+            i = start_iter
         while i < num_boost_round:
             b = min(block, num_boost_round - i) if use_blocks else 1
             if b > 1:
@@ -213,15 +272,16 @@ def train(params: Dict[str, Any], train_set: Dataset,
             for cb in callbacks_before:
                 cb(callback_mod.CallbackEnv(
                     model=booster, params=params, iteration=i,
-                    begin_iteration=0, end_iteration=num_boost_round,
+                    begin_iteration=start_iter, end_iteration=num_boost_round,
                     evaluation_result_list=None))
             booster.update(fobj=fobj)
             results = eval_at(i)
             i += 1
     except callback_mod.EarlyStopException as es:
-        # with continued training, iterations count over the merged model
+        # with continued training, iterations count over the merged
+        # model; a resumed run's loop index is already absolute
         base_iters = base_model.current_iteration() \
-            if base_model is not None else 0
+            if base_model is not None and resume_state is None else 0
         booster.best_iteration = base_iters + es.best_iteration + 1
         results = es.best_score
     finally:

@@ -108,6 +108,12 @@ class ObjectiveFunction:
     def convert_output(self, raw: np.ndarray) -> np.ndarray:
         return raw
 
+    def convert_output_device(self, raw: torch.Tensor) -> torch.Tensor:
+        """convert_output on a device tensor in f32 (the JAX package's
+        jnp convert_output; pipeline/device_eval.py reduces metrics with
+        it)."""
+        return raw
+
     def _avg_label(self) -> float:
         lbl = np.asarray(self._label_np, dtype=np.float64)
         if self._weight_np is not None:
@@ -169,6 +175,11 @@ class RegressionL2(ObjectiveFunction):
     def convert_output(self, raw):
         if self.sqrt:
             return np.sign(raw) * raw * raw
+        return raw
+
+    def convert_output_device(self, raw):
+        if self.sqrt:
+            return torch.sign(raw) * raw * raw
         return raw
 
 
@@ -258,6 +269,9 @@ class Poisson(RegressionL2):
 
     def convert_output(self, raw):
         return np.exp(np.asarray(raw, np.float32))
+
+    def convert_output_device(self, raw):
+        return torch.exp(raw)
 
 
 class Quantile(RegressionL2):
@@ -396,6 +410,9 @@ class BinaryLogloss(ObjectiveFunction):
         return np.float32(1.0) / (np.float32(1.0) + np.exp(
             np.float32(-self.sigmoid) * raw))
 
+    def convert_output_device(self, raw):
+        return 1.0 / (1.0 + torch.exp(-self.sigmoid * raw))
+
 
 # ---------------------------------------------------------------------------
 # Multiclass (multiclass_objective.hpp); scores class-major [k, N]
@@ -461,6 +478,9 @@ class MulticlassSoftmax(ObjectiveFunction):
         e = np.exp(raw - raw.max(axis=-1, keepdims=True))
         return e / e.sum(axis=-1, keepdims=True)
 
+    def convert_output_device(self, raw):
+        return torch.softmax(raw, dim=-1)
+
 
 class MulticlassOVA(ObjectiveFunction):
     name = "multiclassova"
@@ -496,6 +516,9 @@ class MulticlassOVA(ObjectiveFunction):
         return np.float32(1.0) / (np.float32(1.0) + np.exp(
             np.float32(-self.sigmoid) * raw))
 
+    def convert_output_device(self, raw):
+        return 1.0 / (1.0 + torch.exp(-self.sigmoid * raw))
+
 
 # ---------------------------------------------------------------------------
 # Cross-entropy (xentropy_objective.hpp)
@@ -522,6 +545,9 @@ class CrossEntropy(ObjectiveFunction):
     def convert_output(self, raw):
         raw = np.asarray(raw, np.float32)
         return np.float32(1.0) / (np.float32(1.0) + np.exp(-raw))
+
+    def convert_output_device(self, raw):
+        return 1.0 / (1.0 + torch.exp(-raw))
 
 
 class CrossEntropyLambda(CrossEntropy):
@@ -550,6 +576,9 @@ class CrossEntropyLambda(CrossEntropy):
 
     def convert_output(self, raw):
         return np.log1p(np.exp(np.asarray(raw, np.float32)))
+
+    def convert_output_device(self, raw):
+        return torch.log1p(torch.exp(raw))
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
 """Process-wide reliability counters: degradation must be observable.
 
-Port of lightgbm_tpu/reliability/counters.py, with the one key that the
-port increments: a guard-rail trip. Device retries, fallbacks and
-checkpoint writes add their keys when they are ported.
+Port of lightgbm_tpu/reliability/counters.py, with the keys that the
+port increments: a guard-rail trip and checkpoint writes. Device retries
+and fallbacks add their keys when they are ported (ROADMAP A9 part 2).
 """
 
 from __future__ import annotations
@@ -14,6 +14,8 @@ __all__ = ["ReliabilityCounters", "counters"]
 
 _KEYS = (
     "guard_trips",         # non-finite guard activations
+    "checkpoint_saves",    # successful checkpoint bundles written
+    "checkpoint_failures", # checkpoint writes that failed (training continued)
 )
 
 

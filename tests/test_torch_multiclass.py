@@ -246,11 +246,13 @@ def test_valid_trajectory_and_early_stop():
     assert ev[4]["valid_0"]["multi_logloss"][-1] < \
         ev[4]["valid_0"]["multi_logloss"][0]
     # an early stop inside a block: labels the features do not predict
+    # (the block loop's float64 metrics: the pipelined executor's device
+    # metrics are tests/test_torch_pipeline.py's)
     yp = np.random.RandomState(8).permutation(yv)
     stopped = {}
     for block in (1, 5):
         p = dict(_BASE, metric="multi_logloss", fused_block_size=block,
-                 early_stopping_round=2, device_type="cpu")
+                 early_stopping_round=2, device_type="cpu", pipeline=False)
         ds = lgt.Dataset(X, label=y, params=p)
         stopped[block] = lgt.train(
             p, ds, 10, valid_sets=[ds.create_valid(Xv, label=yp)])

@@ -286,10 +286,12 @@ _FUSED = {"bagging": _MODES["bagging"], "posneg": _MODES["posneg"],
 @pytest.mark.parametrize("name", sorted(_FUSED))
 def test_fused_equals_update_loop(name):
     """7 iterations: update_batch(7) (0, then 1-6 through the fused
-    trainer) and train at fused_block_size 3 (0, 1-2 and 3-5 fused, 6
-    through update()) against 7 update() calls, byte for byte."""
+    trainer) and train's block loop at fused_block_size 3 (pipeline=false:
+    0, 1-2 and 3-5 fused, 6 through update(); the pipelined executor's
+    blocks are tests/test_torch_pipeline.py's) against 7 update() calls,
+    byte for byte."""
     X, y = _data()
-    params = dict(_BASE, fused_block_size=3)
+    params = dict(_BASE, fused_block_size=3, pipeline=False)
     params.update(_FUSED[name])
     a = _port_booster(X, y, params)
     for _ in range(7):

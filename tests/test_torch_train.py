@@ -167,7 +167,7 @@ def test_train_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("extra", [
-    {"level_pipeline": True},
+    {"tree_learner": "voting"},
     {"tree_learner": "data"},
 ])
 def test_unsupported_params_raise(extra):
@@ -185,12 +185,14 @@ def test_unsupported_params_raise(extra):
     {"forcedsplits_filename": "forced.json"},
     {"cegb_penalty_split": 1.0},
     {"linear_tree": True},
+    {"level_pipeline": True},
 ])
 def test_formerly_refused_params_train(extra, tmp_path):
-    """Forced splits, the three CEGB parameters, the guard rails and
-    linear trees train (tests/test_torch_forced.py, test_torch_cegb.py,
-    test_torch_guards.py, test_torch_linear*.py hold them to the JAX
-    package)."""
+    """Forced splits, the three CEGB parameters, the guard rails, linear
+    trees and level_pipeline train (tests/test_torch_forced.py,
+    test_torch_cegb.py, test_torch_guards.py, test_torch_linear*.py hold
+    them to the JAX package; test_torch_level_pipeline.py holds
+    level_pipeline to level_pipeline=false)."""
     X, y = make_binary(n=200, f=4)
     if "forcedsplits_filename" in extra:
         fn = tmp_path / extra["forcedsplits_filename"]
@@ -206,17 +208,15 @@ def test_formerly_refused_params_train(extra, tmp_path):
 
 
 def test_valid_sets_and_callbacks_raise():
-    """Valid sets and callbacks train (tests/test_torch_valid.py); what
-    stays unported around them refuses, naming its queue item: the
-    checkpoint callback and checkpoint_period with checkpoint_dir (A9),
-    resume_from (A9)."""
+    """Valid sets, callbacks and checkpoints train
+    (tests/test_torch_valid.py, test_torch_checkpoint.py); what stays
+    unported around train refuses, naming its queue item:
+    keep_training_booster=True and update(train_set=<another>) (A12)."""
     X, y = make_binary(n=200, f=4)
     ds = lgt.Dataset(X, label=y)
     params = {"objective": "binary", "device_type": "cpu", "verbosity": -1}
-    with pytest.raises(NotImplementedError, match="A9"):
-        lgt.callback.checkpoint(5, "ckpt")
-    with pytest.raises(NotImplementedError, match="A9"):
-        lgt.train(params, ds, 1, resume_from="ckpt")
-    with pytest.raises(NotImplementedError, match="A9"):
-        lgt.train(dict(params, checkpoint_period=5, checkpoint_dir="ckpt"),
-                  ds, 1)
+    with pytest.raises(NotImplementedError, match="A12"):
+        lgt.train(params, ds, 1, keep_training_booster=True)
+    bst = lgt.train(params, ds, 1)
+    with pytest.raises(NotImplementedError, match="A12"):
+        bst.update(train_set=lgt.Dataset(X, label=y))
