@@ -16,7 +16,8 @@ With --rates it also times, twice each, `train` of 30 trees on the exact
 configuration at fused_block_size 10 without and with chip_smoke.py's
 40,000-row valid set (VALID_PARAMS: binary_logloss and auc every
 iteration): trees/s over the last 20 trees, the graphs' replays (and the
-valid sets' trajectories) alone. Run parent, change, change, parent in
+valid sets' trajectories) alone, and Booster.update()'s trees/s over
+trees 2-11 of a booster, twice. Run parent, change, change, parent in
 one call to compare two checkouts.
 """
 
@@ -102,7 +103,22 @@ def rates(torch, lgt, cs, ds):
             torch.cuda.synchronize()
             out[what].append((rounds - first) /
                              (time.perf_counter() - marks[0]))
-    return {"trees_per_s_last20_" + k: v for k, v in out.items()}
+    # the per-iteration path: Booster.update() trees 2-11 of a booster
+    # (each tree one growth dispatch through the retry wrapper)
+    ups = []
+    for _ in range(2):
+        booster = lgt.Booster(cs.TRAIN_PARAMS, ds)
+        booster.update()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            booster.update()
+        torch.cuda.synchronize()
+        ups.append(10 / (time.perf_counter() - t0))
+        del booster
+    rates = {"trees_per_s_last20_" + k: v for k, v in out.items()}
+    rates["update_trees_per_s"] = ups
+    return rates
 
 
 if __name__ == "__main__":

@@ -84,6 +84,22 @@ launches each kernel row lists apart under `launches_new_paths`):
   from the iteration-20 bundle to 30: model text byte-equal and training
   score bit-equal to the uninterrupted run's, save and load ms of the
   1M-row bundle (written under chiprun_out/ and removed);
+- retries, the fused fall-back and the flight recorder (slice 21; phases
+  `reliability*`): 30 rounds of train at fused_block_size 10 with the
+  held-out set a run, a clean run, then an injected fault at
+  histogram_build (iteration 0's growth retried) and at fused_dispatch
+  (a block retried; a block that fails its 3 attempts and trains per
+  iteration; two such blocks in a row, which turn the fused path off;
+  the exhausted block with GOSS against a clean GOSS run and under
+  pipeline=false against a clean pipeline=false run, its valid history
+  equal), each model text byte-equal to its clean run with the echo
+  lines dropped, the counters, trips and _fused_disabled as expected;
+  checkpoint_io failing the first save; the flight recorder's bundles of
+  a guard trip, of a growth that fails every attempt and of a
+  subprocess of this script ended by a rank_death schedule (exit code
+  86); each run's trees/s and the ms of a flush. After every other path
+  the reliability counters must show no retry and no fall-back and the
+  fault registry no trip;
 - row sampling, random forest and DART (phases `sampling*`): bagging
   (fraction 0.8, freq 5), GOSS (top_rate 0.2, other_rate 0.1) and
   bagging with quantized gradients through the fused phases' turns
@@ -2394,6 +2410,270 @@ def checkpoint_path(torch, lgt, hm, ds):
     for key in CKPT_PATH:
         check(counts[key] > 0, f"{key} was not launched on the checkpoint "
               "path")
+    return counts
+
+
+# ---- the reliability path: retries, the fused fall-back, fault injection
+# and the flight recorder (slice 21), at full width with the held-out set
+REL_ROUNDS = 30
+REL_PARAMS = dict(TRAIN_PARAMS, metric="binary_logloss")
+REL_PATH = ("prune_best_first", "fused_route_hist", "node_values",
+            "predict_binned")
+REL_GUARD_ROUNDS = 3
+REL_CHILD_ROWS = 20_000
+# (name, site, skip, fail, extra params, device_retries, fallbacks,
+# _fused_disabled, the clean run it must equal)
+REL_CASES = (
+    ("histogram_build", "histogram_build", 0, 1, {}, 1, 0, False, "clean"),
+    ("fused_retried", "fused_dispatch", 0, 1, {}, 1, 0, False, "clean"),
+    ("fused_exhausted", "fused_dispatch", 1, 3, {}, 2, 1, False, "clean"),
+    ("fused_twice_exhausted", "fused_dispatch", 0, 6, {}, 4, 2, True,
+     "clean"),
+    ("goss_exhausted", "fused_dispatch", 1, 3, GOSS, 2, 1, False,
+     "clean_goss"),
+    ("serial_exhausted", "fused_dispatch", 1, 3, {"pipeline": False}, 2, 1,
+     False, "clean_serial"),
+)
+REL_STRIP = ("[pipeline", "[fused_block_size", "[retry_", "[checkpoint_",
+             "[flightrec", "[boosting:", "[top_rate", "[other_rate")
+
+
+def strip_reliability(text):
+    """Model text without the dispatch echo lines and the echoes of the
+    parameters the reliability runs set apart."""
+    return "\n".join(ln for ln in text.splitlines()
+                     if not ln.startswith(REL_STRIP))
+
+
+def clean_path_check(path):
+    """After a path that armed no fault: no device retry, no fall-back and
+    no fault trip (a real failure of a dispatch on the card fails the
+    smoke instead of training slower)."""
+    from lightgbm_tpu_torch.reliability import counters, faults
+    snap = counters.snapshot()
+    check(snap["device_retries"] == 0 and snap["fallbacks"] == 0 and
+          faults.trips() == 0, f"the {path} path retried or fell back: "
+          f"{snap}, trips {faults.snapshot()}")
+
+
+def _postmortem(d):
+    with open(os.path.join(d, "postmortem_0.json")) as fh:
+        return json.load(fh)
+
+
+def rank_death_child(out_dir):
+    """The rank_death subprocess: trains the Higgs-like problem at
+    REL_CHILD_ROWS rows with histogram_build armed in rank_death mode at
+    the first tree's growth (the later trees grow in the fused trainer,
+    which passes no growth site); the process must end with exit code 86
+    after flushing its bundle into out_dir."""
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.reliability import faults
+    X, y = make_higgs_like(REL_CHILD_ROWS, N_FEATURES, seed=5)
+    faults.schedule("histogram_build", fail=1, mode="rank_death")
+    lgt.train(dict(TRAIN_PARAMS, flightrec_dir=out_dir), lgt.Dataset(
+        X, label=y), 5)
+    torch.cuda.synchronize()
+    print("chip_smoke: rank_death did not end the process", file=sys.stderr)
+    return 1
+
+
+def reliability_path(torch, lgt, hm, ds, y):
+    """Retries, the fused fall-back and the flight recorder on the binary
+    configuration (1M x 28, 255 leaves, max_bin 255) with the 40,000-row
+    held-out set and binary_logloss, REL_ROUNDS rounds of engine.train at
+    fused_block_size 10 a run: a clean run, then each REL_CASES schedule
+    (an injected fault at histogram_build or fused_dispatch: retried,
+    exhausted into the per-iteration fall-back, twice in a row, with GOSS
+    against a clean GOSS run, under pipeline=false against a clean
+    pipeline=false run with an equal valid history): model text
+    byte-equal to its clean run once the echo lines are dropped, the
+    counters, trips and _fused_disabled as expected; checkpoint_io
+    failing the first save (counted, the later periods saved); the flight
+    recorder's bundles of a guard trip (warn: reason guard_nonfinite;
+    raise: the guard event then engine.train's exception), of
+    histogram_build failing every attempt (InjectedFault out of train)
+    and of a subprocess ended by a rank_death schedule (exit code 86).
+    Prints each run's counters, trips, seconds and trees/s, and the ms of
+    a flush of a full ring. Returns the launch counts."""
+    import shutil
+    from lightgbm_tpu_torch.observability.flightrec import recorder
+    from lightgbm_tpu_torch.reliability import counters, faults, guards
+    from lightgbm_tpu_torch.reliability.faults import (InjectedFault,
+                                                       RANK_DEATH_EXIT_CODE)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "chiprun_out", "chip_smoke_reliability")
+    shutil.rmtree(root, ignore_errors=True)
+    Xva, yva = make_higgs_like(VALID_ROWS, N_FEATURES, seed=99)
+    valid = ds.create_valid(Xva, label=yva)
+    hm.reset_launch_counts()
+
+    def run(name, extra, arm=None):
+        faults.clear()
+        counters.reset()
+        if arm is not None:
+            faults.schedule(arm[0], skip=arm[1], fail=arm[2])
+        ev = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b = lgt.train(dict(REL_PARAMS, **extra), ds, REL_ROUNDS,
+                      valid_sets=[valid],
+                      callbacks=[lgt.record_evaluation(ev)])
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        gb = b.gbdt
+        st = gb._pipeline_stats
+        out = dict(counters=counters.snapshot(), trips=faults.snapshot(),
+                   fused_calls=faults.calls("fused_dispatch"),
+                   growth_calls=faults.calls("histogram_build"),
+                   fused_disabled=gb._fused_disabled, seconds=sec,
+                   trees_per_s=b.current_iteration() / sec,
+                   trainers=[dict(trees=s["trees"], capture_s=s["capture_s"])
+                             for s in gb.fused_stats],
+                   block_sizes=st.block_sizes if st is not None and
+                   extra.get("pipeline", True) else None)
+        emit("reliability_" + name, **out)
+        return b, ev, out
+
+    cleans = {}
+    # the first train of the phase warms the host paths up (its seconds
+    # are not a clean run's)
+    run("clean_warmup", {})
+    for key, extra in (("clean", {}), ("clean_goss", GOSS),
+                       ("clean_serial", {"pipeline": False})):
+        b, ev, out = run(key, extra)
+        clean_path_check("reliability " + key)
+        cleans[key] = (strip_reliability(b.model_to_string()), ev, out)
+        del b
+    results = {}
+    for (name, site, skip, fail, extra, retries, fallbacks, disabled,
+         key) in REL_CASES:
+        b, ev, out = run(name, extra, (site, skip, fail))
+        snap = out["counters"]
+        check(strip_reliability(b.model_to_string()) == cleans[key][0],
+              f"reliability {name}: the model differs from the {key} run")
+        check(snap["device_retries"] == retries and
+              snap["fallbacks"] == fallbacks and
+              out["trips"] == {site: fail} and
+              faults.remaining(site) == (0, 0) and
+              out["fused_disabled"] is disabled,
+              f"reliability {name}: {out}")
+        if name == "fused_retried":
+            check(len(out["trainers"]) == len(cleans[key][2]["trainers"]),
+                  f"reliability {name}: trainers {out['trainers']}")
+        if name in ("fused_exhausted", "goss_exhausted", "serial_exhausted"):
+            # the block after the fall-back is fused again (a new trainer)
+            check(len(out["trainers"]) == 2 and not out["fused_disabled"],
+                  f"reliability {name}: trainers {out['trainers']}")
+        if name == "fused_twice_exhausted":
+            check(out["trainers"] == [] and out["fused_calls"] == 6,
+                  f"reliability {name}: {out}")
+        if name == "serial_exhausted":
+            check(ev == cleans[key][1], "reliability serial_exhausted: the "
+                  "valid history differs from the clean pipeline=false run")
+        results[name] = out
+        del b
+    # ---- checkpoint_io: the first save fails, training carries on
+    ck = os.path.join(root, "ckpt")
+    b, _, out = run("checkpoint_io", {"checkpoint_period": 10,
+                                      "checkpoint_dir": ck},
+                    ("checkpoint_io", 0, 1))
+    bundles = sorted(n for n in os.listdir(ck) if n.startswith("ckpt_"))
+    check(strip_reliability(b.model_to_string()) == cleans["clean"][0] and
+          out["counters"]["checkpoint_failures"] == 1 and
+          out["counters"]["checkpoint_saves"] == 2 and
+          bundles == ["ckpt_0000020", "ckpt_0000030"],
+          f"reliability checkpoint_io: {out}, bundles {bundles}")
+    del b
+    # ---- the flight recorder's bundles
+    faults.clear()
+    counters.reset()
+    fr = {}
+    for policy in ("warn", "raise"):
+        d = os.path.join(root, "guard_" + policy)
+        recorder.reset()
+        raised = False
+        try:
+            lgt.train(dict(TRAIN_PARAMS, guard_nonfinite=policy,
+                           flightrec_dir=d), ds, REL_GUARD_ROUNDS,
+                      fobj=_nan_fobj(y, GUARD_BAD_CALL))
+        except guards.GuardError:
+            raised = True
+        pm = _postmortem(d)
+        kinds = [(e["kind"], e["name"], e.get("policy"), e.get("iteration"))
+                 for e in pm["events"]]
+        guard_ev = ("guard", "gradients/hessians", policy,
+                    GUARD_BAD_CALL - 1)
+        want = ([guard_ev] if policy == "warn" else
+                [guard_ev, ("exception", "engine.train", None, None)])
+        check(raised == (policy == "raise") and kinds == want and
+              pm["reason"] == ("guard_nonfinite" if policy == "warn"
+                               else "exception"),
+              f"reliability guard {policy}: raised {raised}, {pm['reason']}, "
+              f"{kinds}")
+        fr["guard_" + policy] = dict(reason=pm["reason"], events=kinds)
+    d = os.path.join(root, "exhausted")
+    recorder.reset()
+    counters.reset()
+    faults.schedule("histogram_build", fail=10)
+    raised = False
+    try:
+        lgt.train(dict(REL_PARAMS, retry_max_attempts=2, flightrec_dir=d),
+                  ds, REL_ROUNDS)
+    except InjectedFault:
+        raised = True
+    faults.clear()
+    pm = _postmortem(d)
+    kinds = [(e["kind"], e["name"], e.get("mode")) for e in pm["events"]]
+    check(raised and pm["reason"] == "exception" and
+          kinds == [("fault", "histogram_build", "raise")] * 2 +
+          [("exception", "engine.train", None)] and
+          pm["counters"]["device_retries"] == 1,
+          f"reliability exhausted growth: raised {raised}, {pm}")
+    fr["exhausted"] = dict(reason=pm["reason"], events=kinds)
+    counters.reset()
+    # the ms of a flush of a full ring (the default 256 events)
+    recorder.reset()
+    for i in range(300):
+        recorder.record_fault("histogram_build", "raise")
+    flush_ms = []
+    for rep in range(3):
+        t0 = time.perf_counter()
+        path = recorder.flush("exception", out_dir=os.path.join(root, "ms"))
+        flush_ms.append((time.perf_counter() - t0) * 1e3)
+        check(path is not None, "reliability: a flush failed")
+    recorder.reset()
+    # ---- rank_death in a subprocess of this script
+    d = os.path.join(root, "rank_death")
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--rank-death-child", d],
+        capture_output=True, text=True, timeout=300,
+        stdin=subprocess.DEVNULL)
+    child_s = time.perf_counter() - t0
+    ok = child.returncode == RANK_DEATH_EXIT_CODE and \
+        os.path.exists(os.path.join(d, "postmortem_0.json"))
+    pm = _postmortem(d) if ok else {}
+    last = pm.get("events", [{}])[-1] if ok else {}
+    check(ok and pm["reason"] == "rank_death" and
+          (last.get("kind"), last.get("name"), last.get("mode")) ==
+          ("fault", "histogram_build", "rank_death"),
+          f"reliability rank_death: exit {child.returncode}, "
+          f"{child.stderr[-2000:]}")
+    fr["rank_death"] = dict(exit_code=child.returncode, seconds=child_s,
+                            events=len(pm["events"]))
+    shutil.rmtree(root, ignore_errors=True)
+    counts = hm.launch_counts()
+    for key in REL_PATH:
+        check(counts[key] > 0, f"{key} was not launched on the reliability "
+              "path")
+    emit("reliability", rounds=REL_ROUNDS, clean_s=cleans["clean"][2]
+         ["seconds"], clean_trees_per_s=cleans["clean"][2]["trees_per_s"],
+         extra_s={n: r["seconds"] - cleans[k][2]["seconds"] for n, r, k in
+                  ((c[0], results[c[0]], c[8]) for c in REL_CASES)},
+         flight_recorder=fr, flush_ms=flush_ms, byte_equal=True,
+         launches={k: counts[k] for k in REL_PATH})
     return counts
 
 
@@ -5941,6 +6221,8 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--rank-death-child"]:
+        return rank_death_child(sys.argv[2])
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch import rng
     from lightgbm_tpu_torch.learner import _cuda
@@ -5968,50 +6250,73 @@ def main():
     X, y = make_higgs_like(N_ROWS, N_FEATURES)
     counts = {}
     booster, ds, reg_ds, counts["exact"] = main_path(torch, lgt, hm, X, y)
+    clean_path_check("exact")
     exact_auc = check_outputs(torch, lgt, booster, ds, X)
     native_host_phase(lgt, X, y, booster)
     q_booster, counts["quantized"] = quantized_path(torch, lgt, hm, X, y, ds,
                                                     reg_ds)
+    clean_path_check("quantized")
     q_auc = check_outputs(torch, lgt, q_booster, ds, X, QUANT_PARAMS,
                           "train_quantized_check")
     check(abs(q_auc - exact_auc) <= 0.005,
           f"quantized held-out AUC {q_auc} vs exact {exact_auc}")
     counts["fused"], fused_rates = fused_path(torch, lgt, hm, ds, y)
+    clean_path_check("fused")
     counts["valid"] = valid_path(torch, lgt, hm, ds, y)
+    clean_path_check("valid")
     counts["pipeline"] = pipeline_path(torch, lgt, hm, ds)
+    clean_path_check("pipeline")
     counts["checkpoint"] = checkpoint_path(torch, lgt, hm, ds)
+    clean_path_check("checkpoint")
+    counts["reliability"] = reliability_path(torch, lgt, hm, ds, y)
     torch.cuda.empty_cache()
     counts["sampling"] = sampling_path(torch, lgt, hm, X, y, ds,
                                        make_row(torch, rows), fused_rates)
+    clean_path_check("sampling")
     fused_configs_check(torch, lgt, X, y, ds)
+    clean_path_check("fused_configs")
     fused_scratch_check(torch, lgt, hm, X, y)
+    clean_path_check("fused_scratch_check")
     torch.cuda.empty_cache()
     counts["backends"] = backends_path(torch, lgt, hm, X, y, ds, q_booster,
                                        booster)
+    clean_path_check("backends")
     counts["constraints"] = constraints_path(torch, lgt, hm, y, ds, booster)
+    clean_path_check("constraints")
     counts["scan"] = scan_path(torch, lgt, hm, grow_tree_mxu, y, ds)
+    clean_path_check("scan")
     counts["single_prec"] = single_prec_path(torch, lgt, hm, X, y, ds,
                                              exact_auc)
+    clean_path_check("single_prec")
     single_prec_rows(torch, hm, hp, rng, dev, make_row(torch, rows))
     counts["monotone_methods"] = monotone_methods_path(torch, lgt, hm, X, y,
                                                        ds, exact_auc)
+    clean_path_check("monotone_methods")
     counts["forced_cegb"] = forced_cegb_path(torch, lgt, hm, X, y, ds,
                                              make_row(torch, rows))
+    clean_path_check("forced_cegb")
     counts["linear"] = linear_path(torch, lgt, hm, X, y,
                                    make_row(torch, rows), booster)
+    clean_path_check("linear")
     del ds, reg_ds
     torch.cuda.empty_cache()
     counts["packed"] = packed_path(torch, lgt, hm, X, y)
+    clean_path_check("packed")
     counts["wide_bins"] = wide_bins_path(torch, lgt, hm, hp, X, y,
                                          make_row(torch, rows), exact_auc)
+    clean_path_check("wide_bins")
     del X, y
     torch.cuda.empty_cache()
     counts["multiclass"], counts["pipeline_multiclass"] = multiclass_path(
         torch, lgt, hm, dev, make_row(torch, rows))
+    clean_path_check("multiclass")
     counts["ranking"] = ranking_path(torch, lgt, hm, dev)
+    clean_path_check("ranking")
     counts["objectives"] = objectives_path(torch, lgt, hm)
+    clean_path_check("objectives")
     torch.cuda.empty_cache()
     counts["efb"] = efb_path(torch, lgt, hm, make_row(torch, rows))
+    clean_path_check("efb")
     for path, c in counts.items():
         check(path == "scan" or all(c[k] == 0 for k in SCAN_PATH),
               f"the {path} path launched K8: the booster never asks for it")
@@ -6025,6 +6330,7 @@ def main():
     check(sorted(r["name"] for r in rows) == sorted(ROW_PATH),
           "the kernel table and the paths' kernels differ")
     cross_device_phase(torch, lgt, grow_tree_mxu)
+    clean_path_check("cross_device")
 
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -35,6 +35,7 @@ from .boosting.gbdt import (GBDT, check_supported, create_boosting,
 from .config import Config
 from .data import BinnedDataset, Metadata, is_sparse
 from .metrics import METRIC_ALIASES, create_metric
+from .observability import configure_from_config
 from .objectives import create_objective
 from .tree import HostModel
 from .utils.log import LightGBMError, Log
@@ -238,6 +239,10 @@ class Booster:
             raise LightGBMError("Booster needs train_set or a model")
         if not isinstance(train_set, Dataset):
             raise TypeError("train_set must be a Dataset")
+        # the flight recorder takes a training booster's flightrec,
+        # flightrec_ring and bundle directory (a booster loaded from a
+        # model, such as a resumed run's base model, leaves it as it is)
+        configure_from_config(self.config)
         # refuse before paying for binning
         check_supported(self.config)
         device = resolve_device(self.config.device_type)

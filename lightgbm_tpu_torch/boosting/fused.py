@@ -33,8 +33,12 @@ not free memory the graphs write. Only the fix-up loop
 (Grower.fixup_loop) reads the device, `done` once before each fix-up
 pass, as the JAX package's while_loop does; the pass number it gives is
 written into the buffer the fix-up graph reads. A capture or replay that
-fails raises; nothing falls back to another path. On the CPU the same
-programs run eagerly, in the same order.
+fails raises out of the trainer; the booster's ladder above it
+(GBDT.train_many_dispatch) drops the trainer, retries the block with a new
+one, and after its last attempt trains the block per iteration on the
+same card and kernels. The trainer copies the score in and returns a new
+tensor, so a failed run never touches the booster's score. On the CPU
+the same programs run eagerly, in the same order.
 
 With k trees an iteration (num_class > 1, the JAX package's fused.py:
 140-160) one set of programs grows every class's tree: a "gradients"

@@ -53,16 +53,30 @@ boundary). Iteration 0 always runs train_one_iter, which owns
 boost-from-average. train_many_dispatch and finalize_block are
 train_many's two halves, which the pipelined executor
 (pipeline/executor.py, engine.train's default) interleaves with the next
-block; the JAX package's retry-and-fall-back around a fused dispatch
-(reliability, ROADMAP A9 part 2) is not ported: a failed dispatch raises.
-level_pipeline and level_pipeline_lookahead are read and every tree
-still grows through Grower.grow: the port's fix-up pass has no free
-no-op (a pass on a finished tree computes a whole pass before
-grower_mxu._select keeps the old state), so the JAX package's lagged
-fix-up loop would buy one fewer host read with a whole pass of device
-work for each speculative pass (ROADMAP B2). training_state and restore_training_state carry
-what a checkpoint bundle holds beyond the model text
-(reliability/checkpoint.py).
+block. level_pipeline and level_pipeline_lookahead are accepted and
+unused (ROADMAP B2): every tree grows through Grower.grow, since the
+port's fix-up pass has no free no-op (a pass on a finished tree computes
+a whole pass before grower_mxu._select keeps the old state), so the JAX
+package's lagged fix-up loop would buy one fewer host read with a whole
+pass of device work for each speculative pass. training_state and
+restore_training_state carry what a checkpoint bundle holds beyond the
+model text (reliability/checkpoint.py).
+
+Retries and the fall-back (the JAX package's gbdt.py:719-762,
+1411-1552; reliability/retry.py, reliability/faults.py): a tree's growth
+(_grow, either grower) runs through retry_call at site histogram_build,
+retry_max_attempts attempts in all with capped exponential backoff, the
+row sample drawn once before the first attempt; a growth that fails every
+attempt raises. A fused block (train_many_dispatch) runs through
+retry_call at site fused_dispatch: each attempt rewinds GOSS's key stream,
+and a failed attempt drops the trainer, which the next attempt builds and
+captures anew. A block that fails every attempt trains its k iterations
+with train_one_iter on the same card and kernels (never the CPU or a
+plain version), with a warning, the fallbacks counter and k valid-score
+points, as every other path; two such blocks in a row turn the fused path
+off for the booster (_fused_disabled), and a fused block that succeeds
+resets the count. The fused_dispatch site also reads
+LGBM_TPU_INJECT_FUSED_FAULT ("N" or "S:N", _maybe_inject_fused_fault).
 
 Row sampling (the JAX package's gbdt.py:925-975, reference
 gbdt.cpp:183-264 and goss.hpp): each tree grows on a sample of the rows
@@ -168,7 +182,7 @@ from ..learner.predict import (class_score_add, predict_binned_tree,
 from ..learner.renew import renew_tree_output
 from ..learner.split import SplitHyperParams
 from ..objectives import ObjectiveFunction, gradients_at
-from ..reliability import guards
+from ..reliability import counters, faults, guards, retry_call
 from ..utils.log import LightGBMError, Log
 
 __all__ = ["GBDT", "check_supported", "create_boosting", "resolve_device"]
@@ -176,6 +190,23 @@ __all__ = ["GBDT", "check_supported", "create_boosting", "resolve_device"]
 # train_many reads a block's stall state every this many iterations (the
 # JAX package's _stop_poll_every)
 _STOP_POLL_EVERY = 8
+
+_FAULT_ENV = "LGBM_TPU_INJECT_FUSED_FAULT"
+
+
+def _maybe_inject_fused_fault(env: str = _FAULT_ENV) -> None:
+    """Fail upcoming fused dispatches on request, so the retry and
+    fall-back paths run without a real device fault. Env format: "N"
+    (fail the next N dispatches) or "S:N" (let S through, then fail N).
+
+    A shim over the fault registry (reliability/faults.py): the env var
+    only seeds the schedule, the countdown lives in the registry and the
+    environment is never mutated. The default env maps to the
+    `fused_dispatch` site; another env name gets its own site,
+    "env:<name>"."""
+    site = "fused_dispatch" if env == _FAULT_ENV else f"env:{env}"
+    faults.schedule_from_env(site, env)
+    faults.inject(site)
 
 
 def _feature_mask(it, *, f: int, fraction: float, seed: int,
@@ -344,9 +375,16 @@ class GBDT:
         self.linear_models: List[Optional[LinearLeaves]] = []
         self.valid_raws: List[Optional[torch.Tensor]] = []
         self._fused_run = None
-        #: the stats of each fused trainer built (FusedTrainer.stats),
-        #: kept after release_fused
+        #: the stats of each fused trainer that ran a block
+        #: (FusedTrainer.stats), kept after release_fused
         self.fused_stats: List[dict] = []
+        # fused blocks in a row that failed every attempt, and whether two
+        # did (the fused path is then off for this booster)
+        self._fused_failures = 0
+        self._fused_disabled = False
+        # the last fused block's handle until finalize_block appends its
+        # trees
+        self._unfinalized: Optional[dict] = None
         #: the pipelined executor's PipelineStats of the last run through it
         self._pipeline_stats = None
         self._grower_obj = None
@@ -768,17 +806,45 @@ class GBDT:
         """This iteration's tree, grown on its row sample of (grad, hess):
         drawn here (_sample), or given as its count cnt with the sampled
         gradients of one class (the classes of an iteration share one
-        sample). The MXU grower, or the portable one (_grow_portable)."""
+        sample). The MXU grower, or the portable one (_grow_portable).
+
+        The growth dispatch of the JAX package's _grow (gbdt.py:719-762):
+        each attempt passes the histogram_build fault site before any
+        device work, and retry_call retries a failed attempt. The sample
+        is drawn once, before the first attempt, so a retry draws no new
+        GOSS key. With CEGB the growers advance _cegb_state (the
+        feature-used flags persist across the whole model: the
+        reference's is_feature_used_in_split_ and is_feature_used_); both
+        rebind its flags after the growth's last program and never write
+        them in place (grower.py clones row_feat_used first), so keeping
+        the references before the first attempt and putting them back
+        before each retry restores them, and grow_stats with them."""
         if cnt is None:
             grad, hess, cnt = self._sample(grad, hess)
-        # with CEGB the growers advance _cegb_state: the feature-used flags
-        # persist across the whole model (the reference's
-        # is_feature_used_in_split_ and is_feature_used_)
-        if self._hist_impl != "mxu":
-            return self._grow_portable(grad, hess, cnt)
-        return self._grower().grow(grad, hess, cnt,
-                                   self._feature_mask_at(self.iter_),
-                                   self._tree_key(), self._cegb_state)
+        cfg = self.config
+        cegb = self._cegb_state
+        flags = None if cegb is None else (cegb.feat_used,
+                                           cegb.row_feat_used)
+        stats = dict(self.grow_stats)
+
+        def restore():
+            if cegb is not None:
+                cegb.feat_used, cegb.row_feat_used = flags
+            self.grow_stats.clear()
+            self.grow_stats.update(stats)
+
+        def attempt():
+            faults.inject("histogram_build")
+            if self._hist_impl != "mxu":
+                return self._grow_portable(grad, hess, cnt)
+            return self._grower().grow(grad, hess, cnt,
+                                       self._feature_mask_at(self.iter_),
+                                       self._tree_key(), cegb)
+
+        return retry_call(attempt, attempts=cfg.retry_max_attempts,
+                          backoff_ms=cfg.retry_backoff_ms,
+                          backoff_max_ms=cfg.retry_backoff_max_ms,
+                          site="histogram_build", on_retry=restore)
 
     def _grow_portable(self, grad, hess, cnt):
         """One tree on the portable grower (the JAX package's call,
@@ -1051,9 +1117,11 @@ class GBDT:
         not the portable grower; no guard rails, no linear trees, no leaf
         renewal, no CEGB, whose feature-used flags carry across trees, no
         custom objective). Forced splits ride along: the spec is the
-        same for every tree."""
+        same for every tree. A booster whose fused blocks failed twice in
+        a row (_fused_disabled, train_many_dispatch) is refused too."""
         cfg = self.config
         return (type(self) is GBDT and cfg.boosting in ("gbdt", "goss")
+                and not self._fused_disabled
                 and self._hist_impl == "mxu"
                 and cfg.guard_nonfinite == "off" and not cfg.linear_tree
                 and self.objective is not None
@@ -1105,7 +1173,23 @@ class GBDT:
         path leaves the block's k-point valid-score trajectory in
         _fused_valid_traj (the JAX package's gbdt.py:1423-1440,1556-1578):
         the per-iteration points it ran, then the fused block's, scored
-        over each valid set by one stacked_score_traj launch."""
+        over each valid set by one stacked_score_traj launch.
+
+        The fused block runs through retry_call at site fused_dispatch
+        (the JAX package's gbdt.py:1466-1543). Nothing of the booster
+        moves until the trainer returns: each attempt rewinds GOSS's key
+        stream and draws the block's keys anew; iter_, the scores, the
+        stall poll and fused_stats change only after a success. The
+        trainer copies the score in and returns a new tensor
+        (boosting/fused.py), so a failed attempt never touches
+        train_score, and nothing is donated: the JAX package's check for
+        a donated, deleted score buffer has no counterpart. A failed
+        attempt drops the trainer (its graphs and held buffers are freed
+        outside any capture); the next attempt builds and captures a new
+        one. When every attempt fails, the block's k iterations run
+        through train_one_iter on the same device and kernels, with a
+        warning and the fallbacks counter; a second such block in a row
+        sets _fused_disabled."""
         self._fused_valid_traj = None
         self._fused_valid_traj_host = None
         lead: List[List[torch.Tensor]] = [[] for _ in self.valid_sets]
@@ -1135,14 +1219,66 @@ class GBDT:
                 snap()
             seal()
             return {"mode": "done", "stop": stop}
-        if self._fused_run is None:
-            self._fused_run = self._build_fused()
-            self.fused_stats.append(self._fused_run.stats)
-        # GOSS: the keys k train_one_iter calls would draw, drawn ahead
-        keys = torch.stack([self._next_key() for _ in range(k)]) \
-            if self._fused_run.sample_keys else None
-        score, stacked = self._fused_run(self.train_score, self.iter_, k,
-                                         keys)
+        cfg = self.config
+        saved_key = self._rng_key
+
+        def attempt():
+            # every attempt draws the same keys: a fault that a retry
+            # absorbs must not change the model
+            self._rng_key = saved_key
+            try:
+                _maybe_inject_fused_fault()
+                if self._fused_run is None:
+                    self._fused_run = self._build_fused()
+                # GOSS: the keys k train_one_iter calls would draw, drawn
+                # ahead
+                keys = torch.stack([self._next_key() for _ in range(k)]) \
+                    if self._fused_run.sample_keys else None
+                return self._fused_run(self.train_score, self.iter_, k,
+                                       keys)
+            except Exception:
+                # the trainer's graphs may be dead: the next attempt
+                # builds and captures a new one
+                self._fused_run = None
+                raise
+
+        failed = False
+        try:
+            score, stacked = retry_call(
+                attempt, attempts=cfg.retry_max_attempts,
+                backoff_ms=cfg.retry_backoff_ms,
+                backoff_max_ms=cfg.retry_backoff_max_ms,
+                site="fused_dispatch")
+        except Exception as exc:
+            # the per-iteration path draws the keys the block would have
+            self._rng_key = saved_key
+            self._fused_failures += 1
+            counters.inc("fallbacks")
+            if self._fused_failures >= 2:
+                self._fused_disabled = True
+            Log.warning(
+                "fused multi-tree dispatch failed (%s: %s); falling back "
+                "to per-iteration training for this batch%s"
+                % (type(exc).__name__, exc,
+                   " and disabling the fused path"
+                   if self._fused_disabled else ""))
+            failed = True
+        # the fall-back runs outside the except clause: the exception's
+        # frames hold the failed trainer, freed when the clause ends
+        if failed:
+            # the pipelined executor finalizes the previous fused block
+            # after this dispatch returns: its trees go on first
+            if self._unfinalized is not None:
+                self.finalize_block(self._unfinalized)
+            for _ in range(k):
+                stop = self.train_one_iter() or stop
+                snap()
+            seal()
+            return {"mode": "done", "stop": stop}
+        self._fused_failures = 0
+        st = self._fused_run.stats
+        if not self.fused_stats or self.fused_stats[-1] is not st:
+            self.fused_stats.append(st)
         self.train_score = score
         kcls = self.num_tree_per_iteration
         if self.valid_sets:
@@ -1168,13 +1304,18 @@ class GBDT:
         # stalled only if every class's tree is
         self._pending_nleaves = self._start_copy(
             last if kcls == 1 else last.amax())
-        return {"mode": "fused", "stacked": stacked, "k": k,
-                "kcls": kcls, "stop": stop_hint}
+        self._unfinalized = {"mode": "fused", "stacked": stacked, "k": k,
+                             "kcls": kcls, "stop": stop_hint}
+        return self._unfinalized
 
     def finalize_block(self, handle: dict) -> bool:
         """Second half of train_many: the block's trees, views of its
-        stack, onto self.trees (no device work)."""
-        if handle["mode"] == "fused":
+        stack, onto self.trees (no device work); a handle's trees go on
+        once, however often it is finalized."""
+        if handle["mode"] == "fused" and not handle.get("finalized"):
+            handle["finalized"] = True
+            if self._unfinalized is handle:
+                self._unfinalized = None
             stacked, kcls = handle["stacked"], handle["kcls"]
             for i in range(handle["k"]):
                 if kcls == 1:

@@ -32,7 +32,9 @@ block runs, and, with pipeline_device_eval, the valid metrics reduced on
 the device: the same models, best_iteration and early stops as
 pipeline=false, the metric values in f32. The booster returned holds no
 fused trainer: its CUDA graphs are freed when training ends, however it
-ends.
+ends. An exception out of the loop (either path; not an early stop) is
+recorded in the flight recorder, which flushes a post-mortem bundle
+(reason ``exception``) before the exception propagates.
 """
 
 from __future__ import annotations
@@ -284,6 +286,13 @@ def train(params: Dict[str, Any], train_set: Dataset,
             if base_model is not None and resume_state is None else 0
         booster.best_iteration = base_iters + es.best_iteration + 1
         results = es.best_score
+    except Exception as exc:
+        # an unhandled training failure leaves a flight-recorder bundle
+        # (where a bundle directory is configured) before it propagates
+        from .observability.flightrec import recorder
+        recorder.record_exception("engine.train", exc)
+        recorder.flush("exception")
+        raise
     finally:
         # the trained booster keeps no CUDA graphs (update_batch on it
         # captures anew)

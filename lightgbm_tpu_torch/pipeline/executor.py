@@ -30,9 +30,13 @@ In the port the overlap window is small: the fused trainer reads `done`
 before each fix-up pass of every tree (boosting/fused.py), so
 update_batch_dispatch returns only after the block's last tree has grown,
 and the window holds only the previous block's finalize (ROADMAP B2).
-PipelineStats records what overlapped. Not ported yet (ROADMAP A9 part 2):
-the JAX executor's observability hook (registry.record_pipeline_block)
-and its profiler.capture bracket around a block.
+PipelineStats records what overlapped. A block whose fused dispatch
+fails every attempt comes back trained per iteration
+(GBDT.train_many_dispatch), with its k-point trajectory, and runs through
+the same steps. Not ported yet (ROADMAP A9 part 2, second half: they come
+with the observability registry): the JAX executor's observability hook
+(registry.record_pipeline_block) and its profiler.capture bracket around
+a block.
 """
 
 from __future__ import annotations

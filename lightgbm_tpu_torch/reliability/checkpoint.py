@@ -23,11 +23,14 @@ crash mid-write leaves only a `.tmp-*` directory that the next save
 sweeps; readers never observe a partial bundle. `_prune` keeps the
 newest `keep_last` bundles and never removes the one named by PIN_FILE.
 
-Not ported: the coordinated multihost commit (`_save_coordinated` and
-its COMMIT marker) and `load_checkpoint_resharded` (ROADMAP A10); the
-`checkpoint_io` fault hook and the flight recorder's record_checkpoint
-(A9 part 2). The port refuses to load a bundle that declares
-world_size > 1.
+A save passes the `checkpoint_io` fault site (reliability/faults.py)
+after the temp name is chosen and before the first write, so an injected
+fault leaves nothing on disk; callback.checkpoint counts the failure and
+training carries on. A save that succeeds is recorded in the flight
+recorder (record_checkpoint). Not ported: the coordinated multihost
+commit (`_save_coordinated` and its COMMIT marker) and
+`load_checkpoint_resharded` (ROADMAP A10). The port refuses to load a
+bundle that declares world_size > 1.
 """
 
 from __future__ import annotations
@@ -40,8 +43,10 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from ..observability.flightrec import recorder
 from ..utils.log import LightGBMError, Log
 from .counters import counters
+from .faults import faults
 
 __all__ = ["CheckpointState", "save_checkpoint", "load_checkpoint",
            "latest_checkpoint", "FORMAT_VERSION",
@@ -121,6 +126,8 @@ def save_checkpoint(ckpt_dir: str, iteration: int, model_str: str,
     final = os.path.join(ckpt_dir, name)
     tmp = os.path.join(ckpt_dir, f".tmp-{name}-{os.getpid()}")
 
+    faults.inject("checkpoint_io")
+
     os.makedirs(tmp, exist_ok=True)
     with open(os.path.join(tmp, "model.txt"), "w") as f:
         f.write(model_str)
@@ -144,6 +151,7 @@ def save_checkpoint(ckpt_dir: str, iteration: int, model_str: str,
     if keep_last and keep_last > 0:
         _prune(ckpt_dir, keep_last)
     counters.inc("checkpoint_saves")
+    recorder.record_checkpoint("checkpoint_save", iteration, final)
     Log.info(f"checkpoint: saved iteration {iteration} -> {final}")
     return final
 

@@ -1,8 +1,10 @@
 """Process-wide reliability counters: degradation must be observable.
 
-Port of lightgbm_tpu/reliability/counters.py, with the keys that the
-port increments: a guard-rail trip and checkpoint writes. Device retries
-and fallbacks add their keys when they are ported (ROADMAP A9 part 2).
+Port of lightgbm_tpu/reliability/counters.py. Every recovery path (a
+device retry, the fused -> per-iteration fall-back, a guard-rail trip, a
+checkpoint write that failed) increments a named counter here, so a run
+shows how degraded it was; the flight recorder's post-mortem bundle
+carries the snapshot (observability/flightrec.py).
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ from typing import Dict
 __all__ = ["ReliabilityCounters", "counters"]
 
 _KEYS = (
+    "device_retries",      # retry_call attempts that followed a failure
+    "fallbacks",           # degraded dispatches (fused->per-iteration)
     "guard_trips",         # non-finite guard activations
     "checkpoint_saves",    # successful checkpoint bundles written
     "checkpoint_failures", # checkpoint writes that failed (training continued)
@@ -20,7 +24,7 @@ _KEYS = (
 
 
 class ReliabilityCounters:
-    """Thread-safe named counters."""
+    """Thread-safe named counters with a stable snapshot schema."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -33,6 +37,13 @@ class ReliabilityCounters:
     def get(self, key: str) -> int:
         with self._lock:
             return self._counts.get(key, 0)
+
+    def snapshot(self) -> Dict[str, int]:
+        """All keys, always present: consumers index without guards."""
+        with self._lock:
+            out = {k: 0 for k in _KEYS}
+            out.update(self._counts)
+            return out
 
     def reset(self) -> None:
         with self._lock:

@@ -17,8 +17,10 @@ policy:
 Each activation increments the ``guard_trips`` counter. Each check is one
 host read, which is why the guard is opt-in and keeps the booster on the
 per-iteration path: a block of the fused trainer has no host boundary to
-interpose on. The JAX package's flight-recorder record of a trip waits
-for the flight recorder's port (ROADMAP.md A9).
+interpose on. Each activation is also recorded in the flight recorder and
+flushes a post-mortem bundle (reason ``guard_nonfinite``) before the
+policy logs or raises; the bundle is written only where a directory is
+configured (flightrec_dir, else checkpoint_dir).
 """
 
 from __future__ import annotations
@@ -53,6 +55,9 @@ def trip(what: str, policy: str, iteration: int) -> None:
     """Record a guard activation and apply the terminal part of the
     policy (log, or raise); the caller implements skip and rollback."""
     counters.inc("guard_trips")
+    from ..observability.flightrec import recorder
+    recorder.record_guard_trip(what, policy, iteration)
+    recorder.flush("guard_nonfinite")
     msg = (f"non-finite {what} detected at iteration {iteration} "
            f"(guard_nonfinite={policy})")
     if policy == "raise":
