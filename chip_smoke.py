@@ -31,8 +31,10 @@ lightgbm_tpu_torch's entry points along twelve paths, each with the launch
 counts reset before it and read after it (eighteen with the last six
 below: EFB, single-precision hessians, the rescanning monotone methods,
 forced splits with CEGB and the guard rails, linear trees, and wide
-bins; twenty with slice 20's pipeline and checkpoint paths, whose
-launches each kernel row lists apart under `launches_new_paths`):
+bins; twenty with slice 20's pipeline and checkpoint paths, twenty-two
+with the reliability and observability paths; the pipeline, checkpoint
+and observability paths' launches each kernel row lists apart under
+`launches_new_paths`):
 
 - exact histograms: the Higgs-like binary configuration (num_leaves 255,
   max_bin 255), the same with min_data_in_leaf 1000 (which runs the
@@ -100,6 +102,24 @@ launches each kernel row lists apart under `launches_new_paths`):
   86); each run's trees/s and the ms of a flush. After every other path
   the reliability counters must show no retry and no fall-back and the
   fault registry no trip;
+- the observability registry (phase `observability`): 30
+  rounds of train at fused_block_size 10 with the held-out set a run,
+  observe off, on (with observe_trace_file), on, off, and a quantized
+  turn (K5) likewise: each on-run's model byte-equal to the off-runs'
+  once the observe*/profile_* echo is dropped; its trace (chrome JSON)
+  holding one train_iter span per per-iteration tree, fused_block spans
+  whose iterations with them sum to 30 and one pipeline_block span per
+  executor block; the records' trees, fused_train's compiles (1) and
+  hits, one nvcc_<stem> compile per library this process built, no MACs
+  and no MFU beside the H100's peak, the executor's block count; a
+  MetricsHTTPServer scraped over 127.0.0.1 (training totals equal to
+  the snapshot's); a flush holding the trace tap's spans and the
+  collective, clock_skew and counters entries; torch.profiler captures
+  of two executor blocks (the one that captures the trainer's graphs,
+  and a replayed one) and of one update()'s growth, each trace listing
+  the csrc kernels by their __global__ names, none failed, the profiled
+  models byte-equal to the unprofiled ones; trees/s of each turn, each
+  capture's extra ms, a scrape's and a flush's ms;
 - row sampling, random forest and DART (phases `sampling*`): bagging
   (fraction 0.8, freq 5), GOSS (top_rate 0.2, other_rate 0.1) and
   bagging with quantized gradients through the fused phases' turns
@@ -415,8 +435,9 @@ PIPELINE_PATH = ("predict_binned", "prune_best_first", "fused_route_hist",
 # resumed from CKPT_RESUME
 CKPT_ROUNDS, CKPT_PERIOD, CKPT_RESUME = 30, 10, 20
 CKPT_PATH = ("prune_best_first", "fused_route_hist", "node_values")
-# the paths of slice 20, whose launches each kernel row lists apart
-NEW_PATHS = ("pipeline", "pipeline_multiclass", "checkpoint")
+# the paths of slices 20 and 22, whose launches each kernel row lists apart
+NEW_PATHS = ("pipeline", "pipeline_multiclass", "checkpoint",
+             "observability")
 RF_PARAMS = dict(TRAIN_PARAMS, boosting="rf", bagging_fraction=0.7,
                  bagging_freq=1)
 RF_TREES = 10
@@ -2677,6 +2698,294 @@ def reliability_path(torch, lgt, hm, ds, y):
     return counts
 
 
+# the observability path: train's runs with observe off and on
+# in turns, the trace, telemetry and accounting checked against the run
+OBS_ROUNDS = 30
+OBS_PARAMS = dict(TRAIN_PARAMS, metric="binary_logloss")
+OBS_PATH = ("predict_binned", "prune_best_first", "fused_route_hist",
+            "fused_route_hist_int", "node_values", "node_sums")
+OBS_STRIP = ("[observe", "[profile")
+# __global__ kernels of csrc/ that a profiled block of the fused path
+# must show on the device timeline: K1's routing (route_rows.cu) and
+# scatter (build_histograms_scatter.cu), K6 (node_values.cu), P
+# (prune_best_first.cu) and V (predict_binned.cu)
+OBS_KERNELS = ("route_rows_kernel", "scatter_hist_kernel",
+               "node_values_kernel", "prune_kernel", "predict_binned_kernel")
+OBS_GROW_KERNELS = ("route_rows_kernel", "scatter_hist_kernel",
+                    "node_values_kernel")
+OBS_UPDATES = 3
+# the dense bf16 peak of an H100 SXM, observability/mfu.py's entry
+OBS_H100_PEAK = 989.4
+
+
+def strip_observe(text):
+    """Model text without the observe*/profile_* parameter echo."""
+    return "\n".join(ln for ln in text.splitlines()
+                     if not ln.startswith(OBS_STRIP))
+
+
+def capture_kernels(path):
+    """The kernel events of a torch.profiler Chrome trace: (names, count)."""
+    with open(path) as fh:
+        doc = json.load(fh)
+    names = [ev.get("name", "") for ev in doc.get("traceEvents", ())
+             if ev.get("cat") == "kernel"]
+    return names, len(names)
+
+
+def observability_path(torch, lgt, hm, ds, built):
+    """The observability registry on the binary configuration (1M x 28,
+    255 leaves, max_bin 255) with the 40,000-row held-out set and
+    binary_logloss, OBS_ROUNDS rounds of engine.train at fused_block_size
+    10 through the pipelined executor a run: observe off, on with
+    observe_trace_file, on, off, in turns, each on-run's model text
+    byte-equal to the off-runs' once the observe*/profile_* echo is
+    dropped; the trace file (chrome JSON) holds one train_iter span per
+    per-iteration tree, fused_block spans whose iterations with them sum
+    to OBS_ROUNDS and one pipeline_block span per executor block; the
+    telemetry's trees, fused_train's compiles (1) and hits (one a later
+    block), one nvcc_<stem> compile per library `built` in this process,
+    no MACs and no MFU (ROADMAP C21) beside the H100's peak, the pipeline
+    blocks the executor's; a quantized turn (K5) off and on; a
+    MetricsHTTPServer scraped over 127.0.0.1 whose training totals are
+    the snapshot's; a non-fatal flush holding the trace tap's span events
+    and the collective, clock_skew and counters entries; torch.profiler
+    captures of two pipeline blocks (the block that captures the fused
+    trainer's graphs and a replayed one) and of one update()'s growth,
+    each trace listing the csrc/ kernels (OBS_KERNELS), none failed,
+    each profiled model byte-equal to its unprofiled run. Prints trees/s
+    of each turn, a capture's seconds, a scrape's and a flush's ms.
+    Returns the launch counts."""
+    import re
+    import shutil
+    import urllib.request
+    from lightgbm_tpu_torch import observability
+    from lightgbm_tpu_torch.observability import mfu, profile
+    reg = observability.registry
+    profiler = observability.profiler
+    recorder = observability.recorder
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "chiprun_out", "chip_smoke_observability")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    # the kernel libraries this process built, each one compile entry
+    entries = reg.compiles.snapshot()
+    nvcc = sorted(k for k in entries if k.startswith("nvcc_"))
+    check(nvcc == sorted(f"nvcc_{stem}" for stem in built) and all(
+        entries[k]["compiles"] == 1 and entries[k]["compile_seconds"] > 0
+        for k in nvcc), f"observability: nvcc entries {entries}, built "
+        f"{built}")
+    Xva, yva = make_higgs_like(VALID_ROWS, N_FEATURES, seed=99)
+    valid = ds.create_valid(Xva, label=yva)
+    hm.reset_launch_counts()
+
+    def clear():
+        reg.disable()
+        reg.reset()
+        reg.record_norms = False
+        profiler.reset()
+
+    def run(name, params, observe=None):
+        clear()
+        params = dict(params, **(observe or {}))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b = lgt.train(params, ds, OBS_ROUNDS, valid_sets=[valid])
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        out = {"name": name, "s": sec, "trees_per_s": OBS_ROUNDS / sec,
+               "text": strip_observe(b.model_to_string()),
+               "stats": b.gbdt._pipeline_stats.as_dict()}
+        if observe:
+            out.update(snap=reg.snapshot(), records=reg.training.records(),
+                       profiler=profiler.snapshot())
+            path = params.get("observe_trace_file")
+            if path:
+                check(reg.dump_trace(path) == "chrome",
+                      f"observability {name}: the dump's format")
+                with open(path) as fh:
+                    out["trace"] = json.load(fh)
+        del b
+        return out
+
+    def check_on(r, off):
+        """The checks of an observe-on run against its off run."""
+        name, snap, st = r["name"], r["snap"], r["stats"]
+        check(r["text"] == off["text"], f"observability {name}: the model "
+              "text differs from the observe-off run's")
+        recs = r["records"]
+        fused = [x for x in recs if x.get("fused")]
+        per_iter = [x for x in recs if not x.get("fused")]
+        check(sum(x.get("trees", 1) for x in recs) ==
+              snap["training"]["trees"] == OBS_ROUNDS and
+              sum(x.get("iterations", 1) for x in recs) == OBS_ROUNDS and
+              len(fused) >= 1, f"observability {name}: records {recs}")
+        comp = snap["compiles"]["entries"].get("fused_train", {})
+        check(comp.get("compiles") == 1 and
+              comp.get("hits") == len(fused) - 1,
+              f"observability {name}: fused_train {comp}, "
+              f"{len(fused)} fused blocks")
+        du = snap["device_utilization"]
+        check(du["estimated_macs"] == 0 and du["mfu"] is None and
+              du["device_peak_tflops"] == mfu.device_peak_tflops() ==
+              OBS_H100_PEAK, f"observability {name}: utilization {du}")
+        check(snap["pipeline"]["blocks"] == st["blocks"] and
+              snap["pipeline"]["iterations"] == OBS_ROUNDS,
+              f"observability {name}: pipeline {snap['pipeline']}, "
+              f"executor {st}")
+        trace = r.get("trace")
+        if trace is not None:
+            ev = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+            by = lambda n: [e for e in ev if e["name"] == n]  # noqa: E731
+            check(len(by("train_iter")) == len(per_iter) and
+                  len(by("train_iter")) + sum(
+                      e["args"]["iterations"] for e in by("fused_block")) ==
+                  OBS_ROUNDS and
+                  [e["args"]["iterations"] for e in by("pipeline_block")] ==
+                  st["block_sizes"] and sum(st["block_sizes"]) ==
+                  OBS_ROUNDS, f"observability {name}: spans "
+                  f"{[(e['name'], e.get('args')) for e in ev]}, "
+                  f"executor {st}")
+        return {"s": r["s"], "trees_per_s": r["trees_per_s"],
+                "block_sizes": st["block_sizes"],
+                "fused_block_wall_s": [x["wall_s"] for x in fused],
+                "fused_train_compile_s": comp.get("compile_seconds"),
+                "phase_totals": snap["training"]["phase_totals"]}
+
+    trace_path = os.path.join(root, "trace.json")
+    on = {"observe": True, "observe_trace_file": trace_path}
+    # the first train of the phase warms the host paths up (its seconds
+    # are not a turn's)
+    warm = run("warmup", OBS_PARAMS)
+    runs = [run("off", OBS_PARAMS), run("on", OBS_PARAMS, on),
+            run("on", OBS_PARAMS, {"observe": True})]
+    off = runs[0]
+    turns = {f"on_{i}": check_on(runs[i], off) for i in (1, 2)}
+    # ---- the scrape of the last on-run: its training totals are the
+    # snapshot's
+    snap = reg.snapshot()
+    with observability.MetricsHTTPServer(reg.prometheus_text,
+                                         port=0) as srv:
+        scrape_ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(srv.url, timeout=10) as resp:
+                text = resp.read().decode()
+            scrape_ms.append((time.perf_counter() - t0) * 1e3)
+    scraped = {m.group(1): float(m.group(2)) for m in re.finditer(
+        r"^lightgbm_tpu_training_(\w+) (\S+)$", text, re.M)}
+    want = {k: float(v) for k, v in snap["training"].items()
+            if isinstance(v, (int, float))}
+    want.update({f"phase_totals_{k}": float(v) for k, v in
+                 snap["training"]["phase_totals"].items()})
+    check(srv.host == "127.0.0.1" and scraped == want,
+          f"observability: scraped {scraped}, snapshot {want}")
+    # ---- a non-fatal flush: the trace tap's spans and the registry's
+    # entries
+    t0 = time.perf_counter()
+    path = recorder.flush("exception", out_dir=os.path.join(root, "pm"))
+    flush_ms = (time.perf_counter() - t0) * 1e3
+    check(path is not None, "observability: the flush failed")
+    with open(path) as fh:
+        bundle = json.load(fh)
+    spans = {e["name"] for e in bundle["events"] if e["kind"] == "span"}
+    check({"train_iter", "fused_block", "pipeline_block"} <= spans and
+          bundle.get("collective") == reg.collective_snapshot() and
+          bundle.get("clock_skew") == reg.clock_skew_snapshot() and
+          bundle.get("counters") == reg.counters.snapshot(),
+          f"observability: bundle spans {spans}, keys {sorted(bundle)}")
+    recorder.reset()
+    runs.append(run("off", OBS_PARAMS))
+    check(runs[3]["text"] == off["text"] == warm["text"], "observability: "
+          "the observe-off runs' models differ")
+    # ---- a quantized turn (K5): off, on, on, off
+    qparams = dict(QUANT_PARAMS, metric="binary_logloss")
+    qruns = [run("quantized_off", qparams)]
+    for i in (1, 2):
+        qruns.append(run("quantized_on", qparams, {"observe": True}))
+        turns[f"quantized_on_{i}"] = check_on(qruns[-1], qruns[0])
+    qruns.append(run("quantized_off", qparams))
+    check(qruns[3]["text"] == qruns[0]["text"], "observability: the "
+          "quantized observe-off runs' models differ")
+    # ---- torch.profiler: two pipeline blocks, then one update()'s growth
+    pdir = os.path.join(root, "profile")
+    prof = run("profiled", OBS_PARAMS, {
+        "profile_spans": "pipeline_block", "profile_dir": pdir,
+        "profile_max_captures": 2})
+    check(prof["text"] == off["text"], "observability: the profiled "
+          "model differs from the unprofiled one")
+    check(prof["profiler"] == {"armed": 0, "captures": 2, "max_captures": 2,
+                               "failed": 0} and sorted(os.listdir(pdir)) ==
+          ["pipeline_block_001", "pipeline_block_002"],
+          f"observability: profiler {prof['profiler']}, "
+          f"{os.listdir(pdir)}")
+    captures = {}
+    for sub in sorted(os.listdir(pdir)):
+        tpath = os.path.join(pdir, sub, profile.TRACE_FILE)
+        names, n = capture_kernels(tpath)
+        found = {k: sum(k in nm for nm in names) for k in OBS_KERNELS}
+        captures[sub] = {"kernel_events": n, "found": found,
+                         "bytes": os.path.getsize(tpath)}
+        check(all(found.values()), f"observability: {sub} shows "
+              f"{found} of the csrc kernels ({n} kernel events)")
+    clear()
+    booster = {}
+    for name, extra in (("plain", {}), ("grow_tree", {
+            "profile_spans": "grow_tree", "profile_max_captures": 1,
+            "profile_dir": os.path.join(root, "grow")})):
+        b = lgt.Booster(dict(TRAIN_PARAMS, **extra), ds)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(OBS_UPDATES):
+            b.update()
+        torch.cuda.synchronize()
+        booster[name] = (strip_observe(b.model_to_string()),
+                         time.perf_counter() - t0)
+        del b
+    gdir = os.path.join(root, "grow")
+    check(booster["grow_tree"][0] == booster["plain"][0] and
+          profiler.snapshot() == {"armed": 0, "captures": 1,
+                                  "max_captures": 1, "failed": 0} and
+          os.listdir(gdir) == ["grow_tree_001"],
+          f"observability: grow_tree capture {profiler.snapshot()}")
+    names, n = capture_kernels(os.path.join(gdir, "grow_tree_001",
+                                            profile.TRACE_FILE))
+    found = {k: sum(k in nm for nm in names) for k in OBS_GROW_KERNELS}
+    check(all(found.values()), f"observability: grow_tree shows {found}")
+    captures["grow_tree_001"] = {"kernel_events": n, "found": found}
+    clear()
+    shutil.rmtree(root, ignore_errors=True)
+    counts = hm.launch_counts()
+    for key in OBS_PATH:
+        check(counts[key] > 0, f"{key} was not launched on the "
+              "observability path")
+    offs = [runs[0]["s"], runs[3]["s"]]
+    emit("observability", rounds=OBS_ROUNDS, byte_equal=True,
+         order=[r["name"] for r in runs],
+         trees_per_s=[r["trees_per_s"] for r in runs],
+         seconds=[r["s"] for r in runs],
+         block_ms=[r["stats"]["device_ms"] for r in runs], turns=turns,
+         warmup_s=warm["s"],
+         quantized_trees_per_s=[r["trees_per_s"] for r in qruns],
+         quantized_block_ms=[r["stats"]["device_ms"] for r in qruns],
+         nvcc={k: entries[k]["compile_seconds"] for k in nvcc},
+         scrape_ms=scrape_ms, scrape_bytes=len(text), flush_ms=flush_ms,
+         flush_events=len(bundle["events"]),
+         profiled_s=prof["s"],
+         profiled_extra_s=prof["s"] - sum(offs) / 2,
+         profiled_block_ms=prof["stats"]["device_ms"],
+         # a capture's cost: each profiled block's ms beyond the mean of
+         # the off-runs' same block
+         capture_extra_ms=[p - (runs[0]["stats"]["device_ms"][i] +
+                                runs[3]["stats"]["device_ms"][i]) / 2
+                           for i, p in enumerate(
+                               prof["stats"]["device_ms"][:2])],
+         captures=captures,
+         grow_tree_update_s={k: v[1] for k, v in booster.items()},
+         launches={k: counts[k] for k in OBS_PATH})
+    return counts
+
+
 def fused_path(torch, lgt, hm, ds, y):
     """K iterations per dispatch: for each of FUSED_RUNS (the exact and
     the quantized binary configurations, trees that run fix-up passes,
@@ -3398,8 +3707,8 @@ def train_booster(name, torch, lgt, hm, ds, params, trees, metric,
     grown = []
     grow = gbdt._grow
 
-    def kept_grow(grad, hess):
-        tree, row_node = grow(grad, hess)
+    def kept_grow(grad, hess, cnt):
+        tree, row_node = grow(grad, hess, cnt)
         if on_grow is not None:
             on_grow(gbdt, grad, hess, tree, row_node)
         grown.append((tree.leaf_value, row_node, grad, hess))
@@ -3975,7 +4284,8 @@ def cross_device_phase(torch, lgt, grow_tree_mxu):
         gbdt = booster.gbdt
         grow = gbdt._grow
 
-        def kept_grow(grad, hess, gbdt=gbdt, grow=grow, device=device):
+        def kept_grow(grad, hess, cnt, gbdt=gbdt, grow=grow,
+                      device=device):
             # every tree's scores (those its gradients came from) and
             # gradients
             seen[device].append(dict(score=gbdt.train_score.clone(),
@@ -3985,7 +4295,7 @@ def cross_device_phase(torch, lgt, grow_tree_mxu):
                     grad=grad, hess=hess, key=gbdt._tree_key(),
                     mask=gbdt._feature_mask_at(0),
                     kw=gbdt._mxu_grow_kwargs())
-            tree, row_node = grow(grad, hess)
+            tree, row_node = grow(grad, hess, cnt)
             if gbdt.iter_ == 0:
                 first[device].update(tree=tree, row_node=row_node)
             return tree, row_node
@@ -6240,9 +6550,11 @@ def main():
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
+    before = set(_cuda.BUILD_DIR.glob("*.so"))
     libs = _cuda.build_all()
+    built = sorted(stem for stem, p in libs.items() if p not in before)
     emit("build", seconds=time.perf_counter() - t0,
-         libraries=sorted(p.name for p in libs.values()))
+         libraries=sorted(p.name for p in libs.values()), built=built)
 
     rows = kernel_phase(torch, hm, hp, rng, dev)
     torch.cuda.empty_cache()
@@ -6269,6 +6581,8 @@ def main():
     counts["checkpoint"] = checkpoint_path(torch, lgt, hm, ds)
     clean_path_check("checkpoint")
     counts["reliability"] = reliability_path(torch, lgt, hm, ds, y)
+    counts["observability"] = observability_path(torch, lgt, hm, ds, built)
+    clean_path_check("observability")
     torch.cuda.empty_cache()
     counts["sampling"] = sampling_path(torch, lgt, hm, X, y, ds,
                                        make_row(torch, rows), fused_rates)

@@ -8,7 +8,7 @@ imports torch and numpy, never JAX or lightgbm_tpu. See README.md ("PyTorch
 
 __version__ = "0.1.0"
 
-from . import callback
+from . import callback, observability
 from .basic import Booster, Dataset
 from .callback import (EarlyStopException, early_stopping, log_evaluation,
                        record_evaluation, reset_parameter)
@@ -19,4 +19,4 @@ from .utils.log import LightGBMError, register_logger
 __all__ = ["Dataset", "Booster", "train", "Config", "LightGBMError",
            "register_logger", "callback", "EarlyStopException",
            "early_stopping", "log_evaluation", "record_evaluation",
-           "reset_parameter", "__version__"]
+           "reset_parameter", "observability", "__version__"]

@@ -239,9 +239,10 @@ class Booster:
             raise LightGBMError("Booster needs train_set or a model")
         if not isinstance(train_set, Dataset):
             raise TypeError("train_set must be a Dataset")
-        # the flight recorder takes a training booster's flightrec,
-        # flightrec_ring and bundle directory (a booster loaded from a
-        # model, such as a resumed run's base model, leaves it as it is)
+        # the observability registry, the flight recorder and the span
+        # profiler take a training booster's observe*, flightrec* and
+        # profile_* settings (a booster loaded from a model, such as a
+        # resumed run's base model, leaves them as they are)
         configure_from_config(self.config)
         # refuse before paying for binning
         check_supported(self.config)

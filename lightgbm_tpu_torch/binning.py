@@ -31,6 +31,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from . import cext
+from .utils.timer import global_timer
 
 __all__ = ["BinMapper", "MissingType", "find_bin_mappers",
            "find_bin_mappers_sparse"]
@@ -437,31 +438,39 @@ def find_bin_mappers(X: np.ndarray, max_bin: int = 255,
     numeric feature's bounds come from the native runtime (the JAX
     package's dispatch, lightgbm_tpu/binning.py:411-490); categorical
     features, and every feature with native=False, go through numpy
-    (BinMapper.from_sample), which gives the same mappers.
+    (BinMapper.from_sample), which gives the same mappers. The sampling
+    and the native bound search add into utils.timer.global_timer's
+    dataset_sample and dataset_bounds, as in the JAX package.
     """
     num_data, num_features = X.shape
     cat_set = set(categorical_features or [])
-    sample_t = None
-    if num_data > sample_cnt:
-        rng = np.random.RandomState(seed)
-        idx = np.sort(rng.choice(num_data, size=sample_cnt, replace=False))
-        total = sample_cnt
-        if (native and isinstance(X, np.ndarray)
-                and X.dtype in (np.float32, np.float64)
-                and X.flags["C_CONTIGUOUS"]):
-            # gather + transpose + f64 cast in one native pass, bit for
-            # bit the numpy chain below
-            sample_t = cext.sample_transpose(X, idx)
+    if native:
+        # the first native call builds the library with g++: keep that
+        # one-time cost out of the dataset_sample bucket
+        cext.build_all()
+    with global_timer.timeit("dataset_sample"):
+        sample_t = None
+        if num_data > sample_cnt:
+            rng = np.random.RandomState(seed)
+            idx = np.sort(rng.choice(num_data, size=sample_cnt,
+                                     replace=False))
+            total = sample_cnt
+            if (native and isinstance(X, np.ndarray)
+                    and X.dtype in (np.float32, np.float64)
+                    and X.flags["C_CONTIGUOUS"]):
+                # gather + transpose + f64 cast in one native pass, bit
+                # for bit the numpy chain below
+                sample_t = cext.sample_transpose(X, idx)
+            else:
+                sample = X[idx]
         else:
-            sample = X[idx]
-    else:
-        sample = X
-        total = num_data
-    if sample_t is None:
-        # transpose once: per-feature slices become contiguous (transpose +
-        # dtype conversion fused into a single allocation)
-        sample_t = np.ascontiguousarray(np.asarray(sample).T,
-                                        dtype=np.float64)
+            sample = X
+            total = num_data
+        if sample_t is None:
+            # transpose once: per-feature slices become contiguous
+            # (transpose + dtype conversion fused into one allocation)
+            sample_t = np.ascontiguousarray(np.asarray(sample).T,
+                                            dtype=np.float64)
 
     def from_sample(f):
         col = sample_t[f]
@@ -476,8 +485,9 @@ def find_bin_mappers(X: np.ndarray, max_bin: int = 255,
     # the whole-matrix numeric bound search (the reference's OpenMP FindBin
     # loop), behavior-exact with from_sample
     sub = sample_t[numeric] if len(numeric) < num_features else sample_t
-    blist, mtype, minmax, zero_na = cext.find_numeric_bounds(
-        sub, max_bin, min_data_in_bin, use_missing, zero_as_missing)
+    with global_timer.timeit("dataset_bounds"):
+        blist, mtype, minmax, zero_na = cext.find_numeric_bounds(
+            sub, max_bin, min_data_in_bin, use_missing, zero_as_missing)
     mappers: List[Optional[BinMapper]] = [None] * num_features
     for j, f in enumerate(numeric):
         mappers[f] = BinMapper._from_native(blist[j], mtype[j], minmax[j],

@@ -78,6 +78,15 @@ off for the booster (_fused_disabled), and a fused block that succeeds
 resets the count. The fused_dispatch site also reads
 LGBM_TPU_INJECT_FUSED_FAULT ("N" or "S:N", _maybe_inject_fused_fault).
 
+Observability (observability/, the JAX package's hooks): train_one_iter
+times its phases into utils.timer.global_timer and, with observe on,
+records one telemetry record an iteration; train_many_dispatch records
+one a fused block (after a device sync, taken only with observe on) and
+counts the trainer's build and capture as the fused_train compile;
+_resolved_hist_backend records the pinned backend; _grow brackets each
+growth in profiler.capture("grow_tree"). With observe off each hook is
+one attribute read and one branch.
+
 Row sampling (the JAX package's gbdt.py:925-975, reference
 gbdt.cpp:183-264 and goss.hpp): each tree grows on a sample of the rows
 drawn by _sample. Bagging (bagging_fraction, or pos_/neg_bagging_fraction
@@ -159,9 +168,9 @@ naming the ROADMAP.md port-queue item that will bring it.
 from __future__ import annotations
 
 import functools
-from typing import List, Optional
-
 import math
+import time
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -182,8 +191,11 @@ from ..learner.predict import (class_score_add, predict_binned_tree,
 from ..learner.renew import renew_tree_output
 from ..learner.split import SplitHyperParams
 from ..objectives import ObjectiveFunction, gradients_at
+from ..observability import registry as _obs
+from ..observability.profile import profiler as _profiler
 from ..reliability import counters, faults, guards, retry_call
 from ..utils.log import LightGBMError, Log
+from ..utils.timer import global_timer
 
 __all__ = ["GBDT", "check_supported", "create_boosting", "resolve_device"]
 
@@ -710,7 +722,9 @@ class GBDT:
         hist_autotune=false run and the CPU (nothing real to time) pin
         mxu. EFB growth has no scatter wiring (bundle-space routing stays
         on the mxu sweep): it pins mxu, with a warning for another explicit
-        backend. The outcome is kept in self._hist_autotune."""
+        backend. The outcome is kept in self._hist_autotune and recorded
+        in the observability registry (record_hist_autotune, whether or
+        not observe is on)."""
         if self._hist_backend is not None:
             return self._hist_backend
         cfg = self.config
@@ -743,6 +757,7 @@ class GBDT:
         self._hist_backend = hb
         self._hist_autotune = {"choice": hb, "autotuned": autotuned,
                                "timings_ms": dict(timings)}
+        _obs.record_hist_autotune(hb, timings, autotuned)
         return hb
 
     def _mxu_grow_kwargs(self) -> dict:
@@ -802,25 +817,28 @@ class GBDT:
                 self.is_cat_d, **self._mxu_grow_kwargs())
         return self._grower_obj
 
-    def _grow(self, grad, hess, cnt=None):
-        """This iteration's tree, grown on its row sample of (grad, hess):
-        drawn here (_sample), or given as its count cnt with the sampled
-        gradients of one class (the classes of an iteration share one
-        sample). The MXU grower, or the portable one (_grow_portable).
+    def _grow(self, grad, hess, cnt):
+        """This iteration's tree, grown on its row sample: the sampled
+        gradients of one class and the sample's count cnt (train_one_iter
+        draws the sample, _sample, once an iteration: the classes of an
+        iteration share it). The MXU grower, or the portable one
+        (_grow_portable).
 
         The growth dispatch of the JAX package's _grow (gbdt.py:719-762):
         each attempt passes the histogram_build fault site before any
-        device work, and retry_call retries a failed attempt. The sample
-        is drawn once, before the first attempt, so a retry draws no new
-        GOSS key. With CEGB the growers advance _cegb_state (the
-        feature-used flags persist across the whole model: the
-        reference's is_feature_used_in_split_ and is_feature_used_); both
-        rebind its flags after the growth's last program and never write
-        them in place (grower.py clones row_feat_used first), so keeping
-        the references before the first attempt and putting them back
-        before each retry restores them, and grow_stats with them."""
-        if cnt is None:
-            grad, hess, cnt = self._sample(grad, hess)
+        device work, and retry_call retries a failed attempt; the sample
+        was drawn before the first attempt, so a retry draws no new GOSS
+        key. Each attempt is bracketed by profiler.capture("grow_tree")
+        (profile_spans=grow_tree): a live capture waits for the card
+        before it stops (profile._stop_trace), so its window covers the
+        device work; otherwise the launches stay asynchronous. With CEGB the growers advance
+        _cegb_state (the feature-used flags persist across the whole
+        model: the reference's is_feature_used_in_split_ and
+        is_feature_used_); both rebind its flags after the growth's last
+        program and never write them in place (grower.py clones
+        row_feat_used first), so keeping the references before the first
+        attempt and putting them back before each retry restores them,
+        and grow_stats with them."""
         cfg = self.config
         cegb = self._cegb_state
         flags = None if cegb is None else (cegb.feat_used,
@@ -835,11 +853,12 @@ class GBDT:
 
         def attempt():
             faults.inject("histogram_build")
-            if self._hist_impl != "mxu":
-                return self._grow_portable(grad, hess, cnt)
-            return self._grower().grow(grad, hess, cnt,
-                                       self._feature_mask_at(self.iter_),
-                                       self._tree_key(), cegb)
+            with _profiler.capture("grow_tree"):
+                if self._hist_impl != "mxu":
+                    return self._grow_portable(grad, hess, cnt)
+                return self._grower().grow(
+                    grad, hess, cnt, self._feature_mask_at(self.iter_),
+                    self._tree_key(), cegb)
 
         return retry_call(attempt, attempts=cfg.retry_max_attempts,
                           backoff_ms=cfg.retry_backoff_ms,
@@ -941,17 +960,33 @@ class GBDT:
         the JAX package's train_one_iter (gbdt.py:1001-1010, 1120-1145):
         non-finite gradients or hessians before growth, and a non-finite
         training score or leaf of the new trees after it, trip the
-        policy."""
+        policy.
+
+        Observability (the JAX package's gbdt.py:985-1146): the phases
+        boosting, bagging, tree_train, linear_fit and update_score add
+        into utils.timer.global_timer (host clocks: on the card they time
+        the launches), and with observe on the iteration is one
+        registry.record_train_iteration record (its wall, the phase
+        deltas, with observe_norms the gradients' and hessians' norms
+        and the last tree's leaves, host copies). The guard's
+        skip_iteration return goes unrecorded, as in the JAX package."""
         cfg = self.config
         k = self.num_tree_per_iteration
         init_scores = [0.0] * k
-        if gradients is None or hessians is None:
-            if self.objective is None:
-                raise ValueError("objective 'none' trains on the caller's "
-                                 "gradients: pass them (fobj)")
-            for cls in range(k):
-                init_scores[cls] = self._boost_from_average(cls)
-            gradients, hessians = self._gradients(self.train_score)
+        # observability: the off path is this one branch
+        orec = _obs.enabled
+        if orec:
+            obs_iter = self.iter_
+            obs_ph0 = global_timer.totals()
+            obs_t0 = time.perf_counter()
+        with global_timer.timeit("boosting"):
+            if gradients is None or hessians is None:
+                if self.objective is None:
+                    raise ValueError("objective 'none' trains on the "
+                                     "caller's gradients: pass them (fobj)")
+                for cls in range(k):
+                    init_scores[cls] = self._boost_from_average(cls)
+                gradients, hessians = self._gradients(self.train_score)
         guard = cfg.guard_nonfinite
         prev_scores = None
         if guard != "off":
@@ -968,18 +1003,17 @@ class GBDT:
             prev_scores = (self.train_score, list(self.valid_scores))
         renew = self.objective is not None and \
             self.objective.need_renew_tree_output
-        cnt = None
-        if k > 1 or renew or self._linear:
-            # one row sample an iteration, shared by its classes (the leaf
-            # models' fit needs its in-bag count)
-            gradients, hessians, cnt = self._sample(gradients, hessians)
+        with global_timer.timeit("bagging"):
+            # one row sample an iteration, shared by its classes (leaf
+            # renewal and the leaf models' fit need its in-bag count)
+            grad, hess, cnt = self._sample(gradients, hessians)
         first = self.iter_ == 0
         finished = True
         for cls in range(k):
-            g = gradients if k == 1 else gradients[cls]
-            h = hessians if k == 1 else hessians[cls]
-            tree, row_node = self._grow(g, h) if cnt is None \
-                else self._grow(g, h, cnt)
+            g = grad if k == 1 else grad[cls]
+            h = hess if k == 1 else hess[cls]
+            with global_timer.timeit("tree_train"):
+                tree, row_node = self._grow(g, h, cnt)
             lin = None
             if int(tree.num_leaves) > 1:
                 finished = False
@@ -993,9 +1027,11 @@ class GBDT:
                 if self._linear:
                     # the leaf models, on the full-precision gradients of
                     # the sample (quantized growth included)
-                    lin = fit_linear_leaves(
-                        tree, row_node, self.raw, g, h, cnt, self.is_cat_d,
-                        self.config.linear_lambda, dmax=self._lin_dmax)
+                    with global_timer.timeit("linear_fit"):
+                        lin = fit_linear_leaves(
+                            tree, row_node, self.raw, g, h, cnt,
+                            self.is_cat_d, self.config.linear_lambda,
+                            dmax=self._lin_dmax)
                 # shrinkage (tree.cpp Shrinkage), then the learner-side
                 # score update
                 tree = tree._replace(
@@ -1003,10 +1039,12 @@ class GBDT:
                 if lin is not None:
                     lin = lin._replace(const=lin.const * self.shrinkage_rate,
                                        coeff=lin.coeff * self.shrinkage_rate)
-                self._set_class_score(cls, score + (
-                    self._leaf_values(tree, row_node) if lin is None else
-                    linear_leaf_values(tree, lin, row_node, self.raw)))
-                self._update_valid(tree, cls, lin)
+                with global_timer.timeit("update_score"):
+                    self._set_class_score(cls, score + (
+                        self._leaf_values(tree, row_node) if lin is None
+                        else linear_leaf_values(tree, lin, row_node,
+                                                self.raw)))
+                    self._update_valid(tree, cls, lin)
                 if abs(init_scores[cls]) > 1e-35:
                     # AddBias (gbdt.cpp:416-417): fold the init score into
                     # the first tree's leaves (and the leaf models' const)
@@ -1051,6 +1089,12 @@ class GBDT:
                 self.iter_ -= 1
                 if guard == "skip_iteration":
                     self._append_zero_trees()
+        if orec:
+            _obs.record_train_iteration(
+                self, obs_iter, obs_t0, time.perf_counter() - obs_t0,
+                phases=_obs.phase_deltas(obs_ph0), gradients=gradients,
+                hessians=hessians,
+                tree=self.trees[-1] if self.trees else None)
         return finished
 
     def _append_zero_trees(self) -> None:
@@ -1189,7 +1233,15 @@ class GBDT:
         one. When every attempt fails, the block's k iterations run
         through train_one_iter on the same device and kernels, with a
         warning and the fallbacks counter; a second such block in a row
-        sets _fused_disabled."""
+        sets _fused_disabled.
+
+        With observe on, a fused block that succeeds is one
+        registry.record_fused_block record (the JAX package's
+        gbdt.py:1500-1553): its wall from before the first attempt to the
+        card's drain (torch.cuda.synchronize, taken only then, after the
+        dispatch returns and outside any capture), compiled when this
+        dispatch built and captured the trainer; a fall-back block records
+        through train_one_iter."""
         self._fused_valid_traj = None
         self._fused_valid_traj_host = None
         lead: List[List[torch.Tensor]] = [[] for _ in self.valid_sets]
@@ -1221,6 +1273,11 @@ class GBDT:
             return {"mode": "done", "stop": stop}
         cfg = self.config
         saved_key = self._rng_key
+        orec = _obs.enabled
+        if orec:
+            obs_iter0 = self.iter_
+            obs_trainer = self._fused_run
+            obs_t0 = time.perf_counter()
 
         def attempt():
             # every attempt draws the same keys: a fault that a retry
@@ -1234,8 +1291,9 @@ class GBDT:
                 # ahead
                 keys = torch.stack([self._next_key() for _ in range(k)]) \
                     if self._fused_run.sample_keys else None
-                return self._fused_run(self.train_score, self.iter_, k,
-                                       keys)
+                with global_timer.timeit("tree_train"):
+                    return self._fused_run(self.train_score, self.iter_, k,
+                                           keys)
             except Exception:
                 # the trainer's graphs may be dead: the next attempt
                 # builds and captures a new one
@@ -1276,6 +1334,14 @@ class GBDT:
             seal()
             return {"mode": "done", "stop": stop}
         self._fused_failures = 0
+        if orec:
+            # the trainer returns with the block's last programs queued:
+            # the record's wall waits for the card
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            _obs.record_fused_block(self, obs_iter0, k, obs_t0,
+                                    time.perf_counter() - obs_t0,
+                                    self._fused_run is not obs_trainer)
         st = self._fused_run.stats
         if not self.fused_stats or self.fused_stats[-1] is not st:
             self.fused_stats.append(st)

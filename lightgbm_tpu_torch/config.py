@@ -258,14 +258,14 @@ _PARAMS: List[ParamSpec] = [
             "picks an ephemeral port when 0 and observe is on)"),
     _p("profile_spans", str, "", (),
        desc="comma-separated fnmatch globs of span names to bracket "
-            "with a jax.profiler device trace (e.g. "
-            "'pipeline_block,sharded_grow'). Empty (default) disables "
+            "with a torch.profiler device capture (e.g. "
+            "'pipeline_block,grow_tree'). Empty (default) disables "
             "device capture; degrades to a logged no-op where the "
             "profiler is unavailable. Implies observe"),
     _p("profile_dir", str, "", (),
        desc="directory for device-profiler captures (one subdirectory "
-            "per capture); defaults to ./jax_profile when profile_spans "
-            "is set"),
+            "per capture, holding its Chrome trace); defaults to "
+            "./torch_profile when profile_spans is set"),
     _p("profile_max_captures", int, 4, (), lambda v: v >= 1,
        desc="hard budget of device-profiler captures per process — a "
             "long run collects a handful of representative windows "

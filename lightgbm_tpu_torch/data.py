@@ -26,6 +26,7 @@ import numpy as np
 from .binning import (BinMapper, bin_columns, find_bin_mappers,
                       find_bin_mappers_sparse)
 from .utils.log import Log
+from .utils.timer import global_timer
 
 __all__ = ["Metadata", "BinnedDataset", "is_sparse"]
 
@@ -173,7 +174,9 @@ class BinnedDataset:
             native=native)
         used, used_mappers, dtype = _select_used_features(
             all_mappers, feature_pre_filter)
-        binned = bin_columns(X, used, used_mappers, dtype, native=native)
+        with global_timer.timeit("dataset_quantize"):
+            binned = bin_columns(X, used, used_mappers, dtype,
+                                 native=native)
         return BinnedDataset(binned, used_mappers, used, num_total, metadata,
                              feature_names, raw=_raw_of(X, used, keep_raw))
 

@@ -22,6 +22,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict
 
@@ -96,7 +97,10 @@ def _lib_path(stem: str) -> Path:
 def build_all() -> Dict[str, Path]:
     """Compile every kernel source that has no up-to-date library yet, all
     nvcc processes started together; returns source stem -> library
-    path."""
+    path. Each library built is one compile of entry nvcc_<stem> in the
+    observability registry's compile accounting (its seconds from the
+    start of the parallel build until its process is reaped; they are
+    reaped in turn), whether or not observe is on."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     libs = {stem: _lib_path(stem)
             for stem in sorted({SOURCES.get(k, k) for k in KERNELS})}
@@ -104,6 +108,8 @@ def build_all() -> Dict[str, Path]:
     if not todo:
         return libs
     nvcc = _nvcc()
+    from ..observability.registry import registry
+    t0 = time.perf_counter()
     procs = {}
     for stem, path in todo.items():
         tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
@@ -117,6 +123,7 @@ def build_all() -> Dict[str, Path]:
             failures.append(f"{stem}.cu:\n{out.decode(errors='replace')}")
             continue
         os.replace(tmp, todo[stem])
+        registry.compiles.record(f"nvcc_{stem}", time.perf_counter() - t0)
     if failures:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
     return libs

@@ -3,22 +3,22 @@
 Port of lightgbm_tpu/observability/flightrec.py. A bounded, lock-guarded
 ring of recent high-signal events:
 
+- span closes (tapped from observability/trace.py);
 - fault-site hits (reliability/faults.py) and non-finite guard trips
   (reliability/guards.py);
 - checkpoint saves (reliability/checkpoint.py);
 - an unhandled exception in `engine.train`;
-- span closes, collective brackets and clock samples, whose producers
-  (the span tracer, the collective watchdog) come with the observability
-  registry and the distributed learners (ROADMAP A9 part 2's second half,
-  A10); their `record_*` methods are here already.
+- collective brackets and clock samples, whose producers (the collective
+  watchdog, the guarded collectives) come with the distributed learners
+  (ROADMAP A10); their `record_*` methods are here already.
 
 On a fatal path (an injected ``rank_death`` before ``os._exit(86)``, a
 non-finite guard trip, an unhandled exception in `engine.train`) the ring
 is flushed as one atomic ``postmortem_<rank>.json`` bundle (a temp file,
 then ``os.replace``), so a failure leaves a timeline instead of an exit
-code. The bundle carries the reliability counters' snapshot; the JAX
-package's ``collective`` and ``clock_skew`` entries come with the
-registry.
+code. The bundle carries the observability registry's ``collective`` and
+``clock_skew`` snapshots and the reliability counters' snapshot
+(``counters``), as the JAX package's does.
 
 Recording stays on whatever the rest of observability does (``flightrec``
 defaults to true): these are rare, high-value records, and the last thing
@@ -200,8 +200,10 @@ class FlightRecorder:
                 "events": self.events(),
             }
             try:        # best-effort context; never blocks the flush
-                from ..reliability.counters import counters
-                bundle["counters"] = counters.snapshot()
+                from .registry import registry
+                bundle["collective"] = registry.collective_snapshot()
+                bundle["clock_skew"] = registry.clock_skew_snapshot()
+                bundle["counters"] = registry.counters.snapshot()
             except Exception:
                 pass
             if extra:

@@ -33,10 +33,15 @@ and the window holds only the previous block's finalize (ROADMAP B2).
 PipelineStats records what overlapped. A block whose fused dispatch
 fails every attempt comes back trained per iteration
 (GBDT.train_many_dispatch), with its k-point trajectory, and runs through
-the same steps. Not ported yet (ROADMAP A9 part 2, second half: they come
-with the observability registry): the JAX executor's observability hook
-(registry.record_pipeline_block) and its profiler.capture bracket around
-a block.
+the same steps.
+
+Observability, as in the JAX executor: each block's dispatch runs inside
+profiler.capture("pipeline_block") (profile_spans=pipeline_block; a live
+capture waits for the card before it stops, so its window covers the
+block's device work, at the cost of that block's overlap: the first
+block's includes the trainer's build and graph capture), and with observe on each block is one
+registry.record_pipeline_block record (its wall, the overlapped host
+window, the overlap fraction).
 """
 
 from __future__ import annotations
@@ -45,6 +50,8 @@ import time
 from typing import Callable, List, Optional
 
 from ..callback import EarlyStopException
+from ..observability import registry as _obs
+from ..observability.profile import profiler as _profiler
 from .device_eval import build_device_eval
 from .scheduler import AdaptiveBlockScheduler
 
@@ -53,7 +60,8 @@ __all__ = ["PipelineStats", "run_pipelined"]
 
 class PipelineStats:
     """Per-run pipeline accounting, attached to the booster's GBDT as
-    `_pipeline_stats` on every run."""
+    `_pipeline_stats` on every run (registry.record_pipeline_block
+    mirrors it into the unified snapshot when observe is on)."""
 
     def __init__(self):
         self.blocks = 0
@@ -116,10 +124,11 @@ def run_pipelined(booster, *, start_iter: int, num_boost_round: int,
             # a block that builds the fused trainer captures its graphs
             was_built = gb._fused_run is None
             t0 = time.perf_counter()
-            handle = booster.update_batch_dispatch(b)
-            traj = gb._fused_valid_traj
-            mx = dev.dispatch(traj) \
-                if dev is not None and traj is not None else None
+            with _profiler.capture("pipeline_block"):
+                handle = booster.update_batch_dispatch(b)
+                traj = gb._fused_valid_traj
+                mx = dev.dispatch(traj) \
+                    if dev is not None and traj is not None else None
             t1 = time.perf_counter()
             # ---- overlapped host window: the previous block's trees
             if pending is not None:
@@ -132,7 +141,12 @@ def run_pipelined(booster, *, start_iter: int, num_boost_round: int,
             mhost = [None if a is None else a.cpu().numpy() for a in mx] \
                 if mx is not None else None
             t3 = time.perf_counter()
-            stats.add(b, (t2 - t1) * 1e3, (t3 - t0) * 1e3)
+            host_ms, block_ms = (t2 - t1) * 1e3, (t3 - t0) * 1e3
+            stats.add(b, host_ms, block_ms)
+            if _obs.enabled:
+                _obs.record_pipeline_block(
+                    i, b, t0, t3 - t0, t2 - t1,
+                    min(1.0, host_ms / block_ms) if block_ms > 0 else 0.0)
             # ---- the per-iteration metric/callback protocol (the engine
             # block loop's; early-stop decisions gate the next dispatch)
             finalized = False

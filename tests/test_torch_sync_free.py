@@ -19,7 +19,10 @@ train on sparse, mutually exclusive features that the booster bundles
 (exclusive feature bundling): the bundle-range routing and the segmented
 scan, or the loc-table routing and the per-pass expansion. The forced*
 configurations grow under a nested forced-split spec: its tensors and the
-forced node state ride every pass and program.
+forced node state ride every pass and program. With observe=true (the
+observability registry's spans, telemetry and compile accounting) the
+passes and programs stay as they are: none inside, and around a fused
+block still only the reads of `done`.
 """
 
 import json
@@ -36,6 +39,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 import lightgbm_tpu_torch as lgt
 from lightgbm_tpu_torch.boosting import fused
+from lightgbm_tpu_torch.observability import registry as obs
 from lightgbm_tpu_torch.learner import grower_mxu
 from lightgbm_tpu_torch.learner import histogram_mxu, histogram_pallas
 from lightgbm_tpu_torch.learner import prune, split_kernel
@@ -129,7 +133,7 @@ def _spec_file() -> str:
     return path
 
 
-def _booster(name):
+def _booster(name, **extra):
     rng = np.random.RandomState(9)
     X = rng.randn(2000, 6).astype(np.float32)
     if name.startswith("efb"):
@@ -145,7 +149,7 @@ def _booster(name):
     # bridge, so the loop reads `done` more than once
     params = dict({"objective": "binary", "num_leaves": 15,
                    "min_data_in_leaf": 40, "max_bin": 31, "verbosity": -1,
-                   "device_type": "cpu"}, **_CONFIGS[name])
+                   "device_type": "cpu"}, **_CONFIGS[name], **extra)
     spec = params.pop("forced", False) and _spec_file()
     if spec:
         params["forcedsplits_filename"] = spec
@@ -215,3 +219,52 @@ def test_fused_programs_do_not_sync(name, monkeypatch):
     # outside the programs: the fix-up loop's reads of `done`
     assert mode.counts[("outside", "_local_scalar_dense")] == \
         sum(stats["fixup_reads"])
+
+
+@pytest.fixture
+def observed():
+    """observe=true for one test, the registry cleared after it."""
+    yield {"observe": True}
+    obs.disable()
+    obs.reset()
+    obs.record_norms = False
+
+
+@pytest.mark.parametrize("name", ["exact", "quantized"])
+def test_observed_fused_programs_do_not_sync(name, monkeypatch, observed):
+    bst = _booster(name, **observed)
+    assert obs.enabled
+    mode = _watch(monkeypatch)
+    monkeypatch.setattr(fused.FusedTrainer, "_run", _within(
+        mode, "program", fused.FusedTrainer._run))
+    with mode:
+        bst.update_batch(4)
+    stats = bst.gbdt._fused_run.stats
+    assert stats["trees"] == 4
+    inside = {k: v for k, v in mode.counts.items() if k[0] != "outside"}
+    assert inside == {}, inside
+    assert mode.counts[("outside", "_local_scalar_dense")] == \
+        sum(stats["fixup_reads"])
+    last = obs.training.last()
+    assert last["fused"] and last["iterations"] == 4
+    assert obs.compiles.snapshot()["fused_train"]["compiles"] == 1
+
+
+@pytest.mark.parametrize("name", ["exact", "quantized"])
+def test_observed_growth_passes_do_not_sync(name, monkeypatch, observed):
+    """An update() with observe and observe_norms (whose host copies of
+    the gradients and the tree's leaf count come after the growth): no
+    host read inside a pass, the start or the finish."""
+    bst = _booster(name, observe_norms=True, **observed)
+    mode = _watch(monkeypatch)
+    for meth, where in (("one_pass", "pass"), ("start", "start"),
+                        ("finish", "finish")):
+        monkeypatch.setattr(grower_mxu.Grower, meth,
+                            _within(mode, where,
+                                    getattr(grower_mxu.Grower, meth)))
+    with mode:
+        bst.update()
+    inside = {k: v for k, v in mode.counts.items() if k[0] != "outside"}
+    assert inside == {}, inside
+    last = obs.training.last()
+    assert last["iteration"] == 1 and last["leaves"] > 1

@@ -123,8 +123,8 @@ def test_exact_leaves_hold_their_rows_sums():
     grown = []
     grow = gbdt._grow
 
-    def kept_grow(grad, hess):
-        tree, row_node = grow(grad, hess)
+    def kept_grow(grad, hess, cnt):
+        tree, row_node = grow(grad, hess, cnt)
         grown.append((tree.leaf_value.numpy(), row_node.numpy(),
                       grad.numpy(), hess.numpy()))
         return tree, row_node
