@@ -32,9 +32,9 @@ counts reset before it and read after it (eighteen with the last six
 below: EFB, single-precision hessians, the rescanning monotone methods,
 forced splits with CEGB and the guard rails, linear trees, and wide
 bins; twenty with slice 20's pipeline and checkpoint paths, twenty-two
-with the reliability and observability paths; the pipeline, checkpoint
-and observability paths' launches each kernel row lists apart under
-`launches_new_paths`):
+with the reliability and observability paths, twenty-three with slice
+23's api path; the pipeline, checkpoint, observability and api paths'
+launches each kernel row lists apart under `launches_new_paths`):
 
 - exact histograms: the Higgs-like binary configuration (num_leaves 255,
   max_bin 255), the same with min_data_in_leaf 1000 (which runs the
@@ -120,6 +120,15 @@ and observability paths' launches each kernel row lists apart under
   the csrc kernels by their __global__ names, none failed, the profiled
   models byte-equal to the unprofiled ones; trees/s of each turn, each
   capture's extra ms, a scrape's and a flush's ms;
+- the API surface (phase `api`, api_path): LGBMClassifier (30 trees,
+  eval_set) and LGBMRegressor (10) byte-equal to engine.train with the
+  estimators' parameters, lgt.cv (3 folds, 10 rounds) byte-equal fold by
+  fold to update() on the same subsets with its -mean/-stdv from numpy,
+  ds.subset against Dataset(X[idx], reference=ds), the binary cache,
+  keep_training_booster then update(), refit against numpy, dump_model
+  against the model text, and the CLI (python -m lightgbm_tpu_torch.cli,
+  train and predict on a 200,000-row CSV, on a thread of its own)
+  against the Python API; K1, K6, P and V launched;
 - row sampling, random forest and DART (phases `sampling*`): bagging
   (fraction 0.8, freq 5), GOSS (top_rate 0.2, other_rate 0.1) and
   bagging with quantized gradients through the fused phases' turns
@@ -279,6 +288,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 from types import SimpleNamespace
 
@@ -435,9 +445,10 @@ PIPELINE_PATH = ("predict_binned", "prune_best_first", "fused_route_hist",
 # resumed from CKPT_RESUME
 CKPT_ROUNDS, CKPT_PERIOD, CKPT_RESUME = 30, 10, 20
 CKPT_PATH = ("prune_best_first", "fused_route_hist", "node_values")
-# the paths of slices 20 and 22, whose launches each kernel row lists apart
+# the paths of slices 20, 22 and 23, whose launches each kernel row lists
+# apart
 NEW_PATHS = ("pipeline", "pipeline_multiclass", "checkpoint",
-             "observability")
+             "observability", "api")
 RF_PARAMS = dict(TRAIN_PARAMS, boosting="rf", bagging_fraction=0.7,
                  bagging_freq=1)
 RF_TREES = 10
@@ -466,6 +477,10 @@ MC_PARAMS = dict(TRAIN_PARAMS, objective="multiclass", num_class=MC_CLASSES)
 MC_QUANT_PARAMS = dict(MC_PARAMS, use_quantized_grad=True,
                        hist_backend="mxu")
 MC_VALID_ROUNDS = 20
+# iterations a step of the multiclass fused turns (train, update_batch,
+# update_batch against as many update() calls): 6 since the api path, 10
+# before (the per-iteration turns held two thirds of the 5-class time)
+MC_TURN_STEP = 6
 OVA_TREES = 5
 HOST_ROWS = 100_000   # rows host predict is held to the device scores on
 RANK_QSIZE = 20
@@ -2986,6 +3001,360 @@ def observability_path(torch, lgt, hm, ds, built):
     return counts
 
 
+API_ROUNDS = 30       # the classifier's trees, with the held-out eval_set
+API_REG_TREES = 10
+API_CV_FOLDS = 3
+API_CV_ROUNDS = 10
+API_TREES = 10        # the subset, binary-cache and CLI runs
+API_KEEP = (20, 10)   # train(keep_training_booster=True), then update()
+API_SUBSET_ROWS = 500_000
+API_REFIT_DECAY = 0.9
+# a refitted leaf against the float64 numpy recomputation: the port's
+# gradients are f32 on the card (objectives.py)
+API_REFIT_TOL = 1e-6
+API_CLI_ROWS = 200_000
+API_CLI_SCALE = 256   # the CLI data's grid: k / 256, exact in 8 decimals
+API_METRICS = ["binary_logloss", "auc"]
+API_PATH = ("fused_route_hist", "node_values", "prune_best_first",
+            "predict_binned")
+# the estimator's parameters as lgt.train gets them (sklearn.py's
+# _process_params: the attributes kept, the keywords, then the objective
+# and the renamed attributes in its alias order; None dropped)
+SK_KWARGS = {"num_leaves": 255, "learning_rate": 0.1, "max_bin": 255,
+             "verbosity": -1}
+
+
+def sk_train_params(objective, metric=None):
+    params = {"num_leaves": 255, "max_depth": -1, "learning_rate": 0.1,
+              "max_bin": 255, "verbosity": -1, "objective": objective,
+              "boosting": "gbdt", "bagging_fraction": 1.0,
+              "bagging_freq": 0, "feature_fraction": 1.0,
+              "min_data_in_leaf": 20, "min_sum_hessian_in_leaf": 0.001,
+              "min_gain_to_split": 0.0, "lambda_l1": 0.0,
+              "lambda_l2": 0.0, "bin_construct_sample_cnt": 200000,
+              "num_threads": -1}
+    if metric is not None:
+        params["metric"] = metric
+    return params
+
+
+def text_sha(booster):
+    """sha256 of the whole model text."""
+    import hashlib
+    return hashlib.sha256(booster.model_to_string().encode()).hexdigest()
+
+
+def write_dyadic_csv(path, cols):
+    """A CSV of values k / API_CLI_SCALE, each written exactly with 8
+    decimals (vectorized: the digits of the integers), so the parsers
+    read back the float64 values themselves."""
+    k = np.rint(np.column_stack(cols) * API_CLI_SCALE).astype(np.int64)
+    whole, frac = np.divmod(np.abs(k), API_CLI_SCALE)
+    check(whole.max() < 10, "the CLI data's values must stay below 10")
+    n, c = k.shape
+    cell = np.empty((n, c, 12), np.uint8)
+    cell[:, :, 0] = np.where(k < 0, ord("-"), ord("+"))
+    cell[:, :, 1] = ord("0") + whole
+    cell[:, :, 2] = ord(".")
+    digits = frac * (100_000_000 // API_CLI_SCALE)   # 8 decimals
+    for p in range(8):
+        cell[:, :, 10 - p] = ord("0") + digits % 10
+        digits //= 10
+    cell[:, :, 11] = ord(",")
+    cell[:, -1, 11] = ord("\n")
+    cell.tofile(path)
+    return k / API_CLI_SCALE
+
+
+def api_path(torch, lgt, hm, ds, reg_ds, X, y, booster):
+    """The API surface of slice 23 at full width (1M x 28, 255 leaves,
+    max_bin 255, the 40,000-row held-out set), every part through
+    engine.train or Booster.update on the card: (a) LGBMClassifier
+    (API_ROUNDS trees, eval_set with binary_logloss and auc) against
+    lgt.train with the estimator's parameters (sk_train_params) on `ds`:
+    byte-equal model text, predict_proba[:, 1] equal to Booster.predict,
+    feature_importances_ and evals_result_ equal; LGBMRegressor
+    (API_REG_TREES) against lgt.train on `reg_ds`; (b) lgt.cv, nfold
+    API_CV_FOLDS and API_CV_ROUNDS rounds (binary_logloss, auc), each
+    fold's model byte-equal to a Booster on the same subset (folds by the
+    stratified round-robin, rebuilt in numpy) with API_CV_ROUNDS update()
+    calls, the -mean/-stdv equal to numpy over those boosters'
+    eval_valid; (c) ds.subset of API_SUBSET_ROWS rows training byte-equal
+    to Dataset(X[idx], reference=ds); (d) save_binary, load, API_TREES
+    trees byte-equal to training on ds (bytes and seconds printed); (e)
+    train(keep_training_booster=True) for API_KEEP[0] rounds and
+    API_KEEP[1] update() calls, byte-equal to train for their sum; (f)
+    refit (decay API_REFIT_DECAY) of the exact `booster` on the held-out
+    rows, each leaf within API_REFIT_TOL of a numpy recomputation from the
+    same leaf indices; (g) dump_model's leaf values and thresholds, written
+    as the model text writes a double, equal to the text's; (h) the CLI in
+    subprocesses, on a thread while (a)-(g) run, on an API_CLI_ROWS x 28
+    CSV of the same maker (on the k / API_CLI_SCALE grid): task=train
+    (API_TREES rounds) byte-equal to the Python API on the same rows,
+    task=predict's output equal to Booster.predict of the model file. The
+    launch counts of K1, K6, P and V (this process's) are above 0. Prints
+    each part's seconds. Returns the launch counts."""
+    import shutil
+    from lightgbm_tpu_torch.sklearn import LGBMClassifier, LGBMRegressor
+    from lightgbm_tpu_torch.tree import _fmt
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "chiprun_out", "chip_smoke_api")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    Xva, yva = make_higgs_like(VALID_ROWS, N_FEATURES, seed=99)
+    parts = {}
+    hm.reset_launch_counts()
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        parts[name] = time.perf_counter() - t0
+        return out
+
+    # ---- (a) the estimators against engine.train
+    def estimators():
+        clf = LGBMClassifier(n_estimators=API_ROUNDS, **SK_KWARGS)
+        clf.fit(X, y, eval_set=[(Xva, yva)], eval_metric=API_METRICS)
+        ev = {}
+        ref = lgt.train(sk_train_params("binary", ",".join(API_METRICS)),
+                        ds, API_ROUNDS,
+                        valid_sets=[ds.create_valid(Xva, label=yva)],
+                        callbacks=[lgt.record_evaluation(ev)])
+        check(text_sha(clf.booster_) == text_sha(ref),
+              "api: LGBMClassifier's model text differs from lgt.train's")
+        proba = clf.predict_proba(Xva)
+        check(np.array_equal(proba[:, 1], ref.predict(Xva)) and
+              np.array_equal(proba[:, 0], 1.0 - proba[:, 1]),
+              "api: predict_proba is not Booster.predict")
+        check(np.array_equal(clf.feature_importances_,
+                             ref.feature_importance("split")),
+              "api: feature_importances_ differ")
+        check(clf.evals_result_ == ev and
+              len(ev["valid_0"]["auc"]) == API_ROUNDS,
+              "api: evals_result_ differs from record_evaluation's")
+        y_reg = reg_ds.get_label()
+        reg = LGBMRegressor(n_estimators=API_REG_TREES, **SK_KWARGS)
+        reg.fit(X, y_reg)
+        reg_ref = lgt.train(sk_train_params("regression"), reg_ds,
+                            API_REG_TREES)
+        check(text_sha(reg.booster_) == text_sha(reg_ref),
+              "api: LGBMRegressor's model text differs from lgt.train's")
+        check(np.array_equal(reg.predict(Xva), reg_ref.predict(Xva)),
+              "api: LGBMRegressor.predict is not Booster.predict")
+        return {"held_out_auc": auc(proba[:, 1], yva),
+                "auc_last": ev["valid_0"]["auc"][-1],
+                "classes": [float(c) for c in clf.classes_]}
+
+    # ---- (b) cv against per-fold boosters
+    def cross_validation():
+        params = dict(TRAIN_PARAMS, metric=",".join(API_METRICS))
+        res = lgt.cv(params, ds, API_CV_ROUNDS, nfold=API_CV_FOLDS,
+                     return_cvbooster=True)
+        # the stratified folds: a round-robin over the stable label order
+        order = np.argsort(y, kind="stable")
+        fold = np.empty(N_ROWS, np.int64)
+        fold[order] = np.arange(N_ROWS) % API_CV_FOLDS
+        evals = []
+        for k, cvb in enumerate(res["cvbooster"].boosters):
+            b = lgt.Booster(params, ds.subset(np.flatnonzero(fold != k)))
+            b.add_valid(ds.subset(np.flatnonzero(fold == k)), "valid")
+            hist = []
+            for _ in range(API_CV_ROUNDS):
+                b.update()
+                hist.append([v for _, _, v, _ in b.eval_valid()])
+            check(text_sha(b) == text_sha(cvb), f"api: cv fold {k}'s "
+                  "model differs from update() on its subset")
+            evals.append(hist)
+        ev = np.asarray(evals)          # [fold, round, metric]
+        for j, m in enumerate(API_METRICS):
+            mean = [float(np.mean(ev[:, i, j])) for i in
+                    range(API_CV_ROUNDS)]
+            std = [float(np.std(ev[:, i, j])) for i in range(API_CV_ROUNDS)]
+            check(res[f"valid {m}-mean"] == mean and
+                  res[f"valid {m}-stdv"] == std,
+                  f"api: cv's {m} -mean/-stdv differ from numpy over the "
+                  "folds")
+        return {"auc_mean": res["valid auc-mean"][-1],
+                "auc_stdv": res["valid auc-stdv"][-1]}
+
+    # ---- (c) a subset against the same rows binned by reference
+    def subset():
+        idx = np.sort(np.random.RandomState(5).choice(
+            N_ROWS, API_SUBSET_ROWS, replace=False))
+        a = lgt.train(TRAIN_PARAMS, ds.subset(idx), API_TREES)
+        b = lgt.train(TRAIN_PARAMS, lgt.Dataset(X[idx], label=y[idx],
+                                                reference=ds), API_TREES)
+        check(text_sha(a) == text_sha(b), "api: ds.subset's model differs "
+              "from Dataset(X[idx], reference=ds)'s")
+
+    # ---- (d) the binary cache
+    def binary_cache():
+        path = os.path.join(work, "train.bin")
+        t0 = time.perf_counter()
+        ds.save_binary(path)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = lgt.Dataset(path, params=TRAIN_PARAMS)
+        loaded.construct()
+        load_s = time.perf_counter() - t0
+        check(np.array_equal(loaded.binned.bins, ds.binned.bins),
+              "api: the binary cache's bins differ")
+        a = lgt.train(TRAIN_PARAMS, loaded, API_TREES)
+        b = lgt.train(TRAIN_PARAMS, ds, API_TREES)
+        check(text_sha(a) == text_sha(b), "api: training on the binary "
+              "cache differs from training on ds")
+        return {"bytes": os.path.getsize(path), "save_s": save_s,
+                "load_s": load_s}
+
+    # ---- (e) keep_training_booster, then update()
+    def keep_training():
+        a = lgt.train(TRAIN_PARAMS, ds, API_KEEP[0],
+                      keep_training_booster=True)
+        for _ in range(API_KEEP[1]):
+            a.update()
+        b = lgt.train(TRAIN_PARAMS, ds, sum(API_KEEP))
+        check(text_sha(a) == text_sha(b), "api: keep_training_booster + "
+              "update() differs from one longer train")
+
+    # ---- (f) refit against numpy, (g) dump_model against the text
+    def refit_and_dump():
+        refit = booster.refit(Xva, yva, decay_rate=API_REFIT_DECAY)
+        model = booster._host_model()
+        leaves = booster.predict(Xva, pred_leaf=True)
+        lab = 2.0 * yva.astype(np.float64) - 1.0
+        score = np.zeros(VALID_ROWS)
+        err = 0.0
+        for ti, (t, rt) in enumerate(zip(model.trees,
+                                         refit._host_model().trees)):
+            s32 = score.astype(np.float32).astype(np.float64)
+            r = -lab / (1.0 + np.exp(lab * s32))
+            h = np.abs(r) * (1.0 - np.abs(r))
+            leaf = leaves[:, ti]
+            g_sum = np.bincount(leaf, weights=r, minlength=t.num_leaves)
+            h_sum = np.bincount(leaf, weights=h, minlength=t.num_leaves)
+            want = API_REFIT_DECAY * t.leaf_value + (1.0 - API_REFIT_DECAY) \
+                * (-g_sum / (h_sum + 1e-15)) * t.shrinkage
+            err = max(err, float(np.abs(rt.leaf_value - want).max()))
+            score += rt.leaf_value[leaf]
+        check(err <= API_REFIT_TOL, f"api: refit leaves {err} off numpy")
+        dump = booster.dump_model()
+        text_trees = model_trees(booster.model_to_string()) \
+            .split("Tree=")[1:]
+        check(len(dump["tree_info"]) == len(text_trees) == TRAIN_TREES,
+              "api: dump_model's tree count")
+        for tj, block in zip(dump["tree_info"], text_trees):
+            kv = dict(ln.split("=", 1) for ln in block.splitlines()
+                      if "=" in ln)
+            leaf_v, thr = {}, {}
+
+            def walk(nd):
+                if "leaf_index" in nd:
+                    leaf_v[nd["leaf_index"]] = nd["leaf_value"]
+                    return
+                thr[nd["split_index"]] = nd["threshold"]
+                walk(nd["left_child"])
+                walk(nd["right_child"])
+
+            walk(tj["tree_structure"])
+            # as the model text writes a double (17 decimals)
+            check(" ".join(_fmt(leaf_v[i]) for i in range(len(leaf_v))) ==
+                  kv["leaf_value"] and
+                  " ".join(_fmt(thr[i]) for i in range(len(thr))) ==
+                  kv["threshold"],
+                  f"api: dump_model tree {tj['tree_index']} differs from "
+                  "the model text")
+        return {"max_abs_err": err, "tol": API_REFIT_TOL}
+
+    # ---- (h) the CLI in subprocesses against the Python API
+    # ---- (h) the CLI in subprocesses against the Python API: the two
+    # tasks run on a thread of their own while (a)-(g) train here, since
+    # most of a process's seconds are its start-up
+    cli_run = {"csv": os.path.join(work, "train.csv"),
+               "model": os.path.join(work, "model.txt"),
+               "pred": os.path.join(work, "pred.txt")}
+    cli_args = ["task=train", f"data={cli_run['csv']}", "objective=binary",
+                "num_leaves=255", "learning_rate=0.1", "max_bin=255",
+                "min_data_in_leaf=20", "verbosity=-1",
+                f"num_iterations={API_TREES}",
+                f"output_model={cli_run['model']}"]
+
+    def cli(argv):
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-m", "lightgbm_tpu_torch.cli",
+                        *argv], cwd=root, check=True)
+        return time.perf_counter() - t0
+
+    def cli_tasks():
+        try:
+            cli_run["train_s"] = cli(cli_args)
+            cli_run["predict_s"] = cli([
+                "task=predict", f"data={cli_run['csv']}",
+                f"input_model={cli_run['model']}",
+                f"output_result={cli_run['pred']}"])
+        except Exception as exc:      # raised on the main thread
+            cli_run["error"] = exc
+
+    def cli_start():
+        Xc, yc = make_higgs_like(API_CLI_ROWS, N_FEATURES, seed=31)
+        t0 = time.perf_counter()
+        cli_run["grid"] = write_dyadic_csv(cli_run["csv"],
+                                           [yc] + list(Xc.T))
+        cli_run["write_s"] = time.perf_counter() - t0
+        cli_run["label"] = yc
+        thread = threading.Thread(target=cli_tasks)
+        thread.start()
+        return thread
+
+    def cli_check(thread):
+        thread.join()
+        if "error" in cli_run:
+            raise cli_run["error"]
+        params = dict(a.split("=", 1) for a in cli_args)
+        Xg = np.ascontiguousarray(cli_run["grid"][:, 1:])
+        api = lgt.train(params, lgt.Dataset(Xg, label=cli_run["label"],
+                                            params=dict(params)), API_TREES)
+        with open(cli_run["model"]) as fh:
+            check(fh.read() == api.model_to_string(), "api: the CLI's "
+                  "model text differs from the Python API's")
+        # the model as its file holds it: the text writes a double to 17
+        # decimals
+        preds = np.loadtxt(cli_run["pred"])
+        check(np.array_equal(preds, lgt.Booster(model_file=cli_run["model"])
+                             .predict(Xg)),
+              "api: task=predict's output differs from Booster.predict")
+        return {"rows": API_CLI_ROWS,
+                "csv_bytes": os.path.getsize(cli_run["csv"]),
+                **{k: cli_run[k] for k in ("write_s", "train_s",
+                                           "predict_s")}}
+
+    thread = None
+    try:
+        thread = timed("cli_start", cli_start)
+        est = timed("estimators", estimators)
+        cv_out = timed("cv", cross_validation)
+        timed("subset", subset)
+        cache = timed("binary_cache", binary_cache)
+        timed("keep_training", keep_training)
+        refit_out = timed("refit_dump", refit_and_dump)
+        cli_out = timed("cli_wait_check", lambda: cli_check(thread))
+    finally:
+        if thread is not None:
+            thread.join()
+        shutil.rmtree(work, ignore_errors=True)
+    counts = hm.launch_counts()
+    for key in API_PATH:
+        check(counts[key] > 0, f"{key} was not launched on the api path")
+    emit("api", rows=N_ROWS, valid_rows=VALID_ROWS, estimators=est,
+         cv=cv_out, binary_cache=cache, refit=refit_out, cli=cli_out,
+         byte_equal=True, part_s=parts,
+         seconds=time.perf_counter() - t_phase,
+         launches={k: counts[k] for k in API_PATH})
+    return counts
+
+
 def fused_path(torch, lgt, hm, ds, y):
     """K iterations per dispatch: for each of FUSED_RUNS (the exact and
     the quantized binary configurations, trees that run fix-up passes,
@@ -3017,15 +3386,15 @@ def fused_path(torch, lgt, hm, ds, y):
 
 
 def fused_turns(torch, lgt, hm, ds, logloss, name, params, inspect=None,
-                classes=1):
-    """One configuration of the fused phases (fused_path): train, then
-    update_batch(10) twice, against 30 update() calls, in turns
-    (per-iteration, fused, fused, per-iteration), every check of
-    fused_path, and the phase line `name`. inspect(booster) -> dict runs
-    on each turn's booster after its 30 iterations (before it is deleted)
-    and its results are printed as `inspected`. classes: trees an
-    iteration (multiclass). Returns the trees/s of the last 10 iterations
-    of each turn."""
+                classes=1, per_step=TRAIN_TREES):
+    """One configuration of the fused phases (fused_path): train for
+    per_step iterations, then update_batch(per_step) twice, against 3 x
+    per_step update() calls, in turns (per-iteration, fused, fused,
+    per-iteration), every check of fused_path, and the phase line `name`.
+    inspect(booster) -> dict runs on each turn's booster after its
+    iterations (before it is deleted) and its results are printed as
+    `inspected`. classes: trees an iteration (multiclass). Returns the
+    trees/s of the last per_step iterations of each turn."""
     import hashlib
     steps = ("10", "20", "30")
 
@@ -3044,12 +3413,12 @@ def fused_turns(torch, lgt, hm, ds, logloss, name, params, inspect=None,
             k: v - before[k] for k, v in hm.launch_counts().items()}, result
 
     def update_loop(booster):
-        for _ in range(TRAIN_TREES):
+        for _ in range(per_step):
             booster.update()
         return booster
 
     def update_batch(booster):
-        booster.update_batch(TRAIN_TREES)
+        booster.update_batch(per_step)
         return booster
 
     def noops(booster):
@@ -3062,7 +3431,7 @@ def fused_turns(torch, lgt, hm, ds, logloss, name, params, inspect=None,
         booster = None
         for step in steps:
             if step == "10":
-                fn = (lambda: lgt.train(params, ds, TRAIN_TREES)) \
+                fn = (lambda: lgt.train(params, ds, per_step)) \
                     if fused else \
                     (lambda: update_loop(lgt.Booster(params, ds)))
             else:
@@ -3110,7 +3479,7 @@ def fused_turns(torch, lgt, hm, ds, logloss, name, params, inspect=None,
         st = r["stats"]
         check([s_["graphs"] for s_ in st] == [len(r["programs"])] * 2
               and [s_["trees"] for s_ in st] ==
-              [(TRAIN_TREES - 1) * classes, 2 * TRAIN_TREES * classes],
+              [(per_step - 1) * classes, 2 * per_step * classes],
               f"{name}: graphs {[s_['graphs'] for s_ in st]} of "
               f"{len(r['programs'])} programs, trees "
               f"{[s_['trees'] for s_ in st]}")
@@ -3138,19 +3507,17 @@ def fused_turns(torch, lgt, hm, ds, logloss, name, params, inspect=None,
     reads = sum(sum(s_["fixup_reads"]) for s_ in st)
     emit(name, params={k: v for k, v in params.items()
                        if k != "verbosity"},
-         trees=3 * TRAIN_TREES * classes, fused_block_size=TRAIN_TREES,
+         trees=3 * per_step * classes, fused_block_size=TRAIN_TREES,
+         iterations_per_step=per_step,
          model_sha256_10=eager[0]["sha10"][:16],
          model_sha256_30=eager[0]["sha30"][:16], byte_equal=True,
          order=[r["path"] for r in runs],
          train_s_first10=[r["s10"] for r in runs],
          train_s_next10=[r["s20"] for r in runs],
          train_s_last10=[r["s30"] for r in runs],
-         trees_per_s_first10=[TRAIN_TREES * classes / r["s10"]
-                              for r in runs],
-         trees_per_s_next10=[TRAIN_TREES * classes / r["s20"]
-                             for r in runs],
-         trees_per_s_last10=[TRAIN_TREES * classes / r["s30"]
-                             for r in runs],
+         trees_per_s_first10=[per_step * classes / r["s10"] for r in runs],
+         trees_per_s_next10=[per_step * classes / r["s20"] for r in runs],
+         trees_per_s_last10=[per_step * classes / r["s30"] for r in runs],
          graphs=st[0]["graphs"], programs=fused[0]["programs"],
          capture_s=[s_["capture_s"] for r in fused
                     for s_ in r["stats"]],
@@ -3169,7 +3536,7 @@ def fused_turns(torch, lgt, hm, ds, logloss, name, params, inspect=None,
          logloss=[r["logloss"] for r in runs],
          **({"inspected": [r["inspected"] for r in runs]}
             if inspect is not None else {}))
-    return [TRAIN_TREES * classes / r["s30"] for r in runs]
+    return [per_step * classes / r["s30"] for r in runs]
 
 
 def card_memory(torch):
@@ -4501,8 +4868,8 @@ def class_traj_row(torch, dev, row, booster, Xv):
 def multiclass_path(torch, lgt, hm, dev, row):
     """5-class multiclass (helpers/bench_tasks.py's task at 1M x 28, 255
     leaves, 255 bins, learning rate 0.1), k = 5 trees an iteration:
-    (a) exact and quantized through fused_turns (train at
-    fused_block_size 10, 50 trees a dispatch, then update_batch(10) twice,
+    (a) exact and quantized through fused_turns at MC_TURN_STEP
+    iterations a step (train, then update_batch(MC_TURN_STEP) twice,
     against update() in turns: sha256-equal model text, every program
     captured once for all classes, launches, the graph pool given back;
     trees/s, host syncs a tree, pool bytes and capture s), each turn's
@@ -4538,7 +4905,8 @@ def multiclass_path(torch, lgt, hm, dev, row):
     for name, params in (("multiclass", MC_PARAMS),
                          ("multiclass_quantized", MC_QUANT_PARAMS)):
         rates[name] = fused_turns(torch, lgt, hm, ds, logloss, name, params,
-                                  inspect=inspect, classes=MC_CLASSES)
+                                  inspect=inspect, classes=MC_CLASSES,
+                                  per_step=MC_TURN_STEP)
 
     def run(block, label, **extra):
         # the block loop's float64 metrics (pipeline_multiclass runs the
@@ -6583,6 +6951,8 @@ def main():
     counts["reliability"] = reliability_path(torch, lgt, hm, ds, y)
     counts["observability"] = observability_path(torch, lgt, hm, ds, built)
     clean_path_check("observability")
+    counts["api"] = api_path(torch, lgt, hm, ds, reg_ds, X, y, booster)
+    clean_path_check("api")
     torch.cuda.empty_cache()
     counts["sampling"] = sampling_path(torch, lgt, hm, X, y, ds,
                                        make_row(torch, rows), fused_rates)

@@ -1,15 +1,23 @@
 """User-facing Dataset and Booster (reference python-package/lightgbm/basic.py).
 
-Port of the numpy and scipy-sparse subset of lightgbm_tpu/basic.py:
-`Dataset(data,
-label, ..., reference=)` with lazy construction (a validation set bins
-with its reference's mappers; `Dataset.create_valid`) and
-`Booster(params, train_set)` with update (optionally on a custom
-objective's gradients) / update_batch / rollback_one_iter / add_valid /
-eval_train / eval_valid / reset_parameter / predict (raw, converted, leaf
-indices or SHAP contributions) / model_to_string / save_model, and the
-training state of a checkpoint bundle (_training_state /
-_restore_training_state). A booster trained on from an init_model, or
+Port of the numpy, scipy-sparse and file subset of lightgbm_tpu/basic.py:
+`Dataset(data, label, ..., reference=)` with lazy construction (a
+validation set bins with its reference's mappers; `Dataset.create_valid`;
+`data` a path: a binary dataset cache, or a CSV/TSV text file with the
+label in column 0), the field accessors (get_/set_ label, weight, group,
+init_score, get_field/set_field), num_data/num_feature, subset (whole
+queries of grouped data, ROADMAP C23), set_categorical_feature and
+save_binary; and `Booster(params, train_set)` with update (optionally on
+a custom objective's gradients; another train_set is ignored with a
+warning, as the JAX package ignores it: C24) / update_batch /
+rollback_one_iter / add_valid / eval_train / eval_valid / reset_parameter
+/ predict (raw, converted, leaf indices or SHAP contributions, with the
+prediction early stop; validate_features is accepted and ignored, as in
+the JAX package) / refit / model_to_string / save_model / dump_model /
+feature_name / feature_importance / lower_bound / upper_bound /
+free_dataset / copies, and the training state of a checkpoint bundle
+(_training_state / _restore_training_state). Model files and caches go
+through utils/file_io.open_file. A booster trained on from an init_model, or
 resumed from a bundle, keeps the base model's trees in front of its own.
 Training runs on the device named by `device_type` ("cuda" by default,
 "cpu" on request); prediction runs on the host model (the native predictor), like
@@ -38,6 +46,7 @@ from .metrics import METRIC_ALIASES, create_metric
 from .observability import configure_from_config
 from .objectives import create_objective
 from .tree import HostModel
+from .utils.file_io import open_file
 from .utils.log import LightGBMError, Log
 
 __all__ = ["Dataset", "Booster", "LightGBMError"]
@@ -75,6 +84,16 @@ def _data_from_pandas(df, pandas_categorical=None):
                            codes.values.astype(np.float64))
     X = np.ascontiguousarray(df.astype(np.float64).values, dtype=np.float64)
     return X, [names.index(c) for c in cat_cols], pandas_categorical
+
+
+def _load_svmlight_or_csv(path: str) -> np.ndarray:
+    """A CSV/TSV text file as a float64 matrix (tab-separated when its
+    first line holds a tab; the JAX package's basic.py:127-134)."""
+    with open_file(path) as fh:
+        first = fh.readline()
+    delim = "\t" if "\t" in first else ","
+    with open_file(path) as fh:
+        return np.loadtxt(fh, delimiter=delim)
 
 
 def _to_2d_float(data) -> np.ndarray:
@@ -115,19 +134,26 @@ class Dataset:
         if self._binned is not None:
             return self
         cfg = Config(self.params)
+        data = self.data
+        if isinstance(data, str):
+            if BinnedDataset.is_binary_file(data):
+                return self._construct_binary(data)
+            raw = _load_svmlight_or_csv(data)
+            if self.label is None:
+                self.label, raw = raw[:, 0], raw[:, 1:]
+            data = raw
         # sparse stays sparse through binning: only the bins are dense
-        sparse_in = is_sparse(self.data)
+        sparse_in = is_sparse(data)
         pandas_cat = None
         pandas_cat_idx: List[int] = []
-        if _is_pandas_df(self.data):
+        if _is_pandas_df(data):
             # category columns as codes; a valid set encodes through the
             # training set's category lists
             ref_pc = None if self.reference is None else getattr(
                 self.reference.binned, "pandas_categorical", None)
-            X, pandas_cat_idx, pandas_cat = _data_from_pandas(self.data,
-                                                              ref_pc)
+            X, pandas_cat_idx, pandas_cat = _data_from_pandas(data, ref_pc)
         else:
-            X = self.data if sparse_in else _to_2d_float(self.data)
+            X = data if sparse_in else _to_2d_float(data)
         names: Optional[List[str]] = None
         if self.feature_name != "auto" and self.feature_name is not None:
             names = list(self.feature_name)
@@ -178,10 +204,145 @@ class Dataset:
             self.data = None
         return self
 
+    def _construct_binary(self, path: str) -> "Dataset":
+        """The binary fast path (reference LoadFromBinFile,
+        dataset_loader.cpp:274; the JAX package's basic.py:305-342): no
+        parsing and no bin finding. A valid set's cache must hold its
+        reference's mappers; metadata given to the constructor overrides
+        the cached."""
+        self._binned = BinnedDataset.load_binary(path)
+        if self.reference is not None:
+            # reference Dataset::CheckAlign via LGBM_BoosterAddValidData:
+            # "different bin mappers with training data"
+            ref = self.reference.binned
+            same = (
+                ref.num_total_features == self._binned.num_total_features
+                and np.array_equal(ref.used_features,
+                                   self._binned.used_features)
+                and all(_same_mapper(a, b) for a, b in
+                        zip(ref.mappers, self._binned.mappers)))
+            if not same:
+                raise ValueError(
+                    "Cannot use binary dataset file as validation data: it "
+                    "has different bin mappers than the training data. "
+                    "Re-save it with reference=<train dataset>.")
+        md = self._binned.metadata
+        self._binned.metadata = Metadata(
+            self._binned.num_data,
+            label=self.label if self.label is not None else md.label,
+            weight=self.weight if self.weight is not None else md.weight,
+            init_score=self.init_score if self.init_score is not None
+            else md.init_score,
+            group=np.asarray(self.group) if self.group is not None
+            else md.query_boundaries)
+        if self.free_raw_data:
+            self.data = None
+        return self
+
     @property
     def binned(self) -> BinnedDataset:
         self.construct()
         return self._binned
+
+    # ------------------------------------------------------------------
+    def num_data(self) -> int:
+        return self.binned.num_data
+
+    def num_feature(self) -> int:
+        return self.binned.num_total_features
+
+    def get_label(self):
+        if self.label is not None:
+            return np.asarray(self.label)
+        if self._binned is not None:
+            return self._binned.metadata.label
+        return None
+
+    def get_weight(self):
+        return self.weight
+
+    def get_init_score(self):
+        return self.init_score
+
+    def set_label(self, label) -> "Dataset":
+        self.label = label
+        if self._binned is not None:
+            self._binned.metadata.label = np.asarray(
+                label, np.float32).reshape(-1)
+        return self
+
+    def set_weight(self, weight) -> "Dataset":
+        self.weight = weight
+        if self._binned is not None and weight is not None:
+            self._binned.metadata.weight = np.asarray(weight, np.float32)
+        return self
+
+    def set_init_score(self, init_score) -> "Dataset":
+        """A user init score; it replaces a continuation's seed, so
+        init_model's double-count guard sees it as the user's again."""
+        self.init_score = init_score
+        self._seeded_init_score = False
+        if self._binned is not None:
+            self._binned.metadata.init_score = None if init_score is None \
+                else np.asarray(init_score, np.float32)
+        return self
+
+    def set_field(self, name, data) -> "Dataset":
+        return {"label": self.set_label, "weight": self.set_weight,
+                "group": self.set_group,
+                "init_score": self.set_init_score}[name](data)
+
+    def get_field(self, name):
+        return {"label": self.get_label, "weight": self.get_weight,
+                "group": self.get_group,
+                "init_score": self.get_init_score}[name]()
+
+    def subset(self, used_indices, params=None) -> "Dataset":
+        """The rows `used_indices` as a constructed Dataset sharing this
+        one's mappers (BinnedDataset.subset: whole queries of grouped
+        data, else LightGBMError)."""
+        sub = Dataset(None, params=params or self.params)
+        sub._binned = self.binned.subset(np.asarray(used_indices))
+        sub.reference = self
+        return sub
+
+    def set_categorical_feature(self, categorical_feature) -> "Dataset":
+        """Change the categorical features (reference basic.py
+        set_categorical_feature): a constructed dataset drops its bins and
+        rebuilds them at next use, which needs the raw data
+        (free_raw_data=False)."""
+        if self.categorical_feature == categorical_feature:
+            return self
+        if self._binned is not None:
+            if self.data is None:
+                raise LightGBMError(
+                    "Cannot set categorical feature after freed raw data, "
+                    "set free_raw_data=False when construct Dataset to "
+                    "avoid this.")
+            Log.warning("categorical_feature in Dataset is overridden.\n"
+                        "New categorical_feature is %s",
+                        sorted(list(categorical_feature))
+                        if not isinstance(categorical_feature, str)
+                        else categorical_feature)
+            self._binned = None
+        self.categorical_feature = categorical_feature
+        return self
+
+    def save_binary(self, filename: str) -> "Dataset":
+        """Write the constructed dataset to a binary cache
+        (BinnedDataset.save_binary). A continuation's seeded init scores
+        are training state of one run and are not saved."""
+        binned = self.binned
+        if getattr(self, "_seeded_init_score", False):
+            saved = binned.metadata.init_score
+            binned.metadata.init_score = None
+            try:
+                binned.save_binary(filename)
+            finally:
+                binned.metadata.init_score = saved
+        else:
+            binned.save_binary(filename)
+        return self
 
     def create_valid(self, data, label=None, weight=None, group=None,
                      init_score=None, params=None) -> "Dataset":
@@ -230,7 +391,7 @@ class Booster:
         # ride in front of this booster's in predict and the model text
         self._base_model: Optional["Booster"] = None
         if model_file is not None:
-            with open(model_file) as fh:
+            with open_file(model_file) as fh:
                 model_str = fh.read()
         if model_str is not None:
             self._model = HostModel.from_string(model_str)
@@ -293,11 +454,13 @@ class Booster:
         """One boosting iteration; returns True if no further splits
         (reference LGBM_BoosterUpdateOneIter). fobj(score, train_set) ->
         (grad, hess): train on a custom objective's gradients (the
-        booster's constant-hessian gate is dropped for good)."""
+        booster's constant-hessian gate is dropped for good). Another
+        train_set is ignored with a warning and the booster trains on its
+        own, as the JAX package ignores it (ROADMAP C24: the reference
+        resets the training data, LGBM_BoosterResetTrainingData)."""
         if train_set is not None and train_set is not self.train_set:
-            raise NotImplementedError(
-                "update(train_set=<another Dataset>) is not ported to "
-                "lightgbm_tpu_torch (ROADMAP.md port queue A12)")
+            Log.warning("update(train_set=...) ignores the Dataset it is "
+                        "given: the booster trains on its own train_set")
         self._model = None
         if fobj is not None:
             gb = self.gbdt
@@ -379,6 +542,9 @@ class Booster:
             return self.gbdt.num_tree_per_iteration
         return self._model.num_tree_per_iteration if self._model else 1
 
+    def num_model_per_iteration(self) -> int:
+        return self.num_trees_per_iteration
+
     def num_trees(self) -> int:
         if self.gbdt is not None:
             n = len(self.gbdt.trees)
@@ -455,15 +621,26 @@ class Booster:
     def predict(self, data, start_iteration: int = 0,
                 num_iteration: Optional[int] = None,
                 raw_score: bool = False, pred_leaf: bool = False,
-                pred_contrib: bool = False) -> np.ndarray:
+                pred_contrib: bool = False,
+                validate_features: bool = False,
+                pred_early_stop: bool = False,
+                pred_early_stop_freq: int = 10,
+                pred_early_stop_margin: float = 10.0,
+                **kwargs) -> np.ndarray:
         """Scores, leaf indices (pred_leaf) or SHAP contributions
         (pred_contrib: [n, (F + 1) x k], the expected value last in each
         class's block; a CSR matrix for sparse input, as in the JAX
-        package; NotImplementedError on linear trees) of the host model."""
+        package; NotImplementedError on linear trees) of the host model,
+        with the margin early stop of HostModel.predict
+        (pred_early_stop*). validate_features and other keywords are
+        accepted and ignored, as in the JAX package (ROADMAP C6)."""
         model = self._host_model()
         kw = dict(start_iteration=start_iteration,
                   num_iteration=num_iteration, raw_score=raw_score,
-                  pred_leaf=pred_leaf, pred_contrib=pred_contrib)
+                  pred_leaf=pred_leaf, pred_contrib=pred_contrib,
+                  pred_early_stop=pred_early_stop,
+                  pred_early_stop_freq=pred_early_stop_freq,
+                  pred_early_stop_margin=pred_early_stop_margin)
         if _is_pandas_df(data) and model.pandas_categorical is not None:
             # category columns coded in the training category order
             data = _data_from_pandas(data, model.pandas_categorical)[0]
@@ -484,16 +661,102 @@ class Booster:
             return np.concatenate(outs, axis=0)
         return model.predict(_to_2d_float(data), **kw)
 
+    def refit(self, data, label, decay_rate: Optional[float] = None,
+              **kwargs) -> "Booster":
+        """A new Booster whose leaf values are refitted on (data, label)
+        (reference gbdt.cpp:287 RefitTree; HostModel.refit): decay x old +
+        (1 - decay) x new, decay refit_decay_rate unless given. The
+        gradients run on the training device, or, for a booster loaded
+        from a model, on the device its device_type names."""
+        model = self._host_model()
+        decay = self.config.refit_decay_rate if decay_rate is None \
+            else decay_rate
+        cfg = self.config
+        if model.num_class > 1 and int(cfg.num_class) != model.num_class:
+            # the model's class count, for a booster loaded from a model
+            cfg = Config(dict(self.params, num_class=model.num_class))
+        device = self.gbdt.device if self.gbdt is not None \
+            else resolve_device(cfg.device_type)
+        new_model = model.refit(_to_2d_float(data),
+                                np.asarray(label, np.float32), decay, cfg,
+                                device)
+        return Booster(params=self.params, model_str=new_model.to_string())
+
     def model_to_string(self, num_iteration: Optional[int] = None,
-                        start_iteration: int = 0) -> str:
+                        start_iteration: int = 0,
+                        importance_type: str = "split") -> str:
         return self._host_model().to_string(
             num_iteration=num_iteration, start_iteration=start_iteration)
 
     def save_model(self, filename: str, num_iteration: Optional[int] = None,
-                   start_iteration: int = 0) -> "Booster":
-        with open(filename, "w") as fh:
+                   start_iteration: int = 0,
+                   importance_type: str = "split") -> "Booster":
+        with open_file(filename, "w") as fh:
             fh.write(self.model_to_string(num_iteration, start_iteration))
         return self
+
+    def dump_model(self, num_iteration: Optional[int] = None,
+                   start_iteration: int = 0,
+                   importance_type: str = "split") -> dict:
+        """The model as the reference's JSON dump (HostModel.to_json)."""
+        return self._host_model().to_json(num_iteration, start_iteration)
+
+    # ------------------------------------------------------------------
+    def feature_name(self) -> List[str]:
+        return self._host_model().feature_names
+
+    def num_feature(self) -> int:
+        return self._host_model().max_feature_idx + 1
+
+    def feature_importance(self, importance_type: str = "split",
+                           iteration: Optional[int] = None) -> np.ndarray:
+        """Splits ("split") or total gains ("gain") a feature, over every
+        tree; `iteration` is accepted and ignored, as in the JAX
+        package."""
+        return self._host_model().feature_importance(importance_type)
+
+    def lower_bound(self) -> float:
+        model = self._host_model()
+        return min((t.leaf_value.min() for t in model.trees), default=0.0)
+
+    def upper_bound(self) -> float:
+        model = self._host_model()
+        return max((t.leaf_value.max() for t in model.trees), default=0.0)
+
+    def free_dataset(self) -> "Booster":
+        self.train_set = None
+        return self
+
+    def free_network(self) -> "Booster":
+        return self
+
+    def __copy__(self):
+        return self.__deepcopy__(None)
+
+    def __deepcopy__(self, _):
+        """A Booster of this one's model text and params (a prediction
+        handle: it holds no training state)."""
+        return Booster(params=self.params, model_str=self.model_to_string())
+
+
+def _same_mapper(a, b) -> bool:
+    """Mapper equality, NaN bounds equal to each other (a bound list may
+    hold NaN, which == never matches)."""
+    da, db = a.to_dict(), b.to_dict()
+    if da.keys() != db.keys():
+        return False
+    for key in da:
+        x, y = np.asarray(da[key]), np.asarray(db[key])
+        if x.shape != y.shape:
+            return False
+        if x.dtype.kind == "f" or y.dtype.kind == "f":
+            same = np.array_equal(x.astype(np.float64), y.astype(np.float64),
+                                  equal_nan=True)
+        else:
+            same = np.array_equal(x, y)
+        if not same:
+            return False
+    return True
 
 
 def _higher_better(metric_name: str) -> bool:

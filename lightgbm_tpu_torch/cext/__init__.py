@@ -1,4 +1,5 @@
-"""The native host runtime: C++ binning and forest prediction via ctypes.
+"""The native host runtime: C++ binning, text parsing and forest
+prediction via ctypes.
 
 The port's own copies of lightgbm_tpu/cext/binning.cpp and predict.cpp
 (reference DatasetLoader's OpenMP FindBin and bin-construction loops,
@@ -32,7 +33,8 @@ import numpy as np
 
 __all__ = ["build_all", "greedy_find_bin", "sample_transpose",
            "find_numeric_bounds", "bin_matrix", "forest_predict",
-           "forest_predict_leaf", "FLAGS_USED"]
+           "forest_predict_leaf", "count_rows", "parse_delimited",
+           "FLAGS_USED"]
 
 _DIR = Path(__file__).resolve().parent
 BUILD_DIR = _DIR.parent / "_build"
@@ -63,6 +65,9 @@ _ENTRIES = {
         "lgbt_sample_transpose": (None, [_vp, _ci, _ci, _L, _cl, _D]),
         "lgbt_find_numeric_bounds": (_ci, [_D, _ci, _cl, _ci, _ci, _ci, _ci,
                                            _D, _I, _I, _D, _L]),
+        "lgbt_parse_delimited": (_cl, [ctypes.c_char_p, ctypes.c_char, _ci,
+                                       _D, _cl, _ci, _I]),
+        "lgbt_count_rows": (_cl, [ctypes.c_char_p, ctypes.c_char, _I]),
     },
     "predict": {
         "lgbt_predict": (None, [_D, _cl, _ci, _ci, _I, _ci, _L, _L, _I, _D,
@@ -141,6 +146,37 @@ def _lib(stem: str) -> ctypes.CDLL:
 
 def _ptr(a: np.ndarray, ct):
     return a.ctypes.data_as(ctypes.POINTER(ct))
+
+
+def count_rows(path: str, delim: str = ","):
+    """(non-empty lines, columns of the first line) of a delimited text
+    file, or None when it cannot be opened (lgbt_count_rows)."""
+    cols = ctypes.c_int(0)
+    rows = _lib("binning").lgbt_count_rows(
+        str(path).encode(), delim.encode(), ctypes.byref(cols))
+    return None if rows < 0 else (int(rows), int(cols.value))
+
+
+def parse_delimited(path: str, delim: str = ",", skip_rows: int = 0):
+    """A local delimited text file of numbers as a dense [rows, cols]
+    float64 matrix (lgbt_parse_delimited: strtod a token, an unparsable
+    token NaN, a short row padded with 0.0), after skip_rows header
+    lines; None for an empty or unreadable file (the JAX package's
+    cext.parse_delimited, which its CLI then reads with np.loadtxt)."""
+    counted = count_rows(path, delim)
+    if counted is None or counted[0] <= 0 or counted[1] <= 0:
+        return None
+    rows, cols = counted[0] - skip_rows, counted[1]
+    if rows <= 0:
+        return None
+    out = np.zeros((rows, cols), np.float64)
+    got_cols = ctypes.c_int(0)
+    got = _lib("binning").lgbt_parse_delimited(
+        str(path).encode(), delim.encode(), skip_rows,
+        _ptr(out, ctypes.c_double), rows, cols, ctypes.byref(got_cols))
+    if got < 0:
+        return None
+    return out[:got, :got_cols.value]
 
 
 def greedy_find_bin(distinct: np.ndarray, counts: np.ndarray, max_bin: int,

@@ -14,18 +14,23 @@ densifying its raw values (BinnedDataset.from_sparse, the JAX package's
 data.py:197-250): only the bin matrix is dense. Linear trees keep the used
 features' raw values beside the bins (keep_raw: BinnedDataset.raw, [N,
 F_used] f32, the JAX package's data.py:131-136,157-194); they need dense
-input, so from_sparse refuses keep_raw as the JAX package does.
+input, so from_sparse refuses keep_raw as the JAX package does. Row
+subsets (BinnedDataset.subset) keep whole queries of grouped data, and the
+binary cache (save_binary / is_binary_file / load_binary) is the JAX
+package's npz layout.
 """
 
 from __future__ import annotations
 
+import json
 from typing import List, Optional, Sequence
 
 import numpy as np
 
 from .binning import (BinMapper, bin_columns, find_bin_mappers,
                       find_bin_mappers_sparse)
-from .utils.log import Log
+from .utils.file_io import open_file
+from .utils.log import LightGBMError, Log
 from .utils.timer import global_timer
 
 __all__ = ["Metadata", "BinnedDataset", "is_sparse"]
@@ -254,3 +259,128 @@ class BinnedDataset:
     @property
     def num_features(self) -> int:
         return self.bins.shape[1]
+
+    def subset(self, row_indices) -> "BinnedDataset":
+        """Row subset sharing mappers (reference Dataset::CopySubrow; the
+        JAX package's data.py:356-370). On grouped data the subset keeps
+        the boundaries of the queries it selects, each a run of its rows
+        in order; indices that cut a query raise LightGBMError (the JAX
+        package drops the boundaries: ROADMAP C23)."""
+        rows = np.asarray(row_indices, dtype=np.int64).reshape(-1)
+        md = self.metadata
+        init = md.init_score
+        if init is not None and init.ndim == 1 and len(init) != md.num_data:
+            # a multiclass init score given flat: [N, k] row-major (C26)
+            init = init.reshape(md.num_data, -1)
+        sub_md = Metadata(
+            len(rows),
+            label=None if md.label is None else md.label[rows],
+            weight=None if md.weight is None else md.weight[rows],
+            init_score=None if init is None else init[rows],
+            group=None if md.query_boundaries is None
+            else _subset_query_sizes(md.query_boundaries, rows))
+        sub = BinnedDataset(self.bins[rows], self.mappers,
+                            self.used_features, self.num_total_features,
+                            sub_md, self.feature_names,
+                            raw=None if self.raw is None else self.raw[rows])
+        sub.pandas_categorical = getattr(self, "pandas_categorical", None)
+        return sub
+
+    # ---- binary cache: the JAX package's layout (data.py:372-440), so
+    # a file either package saved loads in the other. Reference:
+    # Dataset::SaveBinaryFile / DatasetLoader::LoadFromBinFile
+    # (dataset_loader.cpp:274): reloading skips text parsing and bin
+    # finding. Bins are stored unpacked (4-bit packing is the booster's
+    # choice at training time) with the raw values of linear trees.
+    _BINARY_MAGIC = "lightgbm_tpu.dataset.v1"
+
+    def save_binary(self, filename: str) -> None:
+        """Serialize the bin matrix, the mappers and the metadata as a
+        compressed npz."""
+        md = self.metadata
+        mapper_json = json.dumps([m.to_dict() for m in self.mappers])
+        payload = dict(
+            magic=np.frombuffer(self._BINARY_MAGIC.encode(), dtype=np.uint8),
+            bins=self.bins,
+            used_features=self.used_features,
+            num_total_features=np.int64(self.num_total_features),
+            feature_names=np.array([str(s) for s in self.feature_names]),
+            mappers_json=np.frombuffer(mapper_json.encode(), dtype=np.uint8),
+        )
+        if self.raw is not None:
+            payload["raw"] = self.raw
+        for fld in ("label", "weight", "init_score"):
+            v = getattr(md, fld)
+            if v is not None:
+                payload["md_" + fld] = v
+        if md.query_boundaries is not None:
+            payload["md_query_boundaries"] = md.query_boundaries
+        with open_file(filename, "wb") as fh:
+            np.savez_compressed(fh, **payload)
+
+    @staticmethod
+    def is_binary_file(filename: str) -> bool:
+        """Whether `filename` is a binary dataset cache (a zip whose
+        `magic` entry holds the cache's magic)."""
+        try:
+            with open_file(filename, "rb") as fh:
+                if fh.read(4) != b"PK\x03\x04":
+                    return False
+            with open_file(filename, "rb") as fh, np.load(fh) as z:
+                if "magic" not in z:
+                    return False
+                return bytes(z["magic"]).decode() == \
+                    BinnedDataset._BINARY_MAGIC
+        except Exception:
+            return False
+
+    @staticmethod
+    def load_binary(filename: str) -> "BinnedDataset":
+        with open_file(filename, "rb") as fh, np.load(fh) as z:
+            if bytes(z["magic"]).decode() != BinnedDataset._BINARY_MAGIC:
+                raise ValueError(f"{filename} is not a lightgbm_tpu "
+                                 "binary dataset")
+            mappers = [BinMapper.from_dict(d) for d in
+                       json.loads(bytes(z["mappers_json"]).decode())]
+            bins = z["bins"]
+            md = Metadata(
+                int(bins.shape[0]),
+                label=z["md_label"] if "md_label" in z else None,
+                weight=z["md_weight"] if "md_weight" in z else None,
+                init_score=z["md_init_score"]
+                if "md_init_score" in z else None,
+                group=z["md_query_boundaries"]
+                if "md_query_boundaries" in z else None)
+            return BinnedDataset(
+                bins, mappers, z["used_features"],
+                int(z["num_total_features"]), md,
+                [str(s) for s in z["feature_names"]],
+                raw=z["raw"] if "raw" in z else None)
+
+
+def _subset_query_sizes(bounds: np.ndarray, rows: np.ndarray) -> np.ndarray:
+    """The query sizes of the subset `rows` of a dataset with query
+    boundaries `bounds`: rows must come as whole queries, each the run
+    bounds[q] .. bounds[q + 1] - 1 in order (a query may appear more than
+    once), else LightGBMError."""
+    sizes = np.diff(bounds)
+    if len(rows) == 0:
+        return np.zeros(0, np.int64)
+    if rows.min() < 0 or rows.max() >= bounds[-1]:
+        raise LightGBMError("subset row indices out of range")
+    qid = np.searchsorted(bounds, rows, side="right") - 1
+    # a run starts where the query changes or the rows stop being
+    # consecutive
+    start = np.ones(len(rows), bool)
+    start[1:] = (qid[1:] != qid[:-1]) | (rows[1:] != rows[:-1] + 1)
+    first = np.flatnonzero(start)
+    run_len = np.diff(np.append(first, len(rows)))
+    q = qid[first]
+    whole = (rows[first] == bounds[q]) & (run_len == sizes[q])
+    if not whole.all():
+        bad = int(q[np.argmin(whole)])
+        raise LightGBMError(
+            f"subset row indices cut query {bad} (rows "
+            f"{int(bounds[bad])}..{int(bounds[bad + 1]) - 1}): a subset of "
+            "grouped data takes whole queries")
+    return run_len

@@ -18,7 +18,8 @@ leaves addressed as `~leaf_index` (negative) in child arrays (tree.h:25).
 decision_type packs {categorical:1, default_left:2, missing_type<<2}
 (tree.h decision-type masks; missing: None=0, Zero=1, NaN=2).
 
-Copy of lightgbm_tpu/tree.py for the PyTorch/CUDA port without refit,
+Copy of lightgbm_tpu/tree.py for the PyTorch/CUDA port, with refit (the
+objective's gradients from objectives.py on the booster's device), the
 JSON dump and prediction early stop. Prediction runs the native runtime's
 forest predictor (cext/predict.cpp, OpenMP over rows), as the JAX
 package's does; the numpy tree walk stays as its plain version
@@ -267,6 +268,51 @@ class HostTree:
             t.leaf_coeff = [flat_c[offs[i]:offs[i + 1]] for i in range(nl)]
         return t
 
+    # ---- json (Tree::ToJSON, tree.cpp:414) ----------------------------
+    def to_json(self) -> dict:
+        """The tree as the reference's dump_model JSON, with a linear
+        leaf's leaf_const, leaf_features and leaf_coeff."""
+        def node(i):
+            if i < 0:
+                li = ~i
+                d = {"leaf_index": int(li),
+                     "leaf_value": float(self.leaf_value[li]),
+                     "leaf_weight": float(self.leaf_weight[li]),
+                     "leaf_count": int(self.leaf_count[li])}
+                if self.is_linear:
+                    d["leaf_const"] = float(self.leaf_const[li]) \
+                        if li < len(self.leaf_const) else d["leaf_value"]
+                    d["leaf_features"] = [int(f) for f in (
+                        self.leaf_features[li]
+                        if li < len(self.leaf_features) else [])]
+                    d["leaf_coeff"] = [float(c) for c in (
+                        self.leaf_coeff[li]
+                        if li < len(self.leaf_coeff) else [])]
+                return d
+            dt = int(self.decision_type[i])
+            return {
+                "split_index": int(i),
+                "split_feature": int(self.split_feature[i]),
+                "split_gain": float(self.split_gain[i]),
+                "threshold": float(self.threshold[i]),
+                "decision_type": "==" if dt & _CAT_BIT else "<=",
+                "default_left": bool(dt & _DEFAULT_LEFT_BIT),
+                "missing_type": ["None", "Zero", "NaN"][(dt >> 2) & 3],
+                "internal_value": float(self.internal_value[i]),
+                "internal_weight": float(self.internal_weight[i]),
+                "internal_count": int(self.internal_count[i]),
+                "left_child": node(int(self.left_child[i])),
+                "right_child": node(int(self.right_child[i])),
+            }
+        if self.num_leaves <= 1:
+            structure = {"leaf_value": float(self.leaf_value[0])}
+        else:
+            structure = node(0)
+        return {"num_leaves": int(self.num_leaves),
+                "num_cat": int(self.num_cat),
+                "shrinkage": float(self.shrinkage),
+                "tree_structure": structure}
+
 
 class HostModel:
     """Full model: header + trees (reference GBDT model text)."""
@@ -399,12 +445,20 @@ class HostModel:
                 num_iteration: Optional[int] = None,
                 raw_score: bool = False, pred_leaf: bool = False,
                 pred_contrib: bool = False,
+                pred_early_stop: bool = False,
+                pred_early_stop_freq: int = 10,
+                pred_early_stop_margin: float = 10.0,
                 native: bool = True) -> np.ndarray:
         """Scores ([n] or [n, k]; raw or converted), with pred_leaf each
         row's leaf index in each tree ([n, trees] int32), or with
         pred_contrib the SHAP contributions ([n, (F + 1) x k],
         predict_contrib), through the native predictor or (native=False)
-        the numpy tree walk."""
+        the numpy tree walk. pred_early_stop (binary, cross-entropy and
+        multiclass models, not averaged ones): every pred_early_stop_freq
+        iterations a row whose margin (2|score| binary, top1 - top2
+        multiclass) reaches pred_early_stop_margin takes no more trees
+        (reference prediction_early_stop.cpp; the JAX package's
+        tree.py:434-517), through the numpy tree walk."""
         k = max(self.num_tree_per_iteration, 1)
         total_iters = self.num_iterations
         if num_iteration is None or num_iteration <= 0:
@@ -426,7 +480,14 @@ class HostModel:
                     "Predicting SHAP feature contributions is not "
                     "implemented for linear trees.")
             return self.predict_contrib(X, start_iteration, end_iteration)
-        if native:
+        obj = self.objective.split(" ")[0]
+        use_early = (pred_early_stop and not self.average_output and
+                     (k > 1 or obj in ("binary", "cross_entropy",
+                                       "xentropy")))
+        if use_early:
+            out = self._predict_early_stop(X, rng, k, pred_early_stop_freq,
+                                           pred_early_stop_margin)
+        elif native:
             out = cext.forest_predict(self._flatten_native(), X, k,
                                       rng.start, rng.stop)
         else:
@@ -440,6 +501,40 @@ class HostModel:
         if not raw_score:
             out = self._convert_output(out)
         return out[:, 0] if k == 1 else out
+
+    def _predict_early_stop(self, X, rng, k, freq, margin_stop):
+        """Raw [n, k] scores of the trees in `rng`, a row retired once
+        its margin reaches margin_stop at a check every freq iterations
+        (so every class has taken as many trees); rows are re-sliced only
+        when the active set changes."""
+        n = X.shape[0]
+        out = np.zeros((n, k), np.float64)
+        check_every = max(freq, 1) * k
+        act_idx = None          # None: every row active
+        Xa = X
+        for j, ti in enumerate(rng):
+            cls = self.tree_class[ti] if ti < len(self.tree_class) else ti % k
+            if act_idx is None:
+                out[:, cls] += self.trees[ti].predict_rows(X)
+            else:
+                out[act_idx, cls] += self.trees[ti].predict_rows(Xa)
+            if (j + 1) % check_every == 0:
+                if k == 1:
+                    margin = 2.0 * np.abs(out[:, 0])
+                else:
+                    part = np.partition(out, k - 2, axis=1)
+                    margin = part[:, k - 1] - part[:, k - 2]
+                active = margin < margin_stop
+                if act_idx is not None:
+                    keep = np.zeros(n, bool)
+                    keep[act_idx] = True
+                    active &= keep
+                if not active.all() or act_idx is not None:
+                    act_idx = np.flatnonzero(active)
+                    if act_idx.size == 0:
+                        break
+                    Xa = X[act_idx]
+        return out
 
     def predict_contrib(self, X: np.ndarray, start_iteration: int,
                         end_iteration: int) -> np.ndarray:
@@ -481,6 +576,94 @@ class HostModel:
                 else:
                     imp[f] += max(float(t.split_gain[i]), 0.0)
         return imp
+
+    def refit(self, X: np.ndarray, label: np.ndarray, decay_rate: float,
+              config, device) -> "HostModel":
+        """Re-fit leaf values on new data (reference GBDT::RefitTree,
+        gbdt.cpp:287; the JAX package's tree.py:562-601): tree by tree,
+        the objective's gradients at the score of the trees refitted so
+        far (f32, on `device`, the objectives of objectives.py), each
+        leaf's new output -sign(G) max(|G| - l1, 0) / (H + l2) from its
+        rows' float64 sums (leaf indices from the host traversal), and
+        leaf = decay x old + (1 - decay) x new x shrinkage; linear leaves
+        refit their models too (_refit_linear_leaves)."""
+        import copy
+
+        import torch
+
+        from .data import Metadata
+        from .objectives import create_objective, gradients_at
+        new_model = copy.deepcopy(self)
+        new_model._native_flat = None   # leaf values change below
+        obj = create_objective(self.objective.split(" ")[0], config)
+        n = len(label)
+        obj.init(Metadata(n, label=label), n, device)
+        k = max(self.num_tree_per_iteration, 1)
+        score = np.zeros((n, k), np.float64)
+        l2 = float(config.lambda_l2)
+        l1 = float(config.lambda_l1)
+        for ti, t in enumerate(new_model.trees):
+            cls = self.tree_class[ti] if ti < len(self.tree_class) else ti % k
+            # the objective's score layout: [N], or class-major [k, N]
+            sc = np.ascontiguousarray(score[:, 0] if k == 1 else score.T,
+                                      np.float32)
+            g, h = gradients_at(obj, torch.as_tensor(sc, device=device), 0)
+            g = (g if k == 1 else g[cls]).double().cpu().numpy()
+            h = (h if k == 1 else h[cls]).double().cpu().numpy()
+            leaves = t.leaf_index_rows(X)
+            sum_g = np.bincount(leaves, weights=g, minlength=t.num_leaves)
+            sum_h = np.bincount(leaves, weights=h, minlength=t.num_leaves)
+            thr_g = np.sign(sum_g) * np.maximum(np.abs(sum_g) - l1, 0)
+            new_out = -thr_g / (sum_h + l2 + 1e-15)
+            t.leaf_value = decay_rate * t.leaf_value + \
+                (1.0 - decay_rate) * new_out * t.shrinkage
+            if t.is_linear:
+                # the leaf models refit with decay (reference
+                # CalculateLinear's is_refit path,
+                # linear_tree_learner.cpp:325-378)
+                self._refit_linear_leaves(t, X, leaves, g, h, decay_rate,
+                                          new_out, float(config.linear_lambda))
+            score[:, cls] += t.predict_rows(X)
+        return new_model
+
+    @staticmethod
+    def _refit_linear_leaves(t: "HostTree", X, leaves, g, h, decay,
+                             new_out, lam) -> None:
+        """Each linear leaf's ridge solve over its rows without NaN in
+        its features (the JAX package's tree.py:603-635): coefficients and
+        constant decayed like the leaf value; a leaf without features,
+        with too few usable rows or a singular system keeps only the
+        decayed constant."""
+        for li in range(t.num_leaves):
+            feats = t.leaf_features[li] if li < len(t.leaf_features) \
+                else np.zeros(0, np.int32)
+            nfeat = len(feats)
+            fb_const = decay * float(t.leaf_const[li]) + \
+                (1.0 - decay) * new_out[li] * t.shrinkage
+            if nfeat == 0:
+                t.leaf_const[li] = fb_const
+                continue
+            rows = np.flatnonzero(leaves == li)
+            xv = X[np.ix_(rows, feats)]
+            okr = ~np.isnan(xv).any(axis=1)
+            old_coef = np.asarray(t.leaf_coeff[li], np.float64)
+            if okr.sum() < nfeat + 1:
+                t.leaf_const[li] = fb_const
+                t.leaf_coeff[li] = np.zeros(nfeat)
+                continue
+            xt = np.column_stack([xv[okr], np.ones(int(okr.sum()))])
+            a = (xt * h[rows][okr][:, None]).T @ xt
+            a[np.arange(nfeat), np.arange(nfeat)] += lam
+            try:
+                sol = -np.linalg.solve(a, xt.T @ g[rows][okr])
+            except np.linalg.LinAlgError:
+                t.leaf_const[li] = fb_const
+                t.leaf_coeff[li] = np.zeros(nfeat)
+                continue
+            t.leaf_coeff[li] = decay * old_coef + \
+                (1.0 - decay) * sol[:nfeat] * t.shrinkage
+            t.leaf_const[li] = decay * float(t.leaf_const[li]) + \
+                (1.0 - decay) * sol[nfeat] * t.shrinkage
 
     # ------------------------------------------------------------------
     def to_string(self, num_iteration: Optional[int] = None,
@@ -609,6 +792,34 @@ class HostModel:
                     kk, vv = pline[1:-1].split(": ", 1)
                     model.params[kk] = vv
         return model
+
+    def to_json(self, num_iteration: Optional[int] = None,
+                start_iteration: int = 0) -> dict:
+        """The model as the reference's dump_model JSON (the JAX
+        package's tree.py:764-791)."""
+        k = max(self.num_tree_per_iteration, 1)
+        total = self.num_iterations
+        if num_iteration is None or num_iteration <= 0:
+            num_iteration = total
+        end = min(start_iteration + num_iteration, total)
+        tree_infos = []
+        for ti in range(start_iteration * k, end * k):
+            tj = self.trees[ti].to_json()
+            tj["tree_index"] = ti
+            tree_infos.append(tj)
+        return {
+            "name": "tree",
+            "version": "v3",
+            "num_class": self.num_class,
+            "num_tree_per_iteration": self.num_tree_per_iteration,
+            "label_index": self.label_index,
+            "max_feature_idx": self.max_feature_idx,
+            "objective": self.objective,
+            "average_output": self.average_output,
+            "feature_names": self.feature_names,
+            "feature_infos": self.feature_infos,
+            "tree_info": tree_infos,
+        }
 
 # ---------------------------------------------------------------------------
 

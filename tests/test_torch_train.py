@@ -209,14 +209,15 @@ def test_formerly_refused_params_train(extra, tmp_path):
 
 def test_valid_sets_and_callbacks_raise():
     """Valid sets, callbacks and checkpoints train
-    (tests/test_torch_valid.py, test_torch_checkpoint.py); what stays
-    unported around train refuses, naming its queue item:
-    keep_training_booster=True and update(train_set=<another>) (A12)."""
+    (tests/test_torch_valid.py, test_torch_checkpoint.py), and so do the
+    two calls around train that refused until slice 23:
+    keep_training_booster=True returns a booster that goes on training
+    with update(), and update(train_set=<another>) warns and trains the
+    booster's own set (ROADMAP C24; tests/test_torch_sklearn.py holds
+    both to longer runs)."""
     X, y = make_binary(n=200, f=4)
     ds = lgt.Dataset(X, label=y)
     params = {"objective": "binary", "device_type": "cpu", "verbosity": -1}
-    with pytest.raises(NotImplementedError, match="A12"):
-        lgt.train(params, ds, 1, keep_training_booster=True)
-    bst = lgt.train(params, ds, 1)
-    with pytest.raises(NotImplementedError, match="A12"):
-        bst.update(train_set=lgt.Dataset(X, label=y))
+    bst = lgt.train(params, ds, 1, keep_training_booster=True)
+    bst.update(train_set=lgt.Dataset(X, label=y))
+    assert bst.current_iteration() == 2
