@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
-Builds the port's nine CUDA kernel sources from lightgbm_tpu_torch/csrc,
+Builds the port's ten CUDA kernel sources from lightgbm_tpu_torch/csrc,
 holds each kernel against its plain PyTorch version on the card — every
 histogram kernel and the node sums bit for bit (integer sums in every
 mode) and across two calls — at the shapes the training path gives it
@@ -33,8 +33,9 @@ below: EFB, single-precision hessians, the rescanning monotone methods,
 forced splits with CEGB and the guard rails, linear trees, and wide
 bins; twenty with slice 20's pipeline and checkpoint paths, twenty-two
 with the reliability and observability paths, twenty-three with slice
-23's api path; the pipeline, checkpoint, observability and api paths'
-launches each kernel row lists apart under `launches_new_paths`):
+23's api path, twenty-four with slice 24's serving path; the pipeline,
+checkpoint, observability, api and serving paths' launches each kernel
+row lists apart under `launches_new_paths`):
 
 - exact histograms: the Higgs-like binary configuration (num_leaves 255,
   max_bin 255), the same with min_data_in_leaf 1000 (which runs the
@@ -129,6 +130,21 @@ launches each kernel row lists apart under `launches_new_paths`):
   against the model text, and the CLI (python -m lightgbm_tpu_torch.cli,
   train and predict on a 200,000-row CSV, on a thread of its own)
   against the Python API; K1, K6, P and V launched;
+- the serving engine (phase `serving`, serving_path): a 100-tree,
+  255-leaf binary booster trained at fused_block_size 10, its quantized
+  twin, their dyadic copies and six 12-tree tenants, all trained before
+  any Server starts; kernel V's forest-sum and packed modes
+  (csrc/serve_forest.cu) bit-equal to their plain versions at bucket
+  1024, at bucket 16 with 5 pad rows (0.0) and on uint16 and int32 bins,
+  and on a pack of 172 trees in 256; a Server of two replicas on the
+  card serving the 40,000 held-out rows to 8 client threads, 1,500
+  heavy-tailed requests of 1-1024 rows, every answer within 1e-5 / 1e-7
+  of Booster.predict (the dyadic model's bit-equal to host predict), the
+  pack's members bit-equal to their solo forest sums, no fall-back,
+  shed, error, deadline miss, failover or open breaker; then apart, a
+  failed replica dispatch opening one breaker that the probe closes, and
+  a hot swap under traffic that drops nothing; p50/p95/p99 latency and
+  QPS;
 - row sampling, random forest and DART (phases `sampling*`): bagging
   (fraction 0.8, freq 5), GOSS (top_rate 0.2, other_rate 0.1) and
   bagging with quantized gradients through the fused phases' turns
@@ -445,10 +461,10 @@ PIPELINE_PATH = ("predict_binned", "prune_best_first", "fused_route_hist",
 # resumed from CKPT_RESUME
 CKPT_ROUNDS, CKPT_PERIOD, CKPT_RESUME = 30, 10, 20
 CKPT_PATH = ("prune_best_first", "fused_route_hist", "node_values")
-# the paths of slices 20, 22 and 23, whose launches each kernel row lists
-# apart
+# the paths of slices 20, 22, 23 and 24, whose launches each kernel row
+# lists apart
 NEW_PATHS = ("pipeline", "pipeline_multiclass", "checkpoint",
-             "observability", "api")
+             "observability", "api", "serving")
 RF_PARAMS = dict(TRAIN_PARAMS, boosting="rf", bagging_fraction=0.7,
                  bagging_freq=1)
 RF_TREES = 10
@@ -478,9 +494,10 @@ MC_QUANT_PARAMS = dict(MC_PARAMS, use_quantized_grad=True,
                        hist_backend="mxu")
 MC_VALID_ROUNDS = 20
 # iterations a step of the multiclass fused turns (train, update_batch,
-# update_batch against as many update() calls): 6 since the api path, 10
-# before (the per-iteration turns held two thirds of the 5-class time)
-MC_TURN_STEP = 6
+# update_batch against as many update() calls): 4 since the serving path,
+# 6 since the api path, 10 before (the per-iteration turns held two thirds
+# of the 5-class time)
+MC_TURN_STEP = 4
 OVA_TREES = 5
 HOST_ROWS = 100_000   # rows host predict is held to the device scores on
 RANK_QSIZE = 20
@@ -3352,6 +3369,548 @@ def api_path(torch, lgt, hm, ds, reg_ds, X, y, booster):
          byte_equal=True, part_s=parts,
          seconds=time.perf_counter() - t_phase,
          launches={k: counts[k] for k in API_PATH})
+    return counts
+
+
+# the serving engine (slice 24): a 100-tree, 255-leaf binary booster and
+# its dyadic copy served from the card by a Server of two replicas on
+# the one card, then a pack of it and six small tenants
+SERVE_TREES = 100
+SERVE_BLOCK = 10            # fused_block_size of the serving booster
+SERVE_REQUESTS = (1000, 500)   # heavy-tailed requests: exact, dyadic
+SERVE_CLIENTS = 8
+SERVE_MAX_ROWS = 1024
+SERVE_TENANTS = 6
+SERVE_TENANT_TREES = 12
+SERVE_TENANT_LEAVES = 15
+SERVE_TENANT_ROWS = 20_000
+SERVE_PACK_REQUESTS = 60    # a client, over the pack's members
+SERVE_PACK_BLOCK = 64       # rows a slot in the packed kernel's row
+SERVE_SWAP_REQUESTS = 300
+SERVE_SWAP_SHARE = 0.25     # the least share of the swap's traffic a model
+SERVE_RTOL, SERVE_ATOL = 1e-5, 1e-7   # tests/test_serving.py:19
+SERVE_PATH = ("predict_binned_forest", "predict_packed_forest")
+SERVE_REPLACES = {
+    "predict_binned_forest": "lightgbm_tpu/learner/predict.py:104 "
+    "(predict_binned_forest; XLA, no Pallas)",
+    "predict_packed_forest": "lightgbm_tpu/serving/multimodel.py:226 "
+    "(_predict_packed_impl, predict_packed_forest; XLA, no Pallas)"}
+ROW_PATH.update(dict.fromkeys(SERVE_PATH, "serving"))
+
+
+def node_depths(stacked):
+    """[T, m1] int64 depth of every node (root 0), from the left/right
+    child arrays, and each tree's deepest node."""
+    left = stacked.left.cpu().numpy()
+    right = stacked.right.cpu().numpy()
+    sf = stacked.split_feature.cpu().numpy()
+    t, m1 = left.shape
+    depth = np.zeros((t, m1), np.int64)
+    deepest = np.zeros(t, np.int64)
+    for i in range(t):
+        stack = [0]
+        while stack:
+            node = stack.pop()
+            if sf[i, node] >= 0:
+                for c in (left[i, node], right[i, node]):
+                    depth[i, c] = depth[i, node] + 1
+                    stack.append(c)
+        deepest[i] = depth[i].max()
+    return depth, deepest
+
+
+def serve_walk(torch, stacked, trees, bins, rows_of, slot_of, num_bins,
+               nan, classes, k, steps):
+    """The PyTorch indexing walk of the forest sum (the library yardstick),
+    all trees at once: tree trees[i] walks the rows rows_of[i] ([T, m]
+    int64) against its slot's tables (slot_of[i]; [F] tables: one slot)
+    one gather a level for `steps` levels (the deepest tree's depth), then
+    the trees add their leaf values into column classes[trees[i]] of the
+    [N, k] f32 score in tree order. Returns a function of no arguments
+    that computes (score, the [T, m] leaf node ids) with device ops only
+    (no host copy or sync: it is captured whole in a CUDA graph); the
+    tables are gathered here, once."""
+    dev = bins.device
+    n, f = bins.shape
+    m1 = stacked.split_feature.shape[1]
+    tix = torch.as_tensor(list(trees), device=dev)
+    sf, thr, dl, lt, rt, lv = (
+        getattr(stacked, name)[tix].reshape(-1) for name in (
+            "split_feature", "threshold_bin", "default_left", "left",
+            "right", "leaf_value"))
+    base = torch.arange(len(tix), device=dev)[:, None] * m1
+    if num_bins.dim() == 1:
+        nbt, nant = num_bins.repeat(len(tix)), nan.repeat(len(tix))
+    else:
+        sl = torch.as_tensor(slot_of, device=dev)
+        nbt, nant = num_bins[sl].reshape(-1), nan[sl].reshape(-1)
+    fbase = torch.arange(len(tix), device=dev)[:, None] * f
+    flat = bins.reshape(-1).int()
+    rowbase = rows_of * f
+    cols = [classes[t] for t in trees]
+
+    def run():
+        node = torch.zeros(rows_of.shape, dtype=torch.int64, device=dev)
+        for _ in range(int(steps)):
+            g = base + node
+            feat = sf[g]
+            fc = feat.clamp(0, f - 1).long()
+            b = flat[rowbase + fc]
+            go = torch.where(nant[fbase + fc] & (b == nbt[fbase + fc] - 1),
+                             dl[g], b <= thr[g])
+            nxt = torch.where(go, lt[g], rt[g]).long()
+            node = torch.where(feat >= 0, nxt, node)
+        vals = lv[base + node]
+        out = torch.zeros((n, k), dtype=torch.float32, device=dev)
+        for i, c in enumerate(cols):
+            # unique rows: one IEEE add an element, in tree order
+            out[:, c].index_add_(0, rows_of[i], vals[i])
+        return out, node
+
+    return run
+
+
+def serving_kernel_rows(torch, pr, mm, row, forest, pack, big_bins,
+                        pack_bins, pack_valid):
+    """Kernel V's forest-sum and packed modes against their plain versions
+    on the card and their rows of the kernel table: the forest sum at
+    bucket 1024 (every row real) and at bucket 16 with 5 pad rows, on
+    uint8, uint16 and int32 bins, bit for bit, pad rows 0.0; the packed
+    sum on the pack (its tree count not a power of two) at SERVE_PACK_BLOCK
+    rows a slot, bit for bit, pad slots and pad rows 0.0, and each
+    member's rows bit-equal to its solo forest sum. Bound: the bytes the
+    call must move (the rows' bins, the real trees' node fields, 22 bytes
+    a node, their classes, the tables, the scores out) or the node visits
+    of this data at the f32 rate; library: the indexing walk (serve_walk),
+    one CUDA graph. Returns the checks' cases."""
+    f = forest
+    n = big_bins.shape[0]
+
+    def fsum(bins, **kw):
+        return pr.predict_binned_forest(f.stacked, f.tree_class, bins,
+                                        f.num_bins, f.missing_is_nan,
+                                        f.num_outputs, **kw)
+
+    def fsum_ref(bins, **kw):
+        return pr.predict_binned_forest_ref(f.stacked, f.tree_class, bins,
+                                            f.num_bins, f.missing_is_nan,
+                                            f.num_outputs, **kw)
+
+    cases = []
+    full = fsum(big_bins)
+    check(same_bits(torch, full, fsum_ref(big_bins)),
+          "predict_binned_forest differs from its plain version at 1024")
+    small = torch.cat([big_bins[:11], torch.zeros_like(big_bins[:5])])
+    got = fsum(small, rows=11)
+    check(same_bits(torch, got, fsum_ref(small, rows=11)) and
+          same_bits(torch, got[:11], full[:11]) and
+          bool((got[11:].view(torch.int32) == 0).all()),
+          "predict_binned_forest at bucket 16 with 5 pad rows")
+    mask = torch.arange(16, device=small.device) < 11
+    check(same_bits(torch, fsum(small, row_valid=mask), got),
+          "predict_binned_forest's row_valid differs from rows")
+    cases += ["bucket 1024", "bucket 16, 5 pad rows", "row_valid"]
+    for dt in (torch.uint16, torch.int32):
+        wide = big_bins.int().to(dt)
+        check(same_bits(torch, fsum(wide), full),
+              f"predict_binned_forest on {dt} bins")
+        cases.append(str(dt))
+    depth, deepest = node_depths(f.stacked)
+    trees = list(range(f.num_trees))
+    fclasses = f.tree_class.tolist()
+    rows_all = torch.arange(n, device=big_bins.device).expand(len(trees), n)
+    walk = serve_walk(torch, f.stacked, trees, big_bins, rows_all, None,
+                      f.num_bins, f.missing_is_nan, fclasses, f.num_outputs,
+                      deepest.max())
+    _, leaves = walk()
+    dev_depth = torch.as_tensor(depth, device=big_bins.device)
+    visits = int(dev_depth.gather(1, leaves).sum())
+    nodes = int(f.stacked.num_nodes.sum())
+    feats = big_bins.shape[1]
+    nbytes = big_bins.numel() + 22 * nodes + 4 * f.num_trees + \
+        5 * feats + 4 * n * f.num_outputs
+
+    def library():
+        return walk()[0]
+
+    check(same_bits(torch, library(), full),
+          "the forest sum's indexing walk differs from the kernel")
+    row("predict_binned_forest", SERVE_REPLACES["predict_binned_forest"],
+        0.0, lambda: fsum(big_bins), lambda: fsum_ref(big_bins), 3, nbytes,
+        visits, library, source="serve_forest", library_graph=True)
+
+    p = pack
+    block = SERVE_PACK_BLOCK
+    args = (p.tree_model, p.tree_class, p.num_trees, pack_bins, p.num_bins,
+            p.missing_is_nan, p.num_outputs, block, pack_valid)
+
+    def psum():
+        return mm.predict_packed_forest(p.stacked, *args,
+                                        tree_off=p.tree_off)
+
+    out = psum()
+    check(same_bits(torch, out, mm.predict_packed_forest_ref(p.stacked,
+                                                             *args)),
+          "predict_packed_forest differs from its plain version")
+    check(bool((out[~pack_valid].view(torch.int32) == 0).all()),
+          "predict_packed_forest's pad rows are not 0.0")
+    check(p.num_trees & (p.num_trees - 1) != 0 and
+          p.stacked.split_feature.shape[0] > p.num_trees,
+          "the pack's tree count is a power of two")
+    try:
+        mm.predict_packed_forest(p.stacked, *args)
+        check(False, "predict_packed_forest ran without tree_off")
+    except ValueError:
+        pass
+    for s, nm in enumerate(p.member_names):
+        mf = p.forests[nm]
+        rows = int(pack_valid[s * block:(s + 1) * block].sum())
+        mb = pack_bins[s * block:s * block + rows, :mf.num_features]
+        solo = pr.predict_binned_forest(
+            mf.stacked, mf.tree_class, mb.contiguous(), mf.num_bins,
+            mf.missing_is_nan, mf.num_outputs)
+        check(same_bits(torch, out[s * block:s * block + rows,
+                                   :mf.num_outputs].contiguous(), solo),
+              f"the packed sum of member {nm} differs from its solo sum")
+    cases += ["packed", f"{p.num_trees} trees in "
+              f"{p.stacked.split_feature.shape[0]}", "members solo"]
+    pdepth, pdeepest = node_depths(p.stacked)
+    ptrees = list(range(p.num_trees))
+    slot_of = p.tree_model[:p.num_trees].cpu().tolist()
+    pclasses = p.tree_class.cpu().tolist()
+    prows = (torch.as_tensor(slot_of, device=pack_bins.device)[:, None] *
+             block + torch.arange(block, device=pack_bins.device))
+    pwalk = serve_walk(torch, p.stacked, ptrees, pack_bins, prows, slot_of,
+                       p.num_bins, p.missing_is_nan, pclasses, p.num_outputs,
+                       pdeepest.max())
+    _, pleaves = pwalk()
+    dev_pdepth = torch.as_tensor(pdepth[:p.num_trees],
+                                 device=pack_bins.device)
+    # visits of the real rows only (the walk also walks the pad rows)
+    real = pack_valid[prows]
+    pvisits = int((dev_pdepth.gather(1, pleaves) * real).sum())
+    pnodes = int(p.stacked.num_nodes[:p.num_trees].sum())
+    pbytes = pack_bins.numel() * pack_bins.element_size() + 22 * pnodes + \
+        4 * p.num_trees + 4 * (p.num_slots + 1) + \
+        5 * p.num_bins.numel() + pack_valid.numel() + 4 * out.numel()
+
+    def plibrary():
+        return pwalk()[0]
+
+    # the walk scores pad rows too; the kernel leaves them 0.0
+    check(same_bits(torch, plibrary()[pack_valid], out[pack_valid]),
+          "the packed sum's indexing walk differs from the kernel")
+    row("predict_packed_forest", SERVE_REPLACES["predict_packed_forest"],
+        0.0, psum, lambda: mm.predict_packed_forest_ref(p.stacked, *args),
+        3, pbytes, pvisits, plibrary, source="serve_forest",
+        library_graph=True)
+    return cases
+
+
+def serve_clients(srv, X, members, per_client, seed):
+    """SERVE_CLIENTS threads, each issuing per_client raw-score requests
+    of heavy-tailed sizes over `members` in turn; returns [(member, lo,
+    hi, answer)]."""
+    from lightgbm_tpu_torch.testing.chaos_serve import heavy_tailed_sizes
+    out, errors = [], []
+    lock = threading.Lock()
+
+    def client(i):
+        rng = np.random.RandomState(seed + i)
+        sizes = heavy_tailed_sizes(rng, per_client, SERVE_MAX_ROWS)
+        try:
+            for j, size in enumerate(sizes):
+                nm = members[(i + j) % len(members)]
+                lo = int(rng.randint(0, len(X) - size))
+                got = srv.predict(nm, X[lo:lo + size], raw_score=True,
+                                  timeout=60.0)
+                with lock:
+                    out.append((nm, lo, lo + int(size), got))
+        except Exception as exc:      # reported by the check below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(SERVE_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    check(not errors and not any(t.is_alive() for t in threads),
+          f"a pack client failed: {errors[:1]}")
+    return out
+
+
+def serving_path(torch, lgt, hm, ds, X, y, row):
+    """The serving engine of slice 24 at full width, on the card. Before
+    any Server starts (a capture of the fused trainer's CUDA graphs must
+    not meet a serving thread's launch): a binary booster of SERVE_TREES
+    trees at 255 leaves through engine.train at fused_block_size 10 on the
+    1M x 28 data, the same quantized, their dyadic copies
+    (testing.chaos_serve.dyadic_copy) and SERVE_TENANTS tenants of 12
+    trees at 15 leaves on 20,000-row subsets. Kernel V's forest-sum and
+    packed modes against their plain versions and their kernel rows
+    (serving_kernel_rows; these launches are not counted). Then, counts
+    reset: a Server on the card (min_bucket 16, max_bucket 1024,
+    max_wait_ms 1, two replicas on the one card, the slo scheduler)
+    serves the 40,000 held-out rows to SERVE_CLIENTS client threads of
+    the load harness: SERVE_REQUESTS[0] heavy-tailed requests (1-1024
+    rows) to the exact model, every answer within RTOL 1e-5 / ATOL 1e-7
+    of Booster.predict, and SERVE_REQUESTS[1] to the dyadic one, bit-equal
+    to host predict; the pack of the 100-tree booster and the tenants
+    under mixed traffic, each answer bit-equal to its member's solo forest
+    sum; the counts are read. The clean part must show no fall-back,
+    shed, error, deadline miss, failover, open breaker or reliability
+    retry, and at most max_compilations first-seen buckets a model. Then,
+    apart: serving_replica_predict fails once on a server with a breaker
+    threshold of 1, one breaker opens, the batch fails over, the probe
+    closes it; a device error (a patched dispatch that raises) reaches
+    the caller after one attempt, with no failover or host answer; and a
+    hot swap from the dyadic exact model to the dyadic
+    quantized one under closed-loop traffic bumps the version, drops no
+    request, every answer equals one of the two models bit for bit, every
+    request issued after hot_swap returned equals the new one, and each
+    model answers at least SERVE_SWAP_SHARE of the requests.
+    Prints the latency percentiles and QPS beside the card's name and
+    power limit, the launches of both modes and the phase's seconds.
+    Returns the clean part's launch counts."""
+    from lightgbm_tpu_torch.learner import predict as pr
+    from lightgbm_tpu_torch.reliability import counters, faults
+    from lightgbm_tpu_torch.serving import Server, max_compilations
+    from lightgbm_tpu_torch.serving import multimodel as mm
+    from lightgbm_tpu_torch.testing.chaos_serve import (dyadic_copy,
+                                                        run_closed_loop)
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    Xva, _ = make_higgs_like(VALID_ROWS, N_FEATURES, seed=99)
+    t0 = time.perf_counter()
+    big = lgt.train(dict(TRAIN_PARAMS, fused_block_size=SERVE_BLOCK), ds,
+                    SERVE_TREES)
+    quant = lgt.train(dict(QUANT_PARAMS, fused_block_size=SERVE_BLOCK), ds,
+                      SERVE_TREES)
+    dy, dyq = dyadic_copy(big), dyadic_copy(quant)
+    rng = np.random.RandomState(24)
+    tenants = []
+    for i in range(SERVE_TENANTS):
+        idx = rng.choice(len(X), SERVE_TENANT_ROWS, replace=False)
+        tenants.append((f"tenant{i}", lgt.train(
+            dict(TRAIN_PARAMS, num_leaves=SERVE_TENANT_LEAVES,
+                 seed=i + 1), lgt.Dataset(X[idx], label=y[idx]),
+            SERVE_TENANT_TREES)))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    check(big.num_trees() == SERVE_TREES and
+          all(b.num_trees() == SERVE_TENANT_TREES for _, b in tenants),
+          "the serving models have the wrong tree counts")
+
+    # the kernels against their plain versions, at the path's shapes
+    forest = big.device_forest(dev)
+    members = [("big", big)] + tenants
+    pack = mm.build_forest_pack([(nm, b.device_forest(dev))
+                                 for nm, b in members], name="kernel_pack")
+    big_bins = torch.from_numpy(forest.bin_rows(Xva[:1024])).to(dev)
+    block = SERVE_PACK_BLOCK
+    pbins = np.zeros((pack.num_slots * block, pack.num_features),
+                     pack.bin_dtype)
+    pvalid = np.zeros(pack.num_slots * block, bool)
+    for s, nm in enumerate(pack.member_names):
+        r = block - 3 * s            # a ragged block a member
+        pbins[s * block:s * block + r, :N_FEATURES] = \
+            pack.forests[nm].bin_rows(Xva[s * block:s * block + r])
+        pvalid[s * block:s * block + r] = True
+    cases = serving_kernel_rows(
+        torch, pr, mm, row, forest, pack, big_bins,
+        torch.from_numpy(pbins).to(dev), torch.from_numpy(pvalid).to(dev))
+    del pack
+    host_exact = big.predict(Xva)
+
+    # the clean part: the launches counted are the traffic's
+    hm.reset_launch_counts()
+    counters.reset()
+    kw = dict(device_type="cuda", min_bucket=16, max_bucket=1024,
+              max_wait_ms=1.0, n_replicas=2, scheduler="slo",
+              max_models=16)
+    t_clean = time.perf_counter()
+    with Server(**kw) as srv:
+        srv.load_model("exact", booster=big)
+        srv.load_model("dyadic", booster=dy)
+        res = run_closed_loop(srv, "exact", Xva,
+                              n_requests=SERVE_REQUESTS[0],
+                              workers=SERVE_CLIENTS,
+                              max_rows=SERVE_MAX_ROWS, raw_score=False,
+                              timeout_s=60.0, seed=1)
+        check(res.dropped == 0 and res.by_outcome() ==
+              {"ok": SERVE_REQUESTS[0]},
+              f"exact traffic outcomes {res.by_outcome()}")
+        worst = 0.0
+        for rec in res.ok_records():
+            want = host_exact[rec.lo:rec.hi]
+            np.testing.assert_allclose(rec.value, want, rtol=SERVE_RTOL,
+                                       atol=SERVE_ATOL)
+            worst = max(worst, float(np.abs(rec.value - want).max()))
+        dres = run_closed_loop(srv, "dyadic", Xva,
+                               n_requests=SERVE_REQUESTS[1],
+                               workers=SERVE_CLIENTS,
+                               max_rows=SERVE_MAX_ROWS, raw_score=True,
+                               timeout_s=60.0, seed=2)
+        check(dres.dropped == 0 and dres.by_outcome() ==
+              {"ok": SERVE_REQUESTS[1]},
+              f"dyadic traffic outcomes {dres.by_outcome()}")
+        host_dy = dy.predict(Xva, raw_score=True)
+        for rec in dres.ok_records():
+            check(np.array_equal(rec.value, host_dy[rec.lo:rec.hi]),
+                  f"dyadic request {rec.idx} differs from host predict")
+        srv.load_pack("pack", members)
+        precs = serve_clients(srv, Xva, [nm for nm, _ in members],
+                              SERVE_PACK_REQUESTS, seed=3)
+        snap = srv.metrics_snapshot()
+    clean_s = time.perf_counter() - t_clean
+    # the serve_* phase totals of the clean part (host seconds, summed
+    # over threads) and its device batches
+    timers = dict(snap["timers"], batches={
+        nm: snap["models"][nm]["batches"] for nm in ("exact", "dyadic")},
+        pack_dispatches=snap["packs"]["pack"]["fused_dispatches"])
+    counts = hm.launch_counts()
+    bound = max_compilations(1024)
+    for nm in ("exact", "dyadic"):
+        m = snap["models"][nm]
+        check(m["fallback_count"] == 0 and m["shed_count"] == 0 and
+              m["errors"] == 0 and m["deadline_misses"] == 0 and
+              m["failovers"] == 0 and m["guard_trips"] == 0 and
+              m["breaker_open_replicas"] == 0 and
+              all(r["state"] == "closed" for r in m["replicas"]) and
+              m["buckets_compiled"] <= bound,
+              f"the clean serving part of {nm} was not clean: {m}")
+    for nm, _ in members:
+        m = snap["models"][nm]
+        check(m["fallback_count"] == 0 and m["shed_count"] == 0 and
+              m["errors"] == 0 and m["deadline_misses"] == 0,
+              f"pack member {nm} was not served clean: {m}")
+    ps = snap["packs"]["pack"]
+    check(ps["breaker_open_replicas"] == 0 and
+          ps["compile_count"] <= bound and ps["fused_dispatches"] > 0,
+          f"the pack was not served clean: {ps}")
+    clean_path_check("serving")
+    for key in SERVE_PATH:
+        check(counts[key] > 0, f"{key} was not launched on the serving path")
+    # each member's answers against its solo forest sum (after the counts)
+    solo = {}
+    for nm, b in members:
+        mf = b.device_forest(dev)
+        solo[nm] = pr.predict_binned_forest(
+            mf.stacked, mf.tree_class,
+            torch.from_numpy(mf.bin_rows(Xva)).to(dev), mf.num_bins,
+            mf.missing_is_nan, mf.num_outputs)[:, 0].cpu().numpy()
+    for nm, lo, hi, got in precs:
+        check(np.array_equal(got, solo[nm][lo:hi].astype(np.float64)),
+              f"pack member {nm} rows [{lo}, {hi}) differ from its solo "
+              "forest sum")
+
+    # the fault part, apart: a failed replica dispatch and a hot swap
+    t_fault = time.perf_counter()
+    with Server(**dict(kw, retry_attempts=1, breaker_threshold=1,
+                       breaker_cooldown_ms=100.0)) as srv:
+        srv.load_model("exact", booster=big)
+        with faults.injected("serving_replica_predict", fail=1):
+            got = srv.predict("exact", Xva[:100])
+        np.testing.assert_allclose(got, host_exact[:100], rtol=SERVE_RTOL,
+                                   atol=SERVE_ATOL)
+        m = srv.metrics_snapshot("exact")["models"]["exact"]
+        check(m["failovers"] == 1 and m["breaker_open_replicas"] == 1,
+              f"an injected replica fault opened no breaker: {m}")
+        time.sleep(0.15)
+        for i in range(20):
+            srv.predict("exact", Xva[i:i + 8])
+            m = srv.metrics_snapshot("exact")["models"]["exact"]
+            if m["breaker_open_replicas"] == 0:
+                break
+        reps = m["replicas"]
+        check(all(r["state"] == "closed" for r in reps) and
+              sum(r["closes"] for r in reps) >= 1 and
+              sum(r["probes"] for r in reps) >= 1,
+              f"the probe did not close the breaker: {reps}")
+        # a device error (not an injected fault) reaches the caller at
+        # once: no retry, no failover, no host answer (ROADMAP C29)
+        calls = []
+
+        def broken(*a, **k):
+            calls.append(1)
+            raise RuntimeError("a failed launch")
+
+        srv.engine.predict_raw = broken
+        try:
+            srv.predict("exact", Xva[:8])
+            raised = False
+        except RuntimeError:
+            raised = True
+        finally:
+            del srv.engine.predict_raw
+        m2 = srv.metrics_snapshot("exact")["models"]["exact"]
+        check(not srv.host_fallback and raised and len(calls) == 1 and
+              m2["fallback_count"] == 0 and m2["errors"] == 1 and
+              m2["failovers"] == m["failovers"],
+              f"a device error was hidden: raised {raised}, "
+              f"{len(calls)} attempts, {m2}")
+        srv.load_model("swap", booster=dy)
+        dyq.device_forest(dev)       # built ahead: the swap only publishes
+        swapped = []
+
+        def swap(_i):
+            t0 = time.perf_counter()
+            version = srv.hot_swap("swap", booster=dyq).version
+            swapped.append((version, t0, time.perf_counter()))
+
+        sres = run_closed_loop(
+            srv, "swap", Xva, n_requests=SERVE_SWAP_REQUESTS,
+            workers=SERVE_CLIENTS, max_rows=256, raw_score=True,
+            timeout_s=60.0, seed=4, mid_run=swap)
+        check([v for v, _, _ in swapped] == [2] and sres.dropped == 0 and
+              sres.by_outcome() == {"ok": SERVE_SWAP_REQUESTS},
+              f"the hot swap dropped requests: {sres.by_outcome()}")
+        _, swap_t0, swap_t1 = swapped[0]
+        host_q = dyq.predict(Xva, raw_score=True)
+        # requests issued while the swap ran may meet either model; one
+        # issued after hot_swap returned must meet the new one
+        by_model, during = [0, 0], 0
+        for rec in sres.ok_records():
+            a = np.array_equal(rec.value, host_dy[rec.lo:rec.hi])
+            b = np.array_equal(rec.value, host_q[rec.lo:rec.hi])
+            check(a or b, f"swap request {rec.idx} equals neither model")
+            check(b or rec.t_issue <= swap_t1,
+                  f"swap request {rec.idx}, issued after hot_swap "
+                  "returned, was served by the old model")
+            by_model[int(b and not a)] += 1
+            during += swap_t0 <= rec.t_issue <= swap_t1
+        swap_snap = srv.metrics_snapshot("swap")["models"]["swap"]
+        check(swap_snap["version"] == 2 and
+              min(by_model) >= SERVE_SWAP_REQUESTS * SERVE_SWAP_SHARE,
+              f"the hot swap split the traffic {by_model} (old, new): a "
+              f"model answered less than {SERVE_SWAP_SHARE} of it")
+    faults.clear()
+    counters.reset()
+    fault_s = time.perf_counter() - t_fault
+    emit("serving", trees=SERVE_TREES, leaves=TRAIN_PARAMS["num_leaves"],
+         rows=N_ROWS, served_rows=VALID_ROWS, nvidia_smi=smi,
+         train_s=train_s, clean_s=clean_s, fault_s=fault_s,
+         exact=dict(res.latency_percentiles(), qps=res.qps(),
+                    requests=res.issued, max_abs_err=worst),
+         dyadic=dict(dres.latency_percentiles(), qps=dres.qps(),
+                     requests=dres.issued, bit_equal=True),
+         pack=dict(members=len(members), requests=len(precs),
+                   fused_dispatches=ps["fused_dispatches"],
+                   bit_equal_to_solo=True),
+         buckets_compiled={nm: snap["models"][nm]["buckets_compiled"]
+                           for nm in ("exact", "dyadic")},
+         max_compilations=bound, kernel_cases=cases, clean_timers=timers,
+         swap=dict(requests=SERVE_SWAP_REQUESTS, old=by_model[0],
+                   new=by_model[1], issued_during_swap=during,
+                   swap_ms=(swap_t1 - swap_t0) * 1e3,
+                   drains=swap_snap["swap_drains"]),
+         launches={k: counts[k] for k in SERVE_PATH},
+         seconds=time.perf_counter() - t_phase)
     return counts
 
 
@@ -6953,6 +7512,9 @@ def main():
     clean_path_check("observability")
     counts["api"] = api_path(torch, lgt, hm, ds, reg_ds, X, y, booster)
     clean_path_check("api")
+    counts["serving"] = serving_path(torch, lgt, hm, ds, X, y,
+                                     make_row(torch, rows))
+    clean_path_check("serving")
     torch.cuda.empty_cache()
     counts["sampling"] = sampling_path(torch, lgt, hm, X, y, ds,
                                        make_row(torch, rows), fused_rates)

@@ -618,6 +618,33 @@ class Booster:
             self._model = model
         return self._model
 
+    def device_forest(self, device=None):
+        """Memoized device-stacked serving forest (serving/forest.py) on
+        `device`: by default the training device, or for a booster loaded
+        from a model the device its device_type names (the card unless
+        "cpu"; without a card that raises).
+
+        Repeated serving calls reuse the resident tensors instead of
+        re-stacking the trees per call. Invalidation is by HostModel
+        identity: every mutation point (update / update_batch /
+        rollback_one_iter / a restored checkpoint) clears `self._model`,
+        so the next call here sees a fresh HostModel object and rebuilds
+        (refit and a model reload give a new Booster)."""
+        model = self._host_model()
+        if device is None:
+            device = self.gbdt.device if self.gbdt is not None \
+                else resolve_device(self.config.device_type)
+        cached = getattr(self, "_device_forest", None)
+        if cached is not None and cached._model is model:
+            placed = cached.place_on(device)
+            if placed is cached:
+                return cached
+            self._device_forest = placed
+            return placed
+        from .serving.forest import build_device_forest
+        self._device_forest = build_device_forest(model, device)
+        return self._device_forest
+
     def predict(self, data, start_iteration: int = 0,
                 num_iteration: Optional[int] = None,
                 raw_score: bool = False, pred_leaf: bool = False,

@@ -5,9 +5,11 @@ invocation contract:
 
     python -m lightgbm_tpu_torch.cli config=train.conf [key=value ...]
 
-Tasks train, predict, refit, save_binary and convert_model
-(application.cpp:85-269); `key=value` config files ('#' comments, the
-command line overriding the file, application.cpp:50-83). Training runs
+Tasks train, predict, refit, save_binary, convert_model
+(application.cpp:85-269) and serve (a request file through the serving
+engine, `serving.Server`, on the card unless device_type=cpu);
+`key=value` config files ('#' comments, the command line overriding the
+file, application.cpp:50-83). Training runs
 through engine.train on the card unless device_type=cpu is given. Text
 data: CSV, TSV (tab-separated when the first line holds a tab) or LibSVM,
 the label in column `label_column` (default 0), a `header` line skipped;
@@ -18,8 +20,8 @@ URI through utils/file_io.open_file and np.loadtxt; `<data>.query` or
 `observe_metrics_port` serves the registry's Prometheus text while
 training and `observe_trace_file` gets the span trace after it; the
 flight recorder is armed as soon as the config is read and flushes a
-post-mortem bundle on an exception. Tasks serve and loop wait for the
-serving and streaming modules (ROADMAP A11), as does stream_input, and
+post-mortem bundle on an exception. Task loop waits for the streaming
+and continuous modules (ROADMAP A11 part 2), as does stream_input, and
 num_machines > 1 for the distributed learners (A10): they raise.
 """
 
@@ -155,11 +157,13 @@ class Application:
             self.convert_model()
         elif task == "save_binary":
             self.save_binary()
-        elif task in ("serve", "loop"):
+        elif task == "serve":
+            self.serve()
+        elif task == "loop":
             raise LightGBMError(
-                f"task={task} is not ported to lightgbm_tpu_torch yet: it "
-                "needs the serving and streaming modules (ROADMAP.md port "
-                "queue A11)")
+                "task=loop is not ported to lightgbm_tpu_torch yet: it "
+                "needs the streaming and continuous modules (ROADMAP.md "
+                "port queue A11 part 2)")
         else:
             Log.fatal("Unknown task %s", task)
 
@@ -171,7 +175,7 @@ class Application:
         if cfg.stream_input:
             raise LightGBMError(
                 "stream_input is not ported to lightgbm_tpu_torch yet "
-                "(ROADMAP.md port queue A11)")
+                "(ROADMAP.md port queue A11 part 2)")
         X, y = _load_text_data(cfg.data, cfg)
         return Dataset(X, label=y, group=_maybe_load_group(cfg.data),
                        weight=_maybe_load_weight(cfg.data),
@@ -273,6 +277,67 @@ class Application:
             np.savetxt(fh, out, delimiter="\t", fmt="%.18g")
         Log.info("Finished prediction, results saved to %s",
                  cfg.output_result)
+
+    def serve(self) -> None:
+        """task=serve: score a request file through the serving engine.
+
+        Unlike task=predict, rows go through the device-resident
+        `serving.Server` (registry load, shape-bucketed predictor,
+        micro-batching) as a mixed-size request stream, on the card unless
+        device_type=cpu, and a metrics snapshot (QPS, latency
+        percentiles, bucket cache hits, sheds) lands next to the
+        predictions (`serve_metrics_file`, else
+        `<output_result>.metrics.json`). With observe, the metrics are
+        served at `observe_metrics_port` while it runs and the span trace
+        goes to `observe_trace_file`."""
+        import json
+        cfg = self.config
+        if not cfg.data:
+            Log.fatal("No request data: set data=<file>")
+        if not cfg.input_model:
+            Log.fatal("No model file: set input_model=<file>")
+        from .serving import Server
+        X, _ = _load_text_data(cfg.data, cfg)
+        with Server.from_config(cfg) as server:
+            if cfg.observe:
+                from .observability import registry as _obs
+                _obs.enable(ring=cfg.observe_ring)
+                msrv = server.start_metrics_server(
+                    port=cfg.observe_metrics_port)
+                Log.info("observability metrics at %s", msrv.url)
+            server.load_model("default", model_file=cfg.input_model)
+            # mixed-size request stream: walk the file in growing chunks
+            # so the bucket cache sees many batch shapes, like live
+            # traffic would produce
+            futures = []
+            lo, step = 0, 1
+            while lo < len(X):
+                hi = min(lo + step, len(X))
+                futures.append(server.predict_async(
+                    "default", X[lo:hi], raw_score=cfg.predict_raw_score))
+                lo = hi
+                step = min(step * 2, max(cfg.serve_max_batch_size, 1))
+            preds = [np.asarray(f.result()) for f in futures]
+            out = np.concatenate(
+                [p[:, None] if p.ndim == 1 else p for p in preds], axis=0)
+            with open_file(cfg.output_result, "w") as fh:
+                np.savetxt(fh, out, delimiter="\t", fmt="%.18g")
+            snapshot = server.metrics_snapshot()
+        metrics_path = cfg.serve_metrics_file or \
+            cfg.output_result + ".metrics.json"
+        with open_file(metrics_path, "w") as fh:
+            json.dump(snapshot, fh, indent=2)
+            fh.write("\n")
+        m = snapshot["models"]["default"]
+        Log.info("Finished serving %d requests (%d rows, %d compiled "
+                 "buckets), results saved to %s, metrics to %s",
+                 m["requests"], m["rows"], m["buckets_compiled"],
+                 cfg.output_result, metrics_path)
+        if cfg.observe and cfg.observe_trace_file:
+            from .observability import registry as _obs
+            fmt = _obs.dump_trace(cfg.observe_trace_file)
+            Log.info("Wrote %s span trace to %s", fmt,
+                     cfg.observe_trace_file)
 
     def refit(self) -> None:
         """task=refit: the input model's leaves refitted on `data`

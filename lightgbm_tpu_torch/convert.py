@@ -21,7 +21,8 @@ from .learner.linear import LinearLeaves
 
 __all__ = ["tree_arrays_from_numpy", "tree_arrays_to_numpy",
            "linear_leaves_from_numpy", "linear_leaves_to_numpy",
-           "binned_from_numpy", "score_from_numpy", "key_from_numpy"]
+           "binned_from_numpy", "score_from_numpy", "key_from_numpy",
+           "device_forest_from_numpy", "device_forest_to_numpy"]
 
 _DTYPES = {
     "split_feature": torch.int32, "threshold_bin": torch.int32,
@@ -117,3 +118,29 @@ def key_from_numpy(key: np.ndarray, device="cpu") -> torch.Tensor:
     (lightgbm_tpu_torch.rng)."""
     words = np.asarray(key).astype(np.uint32).reshape(2)
     return torch.as_tensor(words.astype(np.int64), device=device)
+
+
+def device_forest_from_numpy(arrays: Dict, device="cpu") -> Dict:
+    """A serving forest's device arrays from the JAX package's
+    DeviceForest, given as numpy: {"stacked": {field: [T, ...]},
+    "tree_class": [T], "num_bins": [F], "missing_is_nan": [F]} -> the same
+    keys holding the port's tensors (stacked a TreeArrays, int64 bitset
+    words of 32 bits)."""
+    return {
+        "stacked": tree_arrays_from_numpy(arrays["stacked"], device),
+        "tree_class": torch.tensor(np.asarray(arrays["tree_class"]),
+                                   dtype=torch.int32, device=device),
+        "num_bins": torch.tensor(np.asarray(arrays["num_bins"]),
+                                 dtype=torch.int32, device=device),
+        "missing_is_nan": torch.tensor(np.asarray(arrays["missing_is_nan"]),
+                                       dtype=torch.bool, device=device)}
+
+
+def device_forest_to_numpy(forest) -> Dict:
+    """The inverse, from a port DeviceForest: numpy arrays in the JAX
+    package's dtypes (uint32 bitset words)."""
+    return {
+        "stacked": tree_arrays_to_numpy(forest.stacked),
+        "tree_class": forest.tree_class.cpu().numpy().astype(np.int32),
+        "num_bins": forest.num_bins.cpu().numpy().astype(np.int32),
+        "missing_is_nan": forest.missing_is_nan.cpu().numpy().astype(bool)}

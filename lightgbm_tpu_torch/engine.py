@@ -1,6 +1,6 @@
 """train() and cv() entry points (reference python-package/lightgbm/engine.py).
 
-Port of lightgbm_tpu/engine.py without streaming input (ROADMAP A11).
+Port of lightgbm_tpu/engine.py without streaming input (ROADMAP A11 part 2).
 train(keep_training_booster=True) is accepted, as in the JAX package: the
 booster returned goes on training with update(). Same callback protocol
 as the reference: validation sets, custom objectives (fobj: objective "none",

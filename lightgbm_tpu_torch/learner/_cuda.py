@@ -63,11 +63,19 @@ KERNELS: Dict[str, tuple] = {
     "predict_binned": ("lgbt_predict_binned", [_P] * 16 + [_I] * 11 + [_P]),
     "linear_gram": ("lgbt_linear_gram", [_P] * 10 + [_I] * 4 + [_L, _P]),
     "linear_values": ("lgbt_linear_values", [_P] * 8 + [_I] * 4 + [_P]),
+    "serve_forest": ("lgbt_serve_forest", [_P] * 14 + [_I] * 8 + [_P]),
+    "serve_packed": ("lgbt_serve_packed", [_P] * 15 + [_I] * 7 + [_P]),
 }
 SOURCES: Dict[str, str] = {"linear_gram": "linear_leaves",
-                           "linear_values": "linear_leaves"}
+                           "linear_values": "linear_leaves",
+                           "serve_packed": "serve_forest"}
 
+# _lock guards the bound entries (the first launch of any thread binds them
+# all); _build_lock one build at a time in this process (its temporary
+# files are named by the process id). Serving's worker threads launch
+# kernels concurrently, so both are taken by whichever thread comes first
 _lock = threading.Lock()
+_build_lock = threading.Lock()
 _entries: Dict[str, ctypes._CFuncPtr] = {}
 
 
@@ -101,6 +109,11 @@ def build_all() -> Dict[str, Path]:
     observability registry's compile accounting (its seconds from the
     start of the parallel build until its process is reaped; they are
     reaped in turn), whether or not observe is on."""
+    with _build_lock:
+        return _build_all()
+
+
+def _build_all() -> Dict[str, Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     libs = {stem: _lib_path(stem)
             for stem in sorted({SOURCES.get(k, k) for k in KERNELS})}
@@ -130,6 +143,9 @@ def build_all() -> Dict[str, Path]:
 
 
 def _entry(stem: str):
+    """The bound C entry of kernel `stem`. The first call of any thread
+    builds and binds every kernel under the lock; the others wait for it,
+    and an entry is published only once its argument types are set."""
     fn = _entries.get(stem)
     if fn is not None:
         return fn

@@ -74,6 +74,7 @@ feat_tbl stays original-feature-indexed in both.
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -1019,45 +1020,68 @@ _MODES = {"fused_route_hist": ("_int", "_packed", "_sp"),
           "predict_binned": ("_wide",), "predict_binned_class": ("_wide",),
           # and their bundled-matrix mode (EFB)
           "predict_binned_efb": ("_wide",),
-          "predict_binned_class_efb": ("_wide",)}
+          "predict_binned_class_efb": ("_wide",),
+          # serving (learner/predict.predict_binned_forest and
+          # serving/multimodel.predict_packed_forest): uint8 bins, uint16
+          # ("_wide") or int32 ("_bin32")
+          "predict_binned_forest": ("_wide",),
+          "predict_binned_forest_bin32": (),
+          "predict_packed_forest": ("_wide",),
+          "predict_packed_forest_bin32": ()}
 _LAUNCHES: Dict[str, int] = {}
-# tallies of launches recorded into CUDA graphs being captured (innermost
-# last): a captured launch does not run then, it runs at each replay
-_RECORDING: List[Dict[str, int]] = []
+# the counts are added to from several threads (serving's batcher workers
+# launch kernels while the main thread may launch its own)
+_LAUNCH_LOCK = threading.Lock()
+# per thread, the tallies of launches recorded into CUDA graphs that the
+# thread is capturing (innermost last): a captured launch does not run
+# then, it runs at each replay. Per thread, so that another thread's
+# launch during a capture counts as the launch it is
+_RECORDING = threading.local()
+
+
+def _recording() -> List[Dict[str, int]]:
+    stack = getattr(_RECORDING, "stack", None)
+    if stack is None:
+        stack = _RECORDING.stack = []
+    return stack
 
 
 def count_launch(name: str, *, quantized: bool = False, packed: bool = False,
                  counts: bool = False, single: bool = False,
                  wide: bool = False) -> None:
     """Count one kernel launch of wrapper `name` in the given modes; while
-    a CUDA graph is captured (recording_launches), into the graph's tally
-    instead."""
+    this thread captures a CUDA graph (recording_launches), into the
+    graph's tally instead."""
     key = name + "_int" * quantized + "_counts" * counts + \
         "_packed" * packed + "_sp" * single + "_wide" * wide
-    if _RECORDING:
-        tally = _RECORDING[-1]
+    stack = getattr(_RECORDING, "stack", None)
+    if stack:
+        tally = stack[-1]
         tally[key] = tally.get(key, 0) + 1
-    else:
+        return
+    with _LAUNCH_LOCK:
         _LAUNCHES[key] += 1
 
 
 @contextlib.contextmanager
 def recording_launches():
-    """Within the block, launches go to the yielded tally, not the counts:
-    wrap a CUDA graph's capture in it, and add the tally at each replay
-    (add_launches), so the counts stay the launches that ran."""
+    """Within the block, this thread's launches go to the yielded tally,
+    not the counts: wrap a CUDA graph's capture in it, and add the tally at
+    each replay (add_launches), so the counts stay the launches that ran."""
     tally: Dict[str, int] = {}
-    _RECORDING.append(tally)
+    stack = _recording()
+    stack.append(tally)
     try:
         yield tally
     finally:
-        _RECORDING.pop()
+        stack.pop()
 
 
 def add_launches(tally: Dict[str, int]) -> None:
     """Add a replayed graph's recorded launches to the counts."""
-    for key, n in tally.items():
-        _LAUNCHES[key] += n
+    with _LAUNCH_LOCK:
+        for key, n in tally.items():
+            _LAUNCHES[key] += n
 
 
 def launch_counts() -> Dict[str, int]:
@@ -1065,16 +1089,18 @@ def launch_counts() -> Dict[str, int]:
     the wrapper's name for its plain mode, suffixed "_int" (quantized),
     "_counts" (emit_counts), "_packed" (4-bit bins), "_sp" (single-
     precision hessians) and "_wide" (uint16 bins) for the others."""
-    return dict(_LAUNCHES)
+    with _LAUNCH_LOCK:
+        return dict(_LAUNCHES)
 
 
 def reset_launch_counts() -> None:
-    _LAUNCHES.clear()
-    for name, suffixes in _MODES.items():
-        keys = [name]
-        for suf in suffixes:
-            keys += [k + suf for k in keys]
-        _LAUNCHES.update(dict.fromkeys(keys, 0))
+    with _LAUNCH_LOCK:
+        _LAUNCHES.clear()
+        for name, suffixes in _MODES.items():
+            keys = [name]
+            for suf in suffixes:
+                keys += [k + suf for k in keys]
+            _LAUNCHES.update(dict.fromkeys(keys, 0))
 
 
 reset_launch_counts()

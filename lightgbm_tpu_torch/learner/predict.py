@@ -36,6 +36,14 @@ as predict_binned_efb (predict_binned_class_efb in class mode).
 Bins are uint8, or uint16 at max_bin > 256 (the kernel's wide mode, in
 every mode above; its launches count with "_wide"): valid scores, DART's
 re-prediction and RF at wide bins.
+
+The serving forest sum (predict_binned_forest, the JAX package's
+predict_binned_forest, lightgbm_tpu/learner/predict.py:104-130) adds
+every stacked tree's leaf value into column tree_class[t] of an [N,
+num_outputs] f32 score that starts at +0.0, in tree order; pad rows
+(row_valid false, or index >= rows) come out 0.0. On the card it is one
+launch of csrc/serve_forest.cu (launch key predict_binned_forest, "_wide"
+for uint16 bins, predict_binned_forest_bin32 for int32 bins).
 """
 
 from __future__ import annotations
@@ -52,7 +60,9 @@ from .histogram_mxu import _check, _on_cpu, count_launch, gather_bins
 __all__ = ["predict_binned_tree", "leaf_index_tree", "stacked_score_traj",
            "class_score_add", "predict_binned_tree_ref",
            "leaf_index_tree_ref", "stacked_score_traj_ref",
-           "class_score_add_ref", "stacked_leaf_nodes"]
+           "class_score_add_ref", "stacked_leaf_nodes",
+           "predict_binned_forest", "predict_binned_forest_ref",
+           "BIN_DTYPES", "launch_serve"]
 
 
 def _traverse_ref(tree: TreeArrays, bins: torch.Tensor,
@@ -301,3 +311,136 @@ def leaf_index_tree(tree: TreeArrays, bins, num_bins,
     _, leaf = _launch(_stack1(tree), None, bins, num_bins, missing_is_nan,
                       leaves=True)
     return _leaf_rank(tree, leaf[0])
+
+
+# ---------------------------------------------------------------------------
+# the serving forest sum (csrc/serve_forest.cu)
+# ---------------------------------------------------------------------------
+
+# serving bins by width: the kernel's template parameter (bytes a bin)
+BIN_DTYPES = {torch.uint8: 1, torch.uint16: 2, torch.int32: 4}
+_SERVE_FIELDS = (("split_feature", torch.int32),
+                 ("threshold_bin", torch.int32),
+                 ("default_left", torch.bool), ("is_cat", torch.bool),
+                 ("cat_bitset", torch.int64), ("left", torch.int32),
+                 ("right", torch.int32), ("leaf_value", torch.float32))
+
+
+def _bins_int64(bins: torch.Tensor) -> torch.Tensor:
+    if bins.dtype == torch.uint16:
+        return bins.view(torch.int16).to(torch.int64) & 0xFFFF
+    return bins.to(torch.int64)
+
+
+def _tree_adds_ref(tree: TreeArrays, bins, num_bins, missing_is_nan,
+                   valid) -> torch.Tensor:
+    """[N] f32 leaf values of one tree, exactly 0.0 on pad rows."""
+    vals = tree.leaf_value[_traverse_ref(tree, bins, num_bins,
+                                         missing_is_nan)]
+    return torch.where(valid, vals, torch.zeros((), dtype=vals.dtype))
+
+
+def _valid_rows(n: int, rows: Optional[int], row_valid, device):
+    valid = torch.ones(n, dtype=torch.bool, device=device) \
+        if row_valid is None else row_valid.to(torch.bool)
+    if rows is not None and rows < n:
+        valid = valid & (torch.arange(n, device=device) < rows)
+    return valid
+
+
+def predict_binned_forest_ref(stacked: TreeArrays, tree_class, bins,
+                              num_bins, missing_is_nan, num_outputs: int = 1,
+                              row_valid=None, rows: Optional[int] = None
+                              ) -> torch.Tensor:
+    """Plain version of predict_binned_forest: the JAX package's fori_loop,
+    tree by tree, acc[:, tree_class[t]] + vals in f32 from +0.0 (a class
+    out of [0, num_outputs) adds nothing, as the JAX scatter drops it)."""
+    n = bins.shape[0]
+    b = _bins_int64(bins)
+    valid = _valid_rows(n, rows, row_valid, bins.device)
+    out = torch.zeros((n, num_outputs), dtype=torch.float32,
+                      device=bins.device)
+    classes = [int(c) for c in tree_class.tolist()]
+    for t, c in enumerate(classes):
+        if not 0 <= c < num_outputs:
+            continue
+        vals = _tree_adds_ref(_tree_at(stacked, t), b, num_bins,
+                              missing_is_nan, valid)
+        out[:, c] = out[:, c] + vals
+    return out
+
+
+def _serve_fields(stacked: TreeArrays, lead: int, m1: int, words: int):
+    fields = []
+    for name, dtype in _SERVE_FIELDS:
+        t = getattr(stacked, name).contiguous()
+        _check(t, name, dtype, (lead, m1, words) if name == "cat_bitset"
+               else (lead, m1))
+        fields.append(t)
+    return fields
+
+
+def launch_serve(stem: str, stacked: TreeArrays, tree_class, bins,
+                 num_bins, missing_is_nan, num_outputs: int, row_valid,
+                 rows: int, tree_off=None, row_block: int = 0):
+    """One launch of csrc/serve_forest.cu: the forest sum (stem
+    "serve_forest") or, with tree_off and row_block, the packed sum
+    ("serve_packed"). Checks the arguments and counts the launch."""
+    n, f = bins.shape
+    if bins.dtype not in BIN_DTYPES:
+        raise ValueError(f"bins: dtype {bins.dtype}, expected uint8, uint16 "
+                         "or int32")
+    _check(bins, "bins", bins.dtype, (n, f))
+    t_all, m1 = stacked.split_feature.shape
+    words = stacked.cat_bitset.shape[-1]
+    if words < 1 or num_outputs < 1:
+        raise ValueError("cat_bitset: no words, or no output column")
+    fields = _serve_fields(stacked, t_all, m1, words)
+    _check(tree_class, "tree_class", torch.int32, (t_all,))
+    lead = () if tree_off is None else (tree_off.shape[0] - 1,)
+    _check(num_bins, "num_bins", torch.int32, lead + (f,))
+    _check(missing_is_nan, "missing_is_nan", torch.bool, lead + (f,))
+    if row_valid is not None:
+        _check(row_valid, "row_valid", torch.bool, (n,))
+    out = torch.empty((n, num_outputs), dtype=torch.float32,
+                      device=bins.device)
+    width = BIN_DTYPES[bins.dtype]
+    if tree_off is None:
+        _cuda.call(stem, bins.device, bins, *fields, tree_class, num_bins,
+                   missing_is_nan, row_valid, out, n, f, rows, t_all, m1,
+                   words, num_outputs, width)
+        name = "predict_binned_forest"
+    else:
+        slots = tree_off.shape[0] - 1
+        _check(tree_off, "tree_off", torch.int32, (slots + 1,))
+        if n != slots * row_block:
+            raise ValueError(f"bins: {n} rows for {slots} slots of "
+                             f"{row_block}")
+        _cuda.call(stem, bins.device, bins, *fields, tree_class, tree_off,
+                   num_bins, missing_is_nan, row_valid, out, slots,
+                   row_block, f, m1, words, num_outputs, width)
+        name = "predict_packed_forest"
+    count_launch(name + ("_bin32" if width == 4 else ""), wide=width == 2)
+    return out
+
+
+def predict_binned_forest(stacked: TreeArrays, tree_class, bins, num_bins,
+                          missing_is_nan, num_outputs: int = 1,
+                          row_valid=None, rows: Optional[int] = None
+                          ) -> torch.Tensor:
+    """[N, num_outputs] f32 raw scores of a stacked forest ([T, m1] tree
+    arrays) over [N, F] serving bins (uint8, uint16 or int32): every tree
+    adds its leaf value into column tree_class[t], in tree order from +0.0.
+    row_valid ([N] bool) and rows (rows from `rows` on) mark pad rows: they
+    come out 0.0 in every column, and the real rows are bit-equal to an
+    unpadded call. One launch of csrc/serve_forest.cu on the card; the
+    plain version on CPU tensors."""
+    if _on_cpu(bins, tree_class, num_bins, missing_is_nan,
+               stacked.split_feature):
+        return predict_binned_forest_ref(stacked, tree_class, bins, num_bins,
+                                         missing_is_nan, num_outputs,
+                                         row_valid, rows)
+    n = bins.shape[0]
+    return launch_serve("serve_forest", stacked, tree_class, bins, num_bins,
+                        missing_is_nan, num_outputs, row_valid,
+                        n if rows is None else min(int(rows), n))

@@ -19,12 +19,18 @@ site                        raised from
                             tree's growth (either grower)
 ``checkpoint_io``           reliability.checkpoint.save_checkpoint, before
                             the bundle's first write
+``serving_device_predict``  serving BucketedPredictor.predict_raw
+``serving_replica_predict`` serving ReplicaSet.dispatch, each attempt on a
+                            replica, inside the retry bracket
+``serving_pack_predict``    serving multimodel.dispatch_pack
+``serving_hot_swap``        serving Server.hot_swap, before the registry swap
+``serving_hot_swap_commit`` serving Server.hot_swap, after the atomic publish
 ==========================  ==================================================
 
 The others are wired with the modules that own them: ``collective_psum``,
 ``distributed_hist_agg`` and ``elastic_resize`` with the distributed
-learners (ROADMAP A10); ``serving_*``, ``streaming_ingest`` and
-``loop_publish`` with serving, streaming and the continuous loop (A11).
+learners (ROADMAP A10); ``streaming_ingest`` and ``loop_publish`` with
+streaming and the continuous loop (A11 part 2).
 
 Injection is host-side, at dispatch boundaries, before any device work of
 the attempt: a raise inside a captured CUDA graph would never run, so the
